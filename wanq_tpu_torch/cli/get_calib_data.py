@@ -1,0 +1,83 @@
+"""Calibration CLI (counterpart of wanq_tpu/cli/get_calib_data.py).
+
+Runs an FP denoise sweep and saves per-layer activation statistics
+{layer: [T, C]} (absmax; with --collect_minmax also .act_max/.act_min) --
+the input to PTQ.
+
+    python -m wanq_tpu_torch.cli.get_calib_data --task t2v-1.3B --size 832*480 \
+        --frame_num 81 --random_init --collect_minmax --sample_steps 1 \
+        --quant_config quant_configs/wan_w8a8_speed.yaml
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import time
+
+import numpy as np
+import torch
+
+from wanq_tpu_torch.cli.common import (
+    add_common_args,
+    load_contexts,
+    load_params,
+    setup_logging,
+    validate_args,
+)
+from wanq_tpu_torch.configs import SIZE_CONFIGS, WAN_CONFIGS
+from wanq_tpu_torch.pipelines.text2video import WanT2V
+from wanq_tpu_torch.quant import QuantConfig
+from wanq_tpu_torch.quant.qlinear import QuantCtx
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser("wanq_tpu_torch get_calib_data")
+    add_common_args(p, default_steps=30)
+    p.add_argument("--quant_config", type=str, default=None,
+                   help="quant YAML; its calib_data.save_path is the default output")
+    p.add_argument("--calib_save_path", type=str, default=None,
+                   help="output npz (overrides the YAML's calib_data.save_path; "
+                        "default calib_data.npz)")
+    p.add_argument("--collect_minmax", action="store_true",
+                   help="also collect per-channel act min/max (static A8)")
+    return p.parse_args(argv)
+
+
+def generate(args):
+    """Run the sweep and write the npz; returns its path."""
+    setup_logging()
+    validate_args(args)
+    cfg = WAN_CONFIGS[args.task]
+    size = SIZE_CONFIGS[args.size]
+
+    save_path = args.calib_save_path
+    if save_path is None and args.quant_config:
+        save_path = QuantConfig.from_yaml(args.quant_config).calib_save_path
+    save_path = save_path or "calib_data.npz"
+    if save_path.endswith(".pth"):
+        save_path = save_path[:-4] + ".npz"
+
+    params = load_params(args, cfg)
+    context, context_null = load_contexts(args, cfg)
+    pipe = WanT2V(cfg, params, quant_ctx=QuantCtx(mode="calib",
+                                                  collect_minmax=args.collect_minmax),
+                  device=args.device)
+    t0 = time.time()
+    stats = pipe.collect_calibration(
+        torch.from_numpy(context), torch.from_numpy(context_null),
+        size=size, frame_num=args.frame_num, shift=args.sample_shift,
+        sampling_steps=args.sample_steps, guide_scale=args.sample_guide_scale,
+        seed=args.base_seed,
+    )
+    logging.info("calibration sweep done in %.2fs: %d entries x %d steps",
+                 time.time() - t0, len(stats), args.sample_steps)
+    os.makedirs(os.path.dirname(os.path.abspath(save_path)), exist_ok=True)
+    np.savez(save_path, **stats)
+    logging.info("saved %s", save_path)
+    return save_path
+
+
+if __name__ == "__main__":
+    generate(parse_args())
