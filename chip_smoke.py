@@ -8,22 +8,26 @@ non-zero:
 
 0. environment: card name and power limit (nvidia-smi), torch / CUDA / nvcc
    versions, whether PyYAML imports;
-1. build: nvcc compiles wanq_tpu_torch/csrc/*.cu for sm_90a into
-   wanq_tpu_torch/_build/;
+1. build: nvcc compiles wanq_tpu_torch/csrc/*.cu for sm_90a (one process
+   per source, in parallel) into wanq_tpu_torch/_build/;
 2. each kernel against its plain PyTorch version on the card at the main
-   path's shapes (T2V-1.3B, 832x480x81, batched CFG: B=2, seq 32768 with
-   32760 valid tokens), with the warm median of CUDA-event timings of both;
-3. the main path through the CLIs: get_calib_data --collect_minmax (1 step)
-   then quant_generate --hardware (3 UniPC steps) at full 1.3B width and
-   depth, random weights from a seed; per-step time, peak memory, finite
-   latents, and per-step kernel launch counts equal to the 30-block total
-   (per block K1 x3, K2 x6, K3 x3, K4 x2), which shows no plain version ran;
-4. fidelity and profile: one CFG step's noise prediction, W8A8 vs bf16 FP
-   on the same weights (PSNR >= 30 dB); fp_linear on the card against the
-   CPU's f32 product; one CFG forward of each under torch.profiler (wall
-   time, device time by kernel, idle share); and a small config through
-   the kernels against the same config through the plain versions on the
-   CPU.
+   paths' shapes (T2V-1.3B, 832x480x81, batched CFG: B=2, seq 32768 with
+   32760 valid tokens, M = 65536 token rows), with the warm median of
+   CUDA-event timings of both, and ragged-M tails for the int4 GEMMs;
+3. the three paths through the CLIs at full 1.3B width and depth, random
+   weights from a seed, 3 UniPC steps each: W8A8 (get_calib_data
+   --collect_minmax, 1 step, then quant_generate --hardware under
+   wan_w8a8_speed.yaml), mixed W4A8 (wan_w4a8_mixed.yaml) and Atom W4A4
+   (wan_w4a4.yaml); per-step time, peak memory, finite latents, and kernel
+   launch counts, reset just before each path and read just after, equal
+   to the 30-block totals of PATHS below, which shows no plain version ran;
+4. fidelity and profile: one step's noise prediction of each path vs bf16
+   FP on the same weights, with CFG 5 and conditional alone (W8A8: PSNR
+   >= 30 dB with CFG; 4-bit paths: cosine >= 0.9 conditional, >= 0.5 with
+   CFG); fp_linear on the card against the CPU's f32 product; one CFG
+   forward of each under torch.profiler (wall time, device time by
+   kernel, idle share); and a small config under each YAML through the
+   kernels against the same config through the plain versions on the CPU.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.
@@ -45,7 +49,21 @@ ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "_smoke_out"
 TASK, SIZE, FRAMES, STEPS = "t2v-1.3B", "832*480", 81, 3
 YAML = "quant_configs/wan_w8a8_speed.yaml"
-PER_BLOCK = {"ln_modulate_quant": 3, "w8a8_linear": 6, "rms_rope_heads": 3, "attention": 2}
+# path -> (quant YAML, kernel launches per block), read from models/dit.py:
+# W8A8: K1 for q/k/v, cross q and ffn.0; K2 for q/k/v, cross q, ffn.0/2.
+# mixed W4A8 (cross-attention FP): K1 for q/k/v and ffn.0; K2 for q/k/v/o;
+#   K7 for the o input and the ffn.2 GELU; K8 for ffn.0/2.
+# W4A4 (unfused: 4-bit activations): K9 at self q/k/v/o, cross q/o, ffn.0/2.
+# Every path: K3 for q and k rope and the cross-q split; K4 self + cross.
+PATHS = {
+    "w8a8": (YAML, {"ln_modulate_quant": 3, "w8a8_linear": 6, "rms_rope_heads": 3,
+                    "attention": 2}),
+    "w4a8_mixed": ("quant_configs/wan_w4a8_mixed.yaml",
+                   {"ln_modulate_quant": 2, "w8a8_linear": 4, "rms_rope_heads": 3,
+                    "attention": 2, "quant_sum": 2, "w4a8_linear": 2}),
+    "w4a4": ("quant_configs/wan_w4a4.yaml",
+             {"rms_rope_heads": 3, "attention": 2, "w4a4_linear": 8}),
+}
 SOURCES = {
     "ln_modulate_quant": ("wanq_tpu_torch/csrc/ln_modulate_quant.cu",
                           "wanq_tpu/ops/fused.py:172"),
@@ -54,6 +72,9 @@ SOURCES = {
                        "wanq_tpu/ops/rmsnorm_rope.py:62"),
     "attention": ("wanq_tpu_torch/csrc/flash_attention.cu",
                   "wanq_tpu/models/attention.py:256"),
+    "quant_sum": ("wanq_tpu_torch/csrc/quant_sum.cu", "wanq_tpu/ops/fused.py:126"),
+    "w4a8_linear": ("wanq_tpu_torch/csrc/w4a8_gemm.cu", "wanq_tpu/ops/qgemm.py:282"),
+    "w4a4_linear": ("wanq_tpu_torch/csrc/w4a4_gemm.cu", "wanq_tpu/ops/qgemm.py:492"),
 }
 
 
@@ -237,6 +258,102 @@ def kernel_checks(torch, results):
            f"self [2,12,32768,128] valid 32760, pad k/v planted (rel-L2 {rel:.2e}; "
            f"pad q rows err {pad_err:.3e}, rel-L2 {pad_rel:.2e}; "
            f"{flops / ms / 1e9:.0f} TFLOP/s)")
+    del q, k, v_flat, vh, qsc, kern, plain
+    torch.cuda.empty_cache()
+    int4_checks(torch, g, record)
+
+
+def int4_checks(torch, g, record):
+    """K7, K8 and K9 against their plain versions at the 4-bit paths'
+    shapes (M = 65536 token rows), plus ragged-M tails for K8 and K9."""
+    from wanq_tpu_torch.ops.fused import quant_sum_cuda, quant_sum_plain
+    from wanq_tpu_torch.ops.qgemm import (
+        w4a4_linear_cuda, w4a4_linear_plain, w4a8_linear_cuda, w4a8_linear_plain)
+
+    dev = torch.device("cuda")
+    m = 2 * 32768
+    ragged = (m - 8, m + 3)
+
+    # K7 -- the ffn.2 input [2, 32768, 8960] with GELU, the o input
+    # [2, 32768, 1536] without, bf16. Codes equal except <= 0.1% one-unit
+    # flips (the kernel's tanhf and torch's GELU may differ by ulps); scale
+    # rel <= 1e-6; sum rel <= 1e-6 on rows whose codes agree.
+    for c, gelu in ((8960, True), (1536, False)):
+        x = (torch.randn((2, 32768, c), device=dev, generator=g) * 2 + 0.2).bfloat16()
+        got, want = quant_sum_cuda(x, gelu), quant_sum_plain(x, gelu)
+        torch.cuda.synchronize()
+        diff = (got[0].int() - want[0].int()).abs()
+        frac = (diff > 0).float().mean().item()
+        check(diff.max().item() <= 1 and frac <= 1e-3,
+              f"K7 C={c} gelu={gelu}: codes differ by {diff.max().item()} on {frac:.2e}")
+        s_rel = ((got[1] - want[1]).abs() / want[1]).max().item()
+        same = diff.amax(dim=-1) == 0
+        sum_bad = ((got[2] - want[2]).abs() > 1e-6 * want[2].abs())[same].sum().item()
+        check(s_rel <= 1e-6 and sum_bad == 0,
+              f"K7 C={c}: scale rel {s_rel:.2e}, {sum_bad} sums off by > 1e-6 rel")
+        err = (got[0].float() * got[1][..., None] - want[0].float() * want[1][..., None])
+        err = err.abs().max().item()
+        ms = cuda_ms(lambda: quant_sum_cuda(x, gelu))
+        gbs = x.numel() * 3 / ms / 1e6
+        record("quant_sum", err, ms, cuda_ms(lambda: quant_sum_plain(x, gelu), reps=3),
+               f"[2,32768,{c}] bf16 gelu={gelu} (codes differing: {frac:.2e}, scale rel "
+               f"{s_rel:.1e}; {gbs:.0f} GB/s)")
+        del x, got, want, diff, err
+    torch.cuda.empty_cache()
+
+    def operands(k, n, int4_a):
+        mm = max(ragged)
+        lo, hi = (-8, 8) if int4_a else (-128, 128)
+        a = torch.randint(lo, hi, (mm, k), device=dev, generator=g, dtype=torch.int8)
+        wp = torch.randint(-128, 128, (n, k // 2), device=dev, generator=g, dtype=torch.int8)
+        return a, wp
+
+    # K8 -- ffn.0 (1536 -> 8960, bf16 out) and ffn.2 (8960 -> 1536, f32 out),
+    # asymmetric weights with bias: exact
+    for k, n, out_dtype in ((1536, 8960, torch.bfloat16), (8960, 1536, torch.float32)):
+        a, wp = operands(k, n, False)
+        s_a = torch.rand((a.shape[0],), device=dev, generator=g) * 0.02 + 1e-3
+        sum_a = s_a * a.float().sum(-1)
+        s_w = torch.rand((n,), device=dev, generator=g) * 0.02 + 1e-3
+        zp = torch.randint(0, 16, (n,), device=dev, generator=g).float()
+        bias = torch.randn((n,), device=dev, generator=g)
+        for mm in (m, *ragged):
+            args = (a[:mm], wp, s_a[:mm], s_w, sum_a[:mm], zp, bias, out_dtype)
+            got, want = w4a8_linear_cuda(*args), w4a8_linear_plain(*args)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            check(torch.equal(got, want), f"K8 M={mm} ({k},{n}): max abs err {err}")
+            del got, want
+        args = (a[:m], wp, s_a[:m], s_w, sum_a[:m], zp, bias, out_dtype)
+        ms = cuda_ms(lambda: w4a8_linear_cuda(*args))
+        record("w4a8_linear", err, ms, cuda_ms(lambda: w4a8_linear_plain(*args), reps=3),
+               f"M=65536 K={k} N={n} {str(out_dtype)[6:]} out, exact also at M=65528 and "
+               f"65539 ({2 * m * k * n / ms / 1e9:.0f} TOP/s)")
+        del a, wp, args
+        torch.cuda.empty_cache()
+
+    # K9 -- the W4A4 sites: (1536 -> 1536) x6, (1536 -> 8960), (8960 -> 1536),
+    # f32 out with bias: exact
+    for k, n in ((1536, 1536), (1536, 8960), (8960, 1536)):
+        a, wp = operands(k, n, True)
+        s_a = torch.rand((a.shape[0], k // 128), device=dev, generator=g) * 0.02 + 1e-3
+        s_w = torch.rand((k // 128, n), device=dev, generator=g) * 0.02 + 1e-3
+        bias = torch.randn((n,), device=dev, generator=g)
+        for mm in ((m, *ragged) if k == n else (m,)):
+            args = (a[:mm], wp, s_a[:mm], s_w, bias)
+            got, want = w4a4_linear_cuda(*args), w4a4_linear_plain(*args)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            check(torch.equal(got, want), f"K9 M={mm} ({k},{n}): max abs err {err}")
+            del got, want
+        args = (a[:m], wp, s_a[:m], s_w, bias)
+        ms = cuda_ms(lambda: w4a4_linear_cuda(*args))
+        record("w4a4_linear", err, ms, cuda_ms(lambda: w4a4_linear_plain(*args), reps=3),
+               f"M=65536 K={k} N={n} f32 out"
+               f"{', exact also at M=65528 and 65539' if k == n else ''} "
+               f"({2 * m * k * n / ms / 1e9:.0f} TOP/s)")
+        del a, wp, args
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -244,59 +361,74 @@ def kernel_checks(torch, results):
 # ---------------------------------------------------------------------------
 
 
-def cli_args(extra):
+def cli_args(yaml, extra):
     return ["--task", TASK, "--size", SIZE, "--frame_num", str(FRAMES), "--random_init",
-            "--quant_config", YAML, "--device", "cuda", *extra]
+            "--quant_config", yaml, "--device", "cuda", *extra]
 
 
-def main_path(torch, launches):
-    from wanq_tpu_torch.cli import get_calib_data, quant_generate
+def calibrate(torch):
+    """get_calib_data --collect_minmax, 1 step: the W8A8 path's static
+    ffn.2 scale comes from it."""
+    from wanq_tpu_torch.cli import get_calib_data
     from wanq_tpu_torch.ops import _lib
 
     calib_path = str(OUT / "calib_data.npz")
-    lat_path = str(OUT / "latents.npz")
     t0 = time.time()
     _lib.reset_launch_counts()
-    get_calib_data.generate(get_calib_data.parse_args(cli_args(
-        ["--collect_minmax", "--sample_steps", "1", "--calib_save_path", calib_path])))
+    get_calib_data.generate(get_calib_data.parse_args(cli_args(YAML, [
+        "--collect_minmax", "--sample_steps", "1", "--calib_save_path", calib_path])))
     torch.cuda.synchronize()
     log(f"  get_calib_data (1 step, incl. random init): {time.time() - t0:.1f} s; "
-        f"launches {_lib.launch_counts()}")
+        f"launches {_lib.launch_counts()} (calibration runs FP)")
+    return calib_path
 
+
+def run_path(torch, label, launches, calib_path=None):
+    """quant_generate --hardware for STEPS steps under the path's YAML; the
+    launch counts are reset just before and read just after."""
+    import numpy as np
+
+    from wanq_tpu_torch.cli import quant_generate
+    from wanq_tpu_torch.ops import _lib
+
+    yaml, per_block = PATHS[label]
+    lat_path = str(OUT / f"latents_{label}.npz")
     marks = []
 
     def on_step(i, t, latents):
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
 
+    extra = ["--calib_data", calib_path] if calib_path else []
     torch.cuda.reset_peak_memory_stats()
     _lib.reset_launch_counts()
     t0 = time.time()
-    quant_generate.generate(quant_generate.parse_args(cli_args(
-        ["--calib_data", calib_path, "--hardware", "--sample_steps", str(STEPS),
-         "--save_file", lat_path])), on_step=on_step)
+    quant_generate.generate(quant_generate.parse_args(cli_args(yaml, extra + [
+        "--hardware", "--sample_steps", str(STEPS), "--save_file", lat_path])),
+        on_step=on_step)
     counts = _lib.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     # steps 2..STEPS, each from one step's end to the next's (synchronized)
     step_s = [marks[i + 1] - marks[i] for i in range(len(marks) - 1)]
     check(len(step_s) == STEPS - 1, f"expected {STEPS - 1} step intervals, got {len(step_s)}")
-    log(f"  quant_generate --hardware ({STEPS} steps, incl. random init + PTQ): "
-        f"{time.time() - t0:.1f} s; denoise step s (steps 2-{STEPS}): "
-        f"{', '.join(f'{x:.3f}' for x in step_s)}; mean {sum(step_s) / len(step_s):.3f} s")
-    log(f"  peak torch.cuda.max_memory_allocated: {peak / 2**30:.2f} GiB")
-    log(f"  launches: {counts}")
-    for name, per_block in PER_BLOCK.items():
-        want = per_block * 30 * STEPS
-        check(counts.get(name, 0) == want, f"{name}: {counts.get(name, 0)} launches, want {want}")
-    launches.update(counts)
-
-    import numpy as np
+    mean = sum(step_s) / len(step_s)
+    log(f"  [{label}] {yaml}: quant_generate --hardware ({STEPS} steps, incl. random init "
+        f"+ PTQ): {time.time() - t0:.1f} s; denoise step s (steps 2-{STEPS}): "
+        f"{', '.join(f'{x:.3f}' for x in step_s)}; mean {mean:.3f} s")
+    log(f"  [{label}] peak torch.cuda.max_memory_allocated: {peak / 2**30:.2f} GiB")
+    log(f"  [{label}] launches: {counts}")
+    for name in SOURCES:
+        want = per_block.get(name, 0) * 30 * STEPS
+        check(counts.get(name, 0) == want,
+              f"{label}: {name} {counts.get(name, 0)} launches, want {want}")
+    for name, cnt in counts.items():
+        launches[name] = launches.get(name, 0) + cnt
 
     lat = np.load(lat_path)["latents"]
-    check(lat.shape == (1, 16, 21, 60, 104), f"latents shape {lat.shape}")
-    check(bool(np.isfinite(lat).all()), "non-finite latents")
-    log(f"  latents {lat.shape} finite, std {lat.std():.4f}")
-    return calib_path
+    check(lat.shape == (1, 16, 21, 60, 104), f"{label}: latents shape {lat.shape}")
+    check(bool(np.isfinite(lat).all()), f"{label}: non-finite latents")
+    log(f"  [{label}] latents {lat.shape} finite, std {lat.std():.4f}")
+    return mean
 
 
 def _to_device(tree, dev):
@@ -308,7 +440,8 @@ def _to_device(tree, dev):
 
 
 KERNEL_NAMES = {"ln_mod_quant_kernel": "K1", "w8a8_gemm_kernel": "K2",
-                "rms_rope_heads_kernel": "K3", "flash_fwd_kernel": "K4"}
+                "rms_rope_heads_kernel": "K3", "flash_fwd_kernel": "K4",
+                "quant_sum_kernel": "K7", "w4a8_gemm_kernel": "K8", "w4a4_gemm_kernel": "K9"}
 
 
 def profile_steps(torch, steps):
@@ -369,8 +502,9 @@ def profile_steps(torch, steps):
             f"{k} {t:.1f} ms ({100 * t / dev_ms:.1f}%, n={c})" for k, (t, c) in sorted(ours.items())))
         for name, (t, cnt) in rows[:8]:
             log(f"    {t:9.2f} ms {100 * t / dev_ms:5.1f}%  n={cnt:4d}  {name[:90]}")
-    if len(walls) == 2:
-        log(f"  W8A8 / bf16 forward wall time: {walls['w8a8'] / walls['bf16']:.3f}")
+    for label in walls:
+        if label != "bf16":
+            log(f"  {label} / bf16 forward wall time: {walls[label] / walls['bf16']:.3f}")
 
 
 def fidelity(torch, calib_path):
@@ -389,26 +523,49 @@ def fidelity(torch, calib_path):
     args = argparse.Namespace(base_seed=42, device="cuda", context_file=None)
     params = load_params(args, cfg)
     context, context_null = (torch.from_numpy(a).cuda() for a in load_contexts(args, cfg))
-    qcfg = QuantConfig.from_yaml(YAML)
-    policies, state, _ = prepare_quant_state(params, linear_layer_names(cfg), qcfg,
-                                             calib=dict(np.load(calib_path)))
-    ctx = QuantCtx(mode="int8", policies=policies, state=state)
+    calib = dict(np.load(calib_path))
+    ctxs = {}  # every path's quant state on the same weights
+    for label, (yaml, _) in PATHS.items():
+        policies, state, _ = prepare_quant_state(params, linear_layer_names(cfg),
+                                                 QuantConfig.from_yaml(yaml), calib=calib)
+        ctxs[label] = QuantCtx(mode="int8", policies=policies, state=state)
     shape = compute_target_shape(cfg, (832, 480), FRAMES)
     seq_len = compute_seq_len(cfg, shape)
     g = torch.Generator(device="cuda").manual_seed(1)
     lat = torch.randn((1, *shape), generator=g, device="cuda")
     pipe = WanT2V(cfg, params, device="cuda")
+
+    def step(ctx, guide=5.0):
+        return pipe._step(lat, 999.0, context, context_null, guide, ctx, seq_len)
+
+    def psnr_cos(want, got):
+        rng = float(want.max() - want.min()) or 1.0
+        psnr = 10 * np.log10(rng ** 2 / float(np.mean((want - got) ** 2)))
+        return psnr, float((want * got).sum() / np.linalg.norm(want) / np.linalg.norm(got))
+
+    # CFG 5 scales the (cond - uncond) difference, and with it the
+    # quantization error of both halves, by 5; guide 1 is the conditional
+    # prediction alone. The 4-bit gates: cosine >= 0.9 without CFG, and
+    # >= 0.5 with it (an unrelated output scores ~0; RTN W4A4's CFG cosine
+    # is far below its conditional one, see PERF.md Findings).
+    failures = []
     with torch.no_grad():
-        fp = pipe._step(lat, 999.0, context, context_null, 5.0, None, seq_len).cpu().numpy()
-        q8 = pipe._step(lat, 999.0, context, context_null, 5.0, ctx, seq_len).cpu().numpy()
-    fp64, q64 = fp.astype(np.float64), q8.astype(np.float64)
-    rng = float(fp64.max() - fp64.min()) or 1.0
-    psnr = 10 * np.log10(rng ** 2 / float(np.mean((fp64 - q64) ** 2)))
-    cos = float((fp64 * q64).sum() / np.linalg.norm(fp64) / np.linalg.norm(q64))
-    log(f"  W8A8 vs bf16 FP noise prediction (t=999, CFG 5.0): PSNR {psnr:.2f} dB, "
-        f"cosine {cos:.6f}")
-    check(bool(np.isfinite(q8).all()), "non-finite W8A8 noise prediction")
-    check(psnr >= 30.0, f"PSNR {psnr:.2f} dB < 30 dB")
+        fps = {guide: step(None, guide).cpu().numpy().astype(np.float64) for guide in (5.0, 1.0)}
+    for label, ctx in ctxs.items():
+        res = {}
+        for guide, fp64 in fps.items():
+            with torch.no_grad():
+                q64 = step(ctx, guide).cpu().numpy().astype(np.float64)
+            if not np.isfinite(q64).all():
+                failures.append(f"non-finite {label} noise prediction")
+            res[guide] = psnr_cos(fp64, q64)
+        (psnr, cos), (psnr1, cos1) = res[5.0], res[1.0]
+        log(f"  {label} vs bf16 FP noise prediction (t=999): CFG 5.0 PSNR {psnr:.2f} dB, "
+            f"cosine {cos:.6f}; conditional (guide 1) PSNR {psnr1:.2f} dB, cosine {cos1:.6f}")
+        if label == "w8a8" and psnr < 30.0:
+            failures.append(f"W8A8 PSNR {psnr:.2f} dB < 30 dB")
+        if label != "w8a8" and (cos1 < 0.9 or cos < 0.5):
+            failures.append(f"{label} cosine {cos1:.4f} (guide 1) < 0.9 or {cos:.4f} (CFG) < 0.5")
 
     # the FP linears keep the f32 accumulator on the card, as on the CPU
     po = params["blocks"][0]["self_attn"]["o"]
@@ -418,16 +575,17 @@ def fidelity(torch, calib_path):
     rel = float((got - want).norm() / want.norm())
     log(f"  fp_linear (self_attn.o, [1,4096,1536] bf16 operands, f32 out) card vs CPU: "
         f"rel-L2 {rel:.3e}")
-    check(got.dtype == torch.float32 and rel <= 1e-5, f"fp_linear card vs CPU rel-L2 {rel}")
+    if not (got.dtype == torch.float32 and rel <= 1e-5):
+        failures.append(f"fp_linear card vs CPU rel-L2 {rel}")
 
     with torch.no_grad():
-        profile_steps(torch, {
-            "w8a8": lambda: pipe._step(lat, 999.0, context, context_null, 5.0, ctx, seq_len),
-            "bf16": lambda: pipe._step(lat, 999.0, context, context_null, 5.0, None, seq_len),
-        })
-    del params, state, ctx, pipe
+        profile_steps(torch, {**{label: (lambda c=ctx: step(c)) for label, ctx in ctxs.items()},
+                              "bf16": lambda: step(None)})
+    del params, ctxs, pipe
+    torch.cuda.empty_cache()
 
-    # a small config through the kernels vs the plain versions on the CPU
+    # a small config (head dim 128) under each YAML, through the kernels vs
+    # through the plain versions on the CPU
     small = tiny_config(dim=256, num_heads=2, num_layers=2, ffn_dim=512, text_len=32,
                         text_dim=64, freq_dim=64, param_dtype="bfloat16",
                         residual_dtype="bfloat16")
@@ -440,21 +598,23 @@ def fidelity(torch, calib_path):
         rs.standard_normal((256, 64)).astype(np.float32) * 0.02).bfloat16()
     cc = QuantCtx(mode="calib", collect_minmax=True)
     dit_forward(p_cpu, small, x, t, c, 64, ctx=cc)
-    calib = {kk: vv.float().numpy()[None] for kk, vv in cc.collect.items()}
-    outs = {}
-    for dev in ("cpu", "cuda"):
-        p = _to_device(p_cpu, dev)
-        pol, st, _ = prepare_quant_state(p, linear_layer_names(small),
-                                         QuantConfig.from_yaml(YAML), calib=calib)
-        with torch.no_grad():
-            outs[dev] = dit_forward(p, small, x.to(dev), t.to(dev), c.to(dev), 64,
-                                    ctx=QuantCtx(mode="int8", policies=pol, state=st)).cpu()
-    a, bq = outs["cpu"].double(), outs["cuda"].double()
-    rel = float((a - bq).norm() / a.norm())
-    log(f"  small config (dim 256, 2 heads, 2 layers, seq 64 > 60 tokens) int8, kernels "
-        f"vs plain on CPU: rel-L2 {rel:.3e}")
-    check(rel <= 2e-2, f"small-config rel-L2 {rel} > 2e-2")
-    return psnr
+    small_calib = {kk: vv.float().numpy()[None] for kk, vv in cc.collect.items()}
+    for label, (yaml, _) in PATHS.items():
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            p = _to_device(p_cpu, dev)
+            pol, st, _ = prepare_quant_state(p, linear_layer_names(small),
+                                             QuantConfig.from_yaml(yaml), calib=small_calib)
+            with torch.no_grad():
+                outs[dev] = dit_forward(p, small, x.to(dev), t.to(dev), c.to(dev), 64,
+                                        ctx=QuantCtx(mode="int8", policies=pol, state=st)).cpu()
+        a, bq = outs["cpu"].double(), outs["cuda"].double()
+        rel = float((a - bq).norm() / a.norm())
+        log(f"  small config (dim 256, 2 heads, 2 layers, seq 64 > 60 tokens) {label}, "
+            f"kernels vs plain on CPU: rel-L2 {rel:.3e}")
+        if rel > 2e-2:
+            failures.append(f"small-config {label} rel-L2 {rel} > 2e-2")
+    check(not failures, "; ".join(failures))
 
 
 def main() -> int:
@@ -474,8 +634,9 @@ def main() -> int:
         print(f"chip_smoke: the wanq_tpu_torch package is missing beside this script "
               f"({e})", file=sys.stderr)
         return 1
-    if not (ROOT / YAML).exists():
-        print(f"chip_smoke: {YAML} is missing", file=sys.stderr)
+    missing = [y for y, _ in PATHS.values() if not (ROOT / y).exists()]
+    if missing:
+        print(f"chip_smoke: {', '.join(missing)} missing", file=sys.stderr)
         return 1
     os.chdir(ROOT)
     OUT.mkdir(exist_ok=True)
@@ -506,18 +667,25 @@ def main() -> int:
         if "Used" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
 
-    log("[2] kernels vs plain versions at main-path shapes (warm median, CUDA events)")
+    log("[2] kernels vs plain versions at the paths' shapes (warm median, CUDA events)")
     results = {}
     kernel_checks(torch, results)
     torch.cuda.empty_cache()
 
-    log(f"[3] main path: get_calib_data -> quant_generate --hardware, {TASK} "
-        f"{SIZE}x{FRAMES} (seq 32768)")
+    log(f"[3] the paths through the CLIs, {TASK} {SIZE}x{FRAMES} (seq 32768), "
+        f"{STEPS} steps each")
     launches = {}
-    calib_path = main_path(torch, launches)
-    torch.cuda.empty_cache()
+    calib_path = calibrate(torch)
+    step_s = {}
+    for label in PATHS:
+        step_s[label] = run_path(torch, label, launches,
+                                 calib_path if label == "w8a8" else None)
+        torch.cuda.empty_cache()
+    for label in PATHS:
+        if label != "w8a8":
+            log(f"  step time {label} / w8a8: {step_s[label] / step_s['w8a8']:.3f}")
 
-    log("[4] fidelity")
+    log("[4] fidelity and profile")
     fidelity(torch, calib_path)
     log(f"total {time.time() - t_all:.1f} s")
 
@@ -526,7 +694,7 @@ def main() -> int:
          "replaces": SOURCES[name][1], "launches": int(launches.get(name, 0)),
          "max_abs_err": results[name]["max_abs_err"], "ms": results[name]["ms"],
          "plain_ms": results[name]["plain_ms"]}
-        for name in PER_BLOCK
+        for name in SOURCES
     ]}
     print(json.dumps(record), flush=True)
     print(f"nvidia-smi name, power.limit: {nvidia_smi()}", flush=True)

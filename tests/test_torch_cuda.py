@@ -16,7 +16,10 @@ within rel-L2 1e-2 and 4 bf16 ulps of max|want| (bf16 P in the PV product
 and online-softmax order), with the pad tail of k/v planted so that a
 missed mask moves the output by far more; ``fp_linear`` on the card
 within rel-L2 1e-5 of the CPU's f32 product (a bf16-rounded output would
-be ~1e-3 off).
+be ~1e-3 off). K7 codes equal except <= 0.1% one-unit flips (none without
+GELU; with it the kernel's tanhf and torch's may differ by ulps), scale
+rtol 1e-6, sum rtol 1e-6 on rows whose codes agree; K8 and K9 exact (exact
+int32 sums, and epilogues in the plain versions' operation order).
 """
 
 import math
@@ -145,6 +148,127 @@ def test_fp_linear_on_card_keeps_the_f32_accumulator(dev, gen):
     assert ((got.cpu() - want).norm() / want.norm()).item() <= 1e-5
 
 
+@pytest.mark.parametrize("c", [1536, 8960])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k7_kernel_matches_plain(dev, gen, c, dtype):
+    from wanq_tpu_torch.ops.fused import quant_sum_cuda, quant_sum_plain
+
+    m = 301  # ragged: no multiple of anything
+    x = (torch.randn((m, c), device=dev, generator=gen) * 2 + 0.2).to(dtype)
+    x[5] = 0.0
+    for gelu in (False, True):
+        for cs in (None, torch.rand((c,), device=dev, generator=gen) + 0.5):
+            got = quant_sum_cuda(x, gelu, cs)
+            want = quant_sum_plain(x, gelu, cs)
+            diff = (got[0].int() - want[0].int()).abs()
+            assert diff.max().item() <= (1 if gelu else 0)
+            assert (diff > 0).float().mean().item() <= 1e-3
+            torch.testing.assert_close(got[1], want[1], rtol=1e-6, atol=0)
+            same = diff.amax(dim=-1) == 0
+            torch.testing.assert_close(got[2][same], want[2][same], rtol=1e-6, atol=0)
+    got = quant_sum_cuda(x.reshape(7, 43, c), True)
+    assert got[0].shape == (7, 43, c) and got[1].shape == (7, 43)
+
+
+@pytest.mark.parametrize("m", [333, 1024 + 3])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_k8_kernel_matches_plain_ragged_m(dev, gen, m, out_dtype):
+    from wanq_tpu_torch.ops.qgemm import w4a8_linear_cuda, w4a8_linear_plain
+
+    k, n = 1536, 384
+    a = torch.randint(-128, 128, (m, k), device=dev, generator=gen, dtype=torch.int8)
+    wp = torch.randint(-128, 128, (n, k // 2), device=dev, generator=gen, dtype=torch.int8)
+    s_a = torch.rand((m,), device=dev, generator=gen) * 0.02 + 1e-3
+    s_w = torch.rand((n,), device=dev, generator=gen) * 0.02 + 1e-3
+    sum_a = s_a * a.float().sum(-1)
+    zp = torch.randint(-8, 8, (n,), device=dev, generator=gen).float()
+    bias = torch.randn((n,), device=dev, generator=gen)
+    got = w4a8_linear_cuda(a, wp, s_a, s_w, sum_a, zp, bias, out_dtype)
+    assert torch.equal(got, w4a8_linear_plain(a, wp, s_a, s_w, sum_a, zp, bias, out_dtype))
+    got = w4a8_linear_cuda(a, wp, s_a, s_w, None, None, None, out_dtype)
+    assert torch.equal(got, w4a8_linear_plain(a, wp, s_a, s_w, out_dtype=out_dtype))
+
+
+@pytest.mark.parametrize("m", [333, 1024 + 3])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_k9_kernel_matches_plain_ragged_m(dev, gen, m, out_dtype):
+    from wanq_tpu_torch.ops.qgemm import w4a4_linear_cuda, w4a4_linear, w4a4_linear_plain
+
+    k, n = 1536, 384
+    a = torch.randint(-8, 8, (m, k), device=dev, generator=gen, dtype=torch.int8)
+    wp = torch.randint(-128, 128, (n, k // 2), device=dev, generator=gen, dtype=torch.int8)
+    s_a = torch.rand((m, k // 128), device=dev, generator=gen) * 0.02 + 1e-3
+    s_w = torch.rand((k // 128, n), device=dev, generator=gen) * 0.02 + 1e-3
+    bias = torch.randn((n,), device=dev, generator=gen)
+    for b in (bias, None):
+        got = w4a4_linear_cuda(a, wp, s_a, s_w, b, 128, out_dtype)
+        assert torch.equal(got, w4a4_linear_plain(a, wp, s_a, s_w, b, 128, out_dtype))
+    x = torch.randn((m, k), device=dev, generator=gen).bfloat16()
+    got = w4a4_linear(x, wp, s_w, bias)
+    want = w4a4_linear(x.cpu(), wp.cpu(), s_w.cpu(), bias.cpu())
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("yaml", ["wan_w8a8_speed.yaml", "wan_w4a8_mixed.yaml",
+                                  "wan_w4a4.yaml"])
+def test_ptq_state_on_card_equals_cpu(dev, yaml):
+    """PTQ on the card gives the CPU's state bit for bit. PyTorch's CUDA
+    kernels multiply by the reciprocal when dividing by a Python scalar,
+    one ulp off the reference's division for some inputs; the quantizers
+    divide by a device tensor (ops.fused.true_div) instead."""
+    import os
+
+    from wanq_tpu_torch.configs import tiny_config
+    from wanq_tpu_torch.models.dit import init_params, linear_layer_names
+    from wanq_tpu_torch.quant import QuantConfig
+    from wanq_tpu_torch.quant.ptq import prepare_quant_state
+
+    cfg = tiny_config(dim=256, num_heads=2, ffn_dim=512, text_dim=64, freq_dim=64,
+                      param_dtype="bfloat16")
+    qcfg = QuantConfig.from_yaml(os.path.join(os.path.dirname(__file__), "..",
+                                              "quant_configs", yaml))
+    rng = np.random.default_rng(0)
+    calib = {}  # min/max of the static ffn.2 inputs (the only static sites)
+    for name in linear_layer_names(cfg):
+        if name.endswith("ffn.2"):
+            calib[f"{name}.act_max"] = np.abs(rng.normal(size=(1, 512))).astype(np.float32)
+            calib[f"{name}.act_min"] = -np.abs(rng.normal(size=(1, 512))).astype(np.float32)
+    p_cpu = init_params(cfg, 1)
+    _, st_cpu, _ = prepare_quant_state(p_cpu, linear_layer_names(cfg), qcfg, calib=calib)
+    _, st_dev, _ = prepare_quant_state(init_params(cfg, 1, device=dev),
+                                       linear_layer_names(cfg), qcfg, calib=calib)
+    assert sorted(st_cpu) == sorted(st_dev)
+    for name, st in st_cpu.items():
+        for key, val in st.items():
+            assert torch.equal(st_dev[name][key].cpu(), val), (name, key)
+
+
+def test_w4_wrappers_raise_on_bad_layouts(dev):
+    from wanq_tpu_torch.ops.fused import quant_sum_cuda
+    from wanq_tpu_torch.ops.qgemm import w4a4_linear_cuda, w4a8_linear_cuda
+
+    a = torch.zeros((5, 256), dtype=torch.int8, device=dev)
+    wp = torch.zeros((128, 128), dtype=torch.int8, device=dev)
+    s, sw = torch.ones((5,), device=dev), torch.ones((128,), device=dev)
+    sa4, sw4 = torch.ones((5, 2), device=dev), torch.ones((2, 128), device=dev)
+    bad = [
+        lambda: w4a8_linear_cuda(a[:, :192].contiguous(), wp[:, :96].contiguous(), s, sw),
+        lambda: w4a8_linear_cuda(a, wp[:100].contiguous(), s, sw[:100]),       # N % 128
+        lambda: w4a8_linear_cuda(a.float(), wp, s, sw),                        # dtype
+        lambda: w4a8_linear_cuda(a, wp.cpu(), s, sw),                          # CPU operand
+        lambda: w4a4_linear_cuda(a[:, :192].contiguous(), wp[:, :96].contiguous(), sa4, sw4),
+        lambda: w4a4_linear_cuda(a, wp[:100].contiguous(), sa4, sw4[:, :100]),   # N % 128
+        lambda: w4a4_linear_cuda(a, wp.cpu(), sa4, sw4),                         # CPU operand
+        lambda: w4a4_linear_cuda(a, wp, sa4, sw4, group=64),                     # group
+        lambda: w4a4_linear_cuda(a, wp, sa4[:, :1], sw4),                        # scales
+        lambda: quant_sum_cuda(torch.zeros((4, 12), device=dev).bfloat16()),   # C % 8
+        lambda: quant_sum_cuda(torch.zeros((4, 16), device=dev).half()),       # dtype
+    ]
+    for fn in bad:
+        with pytest.raises(ValueError):
+            fn()
+
+
 def test_wrappers_count_launches_and_raise_on_bad_input(dev):
     from wanq_tpu_torch.ops.qgemm import w8a8_linear
 
@@ -157,4 +281,14 @@ def test_wrappers_count_launches_and_raise_on_bad_input(dev):
     assert _lib.launch_counts() == {"w8a8_linear": 1}
     with pytest.raises(ValueError):
         w8a8_linear(a, w[:, :100].contiguous(), s, sw)
+    from wanq_tpu_torch.ops.fused import quant_sum
+    from wanq_tpu_torch.ops.qgemm import w4a4_linear, w4a8_linear
+
+    x = torch.randn((5, 128), device=dev)
+    quant_sum(x, gelu=True)
+    w4a8_linear(a, w[:, :64].contiguous(), s, sw)
+    w4a4_linear(x, w[:, :64].contiguous(), torch.ones((1, 128), device=dev))
+    quant_sum(x.cpu())  # the plain version launches nothing
+    assert _lib.launch_counts() == {"w8a8_linear": 1, "quant_sum": 1, "w4a8_linear": 1,
+                                    "w4a4_linear": 1}
     assert np.isfinite(_lib.last_build.get("seconds", 0.0))

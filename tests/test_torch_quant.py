@@ -104,9 +104,13 @@ def test_fp_linear_keeps_f32_output_like_jax(rng, dtype, with_bias):
 
 
 def test_act_dynamic_int_quant_matches_jax(rng):
+    """The port's dynamic per-token int8 quant is ops.fused.quant_sum
+    (kernel K7 on the card), which qlinear calls."""
+    from wanq_tpu_torch.ops.fused import quant_sum
+
     x = (rng.normal(size=(2, 17, 64)) * 3).astype(np.float32)
     x[0, 0] = 0.0
-    got = tq.act_dynamic_int_quant(torch.from_numpy(x))
+    got = quant_sum(torch.from_numpy(x))
     want = jq.act_dynamic_int_quant(jnp.asarray(x))
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
@@ -196,6 +200,7 @@ def test_unported_quant_branches_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):  # ViDiT-Q: mask + rotation
         tptq.prepare_quant_state(params, names, tconfig.QuantConfig.from_yaml(
             os.path.join(ROOT, "quant_configs", "config.yaml")))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):  # W4A8 packing
-        tptq.prepare_quant_state(params, names, tconfig.QuantConfig.from_yaml(
-            os.path.join(ROOT, "quant_configs", "wan_w4a8_14b.yaml")), calib={})
+    for yaml in ("wan_w4a8_gptq.yaml", "wan_svdquant.yaml"):  # GPTQ, SVDQuant low-rank
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tptq.prepare_quant_state(params, names, tconfig.QuantConfig.from_yaml(
+                os.path.join(ROOT, "quant_configs", yaml)), calib={})

@@ -1,9 +1,13 @@
 """Quantized inference CLI (counterpart of wanq_tpu/cli/quant_generate.py):
-the int8 kernel path (--hardware). Simulated quant is not ported yet.
+the int kernel path (--hardware) for W8A8, W4A8 and W4A4 configs.
+Simulated quant is not ported yet.
 
     python -m wanq_tpu_torch.cli.quant_generate --task t2v-1.3B --size 832*480 \
         --frame_num 81 --random_init --quant_config quant_configs/wan_w8a8_speed.yaml \
         --calib_data quant_data/calib_data.npz --hardware --sample_steps 3
+
+--calib_data is needed only for static activations (the W8A8 speed
+config's ffn.2); wan_w4a8_mixed.yaml and wan_w4a4.yaml run without it.
 """
 
 from __future__ import annotations
@@ -74,7 +78,7 @@ def generate(args, on_step=None):
     )
     if latents.is_cuda:
         torch.cuda.synchronize()
-    logging.info("int8 denoise done in %.2fs", time.time() - t0)
+    logging.info("int denoise done in %.2fs", time.time() - t0)
     save_file = args.save_file or (
         f"quant_int8_{args.task}_{args.size.replace('*', 'x')}_seed{args.base_seed}.npz")
     np.savez(save_file, latents=latents.cpu().numpy())

@@ -13,10 +13,16 @@ JAX's unfused chain):
 
 * int8 q/k/v: one LN+modulate+int8 producer (K1) feeds three int8 GEMMs
   (K2); cross-attention q rides the norm3 producer (K1 -> K2); the FFN
-  runs K1 -> K2 (bf16) -> GELU + static quant -> K2.
+  runs K1 -> GEMM (bf16) -> GELU + quant -> GEMM, the GEMMs K2 for int8
+  weights and K8 for packed int4 ones, the GELU + quant static
+  (elementwise) or dynamic (K7).
 * q/k: RMSNorm -> RoPE -> heads-major (K3), cross q RMSNorm -> heads (K3),
   attention (K4) reading v through strides and writing seq-major memory,
-  and the FP o-projection reading that memory as [B, S, N*D].
+  and the o-projection reading that memory as [B, S, N*D], a view: FP, or
+  ``qlinear``'s int routes (K7 -> K2 for int8 o, K9 for W4A4 o).
+
+Sites whose policy is not fusable (W4A4: 4-bit activations) take the
+unfused chain through ``qlinear`` (K9 for W4A4).
 """
 
 from __future__ import annotations
@@ -243,8 +249,9 @@ def _self_attention(p: Params, name: str, ctx: Optional[QuantCtx],
         y = attention_heads_major(qh, kh, split_heads(v.to(dtype), n), k_valid_len=valid_len)
         if resolves_fp(ctx, f"{name}.o"):
             return _o_proj_heads_major(p["o"], y, dtype)
-        # int8 o: qlinear's per-token quant over the merged row (a view) is
-        # what wanq_tpu's o_proj_heads_major_int8 computes
+        # int o over the merged row, a view of K4's seq-major output: the
+        # int8 route's per-token quant (K7) is what wanq_tpu's
+        # o_proj_heads_major_int8 computes; W4A4 quantizes per group (K9)
         return qlinear(ctx, f"{name}.o", p["o"], merge_heads(y), dtype)
 
     if cfg.qk_norm:

@@ -6,7 +6,14 @@ leaf; this module imports no JAX), these functions build the port's
 tensors:
 
 * params keep the JAX layout, linear ``w`` [C_in, C_out];
-* quant state ``w_int8`` is transposed to the port's K-major [C_out, C_in].
+* quant state int weights become the port's K-major layout, what the int8
+  tensor-core MMA wants for B: ``w_int8`` [C_in, C_out] -> [C_out, C_in],
+  and the packed int4 ``w_int4`` / ``w_int4g`` [C_in/2, C_out] ->
+  [C_out, C_in/2]. Each JAX byte (i, n) holds k = 2i (low nibble) and
+  k = 2i + 1 (high nibble) of column n, so the port's byte (n, j) is the
+  same byte: a plain transpose;
+* the W4A4 weight scales ``scale_wg`` keep JAX's [C_in/group, C_out]: the
+  K9 kernel reads one contiguous row of it per K group.
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+
 
 def _tensor(a, device) -> torch.Tensor:
     arr = np.asarray(a)
@@ -39,18 +47,14 @@ def params_from_numpy(tree: Any, device="cpu") -> Any:
 
 def quant_state_from_numpy(state: Mapping[str, Mapping[str, Any]],
                            device="cpu") -> Dict[str, Dict[str, torch.Tensor]]:
-    """JAX quant state -> port quant state; ``w_int8`` [C_in, C_out] becomes
-    [C_out, C_in]. Packed int4 and rotation/mask entries are not ported."""
+    """JAX quant state -> port quant state; the int weights (``w_int8``,
+    ``w_int4``, ``w_int4g``) are transposed to K-major."""
     out: Dict[str, Dict[str, torch.Tensor]] = {}
     for name, st in state.items():
         layer = {}
         for key, val in st.items():
-            if key in ("w_int4", "w_int4g", "scale_wg"):
-                raise NotImplementedError(
-                    f"{name}.{key}: packed int4 state is not ported yet "
-                    "(ROADMAP Queue 1 item 7)")
             arr = np.asarray(val)
-            if key == "w_int8":
+            if key in ("w_int8", "w_int4", "w_int4g"):
                 arr = np.ascontiguousarray(arr.T)
             layer[key] = _tensor(arr, device)
         out[name] = layer

@@ -1,6 +1,7 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` -- one
+nvcc process per source, all started together -- and linked into one
 shared library with a plain C interface, at first use, into
 ``wanq_tpu_torch/_build/``. The library's file name carries a hash of the
 sources and flags, so an edited source is rebuilt. The library is bound
@@ -36,7 +37,7 @@ BUILD_DIR = _PKG / "_build"
 # no --use_fast_math: it would change division, sqrt and rounding
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -48,6 +49,9 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "wanq_ln_modulate_quant": [_P, _I, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _F, _P],
     "wanq_w8a8_gemm": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "wanq_quant_sum": [_P, _I, _I, _P, _P, _P, _P, _LL, _I, _P],
+    "wanq_w4a8_gemm": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "wanq_w4a4_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "wanq_rms_rope_heads": [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _F, _P],
     "wanq_flash_attention": [_P, _P, _P, _P, _LL, _I, _I, _I] + [_LL] * 12
     + [_I, _F, _P],
@@ -94,17 +98,33 @@ def build() -> Path:
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{f.stem}.o" for f in cu]
     t0 = time.time()
-    res = subprocess.run(cmd, capture_output=True, text=True, cwd=str(CSRC))
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stderr}")
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True, cwd=str(CSRC)))
+             for cmd in ([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(f)]
+                         for f, o in zip(cu, objs))]
+    logs, failed = [], []
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        logs.append(err)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}")
+    tmp = so.with_name(f"{tag}.tmp")
+    if not failed:
+        cmd = [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            failed.append(f"nvcc link failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stderr}")
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     os.replace(tmp, so)
-    (BUILD_DIR / "build.log").write_text(res.stderr)
-    last_build.update(path=str(so), seconds=time.time() - t0, cached=False,
-                      log=res.stderr)
+    log = "".join(logs)
+    (BUILD_DIR / "build.log").write_text(log)
+    last_build.update(path=str(so), seconds=time.time() - t0, cached=False, log=log)
     return so
 
 

@@ -1,12 +1,17 @@
-"""Fused LayerNorm + adaLN modulate + int8 quant producers
-(counterpart of wanq_tpu/ops/fused.py).
+"""Fused int8 quant producers (counterpart of wanq_tpu/ops/fused.py).
 
-:func:`ln_modulate_quant` is kernel K1 (``csrc/ln_modulate_quant.cu``): on a
-CUDA tensor it launches the kernel, on a CPU tensor it runs
-:func:`ln_modulate_quant_plain`, the plain PyTorch version of the same
-function (also the kernel's oracle in the tests and in ``chip_smoke.py``).
-``ln_modulate_quant_static`` and ``quant_sum`` are plain PyTorch only: the
-W8A8 speed config does not reach them (ROADMAP lists their kernels).
+Each kernel wrapper launches its kernel on a CUDA tensor and runs its
+``*_plain`` version, the plain PyTorch form of the same function (also the
+kernel's oracle in the tests and in ``chip_smoke.py``), on a CPU tensor:
+
+* :func:`ln_modulate_quant` -- kernel K1 (``csrc/ln_modulate_quant.cu``),
+  LayerNorm + adaLN modulate + per-token int8 quant + scaled row sum;
+* :func:`quant_sum` -- kernel K7 (``csrc/quant_sum.cu``), optional tanh-GELU
+  then per-token int8 quant + scaled row sum (the dynamic ffn.2 input and
+  every dynamic int8 activation that ``qlinear`` quantizes).
+
+``ln_modulate_quant_static`` is plain PyTorch only: no shipped config with
+a static q/k/v scale runs on the card yet (ROADMAP lists its kernel).
 """
 
 from __future__ import annotations
@@ -23,11 +28,19 @@ _EPS = 1e-6
 Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
+def true_div(t: torch.Tensor, d: float) -> torch.Tensor:
+    """t / d as an IEEE division on every device. PyTorch's CUDA kernels
+    multiply by the reciprocal when the divisor is a Python scalar, which
+    is one ulp off for some t; a quant scale one ulp off flips the code of
+    an exact .5 tie, which bf16 inputs hit often."""
+    return t / torch.full((), d, dtype=t.dtype, device=t.device)
+
+
 def _quant_rows(y: torch.Tensor) -> Triple:
     """Per-row symmetric int8 quant + scaled int sum (scale = absmax/127,
     sum = scale * sum(q)); round half to even like jnp.round."""
     absmax = y.abs().amax(dim=-1)
-    scale = torch.clamp_min(absmax / 127.0, _EPS)
+    scale = torch.clamp_min(true_div(absmax, 127.0), _EPS)
     q = torch.clamp(torch.round(y / scale[..., None]), -128, 127).to(torch.int8)
     ssum = scale * q.float().sum(dim=-1)
     return q, scale, ssum
@@ -40,16 +53,60 @@ def _ln(x: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf - mu) * torch.rsqrt(var + eps)
 
 
-def quant_sum(x: torch.Tensor, gelu: bool = False,
-              channel_scale: Optional[torch.Tensor] = None) -> Triple:
-    """Per-token int8 quant (+ optional tanh-GELU first). Plain PyTorch;
-    its kernel (TPU quant_sum_pallas) is still to be ported."""
+def quant_sum_plain(x: torch.Tensor, gelu: bool = False,
+                    channel_scale: Optional[torch.Tensor] = None) -> Triple:
+    """x [..., C] -> (q int8 [..., C], scale f32 [...], sum f32 [...]):
+    optional tanh-GELU in f32, optional SmoothQuant channel_scale, then
+    per-token int8 quant. Same math as wanq_tpu's quant_sum_xla /
+    gelu_quant_sum_xla."""
     y = x.float()
     if gelu:
         y = F.gelu(y, approximate="tanh")
     if channel_scale is not None:
-        y = y * channel_scale[None, :]
+        y = y * channel_scale.float()
     return _quant_rows(y)
+
+
+def quant_sum_cuda(x: torch.Tensor, gelu: bool = False,
+                   channel_scale: Optional[torch.Tensor] = None) -> Triple:
+    """Kernel K7 on CUDA tensors. x [..., C] bf16 or f32, C a multiple of
+    8 (bf16) / 4 (f32)."""
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"x: bf16 or f32 expected, got {x.dtype}")
+    if not x.is_cuda:
+        raise ValueError("x must be a CUDA tensor")
+    c = x.shape[-1]
+    if c == 0 or c % (8 if x.dtype == torch.bfloat16 else 4):
+        raise ValueError(f"C={c} must be a positive multiple of 8 (bf16) / 4 (f32)")
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, c).contiguous()
+    if x2.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned (the kernel loads 16 bytes a thread)")
+    if channel_scale is not None:
+        channel_scale = channel_scale.float().contiguous()
+        _lib.require_cuda(channel_scale, torch.float32, "channel_scale")
+        if channel_scale.shape != (c,):
+            raise ValueError(f"channel_scale: [C] = ({c},) expected, got "
+                             f"{tuple(channel_scale.shape)}")
+    rows = x2.shape[0]
+    q = torch.empty((rows, c), dtype=torch.int8, device=x.device)
+    s = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    ssum = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    _lib.launch(
+        "quant_sum", "wanq_quant_sum",
+        x2.data_ptr(), int(x.dtype == torch.bfloat16), int(bool(gelu)),
+        _lib.ptr(channel_scale), q.data_ptr(), s.data_ptr(), ssum.data_ptr(), rows, c,
+    )
+    return q.reshape(*lead, c), s.reshape(lead), ssum.reshape(lead)
+
+
+def quant_sum(x: torch.Tensor, gelu: bool = False,
+              channel_scale: Optional[torch.Tensor] = None) -> Triple:
+    """K7 dispatch: the kernel for CUDA tensors, the plain version for CPU
+    tensors. x [..., C] -> (q [..., C], scale [...], sum [...])."""
+    if x.is_cuda:
+        return quant_sum_cuda(x, gelu, channel_scale)
+    return quant_sum_plain(x, gelu, channel_scale)
 
 
 def ln_modulate_quant_plain(x, shift, scale_mod, eps: float = 1e-6,

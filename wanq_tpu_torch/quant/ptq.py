@@ -1,11 +1,16 @@
-"""Full-model PTQ, RTN int8 subset (counterpart of wanq_tpu/quant/ptq.py):
-weights + calibration statistics -> quant state.
+"""Full-model PTQ, the RTN int-deployment subset (counterpart of
+wanq_tpu/quant/ptq.py with ``targets="int8"``): weights + calibration
+statistics -> quant state.
 
-    state: {layer_path: {delta_w, zp_w, w_int8 [C_out, C_in], scale_w,
+    state: {layer_path: {delta_w, zp_w, w_int8 [C_out, C_in] or packed
+                         w_int4 [C_out, C_in/2] (4-bit weights), scale_w,
                          zp_w_int, (delta_a, zp_a for static activations)}}
+    W4A4:  {layer_path: {w_int4g [C_out, C_in/2], scale_wg [C_in/g, C_out]}}
 
-SmoothQuant/ViDiT-Q masks, Hadamard rotations, GPTQ, W4 packing and the
-simulated-quant ``w_q`` are not ported yet and raise.
+4-bit codes pack two per byte along C_in; a layer with an odd C_in keeps
+them unpacked in ``w_int8``, as the JAX package does. SmoothQuant/ViDiT-Q
+masks, Hadamard rotations, GPTQ, SVDQuant low-rank and the simulated-quant
+``w_q`` are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -17,7 +22,9 @@ import torch
 
 from wanq_tpu_torch.quant.config import LayerPolicy, QuantConfig
 from wanq_tpu_torch.quant.quantizers import (
+    pack_int4,
     params_from_minmax,
+    weight_group_int4_quant,
     weight_int_quant,
     weight_quant_params,
 )
@@ -69,17 +76,41 @@ def prepare_layer_state(
         raise NotImplementedError(
             f"{policy.method} (SmoothQuant/Hadamard) is not ported yet "
             "(ROADMAP Queue 1 item 5)")
-    if policy.lowrank > 0 or policy.gptq or policy.is_w4a4:
+    if policy.lowrank > 0:
         raise NotImplementedError(
-            "SVDQuant low-rank, GPTQ and W4A4 are not ported yet "
-            "(ROADMAP Queue 1 item 7)")
+            "SVDQuant low-rank is not ported yet (ROADMAP Queue 1 item 7)")
     st: Dict[str, torch.Tensor] = {}
     wf = w.float()
+    if policy.is_w4a4:
+        # Atom W4A4: symmetric int4 group quant along K for both operands;
+        # the activation side quantizes per (token, group) inside qlinear
+        if policy.gptq:
+            raise ValueError(
+                "GPTQ rounding operates on the per-output-channel grid; the W4A4 "
+                "route quantizes per K-group, and the two do not combine")
+        if not policy.act.dynamic:
+            raise ValueError("W4A4 activations quantize per (token, group) "
+                             "dynamically; static A4 is not supported")
+        g = policy.group
+        if wf.shape[0] % g:
+            raise ValueError(
+                f"W4A4 group size {g} must divide in_features {wf.shape[0]}; set "
+                "act.group in the quant YAML to a common divisor of every quantized "
+                "layer's input dim")
+        codes4, scale_g = weight_group_int4_quant(wf, g)
+        st["w_int4g"] = pack_int4(codes4)
+        st["scale_wg"] = scale_g
+        return st
+    if policy.gptq:
+        raise NotImplementedError("GPTQ is not ported yet (ROADMAP Queue 1 item 7)")
     d, z = weight_quant_params(wf, wcfg)
     st["delta_w"] = d
     st["zp_w"] = z
     codes, d, z = weight_int_quant(wf, wcfg)
-    st["w_int8"] = codes
+    if wcfg.active_bits == 4 and codes.shape[1] % 2 == 0:
+        st["w_int4"] = pack_int4(codes)
+    else:
+        st["w_int8"] = codes
     st["scale_w"] = d
     st["zp_w_int"] = z
     _finish_static_act(st, policy, act_minmax, device=wf.device)

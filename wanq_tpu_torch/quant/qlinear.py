@@ -7,12 +7,17 @@ policies and an explicit quant state:
 
   fp     plain matmul in the param dtype
   calib  plain matmul + per-channel input statistics into ``ctx.collect``
-  int8   W8A8: per-token int8 activations x int8 weights, kernel K2
+  int8   the int kernel routes:
+         W8A8  per-token int8 activations (K7) x int8 weights (K2)
+         W4A8  per-token int8 activations (K7) x packed int4 weights (K8)
+         W4A4  per-(token, 128-group) int4 activations x per-group int4
+               weights (Atom, K9)
 
 Layer state entries (``quant/ptq.py``): ``w_int8`` [C_out, C_in] (K-major;
-the JAX package stores [C_in, C_out]), ``scale_w``/``zp_w_int`` [C_out]
-export params, ``delta_w``/``zp_w`` and, for static activations,
-``delta_a``/``zp_a``.
+the JAX package stores [C_in, C_out]) or packed ``w_int4`` [C_out, C_in/2],
+``scale_w``/``zp_w_int`` [C_out] export params, ``delta_w``/``zp_w`` and,
+for static activations, ``delta_a``/``zp_a``; W4A4 layers hold only packed
+``w_int4g`` [C_out, C_in/2] and ``scale_wg`` [C_in/128, C_out].
 """
 
 from __future__ import annotations
@@ -22,9 +27,9 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from wanq_tpu_torch.ops.qgemm import w8a8_linear
+from wanq_tpu_torch.ops.fused import quant_sum
+from wanq_tpu_torch.ops.qgemm import w4a4_linear, w4a8_linear, w8a8_linear
 from wanq_tpu_torch.quant.config import FP_POLICY, LayerPolicy
-from wanq_tpu_torch.quant.quantizers import act_dynamic_int_quant
 
 Params = Dict[str, Any]
 
@@ -102,13 +107,17 @@ def _check_int8_policy(policy: LayerPolicy, name: str) -> None:
         raise NotImplementedError(
             f"{name}: {policy.method} (SmoothQuant/Hadamard) is not ported yet "
             "(ROADMAP Queue 1 item 5)")
-    if policy.is_w4a4 or (policy.weight is not None and policy.weight.active_bits != 8):
+    if policy.act is None or not policy.act.sym:
         raise NotImplementedError(
-            f"{name}: 4-bit weights are not ported yet (ROADMAP Queue 1 item 7, "
-            "kernels K8/K9)")
-    if policy.act is None or not policy.act.sym or policy.act.active_bits != 8:
+            f"{name}: the int path implements symmetric activations only")
+    if policy.is_w4a4:
+        return
+    if policy.weight is None or policy.weight.active_bits not in (4, 8):
         raise NotImplementedError(
-            f"{name}: the int8 path implements symmetric 8-bit activations only")
+            f"{name}: the int path implements 4- and 8-bit weights only")
+    if policy.act.active_bits != 8:
+        raise NotImplementedError(
+            f"{name}: the int path implements 8-bit activations, or W4A4")
 
 
 def qlinear(ctx: Optional[QuantCtx], name: str, params: Params, x: torch.Tensor,
@@ -131,26 +140,36 @@ def qlinear(ctx: Optional[QuantCtx], name: str, params: Params, x: torch.Tensor,
         return fp_linear(params, x, compute_dtype)
     _check_int8_policy(policy, name)
     st = ctx.state[name]
-    b, n, _ = x.shape
-    xf = x.float()
+    b, n, c = x.shape
+    bias = params.get("b")
+    if policy.is_w4a4:
+        # x [B, N, C] -> [B*N, C] is a view; the act quant runs inside
+        y = w4a4_linear(x.reshape(b * n, c), st["w_int4g"], st["scale_wg"],
+                        None if bias is None else bias.float(), group=policy.group)
+        return y.reshape(b, n, -1)
     if not policy.act.dynamic:
         scale = st["delta_a"].reshape(())
-        q = torch.clamp(torch.round(xf / scale), -128, 127).to(torch.int8)
+        q = torch.clamp(torch.round(x.float() / scale), -128, 127).to(torch.int8)
         s_a = scale.expand(b, n).contiguous()
         sum_a = s_a * q.float().sum(dim=-1)
     else:
-        q, s_a, sum_a = act_dynamic_int_quant(xf, sym=True)
-    return _int_linear(st, q, s_a, sum_a, params.get("b"), torch.float32)
+        q, s_a, sum_a = quant_sum(x)  # K7 without GELU on the card
+    return _int_linear(st, q, s_a, sum_a, bias, torch.float32)
 
 
 def _int_linear(st, q, s_a, sum_a, bias, out_dtype):
-    return w8a8_linear(q, st["w_int8"], s_a, st["scale_w"], sum_a, st["zp_w_int"],
-                       None if bias is None else bias.float(), out_dtype=out_dtype)
+    """Int GEMM on the exported weight: W8A8 (K2) for ``w_int8`` state,
+    W4A8 (K8) for packed ``w_int4`` state."""
+    gemm, w = ((w4a8_linear, st["w_int4"]) if "w_int4" in st
+               else (w8a8_linear, st["w_int8"]))
+    return gemm(q, w, s_a, st["scale_w"], sum_a, st["zp_w_int"],
+                None if bias is None else bias.float(), out_dtype=out_dtype)
 
 
 def int8_fusable(ctx: Optional[QuantCtx], names, allow_mask: bool = False) -> bool:
-    """True when every site can take the fused int8 fast path: 8-bit
-    weight + dynamic symmetric 8-bit act, no rotation/mask, int8 state."""
+    """True when every site can take the fused int8 fast path: 4- or 8-bit
+    weight + dynamic symmetric 8-bit act, no rotation/mask, int state
+    (``w_int8`` or packed ``w_int4``)."""
     if ctx is None or ctx.mode != "int8":
         return False
     for nm in names:
@@ -194,7 +213,7 @@ def int8_static_fusable(ctx: Optional[QuantCtx], name: str) -> bool:
 def w8a8_from_prequant(ctx: QuantCtx, name: str, params: Params, q8: torch.Tensor,
                        s_a: torch.Tensor, ssum: torch.Tensor,
                        out_dtype=torch.float32) -> torch.Tensor:
-    """int8 GEMM (K2) from an already-quantized activation. q8 [B, N, C]
-    int8; s_a/ssum [B, N]."""
+    """Int GEMM (K2, or K8 for packed int4 weights) from an already
+    quantized activation. q8 [B, N, C] int8; s_a/ssum [B, N]."""
     _check_int8_policy(ctx.policy(name), name)
     return _int_linear(ctx.state[name], q8, s_a, ssum, params.get("b"), out_dtype)

@@ -1,11 +1,17 @@
 """Pure-function quantizers (counterpart of wanq_tpu/quant/quantizers.py,
-the subset the W8A8 path needs).
+the subset the W8A8, W4A8 and W4A4 int paths need).
 
 symmetric:  n_levels = 2**(b-1) - 1, delta = absmax / n_levels, zp = 0
 asymmetric: n_levels = 2**b, delta = (max(x,0) - min(x,0)) / (n_levels - 1),
             zp = round(min(x,0) / delta) + n_levels / 2
 int value:  clamp(round(x / delta) - zp), dequant (q + zp) * delta
-Rounding is half to even (torch.round), as jnp.round.
+Rounding is half to even (torch.round), as jnp.round, and divisions by a
+constant are true IEEE divisions on every device (``ops.fused.true_div``).
+
+Int weights are K-major, [C_out, C_in], where the JAX package stores
+[C_in, C_out]. Packed int4 weights are int8 [C_out, C_in / 2]: byte j of
+row n holds k = 2j in its low nibble and k = 2j + 1 in its high nibble, so
+they are the transpose of the JAX package's [C_in / 2, C_out] bytes.
 """
 
 from __future__ import annotations
@@ -14,6 +20,8 @@ import dataclasses
 from typing import Tuple, Union
 
 import torch
+
+from wanq_tpu_torch.ops.fused import true_div
 
 _EPS_SYM = 1e-6
 _EPS_ASYM = 1e-8
@@ -54,13 +62,13 @@ def compute_quant_params(x: torch.Tensor, n_bits: int, sym: bool):
     nl = n_levels_for(n_bits, sym)
     xf = x.float()
     if sym:
-        delta = xf.abs().amax(dim=1) / nl
+        delta = true_div(xf.abs().amax(dim=1), nl)
         delta = torch.where(delta < _EPS_SYM, torch.full_like(delta, _EPS_SYM), delta)
         zp = torch.zeros_like(delta)
     else:
         x_max = torch.clamp_min(xf.amax(dim=1), 0.0)
         x_min = torch.clamp_max(xf.amin(dim=1), 0.0)
-        delta = (x_max - x_min) / (nl - 1)
+        delta = true_div(x_max - x_min, nl - 1)
         delta = torch.where(delta < _EPS_ASYM, torch.full_like(delta, _EPS_ASYM), delta)
         zp = torch.round(x_min / delta) + (nl / 2)
     return delta[:, None], zp[:, None]
@@ -71,11 +79,11 @@ def params_from_minmax(x_max: torch.Tensor, x_min: torch.Tensor, cfg: QuantizerC
     nl = n_levels_for(cfg.active_bits, cfg.sym)
     if cfg.sym:
         absmax = torch.maximum(x_max.abs(), x_min.abs())
-        d = absmax / nl
+        d = true_div(absmax, nl)
         delta = torch.where(d < _EPS_SYM, torch.full_like(d, _EPS_SYM), d)
         zp = torch.zeros_like(delta)
     else:
-        delta = (x_max - x_min) / (nl - 1)
+        delta = true_div(x_max - x_min, nl - 1)
         delta = torch.where(delta < _EPS_ASYM, torch.full_like(delta, _EPS_ASYM), delta)
         zp = torch.round(x_min / delta) + (nl / 2)
     return delta[:, None], zp[:, None]
@@ -89,25 +97,59 @@ def weight_quant_params(w_in_out: torch.Tensor, cfg: QuantizerCfg):
 
 
 def weight_int_quant(w_in_out: torch.Tensor, cfg: QuantizerCfg):
-    """(w_int8 [C_out, C_in], scale [C_out], zp [C_out]) of a [C_in, C_out]
-    weight, int = clamp(round(w / scale) - zp, -128, 127), dequant
-    (int + zp) * scale. The codes come out K-major (transposed from the JAX
-    package's [C_in, C_out]) for the int8 GEMM kernel."""
-    if cfg.active_bits != 8:
-        raise NotImplementedError(
-            "int4 weight export (W4A8 packing) is not ported yet "
-            "(ROADMAP Queue 1 item 7, kernel K8)")
+    """(codes [C_out, C_in] int8, scale [C_out], zp [C_out]) of a [C_in,
+    C_out] weight, codes = clamp(round(w / scale) - zp) into [-128, 127]
+    (8-bit) or [-8, 7] (4-bit), dequant (codes + zp) * scale. The codes come
+    out K-major for the int GEMM kernels; :func:`pack_int4` packs 4-bit
+    codes two per byte."""
+    if cfg.active_bits not in (4, 8):
+        raise ValueError(f"int export supports 4/8-bit weights, not {cfg.active_bits}")
     d, z = weight_quant_params(w_in_out, cfg)
     q = torch.round(w_in_out.t().float() / d[:, None]) - z[:, None]
-    return torch.clamp(q, -128, 127).to(torch.int8).contiguous(), d, z
+    lo, hi = (-8, 7) if cfg.active_bits == 4 else (-128, 127)
+    return torch.clamp(q, lo, hi).to(torch.int8).contiguous(), d, z
 
 
-def act_dynamic_int_quant(x: torch.Tensor, sym: bool = True):
-    """Dynamic per-token int8 quant: (x_int8, scale [...], sum [...]) with
-    sum = scale * sum(q) (the GEMM's zero-point correction input)."""
-    if not sym:
-        raise NotImplementedError("asymmetric activation int quant not used by Wan")
-    xf = x.float()
-    scale = torch.clamp_min(xf.abs().amax(dim=-1) / 127.0, _EPS_SYM)
-    q = torch.clamp(torch.round(xf / scale[..., None]), -128, 127).to(torch.int8)
-    return q, scale, scale * q.float().sum(dim=-1)
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """int4 codes (int8 containers in [-8, 7]) [N, K] -> [N, K / 2] int8:
+    k = 2j in the low nibble of byte j, k = 2j + 1 in the high nibble."""
+    if q.shape[-1] % 2:
+        raise ValueError(f"K={q.shape[-1]} must be even to pack int4 pairs")
+    lo = q[..., 0::2].to(torch.int32) & 0xF
+    hi = q[..., 1::2].to(torch.int32) & 0xF
+    return (lo | (hi << 4)).to(torch.uint8).view(torch.int8).contiguous()
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """[N, K / 2] packed int8 -> [N, K] int8 in [-8, 7]; the low nibble
+    sign-extends as (b << 4) >> 4 and the high one as b >> 4."""
+    lo = torch.bitwise_right_shift(torch.bitwise_left_shift(packed, 4), 4)
+    hi = torch.bitwise_right_shift(packed, 4)
+    return torch.stack([lo, hi], dim=-1).reshape(*packed.shape[:-1], 2 * packed.shape[-1])
+
+
+GROUP_SIZE_W4A4 = 128
+
+
+def act_group_int4_quant(x: torch.Tensor, group: int = GROUP_SIZE_W4A4):
+    """Dynamic symmetric per-(token, K-group) int4 quant of x [M, K]:
+    (q int8 [M, K] in [-8, 7], scale f32 [M, K / group])."""
+    m, k = x.shape
+    if k % group:
+        raise ValueError(f"group {group} must divide K={k}")
+    xf = x.float().reshape(m, k // group, group)
+    scale = torch.clamp_min(true_div(xf.abs().amax(dim=-1), 7.0), _EPS_SYM)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -8, 7).to(torch.int8)
+    return q.reshape(m, k), scale
+
+
+def weight_group_int4_quant(w_in_out: torch.Tensor, group: int = GROUP_SIZE_W4A4):
+    """Static symmetric per-(K-group, out-channel) int4 quant of a [K, N]
+    weight: (codes int8 [N, K] K-major in [-8, 7], scale f32 [K / group, N])."""
+    k, n = w_in_out.shape
+    if k % group:
+        raise ValueError(f"group {group} must divide K={k}")
+    wf = w_in_out.float().reshape(k // group, group, n)
+    scale = torch.clamp_min(true_div(wf.abs().amax(dim=1), 7.0), _EPS_SYM)
+    q = torch.clamp(torch.round(wf / scale[:, None, :]), -8, 7).to(torch.int8)
+    return q.reshape(k, n).t().contiguous(), scale
