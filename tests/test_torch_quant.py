@@ -42,6 +42,18 @@ def test_quant_config_fields_match_jax(path):
         assert (qa is None) == (qb is None)
         if qa is not None:
             assert (qa.n_bits, qa.sym, qa.dynamic) == (qb.n_bits, qb.sym, qb.dynamic)
+    # the attention sections, field by field
+    for aa, ab in ((jc.attn_cfg, tc.attn_cfg), (jc.cross_attn_cfg, tc.cross_attn_cfg)):
+        assert (aa is None) == (ab is None)
+        if aa is None:
+            continue
+        for field in ("attn_map_group", "n_text_tokens", "block_size", "int8_scale"):
+            assert getattr(aa, field) == getattr(ab, field), field
+        for qa, qb in ((aa.qk, ab.qk), (aa.v, ab.v), (aa.attn_map, ab.attn_map)):
+            assert (qa is None) == (qb is None)
+            if qa is not None:
+                assert (qa.n_bits, qa.sym, qa.dynamic, qa.active_bits) == (
+                    qb.n_bits, qb.sym, qb.dynamic, qb.active_bits)
 
 
 @pytest.mark.parametrize("path", YAMLS, ids=os.path.basename)
@@ -154,15 +166,15 @@ def test_ptq_prepare_quant_state_matches_jax(rng):
     names = jdit.linear_layer_names(cfg_j)
     assert names == tdit.linear_layer_names(cfg_t)
     params_j = jdit.init_params(cfg_j, jax.random.PRNGKey(4))
-    params_t = tdit.init_params(cfg_t, 4)
+    params_t = tdit.init_params(cfg_t, 4, device="cpu")
     calib = _calib_minmax(rng, names, cfg_t)
     pol_j, st_j, _ = jptq.prepare_quant_state(
         params_j, names, jconfig.QuantConfig.from_yaml(SPEED), calib=calib, targets="int8")
     pol_t, st_t, rot = tptq.prepare_quant_state(
-        params_t, names, tconfig.QuantConfig.from_yaml(SPEED), calib=calib)
+        params_t, names, tconfig.QuantConfig.from_yaml(SPEED), calib=calib, targets="int8")
     assert rot == {} and sorted(st_t) == sorted(st_j)
     assert "delta_a" in st_t["blocks.0.ffn.2"] and "delta_a" not in st_t["blocks.0.ffn.0"]
-    conv = quant_state_from_numpy(jax.tree.map(np.asarray, st_j))
+    conv = quant_state_from_numpy(jax.tree.map(np.asarray, st_j), device="cpu")
     for name, st in st_t.items():
         assert sorted(st) == sorted(conv[name])
         for key, val in st.items():
@@ -182,20 +194,21 @@ def test_converters_keep_params_and_transpose_int8(rng):
 
     cfg_j = jax_tiny_config(param_dtype="bfloat16")
     params_j = jdit.init_params(cfg_j, jax.random.PRNGKey(1))
-    params_t = params_from_numpy(jax.tree.map(np.asarray, params_j))
-    own = tdit.init_params(tiny_config(param_dtype="bfloat16"), 1)
+    params_t = params_from_numpy(jax.tree.map(np.asarray, params_j), device="cpu")
+    own = tdit.init_params(tiny_config(param_dtype="bfloat16"), 1, device="cpu")
     w_conv = params_t["blocks"][1]["ffn"]["0"]["w"]
     assert w_conv.dtype == torch.bfloat16 and w_conv.shape == (96, 192)
     assert torch.equal(w_conv, own["blocks"][1]["ffn"]["0"]["w"])
     assert params_t["blocks"][0]["norm3"]["w"].dtype == torch.float32
-    st = quant_state_from_numpy({"x": {"w_int8": np.arange(6, dtype=np.int8).reshape(2, 3)}})
+    st = quant_state_from_numpy({"x": {"w_int8": np.arange(6, dtype=np.int8).reshape(2, 3)}},
+                                device="cpu")
     assert st["x"]["w_int8"].shape == (3, 2) and st["x"]["w_int8"].is_contiguous()
 
 
 def test_unported_quant_branches_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        QuantCtx(mode="sim")
-    params = tdit.init_params(tiny_config(), 0)
+        QuantCtx(mode="int8", attn_window=1)
+    params = tdit.init_params(tiny_config(), 0, device="cpu")
     names = tdit.linear_layer_names(tiny_config())
     with pytest.raises(NotImplementedError, match="ROADMAP"):  # ViDiT-Q: mask + rotation
         tptq.prepare_quant_state(params, names, tconfig.QuantConfig.from_yaml(

@@ -59,7 +59,7 @@ def _models(seed, **kw):
     zero-inits it, which would make every output zero)."""
     cfg_j, cfg_t = jax_tiny_config(**SMALL, **kw), tiny_config(**SMALL, **kw)
     pj = jdit.init_params(cfg_j, jax.random.PRNGKey(seed))
-    pt = tdit.init_params(cfg_t, seed)
+    pt = tdit.init_params(cfg_t, seed, device="cpu")
     hw = (np.random.default_rng(seed + 100).normal(size=(cfg_t.dim, 64)) * 0.02).astype(
         np.float32)
     pj["head"]["head"]["w"] = jnp.asarray(hw, dtype=cfg_j.dtype)
@@ -86,7 +86,8 @@ def _port_calib_and_states(cfg_t, pt, cfg_j, pj, x, t, ctx, seq, yaml=SPEED):
                                      targets="int8")
     jctx = JaxQuantCtx(mode="int8", policies=pol_j, state=st_j, rotations=rot_j)
     tctx = QuantCtx(mode="int8", policies=pol_j,
-                    state=quant_state_from_numpy(jax.tree.map(np.asarray, st_j)))
+                    state=quant_state_from_numpy(jax.tree.map(np.asarray, st_j),
+                                                 device="cpu"))
     return calib, jctx, tctx
 
 
@@ -150,7 +151,7 @@ def test_generate_int8_three_steps_matches_jax(rng):
     shape = compute_target_shape(cfg_t, (64, 64), 9)
     noise = np.array(jax.random.normal(jax.random.PRNGKey(7), (1, *shape), jnp.float32))
     steps = []
-    got = WanT2V(cfg_t, pt, quant_ctx=tctx).generate(
+    got = WanT2V(cfg_t, pt, quant_ctx=tctx, device="cpu").generate(
         torch.from_numpy(context), torch.from_numpy(context_null),
         noise=torch.from_numpy(noise), on_step=lambda i, tt, lat: steps.append(tt), **kw)
     assert len(steps) == 3 and got.shape == want.shape == (1, *shape)
@@ -198,7 +199,7 @@ def test_generate_w4a8_mixed_three_steps_matches_jax(rng):
         jnp.asarray(context), jnp.asarray(context_null), seed=7, **kw))
     shape = compute_target_shape(cfg_t, (64, 64), 9)
     noise = np.array(jax.random.normal(jax.random.PRNGKey(7), (1, *shape), jnp.float32))
-    got = WanT2V(cfg_t, pt, quant_ctx=tctx).generate(
+    got = WanT2V(cfg_t, pt, quant_ctx=tctx, device="cpu").generate(
         torch.from_numpy(context), torch.from_numpy(context_null),
         noise=torch.from_numpy(noise), **kw)
     assert got.shape == want.shape == (1, *shape)
@@ -265,8 +266,9 @@ def test_seq_len_and_target_shape_match_jax():
 
 
 def test_cli_chain_tiny_on_cpu(tmp_path):
-    """get_calib_data --collect_minmax -> quant_generate --hardware through
-    the CLIs on the CPU (plain versions), as a user calls them."""
+    """get_calib_data --collect_minmax -> quant_generate --hardware (and
+    without it: sim mode) through the CLIs on the CPU (plain versions), as a
+    user calls them."""
     from wanq_tpu_torch.cli import get_calib_data, quant_generate
 
     common = ["--task", "tiny", "--size", "64*64", "--frame_num", "5", "--random_init",
@@ -281,9 +283,13 @@ def test_cli_chain_tiny_on_cpu(tmp_path):
                   "--save_file", str(tmp_path / "lat.npz")]))
     lat = np.load(out)["latents"]
     assert lat.shape == (1, 16, 2, 8, 8) and np.isfinite(lat).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        quant_generate.generate(quant_generate.parse_args(
-            common + ["--calib_data", calib, "--sample_steps", "1"]))
+    # without --hardware the same chain runs simulated quantization
+    sim = quant_generate.generate(quant_generate.parse_args(
+        common + ["--calib_data", calib, "--sample_steps", "2",
+                  "--save_file", str(tmp_path / "lat_sim.npz")]))
+    lat_sim = np.load(sim)["latents"]
+    assert lat_sim.shape == lat.shape and np.isfinite(lat_sim).all()
+    assert 0 < _rel(lat, lat_sim) < 0.2  # the same quantizers, other arithmetic
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_calib_data.generate(get_calib_data.parse_args(common + ["--ulysses_size", "2"]))
 
@@ -330,7 +336,8 @@ def test_port_imports_neither_jax_nor_wanq_tpu():
     offenders = [f for f in files if bad.search(open(f).read()) or lazy.search(open(f).read())]
     assert not offenders, offenders
     code = ("import sys, wanq_tpu_torch.cli.quant_generate, wanq_tpu_torch.cli.get_calib_data,"
-            " wanq_tpu_torch.models.params; "
+            " wanq_tpu_torch.models.params, wanq_tpu_torch.ops.attn_int8,"
+            " wanq_tpu_torch.quant.attn; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'wanq_tpu')))")
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

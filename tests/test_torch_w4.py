@@ -78,7 +78,8 @@ def test_pack_int4_and_converter_match_jax(rng):
     assert ((byte >> 4) ^ 8) - 8 == codes[2 * j + 1, n]
     scale_g = rng.uniform(1e-3, 1e-1, size=(2, 96)).astype(np.float32)
     st = quant_state_from_numpy({"x": {"w_int4": packed_j, "w_int4g": packed_j,
-                                       "scale_wg": scale_g}})["x"]
+                                       "scale_wg": scale_g}},
+                                device="cpu")["x"]
     for key in ("w_int4", "w_int4g"):
         assert st[key].is_contiguous() and torch.equal(st[key], packed_t)
     np.testing.assert_array_equal(st["scale_wg"].numpy(), scale_g)
@@ -258,12 +259,13 @@ def test_ptq_w4_state_matches_jax(rng, path):
     cfg_j, cfg_t = jax_tiny_config(**small), tiny_config(**small)
     names = jdit.linear_layer_names(cfg_j)
     params_j = jdit.init_params(cfg_j, jax.random.PRNGKey(4))
-    params_t = tdit.init_params(cfg_t, 4)
+    params_t = tdit.init_params(cfg_t, 4, device="cpu")
     calib = _calib_minmax(rng, names, cfg_t)
     _, st_j, _ = jptq.prepare_quant_state(params_j, names, jconfig.QuantConfig.from_yaml(path),
                                           calib=calib, targets="int8")
     pol_t, st_t, _ = tptq.prepare_quant_state(params_t, names,
-                                              tconfig.QuantConfig.from_yaml(path), calib=calib)
+                                              tconfig.QuantConfig.from_yaml(path), calib=calib,
+                                              targets="int8")
     assert sorted(st_t) == sorted(st_j)
     keys = {k for st in st_t.values() for k in st}
     if "w4a4" in path:
@@ -273,7 +275,7 @@ def test_ptq_w4_state_matches_jax(rng, path):
     else:
         assert "w_int4" in st_t["blocks.0.ffn.0"] and "w_int8" in st_t["blocks.1.self_attn.o"]
         assert "blocks.0.cross_attn.q" not in st_t
-    conv = quant_state_from_numpy(jax.tree.map(np.asarray, st_j))
+    conv = quant_state_from_numpy(jax.tree.map(np.asarray, st_j), device="cpu")
     for name, st in st_t.items():
         assert sorted(st) == sorted(conv[name]), name
         for key, val in st.items():

@@ -1,6 +1,9 @@
 """Quantized inference CLI (counterpart of wanq_tpu/cli/quant_generate.py):
-the int kernel path (--hardware) for W8A8, W4A8 and W4A4 configs.
-Simulated quant is not ported yet.
+simulated quantization (fake-quant, the default) or the int kernel path
+(--hardware) for W8A8, W4A8 and W4A4 configs. A quant YAML's ``attn:``
+section switches self-attention to the int8 flash kernel under --hardware
+and to the simulated attention quantizers without it; a ``cross_attn:``
+section runs the simulated quantizers on cross-attention in both modes.
 
     python -m wanq_tpu_torch.cli.quant_generate --task t2v-1.3B --size 832*480 \
         --frame_num 81 --random_init --quant_config quant_configs/wan_w8a8_speed.yaml \
@@ -41,20 +44,17 @@ def parse_args(argv=None):
     p.add_argument("--calib_data", type=str, default=None,
                    help="get_calib_data npz (needed for static activations)")
     p.add_argument("--hardware", action="store_true",
-                   help="int8 kernel path (required: simulated quant is not ported yet)")
+                   help="int kernel path; default is simulated quantization")
     return p.parse_args(argv)
 
 
 def generate(args, on_step=None):
-    """Quantize the weights (RTN + calibration scales), run the int8
-    denoise loop and save the latents; returns the npz path.
+    """Quantize the weights (RTN + calibration scales), run the simulated
+    or int denoise loop and save the latents; returns the npz path.
     ``on_step(i, t, latents)`` runs after each solver step."""
     setup_logging()
     validate_args(args)
-    if not args.hardware:
-        raise NotImplementedError(
-            "simulated quantization is not ported yet (ROADMAP Queue 1 item 3, "
-            "sim mode); pass --hardware")
+    mode = "int8" if args.hardware else "sim"
     cfg = WAN_CONFIGS[args.task]
     size = SIZE_CONFIGS[args.size]
     qcfg = QuantConfig.from_yaml(args.quant_config)
@@ -62,9 +62,9 @@ def generate(args, on_step=None):
     calib = dict(np.load(args.calib_data)) if args.calib_data else None
     t0 = time.time()
     policies, state, _ = prepare_quant_state(params, linear_layer_names(cfg), qcfg,
-                                             calib=calib)
+                                             calib=calib, targets=mode)
     logging.info("computed quant state: %d layers in %.2fs", len(state), time.time() - t0)
-    ctx = QuantCtx(mode="int8", policies=policies, state=state,
+    ctx = QuantCtx(mode=mode, policies=policies, state=state,
                    attn=qcfg.attn_cfg, cross_attn=qcfg.cross_attn_cfg)
 
     context, context_null = load_contexts(args, cfg)
@@ -78,9 +78,9 @@ def generate(args, on_step=None):
     )
     if latents.is_cuda:
         torch.cuda.synchronize()
-    logging.info("int denoise done in %.2fs", time.time() - t0)
+    logging.info("quant (%s) denoise done in %.2fs", mode, time.time() - t0)
     save_file = args.save_file or (
-        f"quant_int8_{args.task}_{args.size.replace('*', 'x')}_seed{args.base_seed}.npz")
+        f"quant_{mode}_{args.task}_{args.size.replace('*', 'x')}_seed{args.base_seed}.npz")
     np.savez(save_file, latents=latents.cpu().numpy())
     logging.info("saved %s", save_file)
     return save_file

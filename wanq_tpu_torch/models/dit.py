@@ -21,8 +21,16 @@ JAX's unfused chain):
   and the o-projection reading that memory as [B, S, N*D], a view: FP, or
   ``qlinear``'s int routes (K7 -> K2 for int8 o, K9 for W4A4 o).
 
-Sites whose policy is not fusable (W4A4: 4-bit activations) take the
-unfused chain through ``qlinear`` (K9 for W4A4).
+Sites whose policy is not fusable (W4A4: 4-bit activations; every site in
+sim mode) take the unfused chain through ``qlinear`` (K9 for W4A4).
+
+Attention quantization (a quant YAML's ``attn:`` / ``cross_attn:``
+sections): under ``attn:`` self-attention leaves the fused q/k path (the
+softmax scale is not folded into q's rope tables, K3 is skipped) and runs
+plain RMSNorm + RoPE, then the int8 flash attention in int8 mode (K10a ->
+K10, ``ops/attn_int8.py``) or the simulated quantizers in sim mode
+(``quant/attn.py``, with the layer's reorder table). Under ``cross_attn:``
+cross-attention runs the simulated quantizers in both modes.
 """
 
 from __future__ import annotations
@@ -51,12 +59,14 @@ from wanq_tpu_torch.ops.fused import (
     ln_modulate_quant_static,
     quant_sum,
 )
+from wanq_tpu_torch.ops.attn_int8 import attention_int8
 from wanq_tpu_torch.ops.rmsnorm_rope import (
     merge_heads,
     rms_rope_heads,
     rms_split_heads,
     split_heads,
 )
+from wanq_tpu_torch.quant.attn import quantized_attention
 from wanq_tpu_torch.quant.qlinear import (
     QuantCtx,
     fp_linear,
@@ -109,10 +119,11 @@ def sinusoidal_embedding_1d(dim: int, t: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def init_params(cfg: WanConfig, seed: int = 0, device="cpu") -> Params:
+def init_params(cfg: WanConfig, seed: int = 0, device="cuda") -> Params:
     """Random init drawn from ``np.random.default_rng(seed)`` on the host in
     the same order as wanq_tpu's init_params, so both packages make the
-    same weights from the same seed."""
+    same weights from the same seed. The tensors land on ``device``, the
+    card unless the caller asks for the CPU."""
     dtype = cfg.dtype
     d = cfg.dim
     rng = np.random.default_rng(seed)
@@ -237,10 +248,13 @@ def _self_attention(p: Params, name: str, ctx: Optional[QuantCtx],
         k = qlinear(ctx, f"{name}.k", p["k"], x, dtype).to(dtype)
         v = qlinear(ctx, f"{name}.v", p["v"], x, dtype).to(dtype)
     calib = ctx is not None and ctx.mode == "calib"
-    # on the plain-attention path the softmax scale folds into q's tables
-    q_scale = 1.0 if calib else 1.0 / math.sqrt(hd)
+    attn_quant = ctx is not None and ctx.attn is not None and ctx.mode in ("int8", "sim")
+    # on the plain-attention path the softmax scale folds into q's tables;
+    # the quant and calib paths apply their own
+    plain_attn = not (attn_quant or calib)
+    q_scale = 1.0 / math.sqrt(hd) if plain_attn else 1.0
 
-    if cfg.qk_norm and not calib and hd == 128:
+    if cfg.qk_norm and plain_attn and hd == 128:
         ca, sb = pad_tables(cos, sin, valid_len, s)
         qh = rms_rope_heads(q, p["norm_q"], ca * q_scale, sb * q_scale,
                             num_heads=n, eps=cfg.eps, out_dtype=dtype)
@@ -266,7 +280,15 @@ def _self_attention(p: Params, name: str, ctx: Optional[QuantCtx],
         # per-(head, dim) absmax of the attention inputs
         for tag, tensor in (("q", q), ("k", k), ("v", v)):
             ctx.collect[f"{name}.attn_{tag}"] = tensor.float().abs().amax(dim=(0, 1))
-    y = attention(q, k, v, scale=None if calib else 1.0, k_valid_len=valid_len)
+    if attn_quant and ctx.mode == "int8":
+        # hardware path: K10a + K10 (q/k per 512-token block, v per channel,
+        # 127-level probs); the f32 [B, S, N, D] output merges as a view
+        y = attention_int8(q, k, v, k_valid_len=valid_len)
+    elif attn_quant:
+        y = quantized_attention(q, k, v, ctx.attn, k_valid_len=valid_len,
+                                perm=ctx.attn_perms.get(name))
+    else:
+        y = attention(q, k, v, scale=1.0 if plain_attn else None, k_valid_len=valid_len)
     return qlinear(ctx, f"{name}.o", p["o"], y.reshape(b, s, n * hd), dtype)
 
 
@@ -289,8 +311,12 @@ def _cross_attention(p: Params, name: str, ctx: Optional[QuantCtx],
         k = rms_norm(k, p["norm_k"], cfg.eps)
     k = k.reshape(b, -1, n, hd).to(dtype)
     v = v.reshape(b, -1, n, hd).to(dtype)
+    # a cross_attn section runs the simulated quantizers in int8 mode too:
+    # the int8 kernel is for the long self-attention
+    quant_attn = (ctx is not None and ctx.cross_attn is not None
+                  and ctx.mode in ("sim", "int8"))
 
-    if hd == 128:
+    if hd == 128 and not quant_attn:
         qh = (rms_split_heads(q, p["norm_q"], n, eps=cfg.eps, out_dtype=dtype)
               if cfg.qk_norm else split_heads(q.to(dtype), n))
         y = cross_attention_heads_major(qh, k, v)
@@ -301,7 +327,7 @@ def _cross_attention(p: Params, name: str, ctx: Optional[QuantCtx],
     if cfg.qk_norm:
         q = rms_norm(q, p["norm_q"], cfg.eps)
     q = q.reshape(b, -1, n, hd).to(dtype)
-    y = attention(q, k, v)
+    y = quantized_attention(q, k, v, ctx.cross_attn) if quant_attn else attention(q, k, v)
     return qlinear(ctx, f"{name}.o", p["o"], y.reshape(b, -1, n * hd), dtype)
 
 
@@ -401,6 +427,14 @@ def dit_forward(params: Params, cfg: WanConfig, x: torch.Tensor, t: torch.Tensor
     text_dim]. Returns [B, C_out, F, H, W] float32."""
     if cfg.model_type != "t2v":
         raise NotImplementedError("i2v is not ported yet (ROADMAP Queue 1 item 9)")
+    if ctx is not None and ctx.attn_window is not None:
+        if ctx.attn is not None and ctx.mode in ("sim", "int8"):
+            raise NotImplementedError(
+                "attn_window does not compose with attention-map quantization: the "
+                "sim materializes the full map and the int8 kernel is dense; window "
+                "the plain/int8-GEMM deployment instead (drop the attn: section)")
+        raise NotImplementedError(
+            "temporal-window attention is not ported yet (ROADMAP Queue 1 item 6)")
     dtype = cfg.dtype
     b = x.shape[0]
     grid = (x.shape[2] // cfg.patch_size[0], x.shape[3] // cfg.patch_size[1],

@@ -13,7 +13,13 @@ tensors:
   k = 2i + 1 (high nibble) of column n, so the port's byte (n, j) is the
   same byte: a plain transpose;
 * the W4A4 weight scales ``scale_wg`` keep JAX's [C_in/group, C_out]: the
-  K9 kernel reads one contiguous row of it per K group.
+  K9 kernel reads one contiguous row of it per K group;
+* the sim-mode weight ``w_q`` keeps JAX's [C_in, C_out]: sim mode multiplies
+  through ``fp_linear``, which computes ``x @ w`` like the FP path;
+* attention reorder tables (``QuantCtx.attn_perms``) become int64 tensors.
+
+Every converter puts its tensors on ``device``, the card unless the caller
+asks for the CPU.
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr)).to(device)
 
 
-def params_from_numpy(tree: Any, device="cpu") -> Any:
+def params_from_numpy(tree: Any, device="cuda") -> Any:
     """JAX param pytree (numpy leaves, ``w`` [C_in, C_out]) -> port params."""
     if isinstance(tree, Mapping):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
@@ -46,9 +52,10 @@ def params_from_numpy(tree: Any, device="cpu") -> Any:
 
 
 def quant_state_from_numpy(state: Mapping[str, Mapping[str, Any]],
-                           device="cpu") -> Dict[str, Dict[str, torch.Tensor]]:
+                           device="cuda") -> Dict[str, Dict[str, torch.Tensor]]:
     """JAX quant state -> port quant state; the int weights (``w_int8``,
-    ``w_int4``, ``w_int4g``) are transposed to K-major."""
+    ``w_int4``, ``w_int4g``) are transposed to K-major, everything else
+    (``w_q`` included) keeps its layout."""
     out: Dict[str, Dict[str, torch.Tensor]] = {}
     for name, st in state.items():
         layer = {}
@@ -59,3 +66,11 @@ def quant_state_from_numpy(state: Mapping[str, Mapping[str, Any]],
             layer[key] = _tensor(arr, device)
         out[name] = layer
     return out
+
+
+def attn_perms_from_numpy(perms: Mapping[str, Any],
+                          device="cuda") -> Dict[str, torch.Tensor]:
+    """{layer: [H, S] integer reorder table} -> int64 tensors, the form
+    ``QuantCtx.attn_perms`` holds (the JAX package keeps int32 arrays)."""
+    return {name: torch.from_numpy(np.asarray(p).astype(np.int64)).to(device)
+            for name, p in perms.items()}

@@ -2,9 +2,9 @@
 wanq_tpu/pipelines/text2video.py, uncached batched-CFG subset).
 
 The cond/uncond pair runs as one B=2 DiT forward per solver step; the
-UniPC scheduler runs between steps. One class serves FP, calibration and
-int8 inference through the QuantCtx mode. Step caches, the DPM++ solver,
-sequential CFG and timestep schedules are not ported yet.
+UniPC scheduler runs between steps. One class serves FP, calibration,
+simulated and int8 inference through the QuantCtx mode. Step caches, the
+DPM++ solver, sequential CFG and timestep schedules are not ported yet.
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ class WanT2V:
     config: WanConfig
     params: Dict[str, Any]
     quant_ctx: Optional[QuantCtx] = None
-    device: Any = "cpu"
+    device: Any = "cuda"
 
     def _step(self, latents, t: float, context, context_null, guide_scale: float,
               ctx: Optional[QuantCtx], seq_len: int):
@@ -111,7 +111,7 @@ class WanT2V:
             if self.quant_ctx is None or self.quant_ctx.mode != "calib":
                 raise ValueError("collect_calib needs a calib-mode quant_ctx")
             ctx = self.quant_ctx
-        elif self.quant_ctx is not None and self.quant_ctx.mode == "int8":
+        elif self.quant_ctx is not None and self.quant_ctx.mode in ("sim", "int8"):
             ctx = self.quant_ctx
         else:
             ctx = None

@@ -14,6 +14,7 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
 import yaml
 
+from wanq_tpu_torch.quant.attn import AttnQuantCfg
 from wanq_tpu_torch.quant.quantizers import QuantizerCfg
 
 Method = str  # 'fp' | 'base' | 'smooth_quant' | 'quarot' | 'viditq'
@@ -96,10 +97,9 @@ class QuantConfig:
             if raw.get(m) is not None:
                 self.methods[m] = dict(raw[m])
         self.mixed_precision: Optional[Dict[str, Any]] = raw.get("mixed_precision")
-        # attention-map quantization sections: kept raw; the int8 path
-        # raises on them (kernel K10 is not ported)
-        self.attn_cfg = raw.get("attn")
-        self.cross_attn_cfg = raw.get("cross_attn")
+        # attention quantization sections (self / cross)
+        self.attn_cfg = AttnQuantCfg.from_dict(raw.get("attn"))
+        self.cross_attn_cfg = AttnQuantCfg.from_dict(raw.get("cross_attn"))
         self._re_cache: Dict[str, "re.Pattern"] = {}
 
     def _search(self, pattern: str, name: str):

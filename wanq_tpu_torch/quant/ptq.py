@@ -1,16 +1,21 @@
-"""Full-model PTQ, the RTN int-deployment subset (counterpart of
-wanq_tpu/quant/ptq.py with ``targets="int8"``): weights + calibration
-statistics -> quant state.
+"""Full-model PTQ by round-to-nearest (counterpart of
+wanq_tpu/quant/ptq.py): weights + calibration statistics -> quant state.
 
-    state: {layer_path: {delta_w, zp_w, w_int8 [C_out, C_in] or packed
-                         w_int4 [C_out, C_in/2] (4-bit weights), scale_w,
-                         zp_w_int, (delta_a, zp_a for static activations)}}
-    W4A4:  {layer_path: {w_int4g [C_out, C_in/2], scale_wg [C_in/g, C_out]}}
+    state: {layer_path: {delta_w, zp_w, (delta_a, zp_a for static
+                         activations),
+              sim:  w_q [C_in, C_out], the fake-quant weight (the JAX
+                    package's layout: fp_linear's ``x @ w``)
+              int8: w_int8 [C_out, C_in] or packed w_int4 [C_out, C_in/2]
+                    (4-bit weights), scale_w, zp_w_int}}
+    W4A4:  {layer_path: {sim: w_q, the group-dequantized weight;
+                         int8: w_int4g [C_out, C_in/2],
+                               scale_wg [C_in/g, C_out]}}
 
-4-bit codes pack two per byte along C_in; a layer with an odd C_in keeps
-them unpacked in ``w_int8``, as the JAX package does. SmoothQuant/ViDiT-Q
-masks, Hadamard rotations, GPTQ, SVDQuant low-rank and the simulated-quant
-``w_q`` are not ported yet and raise.
+``targets`` ("sim", "int8" or "both") chooses which deployed weights are
+made. 4-bit codes pack two per byte along C_in; a layer with an odd C_in
+keeps them unpacked in ``w_int8``, as the JAX package does.
+SmoothQuant/ViDiT-Q masks, Hadamard rotations, GPTQ and SVDQuant low-rank
+are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -24,12 +29,15 @@ from wanq_tpu_torch.quant.config import LayerPolicy, QuantConfig
 from wanq_tpu_torch.quant.quantizers import (
     pack_int4,
     params_from_minmax,
+    weight_fake_quant,
     weight_group_int4_quant,
     weight_int_quant,
     weight_quant_params,
 )
 
 Params = Dict[str, Any]
+
+TARGETS = ("sim", "int8", "both")
 
 
 def params_get(params: Params, path: str):
@@ -67,8 +75,11 @@ def prepare_layer_state(
     policy: LayerPolicy,
     w: torch.Tensor,
     act_minmax: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+    targets: str = "both",
 ) -> Dict[str, torch.Tensor]:
     """Quant state for one layer by round-to-nearest. w [C_in, C_out] f32."""
+    if targets not in TARGETS:
+        raise ValueError(f"targets must be one of {TARGETS}, got {targets!r}")
     wcfg = policy.weight
     if wcfg is None:
         raise ValueError("quantized layer without a weight quantizer")
@@ -98,21 +109,30 @@ def prepare_layer_state(
                 "act.group in the quant YAML to a common divisor of every quantized "
                 "layer's input dim")
         codes4, scale_g = weight_group_int4_quant(wf, g)
-        st["w_int4g"] = pack_int4(codes4)
-        st["scale_wg"] = scale_g
+        if targets in ("sim", "both"):
+            # codes4 is K-major [C_out, C_in]; w_q is [C_in, C_out]
+            k, n = wf.shape
+            st["w_q"] = (codes4.t().float().reshape(k // g, g, n)
+                         * scale_g[:, None, :]).reshape(k, n)
+        if targets in ("int8", "both"):
+            st["w_int4g"] = pack_int4(codes4)
+            st["scale_wg"] = scale_g
         return st
     if policy.gptq:
         raise NotImplementedError("GPTQ is not ported yet (ROADMAP Queue 1 item 7)")
+    if targets in ("sim", "both"):
+        st["w_q"] = weight_fake_quant(wf, wcfg)
     d, z = weight_quant_params(wf, wcfg)
     st["delta_w"] = d
     st["zp_w"] = z
-    codes, d, z = weight_int_quant(wf, wcfg)
-    if wcfg.active_bits == 4 and codes.shape[1] % 2 == 0:
-        st["w_int4"] = pack_int4(codes)
-    else:
-        st["w_int8"] = codes
-    st["scale_w"] = d
-    st["zp_w_int"] = z
+    if wcfg.active_bits in (4, 8) and targets in ("int8", "both"):
+        codes, d, z = weight_int_quant(wf, wcfg)
+        if wcfg.active_bits == 4 and codes.shape[1] % 2 == 0:
+            st["w_int4"] = pack_int4(codes)
+        else:
+            st["w_int8"] = codes
+        st["scale_w"] = d
+        st["zp_w_int"] = z
     _finish_static_act(st, policy, act_minmax, device=wf.device)
     return st
 
@@ -142,10 +162,12 @@ def prepare_quant_state(
     layer_names,
     qcfg: QuantConfig,
     calib: Optional[Mapping[str, np.ndarray]] = None,
+    targets: str = "both",
 ):
-    """Full-model RTN PTQ to int8 deployment state (the JAX package's
-    ``targets="int8"``). Returns (policies, state, rotations); rotations
-    stay empty (Hadamard rotation is not ported)."""
+    """Full-model RTN PTQ. ``targets``: which deployed weights to make,
+    'sim' (fake-quant ``w_q``), 'int8' (int codes + export params) or
+    'both'. Returns (policies, state, rotations); rotations stay empty
+    (Hadamard rotation is not ported)."""
     policies = {name: qcfg.resolve(name) for name in layer_names}
     calib_max = reduce_calib(calib) if calib is not None else {}
     state: Dict[str, Dict[str, torch.Tensor]] = {}
@@ -155,5 +177,6 @@ def prepare_quant_state(
         act_minmax = None
         if f"{name}.act_max" in calib_max:
             act_minmax = (calib_max[f"{name}.act_max"], calib_max[f"{name}.act_min"])
-        state[name] = prepare_layer_state(policy, params_get(params, name)["w"], act_minmax)
+        state[name] = prepare_layer_state(policy, params_get(params, name)["w"], act_minmax,
+                                          targets)
     return policies, state, {}

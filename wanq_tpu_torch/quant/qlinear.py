@@ -7,13 +7,17 @@ policies and an explicit quant state:
 
   fp     plain matmul in the param dtype
   calib  plain matmul + per-channel input statistics into ``ctx.collect``
+  sim    simulated quantization: fake-quant activations (dynamic per token,
+         static per tensor, or W4A4's per-(token, group) int4) times the
+         fake-quant weight ``w_q``, through fp_linear's arithmetic
   int8   the int kernel routes:
          W8A8  per-token int8 activations (K7) x int8 weights (K2)
          W4A8  per-token int8 activations (K7) x packed int4 weights (K8)
          W4A4  per-(token, 128-group) int4 activations x per-group int4
                weights (Atom, K9)
 
-Layer state entries (``quant/ptq.py``): ``w_int8`` [C_out, C_in] (K-major;
+Layer state entries (``quant/ptq.py``): ``w_q`` [C_in, C_out] (sim);
+``w_int8`` [C_out, C_in] (K-major;
 the JAX package stores [C_in, C_out]) or packed ``w_int4`` [C_out, C_in/2],
 ``scale_w``/``zp_w_int`` [C_out] export params, ``delta_w``/``zp_w`` and,
 for static activations, ``delta_a``/``zp_a``; W4A4 layers hold only packed
@@ -30,10 +34,15 @@ import torch
 from wanq_tpu_torch.ops.fused import quant_sum
 from wanq_tpu_torch.ops.qgemm import w4a4_linear, w4a8_linear, w8a8_linear
 from wanq_tpu_torch.quant.config import FP_POLICY, LayerPolicy
+from wanq_tpu_torch.quant.quantizers import (
+    act_group_int4_quant,
+    dynamic_fake_quant,
+    fake_quant,
+)
 
 Params = Dict[str, Any]
 
-MODES = ("fp", "calib", "int8")
+MODES = ("fp", "calib", "sim", "int8")
 
 
 @dataclasses.dataclass
@@ -43,9 +52,11 @@ class QuantCtx:
     mode: str = "fp"
     policies: Dict[str, LayerPolicy] = dataclasses.field(default_factory=dict)
     state: Dict[str, Dict[str, torch.Tensor]] = dataclasses.field(default_factory=dict)
-    # attention-map quantization sections (raise: kernel K10 not ported)
+    # attention quantization: quant.attn.AttnQuantCfg instances or None
     attn: Any = None
     cross_attn: Any = None
+    # per-layer attn-map reorder tables {layer: [H, S] int64}
+    attn_perms: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
     # calibration outputs: layer path -> per-channel absmax [C_in] of the
     # input seen this call (plus .act_max/.act_min with collect_minmax)
     collect: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
@@ -54,16 +65,8 @@ class QuantCtx:
     attn_window: Any = None
 
     def __post_init__(self):
-        if self.mode == "sim":
-            raise NotImplementedError(
-                "sim (fake-quant) mode is not ported yet (ROADMAP Queue 1 "
-                "item 3, sim mode); use mode='int8' (--hardware)")
         if self.mode not in MODES:
             raise ValueError(f"unknown quant mode {self.mode!r}")
-        if self.attn is not None or self.cross_attn is not None:
-            raise NotImplementedError(
-                "attention-map quantization is not ported yet (ROADMAP Queue 1 "
-                "item 8, kernel K10)")
         if self.attn_window is not None:
             raise NotImplementedError(
                 "temporal-window attention is not ported yet (ROADMAP Queue 1 item 6)")
@@ -102,11 +105,15 @@ def resolves_fp(ctx: Optional[QuantCtx], name: str) -> bool:
     return not ctx.policy(name).is_quantized
 
 
-def _check_int8_policy(policy: LayerPolicy, name: str) -> None:
+def _check_method(policy: LayerPolicy, name: str) -> None:
     if policy.uses_rotation or policy.uses_channel_mask:
         raise NotImplementedError(
             f"{name}: {policy.method} (SmoothQuant/Hadamard) is not ported yet "
             "(ROADMAP Queue 1 item 5)")
+
+
+def _check_int8_policy(policy: LayerPolicy, name: str) -> None:
+    _check_method(policy, name)
     if policy.act is None or not policy.act.sym:
         raise NotImplementedError(
             f"{name}: the int path implements symmetric activations only")
@@ -138,10 +145,12 @@ def qlinear(ctx: Optional[QuantCtx], name: str, params: Params, x: torch.Tensor,
     policy = ctx.policy(name)
     if not policy.is_quantized:
         return fp_linear(params, x, compute_dtype)
-    _check_int8_policy(policy, name)
     st = ctx.state[name]
     b, n, c = x.shape
     bias = params.get("b")
+    if ctx.mode == "sim":
+        return _sim_linear(policy, name, st, bias, x, compute_dtype)
+    _check_int8_policy(policy, name)
     if policy.is_w4a4:
         # x [B, N, C] -> [B*N, C] is a view; the act quant runs inside
         y = w4a4_linear(x.reshape(b * n, c), st["w_int4g"], st["scale_wg"],
@@ -155,6 +164,31 @@ def qlinear(ctx: Optional[QuantCtx], name: str, params: Params, x: torch.Tensor,
     else:
         q, s_a, sum_a = quant_sum(x)  # K7 without GELU on the card
     return _int_linear(st, q, s_a, sum_a, bias, torch.float32)
+
+
+def _sim_linear(policy: LayerPolicy, name: str, st, bias, x: torch.Tensor,
+                compute_dtype) -> torch.Tensor:
+    """Simulated quantization of one linear: the activation is fake-quantized
+    in f32, rounded to ``compute_dtype`` with the fake-quant weight ``w_q``,
+    and multiplied as fp_linear multiplies (f32 sums, f32 bias)."""
+    _check_method(policy, name)
+    b, n, c = x.shape
+    xf = x.float()
+    if policy.is_w4a4:
+        # Atom W4A4: per-(token, K-group) int4 activations against the
+        # group-dequantized weight, the math of the K9 kernel up to the
+        # order of the f32 sums
+        g = policy.group
+        q4, s4 = act_group_int4_quant(xf.reshape(b * n, c), g)
+        xq = (q4.float().reshape(b * n, c // g, g) * s4[..., None]).reshape(b, n, c)
+    elif policy.act is not None and not policy.act.dynamic:
+        xq = fake_quant(xf, st["delta_a"], st["zp_a"], policy.act.active_bits,
+                        policy.act.sym)
+    elif policy.act is not None:
+        xq = dynamic_fake_quant(xf.reshape(b * n, c), policy.act).reshape(b, n, c)
+    else:
+        xq = xf
+    return fp_linear({"w": st["w_q"], "b": bias}, xq, compute_dtype)
 
 
 def _int_linear(st, q, s_a, sum_a, bias, out_dtype):

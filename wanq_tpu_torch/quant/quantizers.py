@@ -1,5 +1,7 @@
-"""Pure-function quantizers (counterpart of wanq_tpu/quant/quantizers.py,
-the subset the W8A8, W4A8 and W4A4 int paths need).
+"""Pure-function quantizers (counterpart of wanq_tpu/quant/quantizers.py):
+the int exports of the W8A8, W4A8 and W4A4 kernel routes and the
+fake-quant forms (quantize then dequantize in floating point) of sim mode
+and of the simulated attention quantizers.
 
 symmetric:  n_levels = 2**(b-1) - 1, delta = absmax / n_levels, zp = 0
 asymmetric: n_levels = 2**b, delta = (max(x,0) - min(x,0)) / (n_levels - 1),
@@ -89,11 +91,53 @@ def params_from_minmax(x_max: torch.Tensor, x_min: torch.Tensor, cfg: QuantizerC
     return delta[:, None], zp[:, None]
 
 
+def round_ste(x: torch.Tensor) -> torch.Tensor:
+    """Round half to even. The JAX package's version is a straight-through
+    estimator; the port computes forward values only, so it is a plain
+    round until training is ported."""
+    return torch.round(x)
+
+
+def quantize(x: torch.Tensor, delta: torch.Tensor, zp: torch.Tensor, n_bits: int,
+             sym: bool) -> torch.Tensor:
+    """q = clamp(round(x / delta) - zp, -nl - 1, nl), in f32."""
+    nl = n_levels_for(n_bits, sym)
+    q = round_ste(x.float() / delta) - zp
+    return torch.clamp(q, -nl - 1, nl)
+
+
+def dequantize(q: torch.Tensor, delta: torch.Tensor, zp: torch.Tensor) -> torch.Tensor:
+    """x' = (q + zp) * delta."""
+    return (q + zp) * delta
+
+
+def fake_quant(x: torch.Tensor, delta: torch.Tensor, zp: torch.Tensor, n_bits: int,
+               sym: bool) -> torch.Tensor:
+    """Quantize then dequantize with the given params (f32 out)."""
+    return dequantize(quantize(x, delta, zp, n_bits, sym), delta, zp)
+
+
+def dynamic_fake_quant(x: torch.Tensor, cfg: QuantizerCfg) -> torch.Tensor:
+    """Per-call params from x itself; x [G, -1] (one group per row), the
+    output keeps x's dtype."""
+    n_bits = cfg.active_bits
+    delta, zp = compute_quant_params(x, n_bits, cfg.sym)
+    return fake_quant(x, delta, zp, n_bits, cfg.sym).to(x.dtype)
+
+
 def weight_quant_params(w_in_out: torch.Tensor, cfg: QuantizerCfg):
     """Per-output-channel (delta, zp), each [C_out], of a [C_in, C_out]
     weight (the JAX package's param layout, kept by the port's params)."""
     d, z = compute_quant_params(w_in_out.t(), cfg.active_bits, cfg.sym)
     return d[:, 0], z[:, 0]
+
+
+def weight_fake_quant(w_in_out: torch.Tensor, cfg: QuantizerCfg) -> torch.Tensor:
+    """Static fake-quant of a [C_in, C_out] weight, one group per output
+    channel; the output keeps the weight's dtype and layout."""
+    d, z = weight_quant_params(w_in_out, cfg)
+    return fake_quant(w_in_out, d[None, :], z[None, :], cfg.active_bits,
+                      cfg.sym).to(w_in_out.dtype)
 
 
 def weight_int_quant(w_in_out: torch.Tensor, cfg: QuantizerCfg):
