@@ -9,7 +9,10 @@ non-zero:
 0. environment: card name and power limit (nvidia-smi), torch / CUDA / nvcc
    versions, whether PyYAML imports;
 1. build: nvcc compiles wanq_tpu_torch/csrc/*.cu for sm_90a (one process
-   per source, in parallel) into wanq_tpu_torch/_build/;
+   per source, in parallel) into wanq_tpu_torch/_build/; cuobjdump then
+   counts the wgmma (HGMMA, IGMMA) and TMA (UTMALDG, UTMASTG) instructions
+   of the two attention kernels in the library, and the build log gives
+   their registers and spills;
 2. each kernel against its plain PyTorch version on the card at the main
    paths' shapes (T2V-1.3B, 832x480x81, batched CFG: B=2, seq 32768 with
    32760 valid tokens, M = 65536 token rows), with the warm median of
@@ -265,7 +268,7 @@ def kernel_checks(torch, results):
     # K4 -- attention: cross (Sk = 512) and self (32768, valid 32760). The
     # outputs are small (std ~ sqrt(e / Sk)), so the limits scale with them:
     # rel-L2 <= 1e-2 and max abs err <= 4 bf16 ulps of max|want|. Dropping
-    # one 64-key tile of the self call moves rel-L2 by ~4e-2.
+    # one 128-key tile of the self call moves rel-L2 by ~6e-2.
     def attn_err(got, want, what):
         g, w = got.float(), want.float()
         err = (g - w).abs().max().item()
@@ -796,6 +799,42 @@ def fidelity(torch, calib_path):
     check(not failures, "; ".join(failures))
 
 
+def hopper_evidence(_lib, nvcc: str) -> None:
+    """Shows that the two attention kernels are built from Hopper's own
+    instructions: counts HGMMA (bf16 wgmma, K4), IGMMA (int8 wgmma, K10) and
+    UTMALDG / UTMASTG (TMA loads / stores) in the library's SASS, and reads
+    each kernel's registers, spill bytes and any note that ptxas serialised
+    its wgmma instructions from the build log. Fails if a kernel has no
+    wgmma or no TMA load, spills, or was serialised."""
+    import re
+
+    log_text = str(_lib.last_build.get("log", ""))
+    res = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass",
+                          str(_lib.last_build["path"])], capture_output=True, text=True)
+    check(res.returncode == 0, f"cuobjdump failed: {res.stderr.strip()[:200]}")
+    functions = re.split(r"\n\s*Function : ", res.stdout)[1:]
+    for kernel, mma in (("flash_fwd_kernel", "HGMMA"), ("attn_int8_kernel", "IGMMA")):
+        sass = [f for f in functions if kernel in f.split("\n", 1)[0]]
+        check(len(sass) == 1, f"{kernel}: {len(sass)} functions of that name in the SASS")
+        counts = {op: len(re.findall(rf"\b{op}\b", sass[0]))
+                  for op in ("HGMMA", "IGMMA", "UTMALDG", "UTMASTG")}
+        # ptxas -v: 'Compiling entry function <name>', then its properties
+        m = re.search(rf"Compiling entry function '[^']*{kernel}[^']*'.*?(\d+) bytes spill stores, "
+                      rf"(\d+) bytes spill loads.*?Used (\d+) registers", log_text, re.S)
+        check(m is not None, f"{kernel}: no ptxas record in the build log")
+        spill_st, spill_ld, regs = (int(x) for x in m.groups())
+        serialised = [ln for ln in log_text.splitlines()
+                      if "serialized" in ln and kernel in ln]
+        log(f"  {kernel}: " + ", ".join(f"{op} {n}" for op, n in counts.items())
+            + f"; {regs} registers at launch (setmaxnreg moves them between the roles), "
+            f"spill stores {spill_st} B, loads {spill_ld} B; wgmma serialised by ptxas: "
+            f"{'yes' if serialised else 'no'}")
+        check(counts[mma] > 0 and counts["UTMALDG"] > 0,
+              f"{kernel}: {mma} {counts[mma]}, UTMALDG {counts['UTMALDG']} in the SASS")
+        check(spill_st == 0 and spill_ld == 0 and not serialised,
+              f"{kernel}: spills {spill_st}/{spill_ld} B or serialised wgmma: {serialised[:1]}")
+
+
 def main() -> int:
     try:
         import torch
@@ -845,6 +884,7 @@ def main() -> int:
     for line in str(_lib.last_build.get("log", "")).splitlines():
         if "Used" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
+    hopper_evidence(_lib, nvcc)
 
     log("[2] kernels vs plain versions at the paths' shapes (warm median, CUDA events)")
     results = {}

@@ -108,8 +108,21 @@ def test_k3_kernel_matches_plain(dev, gen):
         assert beyond <= 1e-4 and (g - wv).abs().max().item() <= 1e-2 * wv.abs().max().item()
 
 
-@pytest.mark.parametrize("sq,sk,valid", [(300, 300, 290), (257, 77, 77)])
+def _k4_close(got, want):
+    assert torch.isfinite(got.float()).all()
+    g, w = got.float(), want.float()
+    ulp = 2.0 ** (math.floor(math.log2(w.abs().max().item())) - 7)
+    assert (g - w).abs().max().item() <= 4 * ulp
+    assert ((g - w).norm() / w.norm()).item() <= 1e-2
+
+
+# kv_valid on a 128-key tile boundary, one past it, a single key, ragged Sq
+# and Sk, more than one ring round (valid 700 = 6 tiles over 2 stages)
+@pytest.mark.parametrize("sq,sk,valid", [(300, 300, 290), (257, 77, 77), (256, 256, 128),
+                                         (256, 300, 129), (130, 200, 1), (200, 384, 384),
+                                         (129, 777, 700)])
 def test_k4_kernel_matches_plain(dev, gen, sq, sk, valid):
+    """q seq-major, k seq-major, v a strided view over [B, S, N*D]."""
     from wanq_tpu_torch.models.attention import _flash_cuda, _sdpa_reference
 
     b, n, d = 2, 3, 128
@@ -120,12 +133,52 @@ def test_k4_kernel_matches_plain(dev, gen, sq, sk, valid):
     v[:, valid:] = 100.0
     vh = v.view(b, sk, n, d)
     got = _flash_cuda(q.transpose(1, 2), k.transpose(1, 2), vh.transpose(1, 2), 0.0884, valid)
-    want = _sdpa_reference(q, k, vh, 0.0884, valid)
-    assert torch.isfinite(got.float()).all()
-    g, w = got.float(), want.float()
-    ulp = 2.0 ** (math.floor(math.log2(w.abs().max().item())) - 7)
-    assert (g - w).abs().max().item() <= 4 * ulp
-    assert ((g - w).norm() / w.norm()).item() <= 1e-2
+    _k4_close(got, _sdpa_reference(q, k, vh, 0.0884, valid))
+
+
+@pytest.mark.parametrize("sq,sk", [(640, 640), (300, 512)])
+def test_k4_operand_layouts_match_plain(dev, gen, sq, sk):
+    """The three layouts of the model: q heads-major [B, N, S, D] with v over
+    [B, S, N*D] (self), q heads-major with k/v seq-major [B, Sk, N, D]
+    (cross), and everything seq-major through ``attention``."""
+    from wanq_tpu_torch.models.attention import (
+        _sdpa_reference, attention, attention_heads_major, cross_attention_heads_major)
+
+    b, n, d = 2, 3, 128
+    qh = torch.randn((b, n, sq, d), device=dev, generator=gen).bfloat16()
+    kh = torch.randn((b, n, sq, d), device=dev, generator=gen).bfloat16()
+    v = torch.randn((b, sq, n * d), device=dev, generator=gen).bfloat16()
+    vh = v.view(b, sq, n, d).transpose(1, 2)
+    got = attention_heads_major(qh * 0.0884, kh, vh, k_valid_len=sq - 3)
+    assert got.shape == (b, n, sq, d) and got.transpose(1, 2).is_contiguous()
+    want = _sdpa_reference((qh * 0.0884).transpose(1, 2), kh.transpose(1, 2),
+                           vh.transpose(1, 2), 1.0, sq - 3)
+    _k4_close(got.transpose(1, 2), want)
+    ck = torch.randn((b, sk, n, d), device=dev, generator=gen).bfloat16()
+    cv = torch.randn((b, sk, n, d), device=dev, generator=gen).bfloat16()
+    got = cross_attention_heads_major(qh, ck, cv)
+    want = _sdpa_reference(qh.transpose(1, 2), ck, cv, 1.0 / math.sqrt(d), None)
+    _k4_close(got.transpose(1, 2), want)
+    qs = qh.transpose(1, 2).contiguous()
+    _k4_close(attention(qs, ck, cv, k_valid_len=sk - 1),
+              _sdpa_reference(qs, ck, cv, 1.0 / math.sqrt(d), sk - 1))
+
+
+def test_k4_reads_v_as_it_lies(dev, gen):
+    """q, k, v that are not symmetric in kv and d: each query row picks one
+    key (a permutation) and v[t, c] = (7 t + 3 c) mod 251, so a V tile read
+    transposed, or with its 8-row groups or 64-column halves swapped,
+    returns another number."""
+    from wanq_tpu_torch.models.attention import _flash_cuda
+
+    s, d = 384, 128
+    perm = torch.randperm(s, device=dev, generator=gen)
+    k = torch.randn((1, 1, s, d), device=dev, generator=gen).bfloat16()
+    q = (k[:, :, perm].float() * 8.0).bfloat16()       # row i scores key perm[i] far highest
+    v = ((7 * torch.arange(s, device=dev)[:, None] + 3 * torch.arange(d, device=dev)[None, :])
+         % 251).bfloat16().view(1, 1, s, d)
+    out = _flash_cuda(q, k, v, 1.0, s)
+    torch.testing.assert_close(out[0, :, 0].float(), v[0, 0, perm].float(), rtol=0, atol=0)
 
 
 def test_k4_fully_masked_tail_tiles_stay_finite(dev, gen):
@@ -339,6 +392,28 @@ def test_k10_kernel_matches_blocked_plain(dev, gen, s, valid):
     got = attention_int8_cuda(qi, ki, vt, s_q, s_k, s_v, 0.0884, valid).transpose(1, 2)
     want = attention_int8_blocked(qi, ki, v_from_kernel_layout(vt), s_q, s_k, s_v, 0.0884, valid)
     assert torch.isfinite(got).all()
+    step = want.abs().max().item() / 127
+    assert ((got - want).norm() / want.norm()).item() <= 1e-3
+    assert ((got - want).abs() > step).float().mean().item() <= 1e-4
+
+
+def test_k10_kernel_sq_differs_from_sk(dev, gen):
+    """512 query rows against 1536 keys (1300 valid): q and its scales from
+    one producer call, k, v and theirs from another."""
+    from wanq_tpu_torch.ops.attn_int8 import (
+        attention_int8_blocked, attention_int8_cuda, quantize_qkv_int8_cuda,
+        v_from_kernel_layout)
+
+    valid = 1300
+    q, _, _ = _int8_attn_inputs(dev, gen, 2, 512, 3)
+    _, k, v = _int8_attn_inputs(dev, gen, 2, 1536, 3)
+    k[:, valid:] = 3.0
+    v[:, valid:] = 100.0
+    qi, _, _, s_q, _, _ = quantize_qkv_int8_cuda(*(q.transpose(1, 2),) * 3)
+    _, ki, vt, _, s_k, s_v = quantize_qkv_int8_cuda(*(t.transpose(1, 2) for t in (k, k, v)))
+    got = attention_int8_cuda(qi, ki, vt, s_q, s_k, s_v, 0.0884, valid).transpose(1, 2)
+    want = attention_int8_blocked(qi, ki, v_from_kernel_layout(vt), s_q, s_k, s_v, 0.0884, valid)
+    assert got.shape == (2, 3, 512, 128) and torch.isfinite(got).all()
     step = want.abs().max().item() / 127
     assert ((got - want).norm() / want.norm()).item() <= 1e-3
     assert ((got - want).abs() > step).float().mean().item() <= 1e-4

@@ -1,0 +1,100 @@
+#!/usr/bin/env python3
+"""Times the port's two attention kernels on one NVIDIA card.
+
+    python3 tools/torch_attn_bench.py [--reps 5]
+
+K4 (bf16 flash attention, ``csrc/flash_attention.cu``) on the self-attention
+shape of T2V-1.3B at 832x480x81 with batched CFG ([2, 12, 32768, 128], 32760
+valid keys) and on the cross-attention shape (512 keys), beside
+``torch.nn.functional.scaled_dot_product_attention`` on the same operands;
+K10a + K10 (int8 attention, ``csrc/quantize_qkv_int8.cu`` and
+``csrc/attention_int8.cu``) on the self-attention shape. Prints the card's
+name and power limit, warm medians of CUDA-event times, and the rates they
+mean. Correctness is held by ``chip_smoke.py`` and
+``tests/test_torch_cuda.py``; this script only checks the outputs against
+each other loosely so that a broken kernel is not timed.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+
+def cuda_ms(torch, fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, z = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        z.record()
+        z.synchronize()
+        times.append(a.elapsed_time(z))
+    return sorted(times)[len(times) // 2]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--reps", type=int, default=5)
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_attn_bench: needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    from wanq_tpu_torch.models.attention import _flash_cuda
+    from wanq_tpu_torch.ops.attn_int8 import attention_int8_cuda, quantize_qkv_int8_cuda
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    print(f"nvidia-smi name, power.limit: {smi}", flush=True)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    b, n, s, d, valid = 2, 12, 32768, 128, 32760
+    qs = 1.0 / d ** 0.5
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q = torch.randn((b, n, s, d), device=dev, generator=g).bfloat16()
+    k = torch.randn((b, n, s, d), device=dev, generator=g).bfloat16()
+    vh = torch.randn((b, s, n * d), device=dev, generator=g).bfloat16().view(b, s, n, d)
+    vh = vh.transpose(1, 2)
+    ck = torch.randn((b, 512, n, d), device=dev, generator=g).bfloat16().transpose(1, 2)
+    cv = torch.randn((b, 512, n, d), device=dev, generator=g).bfloat16().transpose(1, 2)
+
+    y4 = _flash_cuda(q, k, vh, qs, valid).transpose(1, 2).float()
+    ref = sdpa(q, k[:, :, :valid], vh[:, :, :valid], scale=qs).float()
+    rel = ((y4 - ref).norm() / ref.norm()).item()
+    print(f"K4 self vs scaled_dot_product_attention: rel-L2 {rel:.3e}", flush=True)
+    if not rel < 2e-2:
+        return 1
+    flops = 4 * b * n * s * valid * d
+    t = cuda_ms(torch, lambda: _flash_cuda(q, k, vh, qs, valid), args.reps)
+    t_lib = cuda_ms(torch, lambda: sdpa(q, k[:, :, :valid], vh[:, :, :valid], scale=qs), args.reps)
+    print(f"K4 self [2,12,32768,128] valid 32760: {t:.3f} ms ({flops / t / 1e9:.0f} TFLOP/s); "
+          f"scaled_dot_product_attention {t_lib:.3f} ms", flush=True)
+    t4 = t
+    t = cuda_ms(torch, lambda: _flash_cuda(q, ck, cv, qs, 512), args.reps)
+    t_lib = cuda_ms(torch, lambda: sdpa(q, ck, cv, scale=qs), args.reps)
+    print(f"K4 cross, 512 keys: {t:.3f} ms; scaled_dot_product_attention {t_lib:.3f} ms",
+          flush=True)
+
+    quant = quantize_qkv_int8_cuda(q, k, vh)
+    y8 = attention_int8_cuda(*quant, qs, valid).transpose(1, 2)
+    rel = ((y8 - y4).norm() / y4.norm()).item()
+    print(f"K10a + K10 vs K4: rel-L2 {rel:.3e}", flush=True)
+    if not rel < 0.1:
+        return 1
+    t10a = cuda_ms(torch, lambda: quantize_qkv_int8_cuda(q, k, vh), args.reps)
+    t10 = cuda_ms(torch, lambda: attention_int8_cuda(*quant, qs, valid), args.reps)
+    print(f"K10 [2,12,32768,128] int8 valid 32760: {t10:.3f} ms ({flops / t10 / 1e9:.0f} TOP/s); "
+          f"K10a {t10a:.3f} ms; (K10a + K10) / K4 self {(t10 + t10a) / t4:.3f}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,260 +6,335 @@
 // the kv-prefix mask :94 kv < valid) and the flash cross-attention
 // (:347 cross_attention_heads_major, :464 attention; segment-id kv mask).
 //   out[b, s, h, :] = softmax(scale * q[b,h,s,:] . k[b,h,t,:], t < kv_valid) @ v
-// q, k, v are read through explicit (batch, head, seq) strides with a
-// contiguous head dim, so one kernel reads q heads-major [B,H,S,D] (the K3
-// output), v seq-major [B,S,H*D] (the GEMM output -- this is the head split
-// the TPU did in a separate pass), and the cross-attention k/v [B,Sk,H,D].
-// The output is written seq-major [B,S,H,D], so the head merge before the
-// o-projection is a view, not a pass. Pad q rows (>= kv_valid) attend the
-// valid prefix like every other row.
+// q, k, v are read through (batch, head, seq) byte strides with a contiguous
+// head dim, so one kernel reads q heads-major [B,H,S,D] (the K3 output), v
+// seq-major [B,S,H*D] (the GEMM output -- this is the head split the TPU did
+// in a separate pass), and the cross-attention k/v [B,Sk,H,D]. The output is
+// written seq-major [B,S,H,D], so the head merge before the o-projection is a
+// view, not a pass. Pad q rows (>= kv_valid) attend the valid prefix like
+// every other row.
 //
 // Bound on the H100: tensor-core throughput (4*S^2*D flops per head against
-// O(S*D) bytes). Design: FlashAttention-2 forward. A block of 4 warps owns
-// 64 query rows (16 per warp); K/V tiles of 64 rows stream through a
-// 2-stage cp.async double buffer in shared memory (rows padded to 272 bytes:
-// conflict-free fragment loads and ldmatrix); S = QK^T and O += PV run on
-// bf16 mma.sync m16n8k16 with f32 accumulators; the softmax is online in
-// f32 (exp2 with the scale folded in). KV tiles wholly past kv_valid are
-// never visited, so a band mask can later skip tiles the same way; a row
-// whose running max is still -inf uses 0 as its exponent base, so a fully
-// masked tile cannot produce exp(-inf - -inf) = NaN. wgmma/TMA and warp
-// specialisation are later work.
-#include "common.cuh"
+// O(S*D) bytes). Design (sm90.cuh has the parts): a block owns 128 query
+// rows and has three warpgroups. One thread of the producer warpgroup loads Q
+// once and then K and V tiles of 128 keys through TMA into two-stage rings
+// (K and V have their own full/empty mbarriers, so the next K tile lands
+// while V is still read); each operand has one 4-D tensor map (d, seq, head,
+// batch) built per launch from the strides, and a [rows, 128] bf16 tile is two
+// 128-byte-swizzled [rows, 64] sub-tiles. The k/v maps end at kv_valid, so
+// rows past it arrive as zeros. Two consumer warpgroups own 64 query rows
+// each and run both products on wgmma m64n128k16: S = Q K^T from shared
+// memory through descriptors, O += P V with P from registers (the S
+// accumulator layout is the A fragment layout) and V read as it lies, as an
+// MN-major B operand. The softmax is online in f32 on exp2 with the scale
+// folded in (ex2.approx). Inside a warpgroup the first product of tile j is
+// started together with the second product of tile j - 1, and the softmax of
+// tile j runs while that second product is in flight; the two warpgroups take
+// turns at starting their products through a pair of named barriers, so one's
+// exponentials run under the other's MMAs (S, O and P of a consumer thread are
+// 160 registers: setmaxnreg hands the consumers 240 and leaves the producer
+// 24). Only the last visited tile can be partial and only it is masked; tiles
+// wholly past kv_valid are never visited; a row whose running max is still
+// -inf uses 0 as its exponent base, so a fully masked tile cannot produce
+// exp(-inf - -inf) = NaN. The output goes through shared memory (Q's rows of
+// the same warpgroup, same swizzle) and a TMA store, which clips the rows past
+// Sq.
+#include "sm90.cuh"
 
 namespace {
 
+using namespace wanq::sm90;
+
 constexpr int D = 128;
-constexpr int BQ = 64, BKV = 64;
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = D + 8;  // padded shared row, elements (272 bytes)
-constexpr int kTileElems = BKV * kPad;
-constexpr int kSmemBytes = (BQ * kPad + 4 * kTileElems) * 2;  // Q + 2 x (K, V)
+constexpr int BQ = 128, BKV = 128;
+constexpr int kStages = 2;
+constexpr int kThreads = 384;             // producer warpgroup + 2 consumer warpgroups
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // 128 * 24 + 256 * 240 <= 65536
+constexpr int kHalf = 128 * 64 * 2;       // one [128, 64] bf16 sub-tile: 16 KB
+constexpr int kTile = 2 * kHalf;          // one [128, 128] bf16 tile: 32 KB
+constexpr int kBarBytes = 128;
+constexpr int kSmemBytes = 1024 + kTile * (1 + 2 * kStages) + kBarBytes;
+constexpr int kSchedBar = 1;              // named barriers 1, 2: the consumers' turns
+constexpr int kEpiBar = 3;                // named barriers 3, 4: one per consumer, epilogue
 
 struct Params {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  __nv_bfloat16* o;
-  long long q_sb, q_sh, q_ss;
-  long long k_sb, k_sh, k_ss;
-  long long v_sb, v_sh, v_ss;
-  long long o_sb, o_sh, o_ss;
-  int H, Sq, Sk, kv_valid;
+  CUtensorMap q, k, v, o;
+  int kv_valid;
   float scale_log2;
 };
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(wanq::smem_addr(p)));
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// rows x 128 bf16 from global (row stride `rs`, rows clamped to `rmax`) into
-// shared rows of kPad elements; 16 chunks of 16 bytes per row.
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          long long rs, int r0, int rmax, int rows, int tid) {
-  for (int id = tid; id < rows * 16; id += kThreads) {
-    int r = id >> 4, c = (id & 15) * 8;
-    int gr = min(r0 + r, rmax);
-    wanq::cp_async16(dst + r * kPad + c, src + (long long)gr * rs + c);
+struct Bars {
+  uint64_t q_full;
+  uint64_t k_full[kStages], k_empty[kStages];
+  uint64_t v_full[kStages], v_empty[kStages];
+};
+static_assert(sizeof(Bars) <= kBarBytes, "barrier block");
+
+// S = Q K^T for the warpgroup's 64 rows and one 128-key tile (not committed).
+__device__ __forceinline__ void start_qk(float (&s)[64], uint64_t q_desc, uint64_t k_desc) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk >> 2) * kHalf + (kk & 3) * 32;
+    wgmma_bf16_ss(s, desc_advance(q_desc, off), desc_advance(k_desc, off), kk > 0);
   }
 }
 
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
-  extern __shared__ __align__(16) __nv_bfloat16 sm[];
-  __nv_bfloat16* sQ = sm;
-  __nv_bfloat16* sK = sm + BQ * kPad;         // 2 stages
-  __nv_bfloat16* sV = sK + 2 * kTileElems;    // 2 stages
+// O += P V for one 128-key tile, P packed in the A fragment layout.
+__device__ __forceinline__ void start_pv(float (&o)[64], const uint32_t (&p)[32],
+                                         uint64_t v_desc) {
+#pragma unroll
+  for (int kk = 0; kk < BKV / 16; ++kk)
+    wgmma_bf16_rs_mn(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+                     desc_advance(v_desc, kk * 2048), 1);
+}
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
+// Online-softmax step on the raw scores of one tile: masks (last partial tile
+// only), moves the running max, turns s into the unnormalised probs, adds
+// their row sums, and returns the factors by which earlier sums shrink.
+__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m_run)[2], float (&l_run)[2],
+                                             float (&alpha)[2], float scale_log2, bool partial,
+                                             int col0, int kv_valid) {
+  if (partial) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int col = col0 + (i >> 2) * 8 + (i & 1);
+      if (col >= kv_valid) s[i] = -INFINITY;
+    }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  float base[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(wanq::kFull, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(wanq::kFull, mx[r], 2));
+    const float m_new = fmaxf(m_run[r], mx[r]);
+    base[r] = (m_new == -INFINITY) ? 0.f : m_new * scale_log2;
+    alpha[r] = ex2_approx(m_run[r] * scale_log2 - base[r]);
+    m_run[r] = m_new;
+    l_run[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    s[i] = ex2_approx(fmaf(s[i], scale_log2, -base[(i >> 1) & 1]));
+    l_run[(i >> 1) & 1] += s[i];
+  }
+}
+
+// Probs -> bf16 A fragments of the second product: k step kk (16 keys) takes
+// column tiles 2 kk and 2 kk + 1.
+__device__ __forceinline__ void pack_probs(uint32_t (&p)[32], const float (&s)[64]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    p[4 * kk + 0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+    p[4 * kk + 1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    p[4 * kk + 2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    p[4 * kk + 3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+__device__ __forceinline__ void scale_rows(float (&o)[64], const float (&f)[2]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] *= f[(i >> 1) & 1];
+}
+
+__global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(const __grid_constant__ Params p) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024u - (wanq::smem_addr(smem_raw) & 1023u)) & 1023u);
+  uint8_t* sQ = smem;
+  uint8_t* sK = sQ + kTile;
+  uint8_t* sV = sK + kStages * kTile;
+  Bars* bars = reinterpret_cast<Bars*>(sV + kStages * kTile);
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y, b = blockIdx.z;
-
-  const __nv_bfloat16* qb = p.q + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kb = p.k + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* vb = p.v + b * p.v_sb + h * p.v_sh;
   const int n_tiles = (p.kv_valid + BKV - 1) / BKV;
 
-  load_rows(sQ, qb, p.q_ss, q0, p.Sq - 1, BQ, tid);
-  load_rows(sK, kb, p.k_ss, 0, p.Sk - 1, BKV, tid);
-  load_rows(sV, vb, p.v_ss, 0, p.Sk - 1, BKV, tid);
-  wanq::cp_async_commit();
-
-  uint32_t qf[D / 16][4];
-  float o[D / 8][4];
+  if (tid == 0) {
+    mbar_init(&bars->q_full, 1);
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};
-
-  for (int t = 0; t < n_tiles; ++t) {
-    if (t + 1 < n_tiles) {
-      const int st = (t + 1) & 1;
-      load_rows(sK + st * kTileElems, kb, p.k_ss, (t + 1) * BKV, p.Sk - 1, BKV, tid);
-      load_rows(sV + st * kTileElems, vb, p.v_ss, (t + 1) * BKV, p.Sk - 1, BKV, tid);
-      wanq::cp_async_commit();
-      wanq::cp_async_wait<1>();
-    } else {
-      wanq::cp_async_wait<0>();
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&bars->k_full[s], 1);
+      mbar_init(&bars->v_full[s], 1);
+      mbar_init(&bars->k_empty[s], 8);  // one arrival per consumer warp
+      mbar_init(&bars->v_empty[s], 8);
     }
-    __syncthreads();
-    if (t == 0) {
-      const __nv_bfloat16* qr = sQ + (warp * 16 + g) * kPad + tig * 2;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        qf[kk][0] = *reinterpret_cast<const uint32_t*>(qr + kk * 16);
-        qf[kk][1] = *reinterpret_cast<const uint32_t*>(qr + 8 * kPad + kk * 16);
-        qf[kk][2] = *reinterpret_cast<const uint32_t*>(qr + kk * 16 + 8);
-        qf[kk][3] = *reinterpret_cast<const uint32_t*>(qr + 8 * kPad + kk * 16 + 8);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer ----
+    reg_dealloc<kProducerRegs>();
+    if (tid == 0) {
+      prefetch_tensormap(&p.q);
+      prefetch_tensormap(&p.k);
+      prefetch_tensormap(&p.v);
+      mbar_expect_tx(&bars->q_full, kTile);
+      tma_load_4d(sQ, &p.q, &bars->q_full, 0, q0, h, b);
+      tma_load_4d(sQ + kHalf, &p.q, &bars->q_full, 64, q0, h, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % kStages;
+        const uint32_t ph = (j / kStages) & 1;
+        mbar_wait(&bars->k_empty[st], ph ^ 1);
+        mbar_expect_tx(&bars->k_full[st], kTile);
+        tma_load_4d(sK + st * kTile, &p.k, &bars->k_full[st], 0, j * BKV, h, b);
+        tma_load_4d(sK + st * kTile + kHalf, &p.k, &bars->k_full[st], 64, j * BKV, h, b);
+        mbar_wait(&bars->v_empty[st], ph ^ 1);
+        mbar_expect_tx(&bars->v_full[st], kTile);
+        tma_load_4d(sV + st * kTile, &p.v, &bars->v_full[st], 0, j * BKV, h, b);
+        tma_load_4d(sV + st * kTile + kHalf, &p.v, &bars->v_full[st], 64, j * BKV, h, b);
       }
     }
-    const __nv_bfloat16* cK = sK + (t & 1) * kTileElems;
-    const __nv_bfloat16* cV = sV + (t & 1) * kTileElems;
+  } else {
+    // ---- consumers: 64 query rows each ----
+    reg_alloc<kConsumerRegs>();
+    const int cw = wg - 1;
+    const int lane = tid & 31, warp = (tid >> 5) & 3;
+    const int g = lane >> 2, tig = lane & 3;
+    const uint64_t q_desc = kmajor_desc(wanq::smem_addr(sQ) + cw * 64 * 128);
+    const uint64_t k_desc0 = kmajor_desc(wanq::smem_addr(sK));
+    const uint64_t v_desc0 = mnmajor_desc(wanq::smem_addr(sV), kHalf);
+    const bool tail_partial = (p.kv_valid % BKV) != 0;
+    const float scale_log2 = p.scale_log2;
 
-    // S = Q K^T for this warp's 16 rows x 64 kv columns
-    float s[BKV / 8][4];
+    float o[64], s[64];
+    uint32_t pfrag[32];
 #pragma unroll
-    for (int j = 0; j < BKV / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-      const __nv_bfloat16* kr = cK + (j * 8 + g) * kPad + tig * 2;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t b0 = *reinterpret_cast<const uint32_t*>(kr + kk * 16);
-        uint32_t b1 = *reinterpret_cast<const uint32_t*>(kr + kk * 16 + 8);
-        mma_bf16(s[j], qf[kk], b0, b1);
-      }
+    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    float m_run[2] = {-INFINITY, -INFINITY};
+    float l_run[2] = {0.f, 0.f};
+    float alpha[2];
+
+    mbar_wait(&bars->q_full, 0);
+    // The first consumer takes the first turn: it completes its own barrier.
+    if (cw == 0) bar_arrive(kSchedBar, 256);
+    mbar_wait(&bars->k_full[0], 0);
+    bar_sync(kSchedBar + cw, 256);
+    wgmma_fence();
+    start_qk(s, q_desc, k_desc0);
+    wgmma_commit();
+    bar_arrive(kSchedBar + (cw ^ 1), 256);
+    wgmma_wait<0>();
+    fence_regs(s);
+    if (lane == 0) mbar_arrive(&bars->k_empty[0]);
+    softmax_tile(s, m_run, l_run, alpha, scale_log2, tail_partial && n_tiles == 1, tig * 2,
+                 p.kv_valid);
+    pack_probs(pfrag, s);
+    for (int j = 1; j < n_tiles; ++j) {
+      const int st = j % kStages, sv = (j - 1) % kStages;
+      const uint32_t ph = (j / kStages) & 1, ph_v = ((j - 1) / kStages) & 1;
+      mbar_wait(&bars->k_full[st], ph);
+      bar_sync(kSchedBar + cw, 256);
+      wgmma_fence();
+      start_qk(s, q_desc, desc_advance(k_desc0, st * kTile));
+      wgmma_commit();
+      scale_rows(o, alpha);  // by the factors of tile j - 1, whose probs pfrag holds
+      mbar_wait(&bars->v_full[sv], ph_v);
+      wgmma_fence();
+      start_pv(o, pfrag, desc_advance(v_desc0, sv * kTile));
+      wgmma_commit();
+      bar_arrive(kSchedBar + (cw ^ 1), 256);
+      wgmma_wait<1>();  // S of tile j is there; O += P V of tile j - 1 still runs
+      fence_regs(s);
+      if (lane == 0) mbar_arrive(&bars->k_empty[st]);
+      softmax_tile(s, m_run, l_run, alpha, scale_log2, tail_partial && j == n_tiles - 1,
+                   j * BKV + tig * 2, p.kv_valid);
+      wgmma_wait<0>();
+      fence_regs(o);
+      if (lane == 0) mbar_arrive(&bars->v_empty[sv]);
+      pack_probs(pfrag, s);
+    }
+    {
+      const int sv = (n_tiles - 1) % kStages;
+      scale_rows(o, alpha);
+      mbar_wait(&bars->v_full[sv], ((n_tiles - 1) / kStages) & 1);
+      wgmma_fence();
+      start_pv(o, pfrag, desc_advance(v_desc0, sv * kTile));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
     }
 
-    // online softmax (rows g and g + 8 of the warp's 16)
-    const int col0 = t * BKV + tig * 2;
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < BKV / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = col0 + j * 8 + (e & 1);
-        float val = s[j][e] * p.scale_log2;
-        if (col >= p.kv_valid) val = -INFINITY;
-        s[j][e] = val;
-        mx[e >> 1] = fmaxf(mx[e >> 1], val);
-      }
-    }
-    float alpha[2], base[2];
+    // ---- epilogue: O / l -> bf16 -> shared (this warpgroup's Q rows) -> TMA store ----
+    float inv[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(wanq::kFull, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(wanq::kFull, mx[r], 2));
-      const float m_new = fmaxf(m_run[r], mx[r]);
-      base[r] = (m_new == -INFINITY) ? 0.f : m_new;
-      alpha[r] = exp2f(m_run[r] - base[r]);
-      m_run[r] = m_new;
-      l_run[r] *= alpha[r];
+      float l = l_run[r];
+      l += __shfl_xor_sync(wanq::kFull, l, 1);
+      l += __shfl_xor_sync(wanq::kFull, l, 2);
+      inv[r] = l > 0.f ? 1.0f / l : 0.f;
     }
+    uint8_t* sO = sQ + cw * 64 * 128;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      o[j][0] *= alpha[0];
-      o[j][1] *= alpha[0];
-      o[j][2] *= alpha[1];
-      o[j][3] *= alpha[1];
-    }
-    uint32_t pf[BKV / 16][4];
+    for (int r = 0; r < 2; ++r) {
+      const int row = warp * 16 + g + r * 8;  // row & 7 == g
 #pragma unroll
-    for (int j = 0; j < BKV / 8; ++j) {
-      float pe[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        pe[e] = exp2f(s[j][e] - base[e >> 1]);
-        l_run[e >> 1] += pe[e];
-      }
-      // S accumulator layout == A fragment layout of the PV mma
-      pf[j >> 1][(j & 1) * 2 + 0] = pack_bf16(pe[0], pe[1]);
-      pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(pe[2], pe[3]);
-    }
-
-    // O += P V
-    const int mat = lane >> 3, mr = lane & 7;
-#pragma unroll
-    for (int kk = 0; kk < BKV / 16; ++kk) {
-      const __nv_bfloat16* vrow = cV + (kk * 16 + (mat & 1) * 8 + mr) * kPad + (mat >> 1) * 8;
-#pragma unroll
-      for (int jd = 0; jd < D / 16; ++jd) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, vrow + jd * 16);
-        mma_bf16(o[2 * jd], pf[kk], bv[0], bv[1]);
-        mma_bf16(o[2 * jd + 1], pf[kk], bv[2], bv[3]);
+      for (int j = 0; j < 16; ++j) {
+        uint8_t* dst = sO + (j >> 3) * kHalf + row * 128 + (((j & 7) ^ g) << 4) + tig * 4;
+        *reinterpret_cast<uint32_t*>(dst) =
+            pack_bf16(o[4 * j + 2 * r] * inv[r], o[4 * j + 2 * r + 1] * inv[r]);
       }
     }
-    __syncthreads();
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float l = l_run[r];
-    l += __shfl_xor_sync(wanq::kFull, l, 1);
-    l += __shfl_xor_sync(wanq::kFull, l, 2);
-    inv[r] = l > 0.f ? 1.0f / l : 0.f;
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int sq = q0 + warp * 16 + g + r * 8;
-    if (sq >= p.Sq) continue;
-    __nv_bfloat16* orow = p.o + b * p.o_sb + h * p.o_sh + sq * p.o_ss + tig * 2;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
-          __floats2bfloat162_rn(o[j][2 * r] * inv[r], o[j][2 * r + 1] * inv[r]);
+    fence_proxy_async();
+    bar_sync(kEpiBar + cw, 128);
+    if ((tid & 127) == 0) {
+      tma_store_4d(&p.o, sO, 0, q0 + cw * 64, h, b);
+      tma_store_4d(&p.o, sO + kHalf, 64, q0 + cw * 64, h, b);
+      tma_store_commit();
+      tma_store_wait_read();
     }
   }
+}
+
+// One operand's 4-D map: (d, seq, head, batch), byte strides of seq, head and
+// batch, a box of [box_rows, 64].
+bool make_map(CUtensorMap* map, const void* base, long long seq, int heads, long long batch,
+              const long long* strides, int box_rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)seq, (cuuint64_t)heads,
+                              (cuuint64_t)batch};
+  const cuuint64_t st[3] = {(cuuint64_t)strides[0], (cuuint64_t)strides[1],
+                            (cuuint64_t)strides[2]};
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, st, box);
 }
 
 }  // namespace
 
-// q/k/v/o: bf16, head dim 128 contiguous; strides in elements, multiples of 8.
-// 1 <= kv_valid <= Sk.
+// q/k/v/o: bf16, head dim 128 contiguous, bases 16-byte aligned; `strides`
+// holds the byte strides of (seq, head, batch) for q, k, v and o in turn,
+// multiples of 16. 1 <= kv_valid <= Sk; scale > 0.
 WANQ_API int wanq_flash_attention(const void* q, const void* k, const void* v, void* o,
-                                  long long B, int H, int Sq, int Sk, long long q_sb,
-                                  long long q_sh, long long q_ss, long long k_sb,
-                                  long long k_sh, long long k_ss, long long v_sb,
-                                  long long v_sh, long long v_ss, long long o_sb,
-                                  long long o_sh, long long o_ss, int kv_valid, float scale,
+                                  long long B, int H, int Sq, int Sk, long long q_ss,
+                                  long long q_sh, long long q_sb, long long k_ss,
+                                  long long k_sh, long long k_sb, long long v_ss,
+                                  long long v_sh, long long v_sb, long long o_ss,
+                                  long long o_sh, long long o_sb, int kv_valid, float scale,
                                   void* stream) {
   if (B == 0 || Sq == 0) return 0;
-  if (kv_valid < 1 || kv_valid > Sk) return (int)cudaErrorInvalidValue;
+  if (kv_valid < 1 || kv_valid > Sk || !(scale > 0.f) || B > 65535 || H > 65535)
+    return (int)cudaErrorInvalidValue;
+  const long long qs[3] = {q_ss, q_sh, q_sb}, ks[3] = {k_ss, k_sh, k_sb};
+  const long long vs[3] = {v_ss, v_sh, v_sb}, os[3] = {o_ss, o_sh, o_sb};
   Params p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
-  p.o = static_cast<__nv_bfloat16*>(o);
-  p.q_sb = q_sb; p.q_sh = q_sh; p.q_ss = q_ss;
-  p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
-  p.v_sb = v_sb; p.v_sh = v_sh; p.v_ss = v_ss;
-  p.o_sb = o_sb; p.o_sh = o_sh; p.o_ss = o_ss;
-  p.H = H; p.Sq = Sq; p.Sk = Sk; p.kv_valid = kv_valid;
+  // the k/v maps end at kv_valid: the rows past it load as zeros
+  if (!make_map(&p.q, q, Sq, H, B, qs, BQ) || !make_map(&p.k, k, kv_valid, H, B, ks, BKV) ||
+      !make_map(&p.v, v, kv_valid, H, B, vs, BKV) || !make_map(&p.o, o, Sq, H, B, os, 64))
+    return (int)cudaErrorInvalidValue;
+  p.kv_valid = kv_valid;
   p.scale_log2 = scale * 1.4426950408889634f;
+  dim3 grid((Sq + BQ - 1) / BQ, H, (unsigned)B);
   cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((Sq + BQ - 1) / BQ, H, (unsigned)B);
   flash_fwd_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }

@@ -13,15 +13,15 @@
 // S pads to a multiple of 512 with zero rows. The operands are bf16
 // [B, S, H, 128] read through (batch, seq, head) strides.
 //
-// The v layout: K10's second product P[q, kv] . V[kv, d] runs on
-// mma.sync.m16n8k32.s8, whose B operand wants kv contiguous, so v is written
-// [d][kv]. Inside each group of 32 kv the bytes are permuted: K10 builds its
-// A fragment from the C fragment of the first product without shuffles,
+// The v layout: K10's second product P[q, kv] . V[kv, d] runs on the int8
+// wgmma, which takes K-major operands only, so v is written [d][kv] with kv
+// contiguous. Inside each group of 32 kv the bytes are permuted: K10 builds
+// its A fragment from the accumulator of the first product without shuffles,
 // which puts the actual kv = 8t + 2i + lo (tile t of 8 columns, thread i of
 // the quad, lo in {0, 1}) at fragment position 16 (t / 2) + 4 i + 2 (t % 2)
-// + lo; v is stored at that position, so K10 reads each B register with one
-// 32-bit load. wanq_tpu_torch/ops/attn_int8.py::v_kernel_layout is the same
-// map in PyTorch.
+// + lo; v is stored at that position, so K10 reads its tiles as they lie.
+// wanq_tpu_torch/ops/attn_int8.py::v_kernel_layout is the same map in
+// PyTorch.
 //
 // Bound on the H100: memory (3 x B*S*H*128 bf16 read, as many int8 written:
 // 453 MB at [2, 32768, 12, 128]; v is read twice, the second time mostly

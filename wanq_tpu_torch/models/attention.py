@@ -62,16 +62,38 @@ def _sdpa_reference(q, k, v, scale: float, k_valid_len: Optional[int],
     return outs[0].contiguous() if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
+def tensor_map_layout(t: torch.Tensor, name: str = "operand"):
+    """What K4's 4-D tensor map (TMA) needs of a logical [B, N, S, D] view:
+    ``(dims, byte_strides)`` with dims ``(D, S, N, B)``, innermost first, and
+    the byte strides of ``(S, N, B)``. The view may have any strides (q
+    heads-major, v over the GEMM output [B, S, N*D], cross k/v seq-major)
+    as long as the head dim is 128 and contiguous, every other stride is a
+    positive multiple of 16 bytes and the base is 16-byte aligned; anything
+    else raises. A dimension of size 1 never moves, so its stride is
+    replaced by one row's bytes."""
+    if t.ndim != 4 or t.shape[-1] != 128 or t.stride(-1) != 1:
+        raise ValueError(f"{name}: K4 needs [B, N, S, 128] with a contiguous head dim, "
+                         f"got shape {tuple(t.shape)} strides {t.stride()}")
+    b, n, s, d = t.shape
+    row = d * t.element_size()
+    strides = []
+    for size, st in ((s, t.stride(2)), (n, t.stride(1)), (b, t.stride(0))):
+        nbytes = row if size == 1 else st * t.element_size()
+        if nbytes <= 0 or nbytes % 16 or nbytes >= 1 << 40:
+            raise ValueError(f"{name}: byte strides must be positive multiples of 16, got "
+                             f"shape {tuple(t.shape)} strides {t.stride()}")
+        strides.append(nbytes)
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: the base must be 16-byte aligned")
+    return (d, s, n, b), tuple(strides)
+
+
 def _flash_cuda(q, k, v, scale: float, kv_valid: int) -> torch.Tensor:
     """K4 launch on logical [B, N, S, D] views; returns [B, Sq, N, D]."""
+    layouts = []
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         _lib.require_cuda(t, torch.bfloat16, name)
-        if t.shape[-1] != 128 or t.stride(-1) != 1:
-            raise ValueError(f"{name}: K4 needs a contiguous head dim of 128, "
-                             f"got shape {tuple(t.shape)} strides {t.stride()}")
-        if any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16:
-            raise ValueError(f"{name}: strides must be multiples of 8 and the "
-                             "base 16-byte aligned")
+        layouts.append(tensor_map_layout(t, name))
     b, n, sq, d = q.shape
     sk = k.shape[2]
     if k.shape != (b, n, sk, d) or v.shape != k.shape:
@@ -79,12 +101,14 @@ def _flash_cuda(q, k, v, scale: float, kv_valid: int) -> torch.Tensor:
                          f"v{tuple(v.shape)}")
     if not 1 <= kv_valid <= sk:
         raise ValueError(f"kv_valid {kv_valid} outside [1, {sk}]")
+    if not scale > 0:
+        raise ValueError(f"scale {scale} must be positive")
     out = torch.empty((b, sq, n, d), dtype=torch.bfloat16, device=q.device)
+    layouts.append(tensor_map_layout(out.transpose(1, 2), "out"))
     _lib.launch(
         "attention", "wanq_flash_attention",
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n, sq, sk,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        out.stride(0), out.stride(2), out.stride(1),
+        *(st for _, strides in layouts for st in strides),
         int(kv_valid), float(scale),
     )
     return out

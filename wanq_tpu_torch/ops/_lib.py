@@ -7,7 +7,10 @@ shared library with a plain C interface, at first use, into
 sources and flags, so an edited source is rebuilt. The library is bound
 with ``ctypes``: every pointer and the CUDA stream pass as ``c_void_p``,
 and each entry point returns the launch's ``cudaError_t``, which
-:func:`launch` raises on.
+:func:`launch` raises on. The two attention kernels build their TMA tensor
+maps on the host per launch; they look ``cuTensorMapEncodeTiled`` up in the
+``libcuda.so.1`` that PyTorch has already loaded (``csrc/sm90.cuh``), so the
+link line names no further library.
 
 Each launch adds one to the kernel's count in :data:`LAUNCHES` (read and
 reset through :func:`launch_counts` / :func:`reset_launch_counts`), so a run

@@ -105,8 +105,9 @@ def _kperm_index(device) -> torch.Tensor:
 
 def v_kernel_layout(vi: torch.Tensor) -> torch.Tensor:
     """vi int8 [B, H, S, D] (S a multiple of 32) -> K10's v operand
-    [B, H, D, S]: transposed, and inside each group of 32 kv permuted so
-    that the kernel's second MMA reads its B registers with 32-bit loads."""
+    [B, H, D, S]: transposed (the int8 wgmma reads kv-contiguous rows), and
+    inside each group of 32 kv permuted the way the kernel packs its probs
+    into the A fragment of the second product."""
     b, h, s, d = vi.shape
     if s % 32:
         raise ValueError(f"S={s} must be a multiple of 32")
