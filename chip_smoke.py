@@ -11,15 +11,15 @@ non-zero:
 1. build: nvcc compiles wanq_tpu_torch/csrc/*.cu for sm_90a (one process
    per source, in parallel) into wanq_tpu_torch/_build/; cuobjdump then
    counts the wgmma (HGMMA, IGMMA) and TMA (UTMALDG, UTMASTG) instructions
-   of the two attention kernels in the library, and the build log gives
-   their registers and spills;
+   of the two attention kernels and the two wgmma int GEMMs (K2, K9) in the
+   library, and the build log gives their registers and spills;
 2. each kernel against its plain PyTorch version on the card at the main
    paths' shapes (T2V-1.3B, 832x480x81, batched CFG: B=2, seq 32768 with
    32760 valid tokens, M = 65536 token rows), with the warm median of
-   CUDA-event timings of both, ragged-M tails for the int4 GEMMs, and each
-   kernel's bound: the larger of its bytes (inputs read once, outputs
-   written once) over 3.35 TB/s and its operations over the card's peak for
-   their type. Where one PyTorch call computes the same function it is
+   CUDA-event timings of both, ragged-M tails for the int GEMMs, K2's GELU +
+   quant mode against its plain chain, and each kernel's bound: the larger
+   of its bytes (inputs read once, outputs written once) over 3.35 TB/s and
+   its operations over the card's peak for their type. Where one PyTorch call computes the same function it is
    timed beside the kernel (scaled_dot_product_attention for K4); the port
    never calls it. torch._int_mm is timed as a note beside the int GEMMs,
    whose fused epilogues no single call computes;
@@ -31,7 +31,9 @@ non-zero:
    --hardware) and simulated W8A8 (wan_w8a8_speed.yaml without --hardware);
    per-step time, peak memory, finite latents, and kernel launch counts,
    reset just before each path and read just after, equal to the 30-block
-   totals of PATHS below, which shows no plain version ran;
+   totals of PATHS below, which shows no plain version ran (K2's GELU +
+   quant mode has a counter of its own: the W8A8 paths launch it once a
+   block, so the plain GELU + quant chain is gone from them);
 4. fidelity and profile: one step's noise prediction of each path vs bf16
    FP on the same weights, with CFG 5 and conditional alone (W8A8: PSNR
    >= 30 dB with CFG; 4-bit paths and int8 attention: cosine >= 0.9
@@ -63,7 +65,9 @@ OUT = ROOT / "_smoke_out"
 TASK, SIZE, FRAMES, STEPS = "t2v-1.3B", "832*480", 81, 3
 YAML = "quant_configs/wan_w8a8_speed.yaml"
 # path -> (quant YAML, kernel launches per block), read from models/dit.py:
-# W8A8: K1 for q/k/v, cross q and ffn.0; K2 for q/k/v, cross q, ffn.0/2.
+# W8A8: K1 for q/k/v, cross q and ffn.0; K2 for q/k/v, cross q, ffn.2, and in
+#   its GELU + quant mode (a counter of its own) for ffn.0: the static ffn.2
+#   scale makes the plain GELU + quant chain the GEMM's epilogue.
 # mixed W4A8 (cross-attention FP): K1 for q/k/v and ffn.0; K2 for q/k/v/o;
 #   K7 for the o input and the ffn.2 GELU; K8 for ffn.0/2.
 # W4A4 (unfused: 4-bit activations): K9 at self q/k/v/o, cross q/o, ffn.0/2.
@@ -74,14 +78,15 @@ YAML = "quant_configs/wan_w8a8_speed.yaml"
 # sim (no --hardware): every linear is fake-quant + a bf16 GEMM; no int kernel.
 ATTN_YAML = "quant_configs/wan_w8a8_attn.yaml"
 PATHS = {
-    "w8a8": (YAML, {"ln_modulate_quant": 3, "w8a8_linear": 6, "rms_rope_heads": 3,
-                    "attention": 2}),
+    "w8a8": (YAML, {"ln_modulate_quant": 3, "w8a8_linear": 5, "w8a8_linear_gelu_quant": 1,
+                    "rms_rope_heads": 3, "attention": 2}),
     "w4a8_mixed": ("quant_configs/wan_w4a8_mixed.yaml",
                    {"ln_modulate_quant": 2, "w8a8_linear": 4, "rms_rope_heads": 3,
                     "attention": 2, "quant_sum": 2, "w4a8_linear": 2}),
     "w4a4": ("quant_configs/wan_w4a4.yaml",
              {"rms_rope_heads": 3, "attention": 2, "w4a4_linear": 8}),
-    "w8a8_attn": (ATTN_YAML, {"ln_modulate_quant": 3, "w8a8_linear": 6, "rms_rope_heads": 1,
+    "w8a8_attn": (ATTN_YAML, {"ln_modulate_quant": 3, "w8a8_linear": 5,
+                              "w8a8_linear_gelu_quant": 1, "rms_rope_heads": 1,
                               "attention": 1, "quantize_qkv_int8": 1, "attention_int8": 1}),
     "w8a8_sim": (YAML, {"rms_rope_heads": 3, "attention": 2}),
 }
@@ -103,6 +108,8 @@ SOURCES = {
     "attention_int8": ("wanq_tpu_torch/csrc/attention_int8.cu",
                        "wanq_tpu/ops/attn_int8.py:181"),
 }
+# launch counters of a kernel's further modes -> the kernel they belong to
+MODES = {"w8a8_linear_gelu_quant": "w8a8_linear"}
 # NVIDIA H100 SXM data sheet, dense: device memory bytes/s and operations/s
 HBM_BPS = 3.35e12
 PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
@@ -213,34 +220,43 @@ def kernel_checks(torch, results):
            b * s * c * 3 + b * s * 8 + 2 * b * c * 4, 10 * b * s * c, "f32")
     del x, got, want, diff
 
-    # K2 -- W8A8 GEMM at M = 65536 for the three (K, N) of the path
+    # K2 -- W8A8 GEMM at M = 65536 for the three (K, N) of the path, each in
+    # the out type its site has: exact, also at ragged M and in the other out
+    # type. Then its GELU + quant mode at ffn.0's shape against the plain chain.
     m = b * s
+    ragged = (m - 8, m + 3)
     for k, nn, out_dtype in ((1536, 1536, torch.bfloat16), (1536, 8960, torch.bfloat16),
                              (8960, 1536, torch.float32)):
-        a = torch.randint(-128, 128, (m, k), device=dev, generator=g, dtype=torch.int8)
+        a = torch.randint(-128, 128, (max(ragged), k), device=dev, generator=g, dtype=torch.int8)
         w = torch.randint(-128, 128, (nn, k), device=dev, generator=g, dtype=torch.int8)
-        s_a = torch.rand((m,), device=dev, generator=g) * 0.02 + 1e-3
-        s_w = torch.rand((nn,), device=dev, generator=g) * 0.02 + 1e-3
+        s_a = torch.rand((max(ragged),), device=dev, generator=g) * 0.02 + 1e-3
+        s_w = torch.rand((nn,), device=dev, generator=g) * 0.02 / k ** 0.5 + 1e-5
         sum_a = s_a * a.float().sum(-1)
         zp = torch.randint(-20, 20, (nn,), device=dev, generator=g).float()
         bias = torch.randn((nn,), device=dev, generator=g)
-        args = (a, w, s_a, s_w, sum_a, zp, bias, out_dtype)
-        got = w8a8_linear_cuda(*args)
-        want = w8a8_linear_plain(*args)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        tol = 1e-6 * want.float().abs().max().item()
-        check(err <= tol, f"K2 ({k},{nn}) max abs err {err} > {tol}")
+        for mm in (m, *ragged):
+            for dt in (torch.bfloat16, torch.float32):
+                args = (a[:mm], w, s_a[:mm], s_w, sum_a[:mm], zp, bias, dt)
+                got, want = w8a8_linear_cuda(*args), w8a8_linear_plain(*args)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                check(torch.equal(got, want), f"K2 M={mm} ({k},{nn}) {dt}: max abs err {err}")
+                del got, want
+        args = (a[:m], w, s_a[:m], s_w, sum_a[:m], zp, bias, out_dtype)
         ms = cuda_ms(lambda: w8a8_linear_cuda(*args))
         tops = 2 * m * k * nn / ms / 1e9
-        record("w8a8_linear", err, ms, cuda_ms(lambda: w8a8_linear_plain(*args), reps=3),
-               f"M=65536 K={k} N={nn} {str(out_dtype)[6:]} out ({tops:.0f} TOP/s)",
-               m * k + nn * k + m * nn * got.element_size() + 8 * m + 12 * nn,
-               2 * m * k * nn, "int8")
         wt = w.t()
-        log(f"    note: torch._int_mm, the bare int8 product of the same operands (no "
-            f"dequant epilogue, int32 out): {cuda_ms(lambda: torch._int_mm(a, wt)):.3f} ms")
-        del a, w, wt, got, want, args
+        t_mm = cuda_ms(lambda: torch._int_mm(a[:m], wt))
+        record("w8a8_linear", err, ms, cuda_ms(lambda: w8a8_linear_plain(*args), reps=3),
+               f"M=65536 K={k} N={nn} {str(out_dtype)[6:]} out, exact in both out types also at "
+               f"M=65528 and 65539 ({tops:.0f} TOP/s; note: torch._int_mm, the bare int8 product "
+               f"of the same operands with an int32 output, {t_mm:.3f} ms)",
+               m * k + nn * k + m * nn * (2 if out_dtype == torch.bfloat16 else 4) + 8 * m
+               + 12 * nn, 2 * m * k * nn, "int8")
+        if nn == 8960:
+            gelu_quant_check(torch, record, (a, w, s_a, s_w, sum_a, zp, bias), m, ragged, ms)
+        del a, w, wt, args
+        torch.cuda.empty_cache()
 
     # K3 -- RMSNorm + RoPE + heads-major, [2, 32768, 1536] -> [2, 12, 32768, 128]
     ca, sb = rope_tables_interleaved((21, 30, 52), d)
@@ -324,6 +340,41 @@ def kernel_checks(torch, results):
     del q, k, v_flat, vh, qsc
     torch.cuda.empty_cache()
     int4_checks(torch, g, record)
+
+
+def gelu_quant_check(torch, record, operands, m, ragged, bf16_ms):
+    """K2's GELU + quant mode at ffn.0's shape (1536 -> 8960, M = 65536)
+    against its plain chain (K2's plain GEMM with a bf16 output, tanh-GELU in
+    f32, static-scale int8 quant, row sums). Limits, stated before the first
+    run: codes equal (every step of the epilogue is the plain chain's own
+    arithmetic: exact int32 sum, _rn dequant, bf16 rounding, PyTorch's GELU
+    expression, a true division, rint); the scaled row sums exactly the sums
+    of the kernel's own codes; s2 and sm2 equal to the plain version's. Also
+    at ragged M, where rows past M must add nothing to the sums."""
+    from wanq_tpu_torch.ops.qgemm import (
+        w8a8_linear_gelu_quant_cuda, w8a8_linear_gelu_quant_plain)
+
+    a, w, s_a, s_w, sum_a, zp, bias = operands  # max(ragged) rows
+    k, n = a.shape[1], w.shape[0]
+    scale2 = torch.tensor(0.021, device=a.device)  # ~ absmax / 127 of the GELU output
+    for mm in (m, *ragged):
+        ops = (a[:mm], w, s_a[:mm], s_w, scale2, sum_a[:mm], zp, bias)
+        got = w8a8_linear_gelu_quant_cuda(*ops)
+        want = w8a8_linear_gelu_quant_plain(*ops)
+        torch.cuda.synchronize()
+        ndiff = (got[0] != want[0]).sum().item()
+        own = torch.equal(got[2], scale2 * got[0].float().sum(-1))
+        check(ndiff == 0 and own and torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]),
+              f"K2 gelu+quant M={mm}: {ndiff} codes differ, row sums of own codes equal: {own}")
+        sat = (got[0].abs() >= 127).float().mean().item()
+        del got, want
+    ops = (a[:m], w, s_a[:m], s_w, scale2, sum_a[:m], zp, bias)
+    ms = cuda_ms(lambda: w8a8_linear_gelu_quant_cuda(*ops))
+    record("w8a8_linear", 0.0, ms, cuda_ms(lambda: w8a8_linear_gelu_quant_plain(*ops), reps=3),
+           f"GELU + quant mode M=65536 K={k} N={n} int8 out + row sums, codes, s2 and sm2 equal "
+           f"also at M=65528 and 65539 ({2 * m * k * n / ms / 1e9:.0f} TOP/s; "
+           f"{ms / bf16_ms:.3f} x the bf16-out mode; codes at +-127: {sat:.3f})",
+           m * k + n * k + m * n + 12 * m + 12 * n + 4, 2 * m * k * n, "int8")
 
 
 def int8_attention_checks(torch, record, q, k, vh, valid, qs, t4_self):
@@ -560,11 +611,12 @@ def run_path(torch, label, launches, calib_path=None):
         f"{', '.join(f'{x:.3f}' for x in step_s)}; mean {mean:.3f} s")
     log(f"  [{label}] peak torch.cuda.max_memory_allocated: {peak / 2**30:.2f} GiB")
     log(f"  [{label}] launches: {counts}")
-    for name in SOURCES:
+    for name in (*SOURCES, *MODES):
         want = per_block.get(name, 0) * 30 * STEPS
         check(counts.get(name, 0) == want,
               f"{label}: {name} {counts.get(name, 0)} launches, want {want}")
-    for name, cnt in counts.items():
+    for name, cnt in counts.items():  # a mode's launches are its kernel's
+        name = MODES.get(name, name)
         launches[name] = launches.get(name, 0) + cnt
 
     lat = np.load(lat_path)["latents"]
@@ -641,6 +693,8 @@ def profile_steps(torch, steps):
         for name, (t, cnt) in rows:
             for sub, tag in KERNEL_NAMES.items():
                 if sub in name:
+                    if tag == "K2" and ", 2>" in name:  # w8a8_gemm_kernel<BN, mode 2>
+                        tag = "K2 gelu+quant"
                     sum_t, sum_n = ours.get(tag, (0.0, 0))
                     ours[tag] = (sum_t + t, sum_n + cnt)
         log("    hand kernels: " + ", ".join(
@@ -800,12 +854,13 @@ def fidelity(torch, calib_path):
 
 
 def hopper_evidence(_lib, nvcc: str) -> None:
-    """Shows that the two attention kernels are built from Hopper's own
-    instructions: counts HGMMA (bf16 wgmma, K4), IGMMA (int8 wgmma, K10) and
-    UTMALDG / UTMASTG (TMA loads / stores) in the library's SASS, and reads
-    each kernel's registers, spill bytes and any note that ptxas serialised
-    its wgmma instructions from the build log. Fails if a kernel has no
-    wgmma or no TMA load, spills, or was serialised."""
+    """Shows that the attention kernels and the int GEMMs K2 and K9 are built
+    from Hopper's own instructions: counts HGMMA (bf16 wgmma, K4), IGMMA (int8
+    wgmma: K10, K2, K9) and UTMALDG / UTMASTG (TMA loads / stores) in the
+    library's SASS, and reads each kernel's registers, spill bytes and any
+    note that ptxas serialised its wgmma instructions from the build log.
+    K2 and K9 are templates: every instantiation is held to the same. Fails
+    if a kernel has no wgmma or no TMA load, spills, or was serialised."""
     import re
 
     log_text = str(_lib.last_build.get("log", ""))
@@ -813,26 +868,35 @@ def hopper_evidence(_lib, nvcc: str) -> None:
                           str(_lib.last_build["path"])], capture_output=True, text=True)
     check(res.returncode == 0, f"cuobjdump failed: {res.stderr.strip()[:200]}")
     functions = re.split(r"\n\s*Function : ", res.stdout)[1:]
-    for kernel, mma in (("flash_fwd_kernel", "HGMMA"), ("attn_int8_kernel", "IGMMA")):
+    # kernel -> (its wgmma instruction, how many instantiations the library has)
+    kernels = {"flash_fwd_kernel": ("HGMMA", 1), "attn_int8_kernel": ("IGMMA", 1),
+               "w8a8_gemm_kernel": ("IGMMA", 6), "w4a4_gemm_kernel": ("IGMMA", 2)}
+    for kernel, (mma, n_inst) in kernels.items():
         sass = [f for f in functions if kernel in f.split("\n", 1)[0]]
-        check(len(sass) == 1, f"{kernel}: {len(sass)} functions of that name in the SASS")
-        counts = {op: len(re.findall(rf"\b{op}\b", sass[0]))
-                  for op in ("HGMMA", "IGMMA", "UTMALDG", "UTMASTG")}
+        check(len(sass) == n_inst, f"{kernel}: {len(sass)} functions of that name in the SASS")
         # ptxas -v: 'Compiling entry function <name>', then its properties
-        m = re.search(rf"Compiling entry function '[^']*{kernel}[^']*'.*?(\d+) bytes spill stores, "
-                      rf"(\d+) bytes spill loads.*?Used (\d+) registers", log_text, re.S)
-        check(m is not None, f"{kernel}: no ptxas record in the build log")
-        spill_st, spill_ld, regs = (int(x) for x in m.groups())
-        serialised = [ln for ln in log_text.splitlines()
-                      if "serialized" in ln and kernel in ln]
-        log(f"  {kernel}: " + ", ".join(f"{op} {n}" for op, n in counts.items())
-            + f"; {regs} registers at launch (setmaxnreg moves them between the roles), "
-            f"spill stores {spill_st} B, loads {spill_ld} B; wgmma serialised by ptxas: "
-            f"{'yes' if serialised else 'no'}")
-        check(counts[mma] > 0 and counts["UTMALDG"] > 0,
-              f"{kernel}: {mma} {counts[mma]}, UTMALDG {counts['UTMALDG']} in the SASS")
-        check(spill_st == 0 and spill_ld == 0 and not serialised,
-              f"{kernel}: spills {spill_st}/{spill_ld} B or serialised wgmma: {serialised[:1]}")
+        records = re.findall(
+            rf"Compiling entry function '([^']*{kernel}[^']*)'.*?(\d+) bytes spill stores, "
+            rf"(\d+) bytes spill loads.*?Used (\d+) registers", log_text, re.S)
+        check(len(records) == n_inst, f"{kernel}: {len(records)} ptxas records in the build log")
+        serialised = [ln for ln in log_text.splitlines() if "serialized" in ln and kernel in ln]
+        for fn in sass:
+            mangled = fn.split("\n", 1)[0].strip()
+            counts = {op: len(re.findall(rf"\b{op}\b", fn))
+                      for op in ("HGMMA", "IGMMA", "UTMALDG", "UTMASTG")}
+            spill_st, spill_ld, regs = next(
+                (int(st), int(ld), int(r)) for name, st, ld, r in records if name == mangled)
+            inst = re.search(rf"{kernel}(I\w+?E)EvNS", mangled)  # template arguments, mangled
+            log(f"  {kernel}{' ' + inst.group(1) if inst else ''}: "
+                + ", ".join(f"{op} {n}" for op, n in counts.items())
+                + f"; {regs} registers at launch (setmaxnreg moves them between the roles), "
+                f"spill stores {spill_st} B, loads {spill_ld} B; wgmma serialised by ptxas: "
+                f"{'yes' if serialised else 'no'}")
+            check(counts[mma] > 0 and counts["UTMALDG"] > 0,
+                  f"{kernel}: {mma} {counts[mma]}, UTMALDG {counts['UTMALDG']} in the SASS")
+            check(spill_st == 0 and spill_ld == 0 and not serialised,
+                  f"{kernel}: spills {spill_st}/{spill_ld} B or serialised wgmma: "
+                  f"{serialised[:1]}")
 
 
 def main() -> int:

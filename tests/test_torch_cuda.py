@@ -9,7 +9,9 @@ so run it there as
 
 Tolerances: K1 int8 codes may differ by one on <= 0.1% of elements
 (reduction order at rounding ties), scales rtol 1e-5; K2 is exact (the
-int32 sums are exact and the epilogue runs in the same order); K3 within
+int32 sums are exact and the epilogue runs in the same order), and so is its
+GELU + quant mode (the GELU is PyTorch's expression, the division a true one,
+the row sum an integer sum); K3 within
 one bf16 ulp except on <= 1e-4 of elements, where the norm's f32 sum
 order flips the bf16 rounding of the normalized value by one unit; K4
 within rel-L2 1e-2 and 4 bf16 ulps of max|want| (bf16 P in the PV product
@@ -268,6 +270,185 @@ def test_k9_kernel_matches_plain_ragged_m(dev, gen, m, out_dtype):
     assert torch.equal(got.cpu(), want)
 
 
+def _k2_operands(dev, gen, m, k, n):
+    a = torch.randint(-128, 128, (m, k), device=dev, generator=gen, dtype=torch.int8)
+    w = torch.randint(-128, 128, (n, k), device=dev, generator=gen, dtype=torch.int8)
+    s_a = torch.rand((m,), device=dev, generator=gen) * 0.02 + 1e-3
+    s_w = torch.rand((n,), device=dev, generator=gen) * 0.02 / k ** 0.5 + 1e-5
+    sum_a = s_a * a.float().sum(-1)
+    zp = torch.randint(-20, 20, (n,), device=dev, generator=gen).float()
+    bias = torch.randn((n,), device=dev, generator=gen)
+    return a, w, s_a, s_w, sum_a, zp, bias
+
+
+@pytest.mark.parametrize("m", [50, 333, 1024 + 3])
+@pytest.mark.parametrize("k,n", [(64, 128), (192, 512), (320, 384), (1536, 1536)])
+def test_k2_tiles_k_tails_and_small_m(dev, gen, m, k, n):
+    """Both tile widths (N of 128 and 384 take the 128-wide tile, 512 and
+    1536 the 256-wide one), M below one tile and ragged, K = 64 * odd (the
+    last 128-byte K step is half outside the matrix and loads as zeros), with
+    and without the optional operands: exact."""
+    from wanq_tpu_torch.ops.qgemm import w8a8_linear_cuda, w8a8_linear_plain
+
+    a, w, s_a, s_w, sum_a, zp, bias = _k2_operands(dev, gen, m, k, n)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        want = w8a8_linear_plain(a, w, s_a, s_w, sum_a, zp, bias, out_dtype)
+        want_bare = w8a8_linear_plain(a, w, s_a, s_w, bias=bias, out_dtype=out_dtype)
+        got = w8a8_linear_cuda(a, w, s_a, s_w, sum_a, zp, bias, out_dtype)
+        assert torch.equal(got, want), out_dtype
+        got = w8a8_linear_cuda(a, w, s_a, s_w, bias=bias, out_dtype=out_dtype)
+        assert torch.equal(got, want_bare), out_dtype
+
+
+def _check_gelu_quant(got, want, scale2):
+    """Codes equal; the row sums are exactly the sums of the kernel's own
+    codes; s2 and sm2 as the plain version computes them from those codes."""
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[2], scale2 * got[0].float().sum(-1))
+    assert torch.equal(got[2], want[2])
+
+
+@pytest.mark.parametrize("m", [50, 333, 1024 + 3])
+@pytest.mark.parametrize("k,n", [(192, 1152), (1152, 256), (192, 384), (192, 1024)])
+def test_k2_gelu_quant_mode_matches_plain_chain(dev, gen, m, k, n):
+    """K2's GELU + quant mode against the plain chain (GEMM with a bf16
+    output, tanh-GELU in f32, static-scale int8 quant, row sum) at both tile
+    widths (N of 256 and 1024: 256 wide; 384 and 1152: 128 wide), with and
+    without zp_w / bias (the straight-line and the general
+    epilogue), with scales inside and outside the range of the branch-free
+    division: codes, scales and sums exact. The int32 row sums are zeroed for
+    every call: a second call gives the same sums."""
+    from wanq_tpu_torch.ops.qgemm import (
+        w8a8_linear_gelu_quant_cuda, w8a8_linear_gelu_quant_plain)
+
+    a, w, s_a, s_w, sum_a, zp, bias = _k2_operands(dev, gen, m, k, n)
+    for scale in (0.03, 1e-14, 3e7):
+        scale2 = torch.tensor(scale, device=dev)
+        for opt in ((sum_a, zp, bias), (None, None, bias), (None, None, None)):
+            want = w8a8_linear_gelu_quant_plain(a, w, s_a, s_w, scale2, *opt)
+            got = w8a8_linear_gelu_quant_cuda(a, w, s_a, s_w, scale2, *opt)
+            _check_gelu_quant(got, want, scale2)
+            again = w8a8_linear_gelu_quant_cuda(a, w, s_a, s_w, scale2, *opt)
+            assert torch.equal(again[2], got[2])
+    got = w8a8_linear_gelu_quant_cuda(a.reshape(1, m, k), w, s_a.reshape(1, m), s_w,
+                                      torch.tensor(0.03, device=dev), bias=bias)
+    assert got[0].shape == (1, m, n) and got[1].shape == got[2].shape == (1, m)
+
+
+def _every_bf16_as_bias(dev, pad):
+    """Operands that make K2's dequantized h run over every finite bf16
+    value: A = 0, so h is the bias, and the bias holds all 65280 finite bf16
+    patterns (255 tiles of 256) plus ``pad`` zeros (pad = 128: 511 tiles of
+    128). Returns (a, w, s_a, s_w, opts): opts[0] has zp_w and bias (the
+    straight-line epilogue where the scale allows it), opts[1] the bias alone
+    (the general epilogue)."""
+    bits = torch.arange(65536, device=dev, dtype=torch.int32).to(torch.int16)
+    vals = bits.view(torch.bfloat16).float()
+    vals = vals[torch.isfinite(vals)]
+    assert vals.numel() == 65280
+    vals = torch.cat([vals, torch.zeros((pad,), device=dev)])
+    n = vals.numel()
+    a = torch.zeros((20, 64), dtype=torch.int8, device=dev)
+    w = torch.ones((n, 64), dtype=torch.int8, device=dev)
+    s_a, s_w = torch.ones((20,), device=dev), torch.ones((n,), device=dev)
+    opts = ((torch.zeros((20,), device=dev), torch.zeros((n,), device=dev), vals),
+            (None, None, vals))
+    return a, w, s_a, s_w, opts
+
+
+@pytest.mark.parametrize("pad", [0, 128])
+@pytest.mark.parametrize("scale", [0.02, 0.4])
+def test_k2_gelu_quant_epilogue_on_every_bf16_value(dev, scale, pad):
+    """The epilogue's chain behind the GEMM (bf16 h -> GELU -> division ->
+    code) on every finite bf16 value, at both tile widths: exact, in the
+    straight-line epilogue (branch-free division) and the general one."""
+    from wanq_tpu_torch.ops.qgemm import (
+        w8a8_linear_gelu_quant_cuda, w8a8_linear_gelu_quant_plain)
+
+    a, w, s_a, s_w, opts = _every_bf16_as_bias(dev, pad)
+    scale2 = torch.tensor(scale, device=dev)
+    for opt in opts:
+        want = w8a8_linear_gelu_quant_plain(a, w, s_a, s_w, scale2, *opt)
+        assert want[0].unique().numel() > 100  # the codes do span the range
+        got = w8a8_linear_gelu_quant_cuda(a, w, s_a, s_w, scale2, *opt)
+        _check_gelu_quant(got, want, scale2)
+
+
+def test_k2_branch_free_division_over_its_range_of_scales(dev):
+    """The straight-line epilogue divides without div.rn's branch for scales
+    in [2**-40, 2**20] and must round as the true division does for every one
+    of them, not only the calibrated ones: 300 scales spread log-uniformly
+    over that range, its two ends, and values just outside it (which take the
+    general epilogue), each on every finite bf16 value of h. The codes of the
+    straight-line epilogue, of the general one (__fdiv_rn) and of the plain
+    chain are equal."""
+    from wanq_tpu_torch.ops.qgemm import (
+        w8a8_linear_gelu_quant_cuda, w8a8_linear_gelu_quant_plain)
+
+    a, w, s_a, s_w, opts = _every_bf16_as_bias(dev, 0)
+    rng = np.random.default_rng(5)
+    scales = np.concatenate([
+        np.exp2(rng.uniform(-40.0, 20.0, size=300)),
+        np.exp2([-40.0, 20.0]),
+        np.exp2([-40.0, 20.0]) * [1 + 2.0 ** -20, 1 - 2.0 ** -20],  # just inside
+        np.exp2([-40.0, 20.0]) * [1 - 2.0 ** -20, 1 + 2.0 ** -20],  # just outside
+        np.exp2([-41.0, -60.0, 21.0, 40.0]),
+    ]).astype(np.float32)
+    for scale in scales:
+        scale2 = torch.tensor(scale, device=dev)
+        fast = w8a8_linear_gelu_quant_cuda(a, w, s_a, s_w, scale2, *opts[0])
+        general = w8a8_linear_gelu_quant_cuda(a, w, s_a, s_w, scale2, *opts[1])
+        want = w8a8_linear_gelu_quant_plain(a, w, s_a, s_w, scale2, *opts[1])
+        assert torch.equal(fast[0], general[0]), float(scale)
+        assert torch.equal(fast[2], general[2]), float(scale)
+        _check_gelu_quant(general, want, scale2)
+
+
+@pytest.mark.parametrize("m", [50, 333, 1024 + 3])
+@pytest.mark.parametrize("k,n", [(128, 128), (384, 256), (1536, 384)])
+def test_k9_groups_and_small_m(dev, gen, m, k, n):
+    """One group, an odd number of groups (the two accumulator sets take
+    turns) and the path's K; M below one tile and ragged; both out types,
+    with and without bias: exact."""
+    from wanq_tpu_torch.ops.qgemm import w4a4_linear_cuda, w4a4_linear_plain
+
+    a = torch.randint(-8, 8, (m, k), device=dev, generator=gen, dtype=torch.int8)
+    wp = torch.randint(-128, 128, (n, k // 2), device=dev, generator=gen, dtype=torch.int8)
+    s_a = torch.rand((m, k // 128), device=dev, generator=gen) * 0.02 + 1e-3
+    s_w = torch.rand((k // 128, n), device=dev, generator=gen) * 0.02 + 1e-3
+    bias = torch.randn((n,), device=dev, generator=gen)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        for b in (bias, None):
+            got = w4a4_linear_cuda(a, wp, s_a, s_w, b, 128, out_dtype)
+            assert torch.equal(got, w4a4_linear_plain(a, wp, s_a, s_w, b, 128, out_dtype))
+
+
+def test_k2_wrappers_raise_on_what_the_kernel_does_not_take(dev):
+    """K must be a multiple of 64 (rows of 16-byte multiples for the tensor
+    map, and the contract of the first kernel), N of 128, operands 16-byte
+    aligned."""
+    from wanq_tpu_torch.ops.qgemm import w8a8_linear_cuda, w8a8_linear_gelu_quant_cuda
+
+    a = torch.zeros((5, 128), dtype=torch.int8, device=dev)
+    w = torch.zeros((384, 128), dtype=torch.int8, device=dev)
+    s, sw = torch.ones((5,), device=dev), torch.ones((384,), device=dev)
+    sc = torch.tensor(0.1, device=dev)
+    odd = torch.zeros((5 * 128 + 1,), dtype=torch.int8, device=dev)[1:].view(5, 128)
+    bad = [
+        lambda: w8a8_linear_cuda(a[:, :96].contiguous(), w[:, :96].contiguous(), s, sw),  # K % 64
+        lambda: w8a8_linear_cuda(a, w[:200].contiguous(), s, sw[:200]),                   # N % 128
+        lambda: w8a8_linear_cuda(odd, w, s, sw),                                          # alignment
+        lambda: w8a8_linear_cuda(a, w, s, sw, out_dtype=torch.float16),
+        lambda: w8a8_linear_gelu_quant_cuda(a, w[:200].contiguous(), s, sw[:200], sc),    # N % 128
+        lambda: w8a8_linear_gelu_quant_cuda(a, w, s, sw, sc.cpu()),
+        lambda: w8a8_linear_gelu_quant_cuda(a, w, s, sw, sc, zp_w=sw),                    # no sum_a
+    ]
+    for fn in bad:
+        with pytest.raises(ValueError):
+            fn()
+
+
 @pytest.mark.parametrize("yaml", ["wan_w8a8_speed.yaml", "wan_w4a8_mixed.yaml",
                                   "wan_w4a4.yaml"])
 def test_ptq_state_on_card_equals_cpu(dev, yaml):
@@ -343,13 +524,19 @@ def test_wrappers_count_launches_and_raise_on_bad_input(dev):
     from wanq_tpu_torch.ops.fused import quant_sum
     from wanq_tpu_torch.ops.qgemm import w4a4_linear, w4a8_linear
 
+    from wanq_tpu_torch.ops.qgemm import w8a8_linear_gelu_quant
+
+    scale2 = torch.tensor(0.1, device=dev)
+    w8a8_linear_gelu_quant(a, w, s, sw, scale2)
+    w8a8_linear_gelu_quant(a.cpu(), w.cpu(), s.cpu(), sw.cpu(), scale2.cpu())  # plain: no launch
+    assert _lib.launch_counts() == {"w8a8_linear": 1, "w8a8_linear_gelu_quant": 1}
     x = torch.randn((5, 128), device=dev)
     quant_sum(x, gelu=True)
     w4a8_linear(a, w[:, :64].contiguous(), s, sw)
     w4a4_linear(x, w[:, :64].contiguous(), torch.ones((1, 128), device=dev))
     quant_sum(x.cpu())  # the plain version launches nothing
-    assert _lib.launch_counts() == {"w8a8_linear": 1, "quant_sum": 1, "w4a8_linear": 1,
-                                    "w4a4_linear": 1}
+    assert _lib.launch_counts() == {"w8a8_linear": 1, "w8a8_linear_gelu_quant": 1,
+                                    "quant_sum": 1, "w4a8_linear": 1, "w4a4_linear": 1}
     assert np.isfinite(_lib.last_build.get("seconds", 0.0))
 
 

@@ -95,19 +95,6 @@ struct Bars {
 };
 static_assert(sizeof(Bars) <= kBarBytes, "barrier block");
 
-// Position in a ring of N stages after `count` uses.
-template <int N>
-struct Ring {
-  int stage = 0;
-  uint32_t phase = 0;
-  __device__ __forceinline__ void advance() {
-    if (++stage == N) {
-      stage = 0;
-      phase ^= 1;
-    }
-  }
-};
-
 __global__ void __launch_bounds__(kThreads, 1) attn_int8_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(16) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024u - (wanq::smem_addr(smem_raw) & 1023u)) & 1023u);

@@ -31,14 +31,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-__device__ __forceinline__ float gelu_tanh(float x) {
-  const float kBeta = 0.7978845608028654f;  // sqrt(2 / pi)
-  const float kKappa = 0.044715f;
-  const float x_cube = x * x * x;
-  const float inner = kBeta * (x + kKappa * x_cube);
-  return 0.5f * x * (1.0f + tanhf(inner));
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     quant_sum_kernel(const T* __restrict__ x, int gelu, const float* __restrict__ channel_scale,
@@ -59,7 +51,7 @@ __global__ void __launch_bounds__(kThreads)
     V::load(xr + c, v);
 #pragma unroll
     for (int i = 0; i < VN; ++i) {
-      float y = gelu ? gelu_tanh(v[i]) : v[i];
+      float y = gelu ? wanq::gelu_tanh(v[i]) : v[i];
       if (channel_scale) y = __fmul_rn(y, channel_scale[c + i]);
       v[i] = y;
       amax = fmaxf(amax, fabsf(y));

@@ -1,5 +1,6 @@
-// Hopper-only building blocks shared by the two attention kernels (K4
-// flash_attention.cu, K10 attention_int8.cu): mbarriers, TMA tile loads and
+// Hopper-only building blocks shared by the attention kernels (K4
+// flash_attention.cu, K10 attention_int8.cu) and the int GEMMs (K2
+// w8a8_gemm.cu, K9 w4a4_gemm.cu): mbarriers, TMA tile loads and
 // stores, wgmma (warpgroup MMA) with its shared-memory descriptors, named
 // barriers, setmaxnreg, and the host-side tensor-map encoder.
 //
@@ -69,6 +70,22 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// Position in a ring of N stages, each guarded by a full and an empty barrier:
+// a consumer waits for full[stage] at `phase`, a producer for empty[stage] at
+// `phase ^ 1`. A parity tells apart only two neighbouring uses of a stage, so
+// every thread that waits on a ring walks all of its uses in order.
+template <int N>
+struct Ring {
+  int stage = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void advance() {
+    if (++stage == N) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
 // ---------------------------------------------------------------------------
 // TMA
 // ---------------------------------------------------------------------------
@@ -95,6 +112,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) of contiguous global memory at `src` -> shared
+// `dst`, both 16-byte aligned; the bytes are counted on `bar`.
+__device__ __forceinline__ void bulk_load_1d(void* dst, const void* src, uint32_t bytes,
+                                             uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 
@@ -267,6 +295,34 @@ __device__ __forceinline__ void wgmma_s8_ss(int (&d)[64], uint64_t desc_a, uint6
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+#define WANQ_R128(m, a)                                                                  \
+  WANQ_R64(m, a), WANQ_R8(m, a, 64), WANQ_R8(m, a, 72), WANQ_R8(m, a, 80), WANQ_R8(m, a, 88), \
+      WANQ_R8(m, a, 96), WANQ_R8(m, a, 104), WANQ_R8(m, a, 112), WANQ_R8(m, a, 120)
+#define WANQ_ACC128 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}"
+
+// The same at twice the width: d (+)= A[64 x 32] . B[256 x 32]^T into a
+// 64 x 256 tile, 128 registers a thread, d[4 j + e] as above with j < 32.
+__device__ __forceinline__ void wgmma_s8_ss_n256(int (&d)[128], uint64_t desc_a, uint64_t desc_b,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 " WANQ_ACC128
+      ", %128, %129, p;\n"
+      "}\n"
+      : WANQ_R128(WANQ_INOUT_R, d)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // The same with A from registers (the mma.sync m16n8k32 A fragment: a0 row
 // g, k bytes 4 tig..4 tig + 3; a1 row g + 8; a2, a3 at k + 16).
 __device__ __forceinline__ void wgmma_s8_rs(int (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2,
@@ -310,15 +366,29 @@ inline EncodeTiledFn encode_tiled_fn() {
 // A tiled map over `rank` dimensions (innermost first) with the 128-byte
 // swizzle: `dims` in elements, `strides` in bytes for dimensions 1..rank-1
 // (multiples of 16), `box` the tile in elements (its innermost extent spans at
-// most 128 bytes). Returns false if libcuda refuses the map.
+// most 128 bytes), or unswizzled (rows of the box packed densely) when
+// `swizzle` says so. Returns false if libcuda refuses the map.
 inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base,
-                       const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
+                       const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                       CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (!fn) return false;
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
   return fn(map, type, (cuuint32_t)rank, const_cast<void*>(base), dims, strides, box, ones,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 2-D map over bytes [rows, row_bytes] (row_bytes contiguous, a multiple of
+// 16) with boxes of `box_rows` rows x `box_bytes` bytes (at most 256 x 128).
+// Boxes may reach past either extent: what lies outside loads as zeros.
+inline bool encode_map_bytes_2d(CUtensorMap* map, const void* base, long long rows,
+                                long long row_bytes, int box_rows, int box_bytes,
+                                CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+  const cuuint64_t dims[2] = {(cuuint64_t)row_bytes, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_bytes, (cuuint32_t)box_rows};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, base, dims, strides, box, swizzle);
 }
 
 }  // namespace sm90

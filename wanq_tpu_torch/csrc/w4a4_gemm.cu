@@ -9,197 +9,361 @@
 //   for g = 0 .. G-1, in this order:
 //     acc[m, n] = acc + f32(A_g @ unpack(Wp)_g^T) * (s_a[m, g] * s_w[g, n])
 //   out = acc + bias[n]                               (f32 or bf16)
-// which is the reference's loop (w4a4_linear_xla, qgemm.py:440-451).
+// which is the reference's loop (w4a4_linear_xla, qgemm.py:440-451). Every
+// f32 step is an _rn intrinsic in that order (no FMA contraction) and
+// int32 -> f32 is exact (|partial| <= 128 * 64, times 16 as the kernel holds
+// it), so the result matches the plain version bit for bit. The weight stays
+// packed in device memory.
 //
-// Bound on the H100: tensor-core throughput (M = 65536, K and N in
-// {1536, 8960}), plus the per-group rescale, which is a multiply and an
-// add per accumulator every 128 k (one f32 op per 64 int MACs). Design:
-// K2/K8's skeleton (128x128 output tile per block of 8 warps, 3-stage
-// cp.async ring, int8 mma.sync m16n8k32, ragged M clamped on load and
-// masked on store, the packed B tile unpacked in registers with K8's
-// k-permuted fragment loads; A rows padded to 160 bytes) with one K tile
-// equal to one group: the tile's int32 MMA sum is exact, and at the tile's
-// end each thread scales its 64 int32 partial sums by s_a[m, g] * s_w[g, n]
-// into 64 f32 accumulators and clears them. The scales of the group are
-// loaded at the top of the tile, so their latency hides behind the MMAs.
-// Every f32 step is an _rn intrinsic in the reference's order (no FMA
-// contraction), and int32 -> f32 is exact (|partial| <= 128 * 64), so the
-// result matches the plain version bit for bit. Two accumulator sets take
-// ~240 registers, so one block runs per SM.
-#include "common.cuh"
+// Bound on the H100: the tensor cores by the operation count, and level with
+// them the ordinary instructions of the per-group rescale: a 128 x 128 tile
+// and one group are 4.19 M int8 operations, ~490 cycles of an SM at the card's
+// peak, and the rescale is four instructions per accumulator (I2F,
+// s_a * s_w, multiply, add) x 16384 accumulators over 128 lanes, ~510 cycles.
+// So the kernel can approach twice its tensor-core bound only if the two run
+// at the same time, and the design is built around that. A third limit sits
+// beside them: shared-memory bandwidth. Per tile and group the two
+// warpgroups' wgmma read 48 KB of operands (each reads the W tile anew), TMA
+// writes 24.5 KB and the unpack moves 24 KB, with the s_w reads ~110 KB, ~860
+// cycles at 128 bytes a cycle.
+// Design (gemm_sm90.cuh, sm90.cuh): one persistent block per SM walks 128 x
+// 128 output tiles; one K step is one group. There is no int4 tensor-core
+// type on this card, so the codes ride wgmma m64n128k32.s8 in int8
+// containers, and the B operand of a wgmma is read from shared memory only:
+// the packed tile has to be unpacked into shared memory. The producer
+// warpgroup does it, beside the consumers. Its first warp issues the TMA
+// loads into three rings of four stages: A [128 rows, 128 B] with the 128-byte
+// swizzle, the packed tile [128 n, 64 B] unswizzled and the group's 512 bytes
+// of s_w. Its other three warps turn each packed tile into the int8 tile
+// [128 n, 128 B] in the swizzled layout wgmma reads (a fourth ring), fence it
+// towards the async proxy and arrive on its barrier. They write each code times 16 (the nibble moved to the top of its
+// byte, which sign-extends for free: five instructions per eight codes), and
+// the consumers fold the 1/16 into s_a: both scalings are by powers of two, so
+// every rounding is the one of the unscaled product (as long as s_a / 16
+// stays a normal number). Each of the two consumer warpgroups (64 rows) holds
+// two int32 accumulator sets and one f32 set (192 registers): the product of
+// group g + 1 is queued into the other set before the rescale of group g runs,
+// so the tensor cores work under the rescale, and the two warpgroups are free
+// to drift apart. The A and W stages are released as soon as the product has
+// been read, the s_w slot after the rescale. s_a[m, g] (two rows a thread) is
+// loaded a group ahead from device memory. The epilogue (+ bias, f32 or bf16)
+// is K2's store path: 16 rows a warp staged through shared memory, 16 bytes a
+// thread.
+#include "gemm_sm90.cuh"
 
 namespace {
 
+using namespace wanq::sm90;
+using namespace wanq::gemm;
+
 constexpr int BM = 128, BN = 128, BK = 128;  // BK = the quant group
-constexpr int kStages = 3;
-constexpr int kRowA = BK + 32;      // padded shared A row, bytes (8 words mod 32)
-constexpr int kRowB = BK / 2 + 16;  // padded shared packed-B row, bytes (20 words)
-constexpr int kThreads = 256;
-constexpr int kStageBytes = BM * kRowA + BN * kRowB;
-constexpr int kSmemBytes = kStages * kStageBytes;
+constexpr int kStages = 4;  // of each of the four rings
+constexpr int kATile = BM * BK, kWTile = BN * BK;  // int8 tiles, 16 KB each
+constexpr int kPkTile = BN * BK / 2;               // the packed weight tile, 8 KB
+constexpr int kSwBytes = BN * 4;                   // one group's s_w of the tile
+constexpr int kUnpackWarps = 3;                    // producer warps 1..3
+constexpr int kUnpackThreads = 32 * kUnpackWarps;
+constexpr int kItems = BN * 4;                     // 16-byte pieces of a packed tile
+constexpr int kBarBytes = 384;
+// the unpack warps need more registers than a thread that only issues TMA
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;  // 128 * 40 + 256 * 232 <= 65536
+constexpr int kSmemBytes = 1024 + kStages * (kATile + kWTile + kPkTile + kSwBytes) +
+                           kStagingBytes + kBarBytes;
+static_assert(kSmemBytes <= 227 * 1024, "shared memory");
 
-__device__ __forceinline__ void load_stage(int8_t* sa, int8_t* sb, const int8_t* __restrict__ A,
-                                           const int8_t* __restrict__ Wp, int M, int K, int m0,
-                                           int n0, int k0, int tid) {
-  // A: 128 rows x 128 bytes = 1024 16-byte chunks, 4 per thread
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int id = tid + i * kThreads;
-    int r = id >> 3, c16 = (id & 7) * 16;
-    int gm = min(m0 + r, M - 1);
-    wanq::cp_async16(sa + r * kRowA + c16, A + (long long)gm * K + k0 + c16);
-  }
-  // packed B: 128 rows x 64 bytes = 512 chunks, 2 per thread
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    int id = tid + i * kThreads;
-    int r = id >> 2, c16 = (id & 3) * 16;
-    wanq::cp_async16(sb + r * kRowB + c16, Wp + (long long)(n0 + r) * (K / 2) + k0 / 2 + c16);
-  }
+struct Params {
+  CUtensorMap a, wp;
+  const float* s_a;
+  const float* s_w;
+  const float* bias;
+  void* out;
+  int M, N, K;
+};
+
+struct Bars {
+  uint64_t a_full[kStages], a_empty[kStages];    // A tiles (TMA -> consumers)
+  uint64_t pk_full[kStages], pk_empty[kStages];  // packed W tiles (TMA -> unpack warps)
+  uint64_t w_full[kStages], w_empty[kStages];    // int8 W tiles (unpack warps -> consumers)
+  uint64_t sw_full[kStages], sw_empty[kStages];  // s_w slices (TMA -> consumers)
+};
+static_assert(sizeof(Bars) <= kBarBytes, "barrier block");
+
+// Four packed bytes (eight codes, k ascending from the low nibble of the
+// lowest byte) -> two words of int8 holding 16 * code, k = 0..3 and k = 4..7:
+// a nibble at the top of its byte is the code times 16 in two's complement.
+__device__ __forceinline__ uint2 unpack8_x16(uint32_t w) {
+  const uint32_t even = (w << 4) & 0xF0F0F0F0u;  // k = 0, 2, 4, 6
+  const uint32_t odd = w & 0xF0F0F0F0u;          // k = 1, 3, 5, 7
+  return make_uint2(__byte_perm(even, odd, 0x5140), __byte_perm(even, odd, 0x7362));
+}
+
+// Piece i of a packed tile (the 16 bytes c = i % 4 of row i / 4, k = 32 c ..
+// 32 c + 31) -> the two 16-byte chunks 2 c and 2 c + 1 of the int8 row, at
+// their swizzled places.
+__device__ __forceinline__ void unpack_piece(uint8_t* dst, int i, uint4 v) {
+  const int row = i >> 2, c = i & 3;
+  const uint2 x = unpack8_x16(v.x), y = unpack8_x16(v.y);
+  const uint2 z = unpack8_x16(v.z), w = unpack8_x16(v.w);
+  uint8_t* drow = dst + row * BK;
+  *reinterpret_cast<uint4*>(drow + (((2 * c) ^ (row & 7)) << 4)) = make_uint4(x.x, x.y, y.x, y.y);
+  *reinterpret_cast<uint4*>(drow + (((2 * c + 1) ^ (row & 7)) << 4)) =
+      make_uint4(z.x, z.y, w.x, w.y);
 }
 
 template <bool kBf16Out>
-__global__ void __launch_bounds__(kThreads, 1)
-    w4a4_gemm_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ Wp,
-                     const float* __restrict__ s_a, const float* __restrict__ s_w,
-                     const float* __restrict__ bias, void* __restrict__ out, int M, int N,
-                     int K) {
-  extern __shared__ __align__(16) int8_t smem[];
+__global__ void __launch_bounds__(kThreads, 1) w4a4_gemm_kernel(const __grid_constant__ Params p) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* sA = align_1024(smem_raw);
+  uint8_t* sW = sA + kStages * kATile;
+  uint8_t* sOut = sW + kStages * kWTile;
+  uint8_t* sPk = sOut + kStagingBytes;
+  uint8_t* sSw = sPk + kStages * kPkTile;
+  Bars* bars = reinterpret_cast<Bars*>(sSw + kStages * kSwBytes);
+
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps, warp tile 64 x 32
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int G = K / BK;
+  const int wg = tid >> 7;
+  const int lane = tid & 31;
+  const int tiles_n = p.N / BN;
+  const int n_tiles = ((p.M + BM - 1) / BM) * tiles_n;
+  const int G = p.K / BK;
 
-  // this thread's 8 rows (mt, half) and 8 columns (nt, j)
-  int rows[4][2];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int half = 0; half < 2; ++half)
-      rows[mt][half] = min(m0 + wm * 64 + mt * 16 + g + half * 8, M - 1);
-  const int col0 = n0 + wn * 32 + tig * 2;
-
-  float facc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) facc[i][j][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < G) {
-      int8_t* base = smem + s * kStageBytes;
-      load_stage(base, base + BM * kRowA, A, Wp, M, K, m0, n0, s * BK, tid);
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&bars->a_full[s], 1);
+      mbar_init(&bars->a_empty[s], 8);  // one arrival per consumer warp
+      mbar_init(&bars->pk_full[s], 1);
+      mbar_init(&bars->pk_empty[s], kUnpackWarps);
+      mbar_init(&bars->w_full[s], kUnpackWarps);
+      mbar_init(&bars->w_empty[s], 8);
+      mbar_init(&bars->sw_full[s], 1);
+      mbar_init(&bars->sw_empty[s], 8);
     }
-    wanq::cp_async_commit();
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  for (int kt = 0; kt < G; ++kt) {
-    float sa_v[4][2], sw_v[4][2];
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half)
-        sa_v[mt][half] = s_a[(long long)rows[mt][half] * G + kt];
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) sw_v[nt][j] = s_w[(long long)kt * N + col0 + nt * 8 + j];
-
-    wanq::cp_async_wait<kStages - 2>();
-    __syncthreads();
-    {
-      int nk = kt + kStages - 1;
-      if (nk < G) {
-        int8_t* base = smem + (nk % kStages) * kStageBytes;
-        load_stage(base, base + BM * kRowA, A, Wp, M, K, m0, n0, nk * BK, tid);
-      }
-      wanq::cp_async_commit();
-    }
-    const int8_t* stage = smem + (kt % kStages) * kStageBytes;
-    const int8_t* sa = stage + wm * 64 * kRowA;
-    const int8_t* sb = stage + BM * kRowA + wn * 32 * kRowB;
-
-    int iacc[4][4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) iacc[i][j][e] = 0;
-#pragma unroll
-    for (int ks = 0; ks < BK / 32; ++ks) {
-      uint32_t af[4][4], bfr[4][2];
-      wanq::load_a_frags_kperm(af, sa + ks * 32, kRowA, g, tig);
-      wanq::load_b_frags_int4_kperm(bfr, sb + ks * 16, kRowB, g, tig);
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) wanq::mma_s8(iacc[mt][nt], af[mt], bfr[nt]);
-    }
-    // acc += f32(partial) * (s_a[m, g] * s_w[g, n])
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float sc = __fmul_rn(sa_v[mt][e >> 1], sw_v[nt][e & 1]);
-          facc[mt][nt][e] = __fadd_rn(facc[mt][nt][e], __fmul_rn((float)iacc[mt][nt][e], sc));
+  if (wg == 0) {
+    reg_dealloc<kProducerRegs>();
+    if (tid == 0) {
+      // ---- TMA: per group the packed tile, the A tile and the s_w slice ----
+      prefetch_tensormap(&p.a);
+      prefetch_tensormap(&p.wp);
+      Ring<kStages> r;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const int m0 = (tile / tiles_n) * BM, n0 = (tile % tiles_n) * BN;
+        for (int g = 0; g < G; ++g) {
+          const int s = r.stage;
+          mbar_wait(&bars->pk_empty[s], r.phase ^ 1);
+          mbar_expect_tx(&bars->pk_full[s], kPkTile);
+          tma_load_2d(sPk + s * kPkTile, &p.wp, &bars->pk_full[s], g * (BK / 2), n0);
+          mbar_wait(&bars->a_empty[s], r.phase ^ 1);
+          mbar_expect_tx(&bars->a_full[s], kATile);
+          tma_load_2d(sA + s * kATile, &p.a, &bars->a_full[s], g * BK, m0);
+          mbar_wait(&bars->sw_empty[s], r.phase ^ 1);
+          mbar_expect_tx(&bars->sw_full[s], kSwBytes);
+          bulk_load_1d(sSw + s * kSwBytes, p.s_w + (long long)g * p.N + n0, kSwBytes,
+                       &bars->sw_full[s]);
+          r.advance();
         }
-  }
-  wanq::cp_async_wait<0>();
-
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const int n = col0 + nt * 8;
-    const float b0 = bias ? bias[n] : 0.f, b1 = bias ? bias[n + 1] : 0.f;
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int m = m0 + wm * 64 + mt * 16 + g + half * 8;
-        if (m >= M) continue;
-        float o0 = facc[mt][nt][half * 2], o1 = facc[mt][nt][half * 2 + 1];
-        if (bias) {
-          o0 = __fadd_rn(o0, b0);
-          o1 = __fadd_rn(o1, b1);
-        }
-        wanq::store_pair<kBf16Out>(out, (long long)m * N + n, o0, o1);
       }
+    } else if (tid >= 32) {
+      // ---- unpack: packed [128 n, 64 B] -> int8 [128 n, 128 B], swizzled ----
+      const int ut = tid - 32;
+      Ring<kStages> r;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        for (int g = 0; g < G; ++g) {
+          mbar_wait(&bars->pk_full[r.stage], r.phase);
+          mbar_wait(&bars->w_empty[r.stage], r.phase ^ 1);
+          const uint8_t* src = sPk + r.stage * kPkTile;
+          uint8_t* dst = sW + r.stage * kWTile;
+          // 512 pieces over 96 threads: five each, and 32 more for the first warp
+#pragma unroll
+          for (int u = 0; u < 4; u += 2) {
+            const int i0 = ut + u * kUnpackThreads, i1 = i0 + kUnpackThreads;
+            const uint4 v0 = *reinterpret_cast<const uint4*>(src + i0 * 16);
+            const uint4 v1 = *reinterpret_cast<const uint4*>(src + i1 * 16);
+            unpack_piece(dst, i0, v0);
+            unpack_piece(dst, i1, v1);
+          }
+          {
+            const int i0 = ut + 4 * kUnpackThreads, i1 = i0 + kUnpackThreads;
+            const uint4 v0 = *reinterpret_cast<const uint4*>(src + i0 * 16);
+            if (i1 < kItems) {  // uniform over a warp
+              const uint4 v1 = *reinterpret_cast<const uint4*>(src + i1 * 16);
+              unpack_piece(dst, i1, v1);
+            }
+            unpack_piece(dst, i0, v0);
+          }
+          fence_proxy_async();
+          __syncwarp();
+          if (lane == 0) {
+            mbar_arrive(&bars->w_full[r.stage]);
+            mbar_arrive(&bars->pk_empty[r.stage]);
+          }
+          r.advance();
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 rows of the tile each ----
+    reg_alloc<kConsumerRegs>();
+    const int cw = wg - 1;
+    const int warp = (tid >> 5) & 3;
+    const int gq = lane >> 2, tig = lane & 3;
+    uint8_t* stg = sOut + (cw * 4 + warp) * kWarpStage;
+    const uint32_t a_base = wanq::smem_addr(sA) + cw * 64 * BK;
+    const uint32_t w_base = wanq::smem_addr(sW);
+
+    int ia[64], ib[64];
+    float facc[64];
+    Ring<kStages> r;   // the stage of the next product to queue
+    Ring<kStages> rr;  // the stage of the next group to release and rescale
+
+    // Queues the product of the next group into `acc` as one wgmma group.
+    auto start = [&](int (&acc)[64]) {
+      mbar_wait(&bars->a_full[r.stage], r.phase);
+      mbar_wait(&bars->w_full[r.stage], r.phase);
+      const uint64_t da = kmajor_desc(a_base + r.stage * kATile);
+      const uint64_t db = kmajor_desc(w_base + r.stage * kWTile);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < BK / 32; ++ks)
+        wgmma_s8_ss(acc, desc_advance(da, ks * 32), desc_advance(db, ks * 32), ks > 0);
+      wgmma_commit();
+      r.advance();
+    };
+    // After the wait that completed the oldest product in flight: its A and W
+    // stages are free, and facc += f32(acc) * (s_a[m, g] * s_w[g, n]) with acc
+    // holding 16 x the integer sum and sa holding s_a / 16.
+    auto rescale = [&](int (&acc)[64], const float (&sa)[2]) {
+      fence_regs(acc);
+      if (lane == 0) {
+        mbar_arrive(&bars->a_empty[rr.stage]);
+        mbar_arrive(&bars->w_empty[rr.stage]);
+      }
+      mbar_wait(&bars->sw_full[rr.stage], rr.phase);
+      const float* sw = reinterpret_cast<const float*>(sSw + rr.stage * kSwBytes) + 2 * tig;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const float2 w2 = *reinterpret_cast<const float2*>(sw + 8 * j);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          facc[4 * j + 2 * h] = __fadd_rn(
+              facc[4 * j + 2 * h], __fmul_rn((float)acc[4 * j + 2 * h], __fmul_rn(sa[h], w2.x)));
+          facc[4 * j + 2 * h + 1] =
+              __fadd_rn(facc[4 * j + 2 * h + 1],
+                        __fmul_rn((float)acc[4 * j + 2 * h + 1], __fmul_rn(sa[h], w2.y)));
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&bars->sw_empty[rr.stage]);
+      rr.advance();
+    };
+
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const int m0 = (tile / tiles_n) * BM, n0 = (tile % tiles_n) * BN;
+      const int row0 = m0 + cw * 64 + warp * 16;
+      const int sa_lo = min(row0 + gq, p.M - 1) * G, sa_hi = min(row0 + gq + 8, p.M - 1) * G;
+      auto load_sa = [&](float (&sa)[2], int g) {  // s_a / 16, exact
+        sa[0] = __fmul_rn(__ldg(p.s_a + sa_lo + g), 0.0625f);
+        sa[1] = __fmul_rn(__ldg(p.s_a + sa_hi + g), 0.0625f);
+      };
+#pragma unroll
+      for (int i = 0; i < 64; ++i) facc[i] = 0.f;
+
+      float sa0[2], sa1[2];
+      load_sa(sa0, 0);
+      start(ia);
+      int g = 0;
+      for (; g + 2 < G; g += 2) {
+        load_sa(sa1, g + 1);
+        start(ib);
+        wgmma_wait<1>();
+        rescale(ia, sa0);
+        load_sa(sa0, g + 2);
+        start(ia);
+        wgmma_wait<1>();
+        rescale(ib, sa1);
+      }
+      // one or two groups are left; ia holds group g, queued
+      if (g + 1 < G) {
+        load_sa(sa1, g + 1);
+        start(ib);
+        wgmma_wait<1>();
+        rescale(ia, sa0);
+        wgmma_wait<0>();
+        rescale(ib, sa1);
+      } else {
+        wgmma_wait<0>();
+        rescale(ia, sa0);
+      }
+
+      // out = facc + bias, through the warp's staging rows
+      constexpr int ES = kBf16Out ? 2 : 4;
+      using S = Staging<BN, ES>;
+      uint8_t* out = static_cast<uint8_t*>(p.out) + ((long long)row0 * p.N + n0) * ES;
+#pragma unroll
+      for (int c = 0; c < S::kChunks; ++c) {
+#pragma unroll
+        for (int jj = 0; jj < S::CC / 8; ++jj) {
+          const int j = c * (S::CC / 8) + jj;
+          float2 bi = make_float2(0.f, 0.f);
+          if (p.bias) bi = __ldg(reinterpret_cast<const float2*>(p.bias + n0 + 8 * j + 2 * tig));
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float v0 = facc[4 * j + 2 * h], v1 = facc[4 * j + 2 * h + 1];
+            if (p.bias) {
+              v0 = __fadd_rn(v0, bi.x);
+              v1 = __fadd_rn(v1, bi.y);
+            }
+            uint8_t* dst = stg + stage_off<S::RB>(gq + 8 * h, (8 * jj + 2 * tig) * ES);
+            if constexpr (kBf16Out) {
+              *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
+            } else {
+              *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+            }
+          }
+        }
+        __syncwarp();
+        stage_flush<S::RB>(stg, out + c * S::RB, (long long)p.N * ES, p.M - row0, lane);
+        __syncwarp();
+      }
+    }
   }
 }
 
 template <bool kBf16Out>
-int launch(const void* a, const void* wp, const void* s_a, const void* s_w, const void* bias,
-           void* out, int M, int N, int K, cudaStream_t st) {
+int launch(const Params& p, cudaStream_t st) {
   auto kern = w4a4_gemm_kernel<kBf16Out>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        kSmemBytes);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(N / BN, (M + BM - 1) / BM);
-  kern<<<grid, kThreads, kSmemBytes, st>>>(
-      static_cast<const int8_t*>(a), static_cast<const int8_t*>(wp),
-      static_cast<const float*>(s_a), static_cast<const float*>(s_w),
-      static_cast<const float*>(bias), out, M, N, K);
+  const long long n_tiles = (long long)((p.M + BM - 1) / BM) * (p.N / BN);
+  kern<<<persistent_grid(n_tiles), kThreads, kSmemBytes, st>>>(p);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // a [M, K] int8 (int4 codes), wp [N, K/2] packed int4, s_a [M, K/128] f32,
-// s_w [K/128, N] f32, bias [N] f32 or null. N % 128 == 0, K % 128 == 0;
-// the quant group is 128.
+// s_w [K/128, N] f32, bias [N] f32 or null; a, wp and s_w 16-byte aligned.
+// N % 128 == 0, K % 128 == 0; the quant group is 128.
 WANQ_API int wanq_w4a4_gemm(const void* a, const void* wp, const void* s_a, const void* s_w,
                             const void* bias, void* out, int out_bf16, int M, int N, int K,
                             void* stream) {
   if (M == 0) return 0;
-  if (N % BN != 0 || K % BK != 0) return (int)cudaErrorInvalidValue;
+  if (N % BN != 0 || K % BK != 0 || K <= 0 || (long long)M * (K / BK) > 0x7fffffffLL ||
+      (long long)((M + BM - 1) / BM) * (N / BN) > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  Params p;
+  if (!encode_map_bytes_2d(&p.a, a, M, K, BM, BK) ||
+      !encode_map_bytes_2d(&p.wp, wp, N, K / 2, BN, BK / 2, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return (int)cudaErrorInvalidValue;
+  p.s_a = static_cast<const float*>(s_a);
+  p.s_w = static_cast<const float*>(s_w);
+  p.bias = static_cast<const float*>(bias);
+  p.out = out;
+  p.M = M; p.N = N; p.K = K;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return out_bf16 ? launch<true>(a, wp, s_a, s_w, bias, out, M, N, K, st)
-                  : launch<false>(a, wp, s_a, s_w, bias, out, M, N, K, st);
+  return out_bf16 ? launch<true>(p, st) : launch<false>(p, st);
 }

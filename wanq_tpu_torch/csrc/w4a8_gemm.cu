@@ -12,19 +12,21 @@
 //
 // Bound on the H100: tensor-core throughput, as K2 (M = 65536 against
 // (K, N) = (1536, 8960) and (8960, 1536)); the packed weight halves the B
-// bytes, which matter little at this M. Design: K2's skeleton -- a 128x128
-// output tile per block of 8 warps (each 64x32), K in 64-deep steps through
-// a 3-stage cp.async ring, int8 mma.sync m16n8k32, ragged M clamped on load
-// and masked on store -- with the B path changed: the ring holds the
+// bytes, which matter little at this M. Design: the skeleton of the port's
+// first int GEMMs (K2 and K9 have since moved to wgmma and TMA,
+// gemm_sm90.cuh; K8 is next) -- a 128x128 output tile per block of 8 warps
+// (each 64x32), K in 64-deep steps through a 3-stage cp.async ring, int8
+// mma.sync m16n8k32, ragged M clamped on load and masked on store -- with the
+// B operand packed: the ring holds the
 // PACKED [128, 32-byte] weight tile (half K2's bytes), and each thread
 // unpacks its B fragment in registers right before the MMA. So that one
 // 32-bit load and two byte permutes feed both B registers, k is permuted
 // the same way in A and B inside each 32-deep step (common.cuh
 // load_*_kperm); the int32 sums are unchanged. Shared rows are padded (A to
 // 96, B to 48 bytes) so the 64-bit A and 32-bit B reads are free of bank
-// conflicts. The epilogue is K2's (common.cuh dequant_epilogue), so the
-// result matches the plain version (unpack, then K2's plain product) bit
-// for bit.
+// conflicts. The epilogue (common.cuh dequant_epilogue) is K2's arithmetic,
+// so the result matches the plain version (unpack, then K2's plain product)
+// bit for bit.
 #include "common.cuh"
 
 namespace {

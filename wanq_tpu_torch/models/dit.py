@@ -14,8 +14,9 @@ JAX's unfused chain):
 * int8 q/k/v: one LN+modulate+int8 producer (K1) feeds three int8 GEMMs
   (K2); cross-attention q rides the norm3 producer (K1 -> K2); the FFN
   runs K1 -> GEMM (bf16) -> GELU + quant -> GEMM, the GEMMs K2 for int8
-  weights and K8 for packed int4 ones, the GELU + quant static
-  (elementwise) or dynamic (K7).
+  weights and K8 for packed int4 ones, the GELU + quant dynamic (K7) or
+  static: in the epilogue of the ffn.0 GEMM itself for int8 weights (K2's
+  second mode, no bf16 intermediate), elementwise behind K8.
 * q/k: RMSNorm -> RoPE -> heads-major (K3), cross q RMSNorm -> heads (K3),
   attention (K4) reading v through strides and writing seq-major memory,
   and the o-projection reading that memory as [B, S, N*D], a view: FP, or
@@ -57,7 +58,6 @@ from wanq_tpu_torch.models.rope import (
 from wanq_tpu_torch.ops.fused import (
     ln_modulate_quant,
     ln_modulate_quant_static,
-    quant_sum,
 )
 from wanq_tpu_torch.ops.attn_int8 import attention_int8
 from wanq_tpu_torch.ops.rmsnorm_rope import (
@@ -69,6 +69,7 @@ from wanq_tpu_torch.ops.rmsnorm_rope import (
 from wanq_tpu_torch.quant.attn import quantized_attention
 from wanq_tpu_torch.quant.qlinear import (
     QuantCtx,
+    ffn0_gelu_quant_from_prequant,
     fp_linear,
     int8_fusable,
     int8_static_fusable,
@@ -382,26 +383,13 @@ def block_forward(p: Params, name: str, ctx: Optional[QuantCtx], x: torch.Tensor
     x = (x.float() + y.float()).to(x.dtype)
 
     ffn_sites = [f"{name}.ffn.0", f"{name}.ffn.2"]
-    ffn2_static = int8_static_fusable(ctx, ffn_sites[1])
     if int8_fusable(ctx, [ffn_sites[0]], allow_mask=True) and (
-            ffn2_static or int8_fusable(ctx, [ffn_sites[1]], allow_mask=True)):
-        st0 = ctx.state[ffn_sites[0]]
-        st2 = ctx.state[ffn_sites[1]]
-        h8, s_a, ssum = ln_modulate_quant(x, e3, e4, eps=cfg.eps,
-                                          channel_scale=st0.get("channel_mask"))
-        h = w8a8_from_prequant(ctx, ffn_sites[0], p["ffn"]["0"], h8, s_a, ssum,
-                               out_dtype=torch.bfloat16)
-        bh, nh = h.shape[:2]
-        if ffn2_static:
-            # static-scale GELU + quant, elementwise (its fusion into the
-            # ffn.0 GEMM epilogue is a later kernel, ROADMAP Queue 2)
-            scale2 = st2["delta_a"].reshape(()).float()
-            g = gelu_tanh(h.float())
-            h8b = torch.clamp(torch.round(g / scale2), -128, 127).to(torch.int8)
-            s2 = scale2.expand(bh, nh).contiguous()
-            sm2 = scale2 * h8b.float().sum(dim=-1)
-        else:
-            h8b, s2, sm2 = quant_sum(h, gelu=True, channel_scale=st2.get("channel_mask"))
+            int8_static_fusable(ctx, ffn_sites[1])
+            or int8_fusable(ctx, [ffn_sites[1]], allow_mask=True)):
+        h8, s_a, ssum = ln_modulate_quant(
+            x, e3, e4, eps=cfg.eps, channel_scale=ctx.state[ffn_sites[0]].get("channel_mask"))
+        h8b, s2, sm2 = ffn0_gelu_quant_from_prequant(
+            ctx, ffn_sites[0], ffn_sites[1], p["ffn"]["0"], h8, s_a, ssum)
         y = w8a8_from_prequant(ctx, ffn_sites[1], p["ffn"]["2"], h8b, s2, sm2)
     else:
         xn2 = layer_norm(x, cfg.eps) * (1.0 + e4[:, None, :]) + e3[:, None, :]

@@ -32,7 +32,13 @@ from typing import Any, Dict, Optional
 import torch
 
 from wanq_tpu_torch.ops.fused import quant_sum
-from wanq_tpu_torch.ops.qgemm import w4a4_linear, w4a8_linear, w8a8_linear
+from wanq_tpu_torch.ops.qgemm import (
+    gelu_static_quant,
+    w4a4_linear,
+    w4a8_linear,
+    w8a8_linear,
+    w8a8_linear_gelu_quant,
+)
 from wanq_tpu_torch.quant.config import FP_POLICY, LayerPolicy
 from wanq_tpu_torch.quant.quantizers import (
     act_group_int4_quant,
@@ -251,3 +257,28 @@ def w8a8_from_prequant(ctx: QuantCtx, name: str, params: Params, q8: torch.Tenso
     quantized activation. q8 [B, N, C] int8; s_a/ssum [B, N]."""
     _check_int8_policy(ctx.policy(name), name)
     return _int_linear(ctx.state[name], q8, s_a, ssum, params.get("b"), out_dtype)
+
+
+def ffn0_gelu_quant_from_prequant(ctx: QuantCtx, site0: str, site2: str, params0: Params,
+                                  q8: torch.Tensor, s_a: torch.Tensor, ssum: torch.Tensor):
+    """The int GEMM at ``site0`` (ffn.0) from an already quantized
+    activation, then tanh-GELU and the int8 quant that ``site2`` (ffn.2)
+    consumes. Returns ffn.2's (codes [B, N, C_out] int8, scale [B, N], scaled
+    code sum [B, N]). Under a static ffn.2 scale (``int8_static_fusable``)
+    int8 weights run the whole chain in K2's GELU + quant mode, so the bf16
+    intermediate never reaches device memory; packed int4 weights (K8 has no
+    such mode) run the GEMM with a bf16 output and the same chain
+    elementwise. Under a dynamic ffn.2 scale the GEMM's bf16 output goes
+    through K7."""
+    _check_int8_policy(ctx.policy(site0), site0)
+    st0, st2 = ctx.state[site0], ctx.state[site2]
+    bias = params0.get("b")
+    static = int8_static_fusable(ctx, site2)
+    if static and "w_int8" in st0:
+        return w8a8_linear_gelu_quant(q8, st0["w_int8"], s_a, st0["scale_w"], st2["delta_a"],
+                                      ssum, st0["zp_w_int"],
+                                      None if bias is None else bias.float())
+    h = _int_linear(st0, q8, s_a, ssum, bias, torch.bfloat16)
+    if static:
+        return gelu_static_quant(h, st2["delta_a"])
+    return quant_sum(h, gelu=True, channel_scale=st2.get("channel_mask"))
