@@ -11,29 +11,32 @@ non-zero:
 1. build: nvcc compiles wanq_tpu_torch/csrc/*.cu for sm_90a (one process
    per source, in parallel) into wanq_tpu_torch/_build/; cuobjdump then
    counts the wgmma (HGMMA, IGMMA) and TMA (UTMALDG, UTMASTG) instructions
-   of the two attention kernels and the two wgmma int GEMMs (K2, K9) in the
-   library, and the build log gives their registers and spills;
+   of the two attention kernels and the three wgmma int GEMMs (K2, K8, K9) in
+   the library, and the build log gives every kernel's registers and spills;
 2. each kernel against its plain PyTorch version on the card at the main
    paths' shapes (T2V-1.3B, 832x480x81, batched CFG: B=2, seq 32768 with
    32760 valid tokens, M = 65536 token rows), with the warm median of
-   CUDA-event timings of both, ragged-M tails for the int GEMMs, K2's GELU +
-   quant mode against its plain chain, and each kernel's bound: the larger
+   CUDA-event timings of both, ragged-M tails for the int GEMMs, the GELU +
+   quant mode of K2 and K8 against its plain chain, and each kernel's bound: the larger
    of its bytes (inputs read once, outputs written once) over 3.35 TB/s and
    its operations over the card's peak for their type. Where one PyTorch call computes the same function it is
    timed beside the kernel (scaled_dot_product_attention for K4); the port
    never calls it. torch._int_mm is timed as a note beside the int GEMMs,
    whose fused epilogues no single call computes;
-3. the five paths through the CLIs at full 1.3B width and depth, random
+3. the six paths through the CLIs at full 1.3B width and depth, random
    weights from a seed, 3 UniPC steps each: W8A8 (get_calib_data
    --collect_minmax, 1 step, then quant_generate --hardware under
    wan_w8a8_speed.yaml), mixed W4A8 (wan_w4a8_mixed.yaml), Atom W4A4
    (wan_w4a4.yaml), W8A8 with int8 attention (wan_w8a8_attn.yaml,
-   --hardware) and simulated W8A8 (wan_w8a8_speed.yaml without --hardware);
+   --hardware), simulated W8A8 (wan_w8a8_speed.yaml without --hardware) and
+   W4A8 at every linear with a static ffn.2 scale (wan_w4a8_14b.yaml,
+   --hardware, the same calibration);
    per-step time, peak memory, finite latents, and kernel launch counts,
    reset just before each path and read just after, equal to the 30-block
-   totals of PATHS below, which shows no plain version ran (K2's GELU +
-   quant mode has a counter of its own: the W8A8 paths launch it once a
-   block, so the plain GELU + quant chain is gone from them);
+   totals of PATHS below, which shows no plain version ran (the GELU +
+   quant mode of K2 and of K8 has a counter of its own: the paths with a
+   static ffn.2 scale launch it once a block, so no plain GELU + quant chain
+   runs behind a GEMM);
 4. fidelity and profile: one step's noise prediction of each path vs bf16
    FP on the same weights, with CFG 5 and conditional alone (W8A8: PSNR
    >= 30 dB with CFG; 4-bit paths and int8 attention: cosine >= 0.9
@@ -72,6 +75,10 @@ YAML = "quant_configs/wan_w8a8_speed.yaml"
 #   K7 for the o input and the ffn.2 GELU; K8 for ffn.0/2.
 # W4A4 (unfused: 4-bit activations): K9 at self q/k/v/o, cross q/o, ffn.0/2.
 # Every path: K3 for q and k rope and the cross-q split; K4 self + cross.
+# W4A8 static (wan_w4a8_14b.yaml: 4-bit weights at every quantized linear,
+#   cross k/v FP, ffn.2 static): K1 for q/k/v, cross q and ffn.0; K7 for the
+#   self and cross o inputs; K8 for self q/k/v/o, cross q/o and ffn.2, and in
+#   its GELU + quant mode (a counter of its own) for ffn.0.
 # W8A8 + attn section: self-attention leaves the fused q/k path (plain
 #   RMSNorm + RoPE, then K10a + K10), so K3 only splits the cross q and K4
 #   only runs cross-attention.
@@ -89,9 +96,13 @@ PATHS = {
                               "w8a8_linear_gelu_quant": 1, "rms_rope_heads": 1,
                               "attention": 1, "quantize_qkv_int8": 1, "attention_int8": 1}),
     "w8a8_sim": (YAML, {"rms_rope_heads": 3, "attention": 2}),
+    "w4a8_static": ("quant_configs/wan_w4a8_14b.yaml",
+                    {"ln_modulate_quant": 3, "w4a8_linear": 7, "w4a8_linear_gelu_quant": 1,
+                     "quant_sum": 2, "rms_rope_heads": 3, "attention": 2}),
 }
 SIM_PATHS = ("w8a8_sim",)                        # quant_generate without --hardware
-CALIB_PATHS = ("w8a8", "w8a8_attn", "w8a8_sim")  # static ffn.2 scale from calibration
+# static ffn.2 scale from calibration
+CALIB_PATHS = ("w8a8", "w8a8_attn", "w8a8_sim", "w4a8_static")
 SOURCES = {
     "ln_modulate_quant": ("wanq_tpu_torch/csrc/ln_modulate_quant.cu",
                           "wanq_tpu/ops/fused.py:172"),
@@ -109,7 +120,7 @@ SOURCES = {
                        "wanq_tpu/ops/attn_int8.py:181"),
 }
 # launch counters of a kernel's further modes -> the kernel they belong to
-MODES = {"w8a8_linear_gelu_quant": "w8a8_linear"}
+MODES = {"w8a8_linear_gelu_quant": "w8a8_linear", "w4a8_linear_gelu_quant": "w4a8_linear"}
 # NVIDIA H100 SXM data sheet, dense: device memory bytes/s and operations/s
 HBM_BPS = 3.35e12
 PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
@@ -254,7 +265,8 @@ def kernel_checks(torch, results):
                m * k + nn * k + m * nn * (2 if out_dtype == torch.bfloat16 else 4) + 8 * m
                + 12 * nn, 2 * m * k * nn, "int8")
         if nn == 8960:
-            gelu_quant_check(torch, record, (a, w, s_a, s_w, sum_a, zp, bias), m, ragged, ms)
+            gelu_quant_check(torch, record, "w8a8_linear", (a, w, s_a, s_w, sum_a, zp, bias), m,
+                             ragged, ms)
         del a, w, wt, args
         torch.cuda.empty_cache()
 
@@ -342,39 +354,42 @@ def kernel_checks(torch, results):
     int4_checks(torch, g, record)
 
 
-def gelu_quant_check(torch, record, operands, m, ragged, bf16_ms):
-    """K2's GELU + quant mode at ffn.0's shape (1536 -> 8960, M = 65536)
-    against its plain chain (K2's plain GEMM with a bf16 output, tanh-GELU in
-    f32, static-scale int8 quant, row sums). Limits, stated before the first
-    run: codes equal (every step of the epilogue is the plain chain's own
+def gelu_quant_check(torch, record, kernel, operands, m, ragged, bf16_ms):
+    """The GELU + quant mode of ``kernel`` (K2 ``w8a8_linear`` or K8
+    ``w4a8_linear``) at ffn.0's shape (1536 -> 8960, M = 65536) against its
+    plain chain (the plain GEMM with a bf16 output, tanh-GELU in f32,
+    static-scale int8 quant, row sums). Limits, stated before the first run:
+    codes equal (every step of the epilogue is the plain chain's own
     arithmetic: exact int32 sum, _rn dequant, bf16 rounding, PyTorch's GELU
     expression, a true division, rint); the scaled row sums exactly the sums
     of the kernel's own codes; s2 and sm2 equal to the plain version's. Also
     at ragged M, where rows past M must add nothing to the sums."""
-    from wanq_tpu_torch.ops.qgemm import (
-        w8a8_linear_gelu_quant_cuda, w8a8_linear_gelu_quant_plain)
+    from wanq_tpu_torch.ops import qgemm
 
+    cuda_fn = getattr(qgemm, f"{kernel}_gelu_quant_cuda")
+    plain_fn = getattr(qgemm, f"{kernel}_gelu_quant_plain")
+    tag = "K2" if kernel == "w8a8_linear" else "K8"
     a, w, s_a, s_w, sum_a, zp, bias = operands  # max(ragged) rows
     k, n = a.shape[1], w.shape[0]
     scale2 = torch.tensor(0.021, device=a.device)  # ~ absmax / 127 of the GELU output
     for mm in (m, *ragged):
         ops = (a[:mm], w, s_a[:mm], s_w, scale2, sum_a[:mm], zp, bias)
-        got = w8a8_linear_gelu_quant_cuda(*ops)
-        want = w8a8_linear_gelu_quant_plain(*ops)
+        got = cuda_fn(*ops)
+        want = plain_fn(*ops)
         torch.cuda.synchronize()
         ndiff = (got[0] != want[0]).sum().item()
         own = torch.equal(got[2], scale2 * got[0].float().sum(-1))
         check(ndiff == 0 and own and torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]),
-              f"K2 gelu+quant M={mm}: {ndiff} codes differ, row sums of own codes equal: {own}")
+              f"{tag} gelu+quant M={mm}: {ndiff} codes differ, row sums of own codes equal: {own}")
         sat = (got[0].abs() >= 127).float().mean().item()
         del got, want
     ops = (a[:m], w, s_a[:m], s_w, scale2, sum_a[:m], zp, bias)
-    ms = cuda_ms(lambda: w8a8_linear_gelu_quant_cuda(*ops))
-    record("w8a8_linear", 0.0, ms, cuda_ms(lambda: w8a8_linear_gelu_quant_plain(*ops), reps=3),
+    ms = cuda_ms(lambda: cuda_fn(*ops))
+    record(kernel, 0.0, ms, cuda_ms(lambda: plain_fn(*ops), reps=3),
            f"GELU + quant mode M=65536 K={k} N={n} int8 out + row sums, codes, s2 and sm2 equal "
            f"also at M=65528 and 65539 ({2 * m * k * n / ms / 1e9:.0f} TOP/s; "
            f"{ms / bf16_ms:.3f} x the bf16-out mode; codes at +-127: {sat:.3f})",
-           m * k + n * k + m * n + 12 * m + 12 * n + 4, 2 * m * k * n, "int8")
+           m * k + w.numel() + m * n + 12 * m + 12 * n + 4, 2 * m * k * n, "int8")
 
 
 def int8_attention_checks(torch, record, q, k, vh, valid, qs, t4_self):
@@ -451,8 +466,9 @@ def int8_attention_checks(torch, record, q, k, vh, valid, qs, t4_self):
 
 
 def int4_checks(torch, g, record):
-    """K7, K8 and K9 against their plain versions at the 4-bit paths'
-    shapes (M = 65536 token rows), plus ragged-M tails for K8 and K9."""
+    """K7, K8 (all three modes) and K9 against their plain versions at the
+    4-bit paths' shapes (M = 65536 token rows), plus ragged-M tails for K8
+    and K9."""
     from wanq_tpu_torch.ops.fused import quant_sum_cuda, quant_sum_plain
     from wanq_tpu_torch.ops.qgemm import (
         w4a4_linear_cuda, w4a4_linear_plain, w4a8_linear_cuda, w4a8_linear_plain)
@@ -496,30 +512,42 @@ def int4_checks(torch, g, record):
         wp = torch.randint(-128, 128, (n, k // 2), device=dev, generator=g, dtype=torch.int8)
         return a, wp
 
-    # K8 -- ffn.0 (1536 -> 8960, bf16 out) and ffn.2 (8960 -> 1536, f32 out),
-    # asymmetric weights with bias: exact
-    for k, n, out_dtype in ((1536, 8960, torch.bfloat16), (8960, 1536, torch.float32)):
+    # K8 -- the three (K, N) of the W4A8 paths, each in the out type its site
+    # has (q/k/v and ffn.0 bf16, ffn.2 f32), asymmetric weights with bias:
+    # exact in both out types, also at ragged M. Then its GELU + quant mode at
+    # ffn.0's shape against the plain chain.
+    from wanq_tpu_torch.quant.quantizers import unpack_int4
+
+    for k, n, out_dtype in ((1536, 1536, torch.bfloat16), (1536, 8960, torch.bfloat16),
+                            (8960, 1536, torch.float32)):
         a, wp = operands(k, n, False)
         s_a = torch.rand((a.shape[0],), device=dev, generator=g) * 0.02 + 1e-3
         sum_a = s_a * a.float().sum(-1)
-        s_w = torch.rand((n,), device=dev, generator=g) * 0.02 + 1e-3
+        s_w = torch.rand((n,), device=dev, generator=g) * 0.3 / k ** 0.5 + 1e-4
         zp = torch.randint(0, 16, (n,), device=dev, generator=g).float()
         bias = torch.randn((n,), device=dev, generator=g)
         for mm in (m, *ragged):
-            args = (a[:mm], wp, s_a[:mm], s_w, sum_a[:mm], zp, bias, out_dtype)
-            got, want = w4a8_linear_cuda(*args), w4a8_linear_plain(*args)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            check(torch.equal(got, want), f"K8 M={mm} ({k},{n}): max abs err {err}")
-            del got, want
+            for dt in (torch.bfloat16, torch.float32):
+                args = (a[:mm], wp, s_a[:mm], s_w, sum_a[:mm], zp, bias, dt)
+                got, want = w4a8_linear_cuda(*args), w4a8_linear_plain(*args)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                check(torch.equal(got, want), f"K8 M={mm} ({k},{n}) {dt}: max abs err {err}")
+                del got, want
         args = (a[:m], wp, s_a[:m], s_w, sum_a[:m], zp, bias, out_dtype)
         ms = cuda_ms(lambda: w4a8_linear_cuda(*args))
+        wt = unpack_int4(wp).t()
+        t_mm = cuda_ms(lambda: torch._int_mm(a[:m], wt))
         record("w4a8_linear", err, ms, cuda_ms(lambda: w4a8_linear_plain(*args), reps=3),
-               f"M=65536 K={k} N={n} {str(out_dtype)[6:]} out, exact also at M=65528 and "
-               f"65539 ({2 * m * k * n / ms / 1e9:.0f} TOP/s)",
+               f"M=65536 K={k} N={n} {str(out_dtype)[6:]} out, exact in both out types also at "
+               f"M=65528 and 65539 ({2 * m * k * n / ms / 1e9:.0f} TOP/s; note: torch._int_mm, the "
+               f"bare int8 product on the unpacked weight with an int32 output, {t_mm:.3f} ms)",
                m * k + n * k // 2 + m * n * (2 if out_dtype == torch.bfloat16 else 4)
                + 8 * m + 12 * n, 2 * m * k * n, "int8")
-        del a, wp, args
+        if n == 8960:
+            gelu_quant_check(torch, record, "w4a8_linear", (a, wp, s_a, s_w, sum_a, zp, bias), m,
+                             ragged, ms)
+        del a, wp, wt, args
         torch.cuda.empty_cache()
 
     # K9 -- the W4A4 sites: (1536 -> 1536) x6, (1536 -> 8960), (8960 -> 1536),
@@ -693,8 +721,8 @@ def profile_steps(torch, steps):
         for name, (t, cnt) in rows:
             for sub, tag in KERNEL_NAMES.items():
                 if sub in name:
-                    if tag == "K2" and ", 2>" in name:  # w8a8_gemm_kernel<BN, mode 2>
-                        tag = "K2 gelu+quant"
+                    if tag in ("K2", "K8") and ", 2>" in name:  # *_gemm_kernel<BN, mode 2>
+                        tag += " gelu+quant"
                     sum_t, sum_n = ours.get(tag, (0.0, 0))
                     ours[tag] = (sum_t + t, sum_n + cnt)
         log("    hand kernels: " + ", ".join(
@@ -853,50 +881,76 @@ def fidelity(torch, calib_path):
     check(not failures, "; ".join(failures))
 
 
+# kernels whose build must show no spill: the wgmma kernels (a spill there
+# means ptxas gave up on the setmaxnreg budgets) and K1
+NO_SPILL = ("flash_fwd_kernel", "attn_int8_kernel", "w8a8_gemm_kernel", "w4a8_gemm_kernel",
+            "w4a4_gemm_kernel", "ln_mod_quant_kernel")
+
+
+def ptxas_records(log_text: str):
+    """(mangled name, spill stores, spill loads, registers) of every kernel
+    in the build log (ptxas -v: 'Compiling entry function <name>', then its
+    properties)."""
+    import re
+
+    return [(name, int(st), int(ld), int(regs)) for name, st, ld, regs in re.findall(
+        r"Compiling entry function '([^']+)'.*?(\d+) bytes spill stores, "
+        r"(\d+) bytes spill loads.*?Used (\d+) registers", log_text, re.S)]
+
+
 def hopper_evidence(_lib, nvcc: str) -> None:
-    """Shows that the attention kernels and the int GEMMs K2 and K9 are built
-    from Hopper's own instructions: counts HGMMA (bf16 wgmma, K4), IGMMA (int8
-    wgmma: K10, K2, K9) and UTMALDG / UTMASTG (TMA loads / stores) in the
-    library's SASS, and reads each kernel's registers, spill bytes and any
-    note that ptxas serialised its wgmma instructions from the build log.
-    K2 and K9 are templates: every instantiation is held to the same. Fails
-    if a kernel has no wgmma or no TMA load, spills, or was serialised."""
+    """Prints the registers and spill bytes of every kernel of the library
+    (ptxas, from the build log) and fails on a spill in any kernel of
+    NO_SPILL; a spill elsewhere is printed, not hidden. Then shows that the
+    attention kernels and the int GEMMs K2, K8 and K9 are built from Hopper's
+    own instructions: counts HGMMA (bf16 wgmma, K4), IGMMA (int8 wgmma: K10,
+    K2, K8, K9) and UTMALDG / UTMASTG (TMA loads / stores) in the library's
+    SASS, and reads any note that ptxas serialised their wgmma instructions.
+    K2, K8 and K9 are templates: every instantiation is held to the same.
+    Fails if such a kernel has no wgmma or no TMA load, or was serialised, or
+    if any kernel still holds an mma.sync int product (IMMA)."""
     import re
 
     log_text = str(_lib.last_build.get("log", ""))
+    records = ptxas_records(log_text)
+    check(len(records) >= len(KERNEL_NAMES), f"only {len(records)} ptxas records in the build log")
+    for name, spill_st, spill_ld, regs in records:
+        short = next((k for k in KERNEL_NAMES if k in name), name)
+        inst = re.search(rf"{short}(I\w+?E)EvNS", name)  # template arguments, mangled
+        must = any(k in name for k in NO_SPILL)
+        log(f"  ptxas {KERNEL_NAMES.get(short, '?')} {short}{' ' + inst.group(1) if inst else ''}: "
+            f"{regs} registers, spill stores {spill_st} B, loads {spill_ld} B"
+            + ("" if must or not (spill_st or spill_ld) else "  (known spill, listed in ROADMAP.md)"))
+        check(not must or (spill_st == 0 and spill_ld == 0),
+              f"{short}: spills {spill_st}/{spill_ld} B")
+
     res = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass",
                           str(_lib.last_build["path"])], capture_output=True, text=True)
     check(res.returncode == 0, f"cuobjdump failed: {res.stderr.strip()[:200]}")
     functions = re.split(r"\n\s*Function : ", res.stdout)[1:]
     # kernel -> (its wgmma instruction, how many instantiations the library has)
     kernels = {"flash_fwd_kernel": ("HGMMA", 1), "attn_int8_kernel": ("IGMMA", 1),
-               "w8a8_gemm_kernel": ("IGMMA", 6), "w4a4_gemm_kernel": ("IGMMA", 2)}
+               "w8a8_gemm_kernel": ("IGMMA", 6), "w4a8_gemm_kernel": ("IGMMA", 6),
+               "w4a4_gemm_kernel": ("IGMMA", 2)}
     for kernel, (mma, n_inst) in kernels.items():
         sass = [f for f in functions if kernel in f.split("\n", 1)[0]]
         check(len(sass) == n_inst, f"{kernel}: {len(sass)} functions of that name in the SASS")
-        # ptxas -v: 'Compiling entry function <name>', then its properties
-        records = re.findall(
-            rf"Compiling entry function '([^']*{kernel}[^']*)'.*?(\d+) bytes spill stores, "
-            rf"(\d+) bytes spill loads.*?Used (\d+) registers", log_text, re.S)
-        check(len(records) == n_inst, f"{kernel}: {len(records)} ptxas records in the build log")
+        check(sum(kernel in name for name, *_ in records) == n_inst,
+              f"{kernel}: ptxas records in the build log != {n_inst}")
         serialised = [ln for ln in log_text.splitlines() if "serialized" in ln and kernel in ln]
         for fn in sass:
             mangled = fn.split("\n", 1)[0].strip()
             counts = {op: len(re.findall(rf"\b{op}\b", fn))
                       for op in ("HGMMA", "IGMMA", "UTMALDG", "UTMASTG")}
-            spill_st, spill_ld, regs = next(
-                (int(st), int(ld), int(r)) for name, st, ld, r in records if name == mangled)
-            inst = re.search(rf"{kernel}(I\w+?E)EvNS", mangled)  # template arguments, mangled
-            log(f"  {kernel}{' ' + inst.group(1) if inst else ''}: "
+            inst = re.search(rf"{kernel}(I\w+?E)EvNS", mangled)
+            log(f"  SASS {kernel}{' ' + inst.group(1) if inst else ''}: "
                 + ", ".join(f"{op} {n}" for op, n in counts.items())
-                + f"; {regs} registers at launch (setmaxnreg moves them between the roles), "
-                f"spill stores {spill_st} B, loads {spill_ld} B; wgmma serialised by ptxas: "
-                f"{'yes' if serialised else 'no'}")
+                + f"; wgmma serialised by ptxas: {'yes' if serialised else 'no'}")
             check(counts[mma] > 0 and counts["UTMALDG"] > 0,
                   f"{kernel}: {mma} {counts[mma]}, UTMALDG {counts['UTMALDG']} in the SASS")
-            check(spill_st == 0 and spill_ld == 0 and not serialised,
-                  f"{kernel}: spills {spill_st}/{spill_ld} B or serialised wgmma: "
-                  f"{serialised[:1]}")
+            check(not serialised, f"{kernel}: serialised wgmma: {serialised[:1]}")
+    check(not re.search(r"\bIMMA\b", res.stdout),
+          "an mma.sync int GEMM (IMMA) is left in the library")
 
 
 def main() -> int:
@@ -945,9 +999,6 @@ def main() -> int:
     t0 = time.time()
     _lib.lib()
     log(f"  nvcc sm_90a build: {time.time() - t0:.1f} s -> {_lib.last_build['path']}")
-    for line in str(_lib.last_build.get("log", "")).splitlines():
-        if "Used" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
     hopper_evidence(_lib, nvcc)
 
     log("[2] kernels vs plain versions at the paths' shapes (warm median, CUDA events)")

@@ -8,10 +8,11 @@ so run it there as
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 
 Tolerances: K1 int8 codes may differ by one on <= 0.1% of elements
-(reduction order at rounding ties), scales rtol 1e-5; K2 is exact (the
-int32 sums are exact and the epilogue runs in the same order), and so is its
-GELU + quant mode (the GELU is PyTorch's expression, the division a true one,
-the row sum an integer sum); K3 within
+(reduction order at rounding ties), scales rtol 1e-5, scaled sums rtol 1e-4
+on rows whose codes agree; K2 and K8 are exact (the
+int32 sums are exact and the shared epilogue runs in the plain version's
+order), and so is their GELU + quant mode (the GELU is PyTorch's expression,
+the division a true one, the row sum an integer sum); K3 within
 one bf16 ulp except on <= 1e-4 of elements, where the norm's f32 sum
 order flips the bf16 rounding of the normalized value by one unit; K4
 within rel-L2 1e-2 and 4 bf16 ulps of max|want| (bf16 P in the PV product
@@ -20,8 +21,8 @@ missed mask moves the output by far more; ``fp_linear`` on the card
 within rel-L2 1e-5 of the CPU's f32 product (a bf16-rounded output would
 be ~1e-3 off). K7 codes equal except <= 0.1% one-unit flips (none without
 GELU; with it the kernel's tanhf and torch's may differ by ulps), scale
-rtol 1e-6, sum rtol 1e-6 on rows whose codes agree; K8 and K9 exact (exact
-int32 sums, and epilogues in the plain versions' operation order). K10a
+rtol 1e-6, sum rtol 1e-6 on rows whose codes agree; K9 exact (exact
+int32 sums, and the rescale in the plain version's operation order). K10a
 (the q/k/v producer) is exact: max is order-free and the division is IEEE.
 K10 (int8 attention) runs its plain version's steps; the f32 sum of p is
 taken in another order and expf may differ from torch.exp in the last bit,
@@ -405,6 +406,152 @@ def test_k2_branch_free_division_over_its_range_of_scales(dev):
         _check_gelu_quant(general, want, scale2)
 
 
+def _k8_operands(dev, gen, m, k, n):
+    a = torch.randint(-128, 128, (m, k), device=dev, generator=gen, dtype=torch.int8)
+    wp = torch.randint(-128, 128, (n, k // 2), device=dev, generator=gen, dtype=torch.int8)
+    s_a = torch.rand((m,), device=dev, generator=gen) * 0.02 + 1e-3
+    s_w = torch.rand((n,), device=dev, generator=gen) * 0.2 / k ** 0.5 + 1e-4
+    sum_a = s_a * a.float().sum(-1)
+    zp = torch.randint(0, 16, (n,), device=dev, generator=gen).float()
+    bias = torch.randn((n,), device=dev, generator=gen)
+    return a, wp, s_a, s_w, sum_a, zp, bias
+
+
+@pytest.mark.parametrize("m", [1, 127, 129, 1024 + 3])
+@pytest.mark.parametrize("k,n", [(128, 128), (128, 384), (384, 256), (8960, 640), (1536, 1536)])
+def test_k8_all_modes_tiles_and_ragged_m(dev, gen, m, k, n):
+    """K8 in its three modes at both tile widths (N = 128 * odd: the 128-wide
+    tile; N = 256 * k: the 256-wide one), one K step and the paths' K, M of one
+    row, one row short of a tile, one past it and ragged, with and without
+    zp_w / bias: f32 and bf16 outputs equal; in the GELU + quant mode codes,
+    s2 and sm2 equal and the row sums those of the kernel's own codes, with
+    scales inside and outside the branch-free division's range."""
+    from wanq_tpu_torch.ops.qgemm import (
+        w4a8_linear_cuda, w4a8_linear_gelu_quant_cuda, w4a8_linear_gelu_quant_plain,
+        w4a8_linear_plain)
+
+    a, wp, s_a, s_w, sum_a, zp, bias = _k8_operands(dev, gen, m, k, n)
+    opts = ((sum_a, zp, bias), (None, None, bias), (None, None, None))
+    for out_dtype in (torch.float32, torch.bfloat16):
+        for opt in opts:
+            got = w4a8_linear_cuda(a, wp, s_a, s_w, *opt, out_dtype)
+            assert torch.equal(got, w4a8_linear_plain(a, wp, s_a, s_w, *opt, out_dtype)), out_dtype
+    for scale in (0.03, 1e-14, 3e7):
+        scale2 = torch.tensor(scale, device=dev)
+        for opt in opts:
+            want = w4a8_linear_gelu_quant_plain(a, wp, s_a, s_w, scale2, *opt)
+            got = w4a8_linear_gelu_quant_cuda(a, wp, s_a, s_w, scale2, *opt)
+            _check_gelu_quant(got, want, scale2)
+    again = w4a8_linear_gelu_quant_cuda(a, wp, s_a, s_w, scale2, *opts[-1])
+    assert torch.equal(again[2], got[2])  # the int32 row sums are zeroed for every call
+    got = w4a8_linear_gelu_quant_cuda(a.reshape(1, m, k), wp, s_a.reshape(1, m), s_w,
+                                      torch.tensor(0.03, device=dev), bias=bias)
+    assert got[0].shape == (1, m, n) and got[1].shape == got[2].shape == (1, m)
+
+
+def test_k8_full_m_ragged_tail(dev, gen):
+    """M = 65536 - 5 rows (the paths' M, ragged) against K = 1536 -> N = 256:
+    every persistent block walks several tiles and the last tile is ragged."""
+    from wanq_tpu_torch.ops.qgemm import (
+        w4a8_linear_cuda, w4a8_linear_gelu_quant_cuda, w4a8_linear_gelu_quant_plain,
+        w4a8_linear_plain)
+
+    m = 65536 - 5
+    a, wp, s_a, s_w, sum_a, zp, bias = _k8_operands(dev, gen, m, 1536, 256)
+    got = w4a8_linear_cuda(a, wp, s_a, s_w, sum_a, zp, bias, torch.bfloat16)
+    assert torch.equal(got, w4a8_linear_plain(a, wp, s_a, s_w, sum_a, zp, bias, torch.bfloat16))
+    scale2 = torch.tensor(0.05, device=dev)
+    _check_gelu_quant(w4a8_linear_gelu_quant_cuda(a, wp, s_a, s_w, scale2, sum_a, zp, bias),
+                      w4a8_linear_gelu_quant_plain(a, wp, s_a, s_w, scale2, sum_a, zp, bias),
+                      scale2)
+
+
+@pytest.mark.parametrize("pad", [0, 128])
+@pytest.mark.parametrize("scale", [0.02, 0.4])
+def test_k8_gelu_quant_epilogue_on_every_bf16_value(dev, scale, pad):
+    """As test_k2_gelu_quant_epilogue_on_every_bf16_value, through K8: A = 0,
+    so h is the bias, which runs over all 65280 finite bf16 patterns, at both
+    tile widths, in the straight-line and the general epilogue: exact."""
+    from wanq_tpu_torch.ops.qgemm import (
+        w4a8_linear_gelu_quant_cuda, w4a8_linear_gelu_quant_plain)
+
+    a, w, s_a, s_w, opts = _every_bf16_as_bias(dev, pad)
+    a = torch.zeros((20, 128), dtype=torch.int8, device=dev)
+    wp = torch.full((w.shape[0], 64), 0x11, dtype=torch.int8, device=dev)  # every code 1
+    scale2 = torch.tensor(scale, device=dev)
+    for opt in opts:
+        want = w4a8_linear_gelu_quant_plain(a, wp, s_a, s_w, scale2, *opt)
+        assert want[0].unique().numel() > 100
+        got = w4a8_linear_gelu_quant_cuda(a, wp, s_a, s_w, scale2, *opt)
+        _check_gelu_quant(got, want, scale2)
+
+
+def test_k8_extreme_codes_do_not_overflow_the_scaled_sum(dev):
+    """The kernel sums 16 x the weight codes: at K = 8960 with every product
+    at its extreme (-128 * -8 and -128 * 7) the int32 tile holds 16 * acc
+    exactly and the shift gives acc back."""
+    from wanq_tpu_torch.ops.qgemm import w4a8_linear_cuda, w4a8_linear_plain
+
+    k, n, m = 8960, 128, 130
+    a = torch.full((m, k), -128, dtype=torch.int8, device=dev)
+    wp = torch.full((n, k // 2), 0x88 - 256, dtype=torch.int8, device=dev)  # every code -8
+    wp[1::2] = 0x77                                                          # every code 7
+    s_a, s_w = torch.ones((m,), device=dev), torch.ones((n,), device=dev)
+    got = w4a8_linear_cuda(a, wp, s_a, s_w)
+    assert torch.equal(got, w4a8_linear_plain(a, wp, s_a, s_w))
+    assert got[0, 0].item() == 128.0 * 8 * k and got[0, 1].item() == -128.0 * 7 * k
+
+
+def _check_k1(got, want):
+    diff = (got[0].int() - want[0].int()).abs()
+    assert diff.max().item() <= 1 and (diff > 0).float().mean().item() <= 1e-3
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
+    same = diff.amax(dim=-1) == 0
+    torch.testing.assert_close(got[2][same], want[2][same], rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("with_cs", [False, True], ids=["nocs", "cs"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c", [64, 1536, 5120])
+def test_k1_kernel_forms_match_plain(dev, gen, c, dtype, with_cs):
+    """K1 at C = 64 (most lanes idle), 1536 (one warp a row) and 5120 (four
+    warps a row), both input types, with and without channel_scale; B = 3
+    batch rows of 301 tokens, so tiles straddle batch boundaries and the last
+    tile of each batch row is ragged. One row of zeros (s = 1e-6, codes 0) and
+    a batch row whose scales leave the branch-free division's range (an
+    outlier channel modulated by 3e8: s > 2**20, the true division)."""
+    from wanq_tpu_torch.ops.fused import ln_modulate_quant_cuda, ln_modulate_quant_plain
+
+    b, n = 3, 301
+    x = (torch.randn((b, n, c), device=dev, generator=gen) * 2 + 0.3).to(dtype)
+    shift = torch.randn((b, c), device=dev, generator=gen) * 0.5
+    scale = torch.randn((b, c), device=dev, generator=gen) * 0.5
+    x[1, 7] = 0.0
+    shift[1] = 0.0       # the zero row stays zero after the modulation
+    x[2, :, 0] = 50.0    # batch row 2: an outlier channel, |ln| >= 5 at every width,
+    scale[2, 0] = 3e8    # modulated by 3e8: s = absmax / 127 > 1e7 > 2**20
+    cs = torch.rand((c,), device=dev, generator=gen) + 0.5 if with_cs else None
+    got = ln_modulate_quant_cuda(x, shift, scale, channel_scale=cs)
+    want = ln_modulate_quant_plain(x, shift, scale, channel_scale=cs)
+    _check_k1(got, want)
+    assert got[1][1, 7].item() == np.float32(1e-6) and not got[0][1, 7].any()
+    assert got[2][1, 7].item() == 0.0
+    assert got[1][2].min().item() > 2.0 ** 20
+
+
+def test_k1_single_rows_and_many_batches(dev, gen):
+    """N = 1 with B = 37: every tile holds one valid row and every block
+    restages its modulation for each tile."""
+    from wanq_tpu_torch.ops.fused import ln_modulate_quant_cuda, ln_modulate_quant_plain
+
+    for c in (1536, 5120):
+        x = torch.randn((37, 1, c), device=dev, generator=gen).bfloat16()
+        shift = torch.randn((37, c), device=dev, generator=gen)
+        scale = torch.randn((37, c), device=dev, generator=gen)
+        _check_k1(ln_modulate_quant_cuda(x, shift, scale),
+                  ln_modulate_quant_plain(x, shift, scale))
+
+
 @pytest.mark.parametrize("m", [50, 333, 1024 + 3])
 @pytest.mark.parametrize("k,n", [(128, 128), (384, 256), (1536, 384)])
 def test_k9_groups_and_small_m(dev, gen, m, k, n):
@@ -484,18 +631,32 @@ def test_ptq_state_on_card_equals_cpu(dev, yaml):
 
 
 def test_w4_wrappers_raise_on_bad_layouts(dev):
-    from wanq_tpu_torch.ops.fused import quant_sum_cuda
-    from wanq_tpu_torch.ops.qgemm import w4a4_linear_cuda, w4a8_linear_cuda
+    from wanq_tpu_torch.ops.fused import ln_modulate_quant_cuda, quant_sum_cuda
+    from wanq_tpu_torch.ops.qgemm import (
+        w4a4_linear_cuda, w4a8_linear_cuda, w4a8_linear_gelu_quant_cuda)
 
     a = torch.zeros((5, 256), dtype=torch.int8, device=dev)
     wp = torch.zeros((128, 128), dtype=torch.int8, device=dev)
     s, sw = torch.ones((5,), device=dev), torch.ones((128,), device=dev)
+    sc = torch.tensor(0.1, device=dev)
+    odd = torch.zeros((5 * 256 + 1,), dtype=torch.int8, device=dev)[1:].view(5, 256)
     sa4, sw4 = torch.ones((5, 2), device=dev), torch.ones((2, 128), device=dev)
     bad = [
         lambda: w4a8_linear_cuda(a[:, :192].contiguous(), wp[:, :96].contiguous(), s, sw),
         lambda: w4a8_linear_cuda(a, wp[:100].contiguous(), s, sw[:100]),       # N % 128
         lambda: w4a8_linear_cuda(a.float(), wp, s, sw),                        # dtype
         lambda: w4a8_linear_cuda(a, wp.cpu(), s, sw),                          # CPU operand
+        lambda: w4a8_linear_cuda(odd, wp, s, sw),                              # alignment
+        lambda: w4a8_linear_cuda(a, wp, s, sw, out_dtype=torch.float16),
+        lambda: w4a8_linear_gelu_quant_cuda(a, wp[:100].contiguous(), s, sw[:100], sc),
+        lambda: w4a8_linear_gelu_quant_cuda(a, wp, s, sw, sc.cpu()),
+        lambda: w4a8_linear_gelu_quant_cuda(a, wp, s, sw, sc, zp_w=sw),        # no sum_a
+        lambda: ln_modulate_quant_cuda(torch.zeros((1, 2, 6152), device=dev).bfloat16(),
+                                       torch.zeros((1, 6152), device=dev),
+                                       torch.zeros((1, 6152), device=dev)),    # C > 6144
+        lambda: ln_modulate_quant_cuda(torch.zeros((1, 2, 12), device=dev).bfloat16(),
+                                       torch.zeros((1, 12), device=dev),
+                                       torch.zeros((1, 12), device=dev)),      # C % 8
         lambda: w4a4_linear_cuda(a[:, :192].contiguous(), wp[:, :96].contiguous(), sa4, sw4),
         lambda: w4a4_linear_cuda(a, wp[:100].contiguous(), sa4, sw4[:, :100]),   # N % 128
         lambda: w4a4_linear_cuda(a, wp.cpu(), sa4, sw4),                         # CPU operand
@@ -522,9 +683,8 @@ def test_wrappers_count_launches_and_raise_on_bad_input(dev):
     with pytest.raises(ValueError):
         w8a8_linear(a, w[:, :100].contiguous(), s, sw)
     from wanq_tpu_torch.ops.fused import quant_sum
-    from wanq_tpu_torch.ops.qgemm import w4a4_linear, w4a8_linear
-
-    from wanq_tpu_torch.ops.qgemm import w8a8_linear_gelu_quant
+    from wanq_tpu_torch.ops.qgemm import (
+        w4a4_linear, w4a8_linear, w4a8_linear_gelu_quant, w8a8_linear_gelu_quant)
 
     scale2 = torch.tensor(0.1, device=dev)
     w8a8_linear_gelu_quant(a, w, s, sw, scale2)
@@ -533,10 +693,13 @@ def test_wrappers_count_launches_and_raise_on_bad_input(dev):
     x = torch.randn((5, 128), device=dev)
     quant_sum(x, gelu=True)
     w4a8_linear(a, w[:, :64].contiguous(), s, sw)
+    w4a8_linear_gelu_quant(a, w[:, :64].contiguous(), s, sw, scale2)
+    w4a8_linear_gelu_quant(a.cpu(), w[:, :64].contiguous().cpu(), s.cpu(), sw.cpu(), scale2.cpu())
     w4a4_linear(x, w[:, :64].contiguous(), torch.ones((1, 128), device=dev))
     quant_sum(x.cpu())  # the plain version launches nothing
     assert _lib.launch_counts() == {"w8a8_linear": 1, "w8a8_linear_gelu_quant": 1,
-                                    "quant_sum": 1, "w4a8_linear": 1, "w4a4_linear": 1}
+                                    "quant_sum": 1, "w4a8_linear": 1,
+                                    "w4a8_linear_gelu_quant": 1, "w4a4_linear": 1}
     assert np.isfinite(_lib.last_build.get("seconds", 0.0))
 
 

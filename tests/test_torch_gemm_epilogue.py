@@ -165,8 +165,9 @@ def test_block_forward_static_ffn2_runs_the_mode_and_matches_jax(rng, monkeypatc
 
 
 def test_packed_int4_block_keeps_the_elementwise_chain(rng):
-    """K8 has no GELU + quant epilogue: ``gelu_static_quant`` behind a bf16
-    GEMM output is the same function as the mode's plain version."""
+    """``gelu_static_quant`` behind a bf16 GEMM output, the chain a packed
+    int4 ffn.0 ran before K8 had the GELU + quant mode, is the same function as
+    the mode's plain version, for K2 and for K8."""
     a, w_kn, s_a, s_w, sum_a, zp_w, bias = _operands(rng, 33, 192, 256, True)
     scale2 = torch.tensor(0.02)
     h = tqgemm.w8a8_linear_plain(_t(a), _t(w_kn.T), _t(s_a), _t(s_w), _t(sum_a), _t(zp_w),
@@ -174,6 +175,13 @@ def test_packed_int4_block_keeps_the_elementwise_chain(rng):
     got = tqgemm.gelu_static_quant(h, scale2)
     want = tqgemm.w8a8_linear_gelu_quant_plain(_t(a), _t(w_kn.T), _t(s_a), _t(s_w), scale2,
                                                _t(sum_a), _t(zp_w), _t(bias))
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    wp = _t(rng.integers(-128, 128, size=(256, 96), dtype=np.int8))
+    h = tqgemm.w4a8_linear_plain(_t(a), wp, _t(s_a), _t(s_w), _t(sum_a), _t(zp_w), _t(bias),
+                                 torch.bfloat16)
+    got = tqgemm.gelu_static_quant(h, scale2)
+    want = tqgemm.w4a8_linear_gelu_quant_plain(_t(a), wp, _t(s_a), _t(s_w), scale2, _t(sum_a),
+                                               _t(zp_w), _t(bias))
     assert all(torch.equal(x, y) for x, y in zip(got, want))
 
 

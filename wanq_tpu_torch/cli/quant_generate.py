@@ -37,6 +37,10 @@ from wanq_tpu_torch.quant.ptq import prepare_quant_state
 from wanq_tpu_torch.quant.qlinear import QuantCtx
 
 
+CACHE_IGNORED = ("%s: the cache: section is ignored (the step caches are not ported yet); "
+                 "every denoise step runs the full forward")
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser("wanq_tpu_torch quant_generate")
     add_common_args(p)
@@ -58,6 +62,8 @@ def generate(args, on_step=None):
     cfg = WAN_CONFIGS[args.task]
     size = SIZE_CONFIGS[args.size]
     qcfg = QuantConfig.from_yaml(args.quant_config)
+    if qcfg.cache is not None:
+        logging.info(CACHE_IGNORED, args.quant_config)
     params = load_params(args, cfg)
     calib = dict(np.load(args.calib_data)) if args.calib_data else None
     t0 = time.time()

@@ -1,6 +1,6 @@
 // Hopper-only building blocks shared by the attention kernels (K4
 // flash_attention.cu, K10 attention_int8.cu) and the int GEMMs (K2
-// w8a8_gemm.cu, K9 w4a4_gemm.cu): mbarriers, TMA tile loads and
+// w8a8_gemm.cu, K8 w4a8_gemm.cu, K9 w4a4_gemm.cu): mbarriers, TMA tile loads and
 // stores, wgmma (warpgroup MMA) with its shared-memory descriptors, named
 // barriers, setmaxnreg, and the host-side tensor-map encoder.
 //

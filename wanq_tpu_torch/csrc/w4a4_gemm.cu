@@ -34,7 +34,7 @@
 // warpgroup does it, beside the consumers. Its first warp issues the TMA
 // loads into three rings of four stages: A [128 rows, 128 B] with the 128-byte
 // swizzle, the packed tile [128 n, 64 B] unswizzled and the group's 512 bytes
-// of s_w. Its other three warps turn each packed tile into the int8 tile
+// of s_w. Its other three warps turn each packed tile (gemm_sm90.cuh unpack_piece) into the int8 tile
 // [128 n, 128 B] in the swizzled layout wgmma reads (a fourth ring), fence it
 // towards the async proxy and arrive on its barrier. They write each code times 16 (the nibble moved to the top of its
 // byte, which sign-extends for free: five instructions per eight codes), and
@@ -87,28 +87,6 @@ struct Bars {
   uint64_t sw_full[kStages], sw_empty[kStages];  // s_w slices (TMA -> consumers)
 };
 static_assert(sizeof(Bars) <= kBarBytes, "barrier block");
-
-// Four packed bytes (eight codes, k ascending from the low nibble of the
-// lowest byte) -> two words of int8 holding 16 * code, k = 0..3 and k = 4..7:
-// a nibble at the top of its byte is the code times 16 in two's complement.
-__device__ __forceinline__ uint2 unpack8_x16(uint32_t w) {
-  const uint32_t even = (w << 4) & 0xF0F0F0F0u;  // k = 0, 2, 4, 6
-  const uint32_t odd = w & 0xF0F0F0F0u;          // k = 1, 3, 5, 7
-  return make_uint2(__byte_perm(even, odd, 0x5140), __byte_perm(even, odd, 0x7362));
-}
-
-// Piece i of a packed tile (the 16 bytes c = i % 4 of row i / 4, k = 32 c ..
-// 32 c + 31) -> the two 16-byte chunks 2 c and 2 c + 1 of the int8 row, at
-// their swizzled places.
-__device__ __forceinline__ void unpack_piece(uint8_t* dst, int i, uint4 v) {
-  const int row = i >> 2, c = i & 3;
-  const uint2 x = unpack8_x16(v.x), y = unpack8_x16(v.y);
-  const uint2 z = unpack8_x16(v.z), w = unpack8_x16(v.w);
-  uint8_t* drow = dst + row * BK;
-  *reinterpret_cast<uint4*>(drow + (((2 * c) ^ (row & 7)) << 4)) = make_uint4(x.x, x.y, y.x, y.y);
-  *reinterpret_cast<uint4*>(drow + (((2 * c + 1) ^ (row & 7)) << 4)) =
-      make_uint4(z.x, z.y, w.x, w.y);
-}
 
 template <bool kBf16Out>
 __global__ void __launch_bounds__(kThreads, 1) w4a4_gemm_kernel(const __grid_constant__ Params p) {

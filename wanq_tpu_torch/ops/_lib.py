@@ -8,7 +8,7 @@ sources and flags, so an edited source is rebuilt. The library is bound
 with ``ctypes``: every pointer and the CUDA stream pass as ``c_void_p``,
 and each entry point returns the launch's ``cudaError_t``, which
 :func:`launch` raises on. The attention kernels and the wgmma int GEMMs
-(K2, K9) build their TMA tensor maps on the host per launch; they look
+(K2, K8, K9) build their TMA tensor maps on the host per launch; they look
 ``cuTensorMapEncodeTiled`` up in the
 ``libcuda.so.1`` that PyTorch has already loaded (``csrc/sm90.cuh``), so the
 link line names no further library.
@@ -56,6 +56,7 @@ _SIGNATURES = {
     "wanq_w8a8_gemm_gelu_quant": [_P] * 10 + [_I, _I, _I, _P],
     "wanq_quant_sum": [_P, _I, _I, _P, _P, _P, _P, _LL, _I, _P],
     "wanq_w4a8_gemm": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "wanq_w4a8_gemm_gelu_quant": [_P] * 10 + [_I, _I, _I, _P],
     "wanq_w4a4_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "wanq_rms_rope_heads": [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _F, _P],
     "wanq_flash_attention": [_P, _P, _P, _P, _LL, _I, _I, _I] + [_LL] * 12

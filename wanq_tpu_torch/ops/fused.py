@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from wanq_tpu_torch.ops import _lib
 
 _EPS = 1e-6
+K1_MAX_C = 6144  # the widest row the K1 kernel takes (four warps x 1536 channels)
 
 Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -133,14 +134,17 @@ def ln_modulate_quant_static(x, shift, scale_mod, delta_a, eps: float = 1e-6) ->
 
 def ln_modulate_quant_cuda(x, shift, scale_mod, eps: float = 1e-6,
                            channel_scale=None) -> Triple:
-    """Kernel K1 on CUDA tensors."""
+    """Kernel K1 on CUDA tensors. x [B, N, C] bf16 or f32; C a multiple of 8
+    (bf16) / 4 (f32) and at most 6144, the widest row its four-warp form holds
+    in registers (Wan's widths are 1536 and 5120)."""
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"x: bf16 or f32 expected, got {x.dtype}")
     if not x.is_cuda:
         raise ValueError("x must be a CUDA tensor")
     b, n, c = x.shape
-    if c % (8 if x.dtype == torch.bfloat16 else 4):
-        raise ValueError(f"C={c} must be a multiple of 8 (bf16) / 4 (f32)")
+    if c == 0 or c > K1_MAX_C or c % (8 if x.dtype == torch.bfloat16 else 4):
+        raise ValueError(f"C={c} must be a positive multiple of 8 (bf16) / 4 (f32), at most "
+                         f"{K1_MAX_C}")
     x = x.contiguous()
     shift = shift.float().contiguous()
     scale_mod = scale_mod.float().contiguous()
@@ -150,6 +154,13 @@ def ln_modulate_quant_cuda(x, shift, scale_mod, eps: float = 1e-6,
     if channel_scale is not None:
         channel_scale = channel_scale.float().contiguous()
         _lib.require_cuda(channel_scale, torch.float32, "channel_scale")
+        if channel_scale.shape != (c,):
+            raise ValueError(f"channel_scale: [C] = ({c},) expected, got "
+                             f"{tuple(channel_scale.shape)}")
+    for t, name in ((x, "x"), (shift, "shift"), (scale_mod, "scale_mod"),
+                    (channel_scale, "channel_scale")):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel loads 16 bytes a thread)")
     q = torch.empty((b, n, c), dtype=torch.int8, device=x.device)
     s = torch.empty((b, n), dtype=torch.float32, device=x.device)
     ssum = torch.empty((b, n), dtype=torch.float32, device=x.device)

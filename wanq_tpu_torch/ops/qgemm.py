@@ -18,6 +18,8 @@ CPU tensors:
   tanh-GELU and a static-scale int8 quant with the rows' code sums in the
   GEMM's epilogue, for an ffn.0 in front of an ffn.2 with a static scale;
 * :func:`w4a8_linear` -- K8 (``csrc/w4a8_gemm.cu``), packed int4 weights;
+* :func:`w4a8_linear_gelu_quant` -- K8 in the same second mode, for an ffn.0
+  on packed int4 weights;
 * :func:`w4a4_linear` -- K9 (``csrc/w4a4_gemm.cu``) after a per-(token,
   group) int4 quant of the FP activation, in plain PyTorch, as the JAX
   package does in XLA outside its kernel.
@@ -103,7 +105,7 @@ def _check_out_dtype(out_dtype):
 
 
 def _check_tma_operand(t, name):
-    """K2 and K9 read their matrix operands through TMA tensor maps, which
+    """K2, K8 and K9 read their matrix operands through TMA tensor maps, which
     need a 16-byte aligned base (rows are multiples of 16 bytes already)."""
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned")
@@ -141,7 +143,7 @@ def w8a8_linear(a_int8, w_int8, s_a, s_w, sum_a: Optional[torch.Tensor] = None,
 
 
 # ---------------------------------------------------------------------------
-# K2's second mode: the GEMM, then GELU + static int8 quant + row sum
+# The second mode of K2 and K8: the GEMM, then GELU + static int8 quant + row sum
 # ---------------------------------------------------------------------------
 
 
@@ -173,17 +175,16 @@ def w8a8_linear_gelu_quant_plain(a_int8, w_int8, s_a, s_w, scale2, sum_a=None, z
     return gelu_static_quant(h, scale2)
 
 
-def w8a8_linear_gelu_quant_cuda(a_int8, w_int8, s_a, s_w, scale2, sum_a=None, zp_w=None,
-                                bias=None) -> Triple:
-    """Kernel K2 in its GELU + quant mode on CUDA tensors: the codes are
-    written by the GEMM's epilogue, so the bf16 intermediate never reaches
-    device memory; the rows' code sums are added up in an int32 vector,
-    zeroed here for every call. Shapes as :func:`w8a8_linear_cuda`; N < 2**17 keeps the sum exact in f32."""
+def _gelu_quant_cuda(what, entry, k_of_w, k_mult, a_int8, w, s_a, s_w, scale2, sum_a, zp_w,
+                     bias) -> Triple:
+    """Launches the GELU + quant mode of K2 or K8 (``entry``; counter
+    ``what``): the codes are written by the GEMM's epilogue, and the rows'
+    code sums are added up in an int32 vector, zeroed here for every call."""
     a2, w, s_a, s_w, sum_a, zp_w, bias, lead = _int_gemm_operands(
-        "w8a8_linear_gelu_quant", a_int8, w_int8, lambda kw: kw, 64, s_a, s_w, sum_a, zp_w, bias)
+        what, a_int8, w, k_of_w, k_mult, s_a, s_w, sum_a, zp_w, bias)
     (m, k), n = a2.shape, w.shape[0]
     _check_tma_operand(a2, "a_int8")
-    _check_tma_operand(w, "w_int8")
+    _check_tma_operand(w, "w")
     if n >= 2 ** 17:
         raise ValueError(f"N={n}: the row sum of the codes must stay below 2**24")
     scale2 = scale2.reshape(()).float().contiguous()
@@ -191,12 +192,22 @@ def w8a8_linear_gelu_quant_cuda(a_int8, w_int8, s_a, s_w, scale2, sum_a=None, zp
     q = torch.empty((m, n), dtype=torch.int8, device=a2.device)
     code_sum = torch.zeros((m,), dtype=torch.int32, device=a2.device)
     _lib.launch(
-        "w8a8_linear_gelu_quant", "wanq_w8a8_gemm_gelu_quant",
+        what, entry,
         a2.data_ptr(), w.data_ptr(), s_a.data_ptr(), s_w.data_ptr(),
         _lib.ptr(sum_a), _lib.ptr(zp_w), _lib.ptr(bias), scale2.data_ptr(), q.data_ptr(),
         code_sum.data_ptr(), m, n, k,
     )
     return static_quant_outputs(q.reshape(*lead, n), scale2, code_sum.reshape(lead))
+
+
+def w8a8_linear_gelu_quant_cuda(a_int8, w_int8, s_a, s_w, scale2, sum_a=None, zp_w=None,
+                                bias=None) -> Triple:
+    """Kernel K2 in its GELU + quant mode on CUDA tensors: the bf16
+    intermediate never reaches device memory. Shapes as
+    :func:`w8a8_linear_cuda`; N < 2**17 keeps the sum exact in f32."""
+    return _gelu_quant_cuda("w8a8_linear_gelu_quant", "wanq_w8a8_gemm_gelu_quant",
+                            lambda kw: kw, 64, a_int8, w_int8, s_a, s_w, scale2, sum_a, zp_w,
+                            bias)
 
 
 def w8a8_linear_gelu_quant(a_int8, w_int8, s_a, s_w, scale2,
@@ -225,11 +236,15 @@ def w4a8_linear_plain(a_int8, w_packed, s_a, s_w, sum_a=None, zp_w=None,
 
 def w4a8_linear_cuda(a_int8, w_packed, s_a, s_w, sum_a=None, zp_w=None,
                      bias=None, out_dtype=torch.float32) -> torch.Tensor:
-    """Kernel K8 on CUDA tensors. Any M; K % 128 == 0 and N % 128 == 0."""
+    """Kernel K8 on CUDA tensors. Any M; K % 128 == 0, K < 2**17 and
+    N % 128 == 0 (the kernel's output tile is 128 x 256 where 256 divides N,
+    else 128 x 128)."""
     _check_out_dtype(out_dtype)
     a2, w, s_a, s_w, sum_a, zp_w, bias, lead = _int_gemm_operands(
         "w4a8_linear", a_int8, w_packed, lambda kw: 2 * kw, 128, s_a, s_w, sum_a, zp_w, bias)
     (m, k), n = a2.shape, w.shape[0]
+    _check_tma_operand(a2, "a_int8")
+    _check_tma_operand(w, "w_packed")
     out = torch.empty((m, n), dtype=out_dtype, device=a2.device)
     _lib.launch(
         "w4a8_linear", "wanq_w4a8_gemm",
@@ -249,6 +264,36 @@ def w4a8_linear(a_int8, w_packed, s_a, s_w, sum_a: Optional[torch.Tensor] = None
     if a_int8.is_cuda:
         return w4a8_linear_cuda(a_int8, w_packed, s_a, s_w, sum_a, zp_w, bias, out_dtype)
     return w4a8_linear_plain(a_int8, w_packed, s_a, s_w, sum_a, zp_w, bias, out_dtype)
+
+
+def w4a8_linear_gelu_quant_plain(a_int8, w_packed, s_a, s_w, scale2, sum_a=None, zp_w=None,
+                                 bias=None) -> Triple:
+    """The W4A8 linear with a bf16 output, then tanh-GELU in f32 and a
+    static-scale int8 quant: the chain of :func:`w8a8_linear_gelu_quant_plain`
+    on packed int4 weights. Returns (q int8 [..., N], s2 f32 [...], sm2 f32
+    [...])."""
+    h = w4a8_linear_plain(a_int8, w_packed, s_a, s_w, sum_a, zp_w, bias, torch.bfloat16)
+    return gelu_static_quant(h, scale2)
+
+
+def w4a8_linear_gelu_quant_cuda(a_int8, w_packed, s_a, s_w, scale2, sum_a=None, zp_w=None,
+                                bias=None) -> Triple:
+    """Kernel K8 in its GELU + quant mode on CUDA tensors. Shapes as
+    :func:`w4a8_linear_cuda`; N < 2**17 keeps the sum exact in f32."""
+    return _gelu_quant_cuda("w4a8_linear_gelu_quant", "wanq_w4a8_gemm_gelu_quant",
+                            lambda kw: 2 * kw, 128, a_int8, w_packed, s_a, s_w, scale2, sum_a,
+                            zp_w, bias)
+
+
+def w4a8_linear_gelu_quant(a_int8, w_packed, s_a, s_w, scale2,
+                           sum_a: Optional[torch.Tensor] = None,
+                           zp_w: Optional[torch.Tensor] = None,
+                           bias: Optional[torch.Tensor] = None) -> Triple:
+    """K8's GELU + quant mode, dispatched: the kernel for CUDA tensors, the
+    plain chain for CPU tensors."""
+    if a_int8.is_cuda:
+        return w4a8_linear_gelu_quant_cuda(a_int8, w_packed, s_a, s_w, scale2, sum_a, zp_w, bias)
+    return w4a8_linear_gelu_quant_plain(a_int8, w_packed, s_a, s_w, scale2, sum_a, zp_w, bias)
 
 
 # ---------------------------------------------------------------------------

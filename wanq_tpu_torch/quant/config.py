@@ -100,6 +100,10 @@ class QuantConfig:
         # attention quantization sections (self / cross)
         self.attn_cfg = AttnQuantCfg.from_dict(raw.get("attn"))
         self.cross_attn_cfg = AttnQuantCfg.from_dict(raw.get("cross_attn"))
+        # step-cache defaults tuned for this config's model scale: kept as
+        # read; the step caches are not ported, so nothing consumes them yet
+        # (cli/quant_generate.py says so once)
+        self.cache: Optional[Dict[str, Any]] = raw.get("cache")
         self._re_cache: Dict[str, "re.Pattern"] = {}
 
     def _search(self, pattern: str, name: str):

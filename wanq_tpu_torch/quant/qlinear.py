@@ -13,6 +13,8 @@ policies and an explicit quant state:
   int8   the int kernel routes:
          W8A8  per-token int8 activations (K7) x int8 weights (K2)
          W4A8  per-token int8 activations (K7) x packed int4 weights (K8)
+         (an ffn.0 in front of an ffn.2 with a static scale: the GEMM's
+         GELU + quant mode, K2's or K8's)
          W4A4  per-(token, 128-group) int4 activations x per-group int4
                weights (Atom, K9)
 
@@ -33,9 +35,9 @@ import torch
 
 from wanq_tpu_torch.ops.fused import quant_sum
 from wanq_tpu_torch.ops.qgemm import (
-    gelu_static_quant,
     w4a4_linear,
     w4a8_linear,
+    w4a8_linear_gelu_quant,
     w8a8_linear,
     w8a8_linear_gelu_quant,
 )
@@ -265,20 +267,17 @@ def ffn0_gelu_quant_from_prequant(ctx: QuantCtx, site0: str, site2: str, params0
     activation, then tanh-GELU and the int8 quant that ``site2`` (ffn.2)
     consumes. Returns ffn.2's (codes [B, N, C_out] int8, scale [B, N], scaled
     code sum [B, N]). Under a static ffn.2 scale (``int8_static_fusable``)
-    int8 weights run the whole chain in K2's GELU + quant mode, so the bf16
-    intermediate never reaches device memory; packed int4 weights (K8 has no
-    such mode) run the GEMM with a bf16 output and the same chain
-    elementwise. Under a dynamic ffn.2 scale the GEMM's bf16 output goes
+    the whole chain runs in the GEMM's GELU + quant mode, K2's for int8 weights
+    and K8's for packed int4 weights, so the bf16 intermediate never reaches
+    device memory. Under a dynamic ffn.2 scale the GEMM's bf16 output goes
     through K7."""
     _check_int8_policy(ctx.policy(site0), site0)
     st0, st2 = ctx.state[site0], ctx.state[site2]
     bias = params0.get("b")
-    static = int8_static_fusable(ctx, site2)
-    if static and "w_int8" in st0:
-        return w8a8_linear_gelu_quant(q8, st0["w_int8"], s_a, st0["scale_w"], st2["delta_a"],
-                                      ssum, st0["zp_w_int"],
-                                      None if bias is None else bias.float())
+    if int8_static_fusable(ctx, site2):
+        gemm, w = ((w4a8_linear_gelu_quant, st0["w_int4"]) if "w_int4" in st0
+                   else (w8a8_linear_gelu_quant, st0["w_int8"]))
+        return gemm(q8, w, s_a, st0["scale_w"], st2["delta_a"], ssum, st0["zp_w_int"],
+                    None if bias is None else bias.float())
     h = _int_linear(st0, q8, s_a, ssum, bias, torch.bfloat16)
-    if static:
-        return gelu_static_quant(h, st2["delta_a"])
     return quant_sum(h, gelu=True, channel_scale=st2.get("channel_mask"))
