@@ -283,10 +283,3 @@ def test_generate_reorder_tables_equal_jax(rng):
             assert got[name].dtype == np.int32 and got[name].shape == (3, 12 * pool)
             np.testing.assert_array_equal(got[name], np.asarray(want[name]))
             assert sorted(got[name][0]) == list(range(12 * pool))
-
-
-@pytest.mark.parametrize("fn", ["pooled_attn_map", "select_temporal_windows",
-                                "collapse_window_radii", "per_head_window_radii"])
-def test_window_helpers_wait_for_the_window_slice(fn):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        getattr(tattn, fn)({})

@@ -28,10 +28,17 @@ K10 (int8 attention) runs its plain version's steps; the f32 sum of p is
 taken in another order and expf may differ from torch.exp in the last bit,
 which flips a rounded prob by one of 127 steps on rare elements: rel-L2
 <= 1e-3 against the blocked plain version, and <= 1e-4 of elements further
-than one step (max|want| / 127) from it.
+than one step (max|want| / 127) from it. K4's band mode is held to K4's
+limits against the plain version with the band mask; a stage or phase that
+producer and consumers count differently hangs the card instead of failing,
+so each band test waits for the card with a deadline and ends the process
+past it (``_finish_within``).
 """
 
 import math
+import os
+import sys
+import time
 
 import numpy as np
 import pytest
@@ -196,6 +203,124 @@ def test_k4_fully_masked_tail_tiles_stay_finite(dev, gen):
     assert torch.isfinite(out.float()).all()
     torch.testing.assert_close(out.float(), v[:, :, :1].transpose(1, 2).expand(1, 130, 2, 128)
                                .float(), rtol=0, atol=0)
+
+
+def _finish_within(seconds: float, what: str) -> None:
+    """Waits for the card's queued work. A hung kernel cannot be stopped from
+    inside the process, so past the deadline the process ends (exit 124), which
+    releases the card, and the run stops here instead of at its own limit."""
+    done = torch.cuda.Event()
+    done.record()
+    deadline = time.monotonic() + seconds
+    while not done.query():
+        if time.monotonic() > deadline:
+            sys.stderr.write(f"{what}: the card did not finish within {seconds} s (hang)\n")
+            sys.stderr.flush()
+            os._exit(124)
+        time.sleep(1e-3)
+
+
+def _band_inputs(dev, gen, b, n, s, valid, plant_rows=None):
+    """q, k heads-major [B, N, S, 128] and v a strided view over [B, S, N*128]
+    (the main path's layouts); the pad rows of k/v are planted (k 0, v 100),
+    and so are the v rows ``plant_rows`` (v 100)."""
+    q = (torch.randn((b, n, s, 128), device=dev, generator=gen) * 0.0884).bfloat16()
+    k = torch.randn((b, n, s, 128), device=dev, generator=gen).bfloat16()
+    v = torch.randn((b, s, n * 128), device=dev, generator=gen).bfloat16()
+    k[:, :, valid:] = 0.0
+    v[:, valid:] = 100.0
+    if plant_rows is not None:
+        v[:, plant_rows] = 100.0
+    return q, k, v.view(b, s, n, 128).transpose(1, 2)
+
+
+# (S, tpf, radii, valid): radius 0; tpf 16, 100, 128 and 1560 (no multiple of
+# 128 but one); bands that end inside a tile; valid inside the band and inside
+# a tile; pad q rows; per-head radii with a head that covers every frame
+@pytest.mark.parametrize("s,tpf,radii,valid", [
+    (640, 16, (0, 0, 0), 640), (700, 100, (1, 1, 1), 690), (1024, 128, (0, 0, 0), 1000),
+    (4700, 1560, (1, 1, 1), 4680), (900, 100, (0, 1, 9, 3), 850), (300, 100, (2, 2, 2), 300),
+    (1280, 100, (0, 2, 1), 1279),
+])
+def test_k4_band_matches_plain(dev, gen, s, tpf, radii, valid):
+    """K4's band mode against the plain version with the band mask, on the
+    main path's operand layouts. The v rows that lie outside the band of
+    every row of the first q tile are planted (v 100): a tile visited and
+    left unmasked there moves those rows' outputs by far more than the
+    limits, so the first q tile is also held on its own."""
+    from wanq_tpu_torch.models.attention import (
+        TemporalWindow, _flash_cuda, _sdpa_reference, temporal_band_dense_mask)
+
+    b, n = 2, len(radii)
+    win = TemporalWindow(tpf, max(radii), radii if len(set(radii)) > 1 else None)
+    tile0 = temporal_band_dense_mask(128, s, win, valid, radius=max(radii), device=dev)
+    outside = torch.nonzero(~tile0.any(dim=0)[:valid]).flatten()
+    q, k, vh = _band_inputs(dev, gen, b, n, s, valid, plant_rows=outside)
+    _lib.reset_launch_counts()
+    got = _flash_cuda(q, k, vh, 1.0, valid, tokens_per_frame=tpf, radii=radii)
+    _finish_within(60, f"K4 band S={s} tpf={tpf} radii={radii}")
+    assert _lib.launch_counts() == {"attention_band": 1}
+    want = _sdpa_reference(q.transpose(1, 2), k.transpose(1, 2), vh.transpose(1, 2), 1.0,
+                           valid, window=win, q_chunk=512)
+    _k4_close(got[:, :128], want[:, :128])
+    _k4_close(got, want)  # all rows, at the scale of the planted 100s
+    if outside.numel():
+        rows = torch.arange(s, device=dev)
+        clean = ~(temporal_band_dense_mask(s, s, win, valid, device=dev)[:, outside].any(dim=1))
+        _k4_close(got[:, clean & (rows < valid)], want[:, clean & (rows < valid)])
+    # the pad q rows attend the whole valid prefix
+    if valid < s:
+        dense = _sdpa_reference(q.transpose(1, 2), k.transpose(1, 2), vh.transpose(1, 2), 1.0,
+                                valid, q_chunk=512)
+        _k4_close(got[:, valid:], dense[:, valid:])
+
+
+def test_k4_band_rows_fully_masked_in_a_tile_stay_finite(dev, gen):
+    """tpf 100, radius 0: the q tile [128, 256) visits kv tiles 0..2, and its
+    rows of frame 2 see nothing of tile 0, their first visited tile (the
+    running max is still -inf there). No row may turn into NaN."""
+    from wanq_tpu_torch.models.attention import TemporalWindow, _flash_cuda, _sdpa_reference
+
+    q, k, vh = _band_inputs(dev, gen, 1, 2, 512, 512)
+    got = _flash_cuda(q, k, vh, 1.0, 512, tokens_per_frame=100, radii=(0, 0))
+    _finish_within(60, "K4 band, fully masked first tile")
+    want = _sdpa_reference(q.transpose(1, 2), k.transpose(1, 2), vh.transpose(1, 2), 1.0, 512,
+                           window=TemporalWindow(100, 0))
+    _k4_close(got, want)
+
+
+def test_k4_band_through_the_wrappers(dev, gen):
+    """attention_heads_major and attention launch the band mode for a window
+    and the dense mode for a window that covers every frame pair; bad band
+    arguments raise."""
+    from wanq_tpu_torch.models.attention import (
+        TemporalWindow, _flash_cuda, _sdpa_reference, attention, attention_heads_major)
+
+    q, k, vh = _band_inputs(dev, gen, 2, 3, 640, 630)
+    win = TemporalWindow(64, 2, (0, 2, 1))
+    _lib.reset_launch_counts()
+    got = attention_heads_major(q, k, vh, k_valid_len=630, window=win)
+    seq = attention(q.transpose(1, 2), k.transpose(1, 2), vh.transpose(1, 2), scale=1.0,
+                    k_valid_len=630, window=win)
+    wide = attention_heads_major(q, k, vh, k_valid_len=630, window=TemporalWindow(64, 9))
+    _finish_within(60, "K4 band through the wrappers")
+    assert _lib.launch_counts() == {"attention_band": 2, "attention": 1}
+    want = _sdpa_reference(q.transpose(1, 2), k.transpose(1, 2), vh.transpose(1, 2), 1.0, 630,
+                           window=win)
+    _k4_close(got.transpose(1, 2), want)
+    _k4_close(seq, want)
+    _k4_close(wide.transpose(1, 2), _sdpa_reference(q.transpose(1, 2), k.transpose(1, 2),
+                                                    vh.transpose(1, 2), 1.0, 630))
+    d64 = torch.zeros((1, 2, 128, 64), device=dev, dtype=torch.bfloat16)
+    many = torch.zeros((1, 65, 128, 128), device=dev, dtype=torch.bfloat16)
+    for fn in (lambda: _flash_cuda(d64, d64, d64, 1.0, 128, tokens_per_frame=16, radii=(1, 1)),
+               lambda: _flash_cuda(many, many, many, 1.0, 128, tokens_per_frame=16,
+                                   radii=(1,) * 65),
+               lambda: _flash_cuda(q, k, vh, 1.0, 630, tokens_per_frame=16, radii=(1, 1)),
+               lambda: _flash_cuda(q, k, vh, 1.0, 630, tokens_per_frame=0, radii=(1, 1, 1)),
+               lambda: _flash_cuda(q, k, vh, 1.0, 630, tokens_per_frame=16, radii=(1, -1, 1))):
+        with pytest.raises(ValueError):
+            fn()
 
 
 def test_fp_linear_on_card_keeps_the_f32_accumulator(dev, gen):

@@ -278,6 +278,13 @@ def test_k4_attention_seq_major_matches_jax(rng, valid):
 
 
 def test_k4_window_is_not_ported(rng):
+    """The window is ported (tests/test_torch_window.py holds it against
+    wanq_tpu); what stays refused is a window that is no TemporalWindow, on
+    every entry point, and any window on cross-attention."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(rng, 1, 8, 8, 1, 128))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tattn.attention(q, k, v, window=object())
+    for fn in (tattn.attention, tattn.attention_heads_major):
+        with pytest.raises(TypeError, match="TemporalWindow"):
+            fn(q, k, v, window=object())
+    with pytest.raises(TypeError):
+        tattn.cross_attention_heads_major(q.transpose(1, 2), k, v,
+                                          window=tattn.TemporalWindow(4, 0))

@@ -206,8 +206,8 @@ def test_converters_keep_params_and_transpose_int8(rng):
 
 
 def test_unported_quant_branches_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        QuantCtx(mode="int8", attn_window=1)
+    # the window is ported: the ctx keeps it for dit_forward to resolve
+    assert QuantCtx(mode="int8", attn_window=1).attn_window == 1
     params = tdit.init_params(tiny_config(), 0, device="cpu")
     names = tdit.linear_layer_names(tiny_config())
     with pytest.raises(NotImplementedError, match="ROADMAP"):  # ViDiT-Q: mask + rotation

@@ -392,17 +392,22 @@ def test_dit_forward_sim_attn_section_matches_jax(rng, group):
 
 
 def test_attn_window_with_attention_quant_is_refused(rng):
+    """A window with an attn: section is refused; without the section the
+    same sim ctx runs the banded forward, as JAX's does (x has 3 latent
+    frames of 20 tokens, so radius 1 is a real band)."""
     cfg_j, pj, cfg_t, pt = _models(3, **BF16)
     x, t, ctx = _inputs(rng)
-    tctx = QuantCtx(mode="sim", attn=tattn.AttnQuantCfg.from_dict(SECTION))
-    tctx.attn_window = 1  # the constructor refuses it: set as a caller could
+    tctx = QuantCtx(mode="sim", attn=tattn.AttnQuantCfg.from_dict(SECTION), attn_window=1)
     with pytest.raises(NotImplementedError, match="does not compose"):
         tdit.dit_forward(pt, cfg_t, torch.from_numpy(x), torch.from_numpy(t),
                          torch.from_numpy(ctx), 64, ctx=tctx)
     tctx.attn = None
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        tdit.dit_forward(pt, cfg_t, torch.from_numpy(x), torch.from_numpy(t),
-                         torch.from_numpy(ctx), 64, ctx=tctx)
+    want = np.asarray(jdit.dit_forward(pj, cfg_j, jnp.asarray(x), jnp.asarray(t),
+                                       jnp.asarray(ctx), 64,
+                                       ctx=JaxQuantCtx(mode="sim", attn_window=1)))
+    got = tdit.dit_forward(pt, cfg_t, torch.from_numpy(x), torch.from_numpy(t),
+                           torch.from_numpy(ctx), 64, ctx=tctx).numpy()
+    assert _rel(want, got) <= 5e-3 and _cos(want, got) >= 0.9999
     with pytest.raises(ValueError, match="unknown quant mode"):
         QuantCtx(mode="int4")
 

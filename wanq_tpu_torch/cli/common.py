@@ -46,7 +46,31 @@ def add_common_args(p: argparse.ArgumentParser, default_steps: int = 50):
         p.add_argument(f"--{flag}", type=int, default=1,
                        help="multi-GPU (not ported yet; must stay 1)")
     p.add_argument("--dit_fsdp", action="store_true", help="multi-GPU (not ported yet)")
+    p.add_argument("--attn_window", type=str, default="-1",
+                   help="sliding temporal-window self-attention: band of +-N latent frames "
+                        "(K4's band mode skips the kv tiles outside it). -1 = dense; a comma "
+                        "list gives one radius per head (a negative entry is dense for that "
+                        "head), e.g. from quant.attn.per_head_window_radii. Does not compose "
+                        "with an attn: section")
     return p
+
+
+def parse_attn_window(args):
+    """``--attn_window`` -> None (dense) | int radius | per-head tuple. Takes
+    "R" or a comma list "r0,r1,..." (one per head; a trailing comma and
+    spaces are tolerated, negative entries stay); a negative scalar is
+    dense."""
+    val = getattr(args, "attn_window", None)
+    if val is None:
+        return None
+    s = str(val).strip()
+    if not s:
+        return None
+    if "," in s:
+        parts = [x.strip() for x in s.split(",") if x.strip()]
+        return tuple(int(x) for x in parts) if parts else None
+    r = int(s)
+    return r if r >= 0 else None
 
 
 def validate_args(args):

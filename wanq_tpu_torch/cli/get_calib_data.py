@@ -2,7 +2,11 @@
 
 Runs an FP denoise sweep and saves per-layer activation statistics
 {layer: [T, C]} (absmax; with --collect_minmax also .act_max/.act_min) --
-the input to PTQ.
+the input to PTQ. With --attn_map_pool P it also saves each layer's pooled
+post-softmax self-attention map ``<layer>.attn_map`` [T, H, S/P, S/P] and the
+pool factor ``attn_map_pool``, from which quant.attn.select_temporal_windows
+chooses window radii (--attn_map_reduce mean). The sweep runs dense:
+--attn_window is ignored.
 
     python -m wanq_tpu_torch.cli.get_calib_data --task t2v-1.3B --size 832*480 \
         --frame_num 81 --random_init --collect_minmax --sample_steps 1 \
@@ -42,6 +46,11 @@ def parse_args(argv=None):
                         "default calib_data.npz)")
     p.add_argument("--collect_minmax", action="store_true",
                    help="also collect per-channel act min/max (static A8)")
+    p.add_argument("--attn_map_pool", type=int, default=0,
+                   help="pool factor of the post-softmax attention-map capture (0 = off)")
+    p.add_argument("--attn_map_reduce", type=str, default="max", choices=["max", "mean"],
+                   help="pooling of the captured maps: 'max' feeds reorder tables, 'mean' "
+                        "(mass-preserving) the choice of window radii")
     return p.parse_args(argv)
 
 
@@ -61,9 +70,9 @@ def generate(args):
 
     params = load_params(args, cfg)
     context, context_null = load_contexts(args, cfg)
-    pipe = WanT2V(cfg, params, quant_ctx=QuantCtx(mode="calib",
-                                                  collect_minmax=args.collect_minmax),
-                  device=args.device)
+    pipe = WanT2V(cfg, params, quant_ctx=QuantCtx(
+        mode="calib", collect_minmax=args.collect_minmax, attn_map_pool=args.attn_map_pool,
+        attn_map_reduce=args.attn_map_reduce), device=args.device)
     t0 = time.time()
     stats = pipe.collect_calibration(
         torch.from_numpy(context), torch.from_numpy(context_null),
@@ -73,6 +82,9 @@ def generate(args):
     )
     logging.info("calibration sweep done in %.2fs: %d entries x %d steps",
                  time.time() - t0, len(stats), args.sample_steps)
+    if args.attn_map_pool:
+        # the pool factor maps pooled cells back to token indices
+        stats["attn_map_pool"] = np.asarray(args.attn_map_pool)
     os.makedirs(os.path.dirname(os.path.abspath(save_path)), exist_ok=True)
     np.savez(save_path, **stats)
     logging.info("saved %s", save_path)

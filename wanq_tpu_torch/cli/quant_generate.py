@@ -4,6 +4,8 @@ simulated quantization (fake-quant, the default) or the int kernel path
 section switches self-attention to the int8 flash kernel under --hardware
 and to the simulated attention quantizers without it; a ``cross_attn:``
 section runs the simulated quantizers on cross-attention in both modes.
+``--attn_window R`` (or one radius per head, ``r0,r1,...``) bands
+self-attention to +-R latent frames: K4's band mode on the card.
 
     python -m wanq_tpu_torch.cli.quant_generate --task t2v-1.3B --size 832*480 \
         --frame_num 81 --random_init --quant_config quant_configs/wan_w8a8_speed.yaml \
@@ -26,6 +28,7 @@ from wanq_tpu_torch.cli.common import (
     add_common_args,
     load_contexts,
     load_params,
+    parse_attn_window,
     setup_logging,
     validate_args,
 )
@@ -71,7 +74,8 @@ def generate(args, on_step=None):
                                              calib=calib, targets=mode)
     logging.info("computed quant state: %d layers in %.2fs", len(state), time.time() - t0)
     ctx = QuantCtx(mode=mode, policies=policies, state=state,
-                   attn=qcfg.attn_cfg, cross_attn=qcfg.cross_attn_cfg)
+                   attn=qcfg.attn_cfg, cross_attn=qcfg.cross_attn_cfg,
+                   attn_window=parse_attn_window(args))
 
     context, context_null = load_contexts(args, cfg)
     pipe = WanT2V(cfg, params, quant_ctx=ctx, device=args.device)

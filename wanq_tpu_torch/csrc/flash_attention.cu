@@ -1,11 +1,16 @@
-// K4: bf16 flash attention forward, head dim 128, non-causal, kv-prefix mask,
-// strided operands.
+// K4: bf16 flash attention forward, head dim 128, non-causal, kv-prefix mask
+// or temporal band, strided operands.
 //
 // Replaces the TPU kernels that wanq_tpu/models/attention.py drives: the
 // splash self-attention (:179 _splash_kernel, :256 _splash_heads_major, with
-// the kv-prefix mask :94 kv < valid) and the flash cross-attention
-// (:347 cross_attention_heads_major, :464 attention; segment-id kv mask).
-//   out[b, s, h, :] = softmax(scale * q[b,h,s,:] . k[b,h,t,:], t < kv_valid) @ v
+// the kv-prefix mask :94 kv < valid, or the temporal band mask :132) and the
+// flash cross-attention (:347 cross_attention_heads_major, :464 attention;
+// segment-id kv mask).
+//   out[b, s, h, :] = softmax(scale * q[b,h,s,:] . k[b,h,t,:], t in band(s)) @ v
+// Dense mode: band(s) = [0, kv_valid). Band mode (tokens_per_frame tpf > 0, a
+// radius r_h per head): band(s) = the columns of frames s/tpf - r_h ..
+// s/tpf + r_h inside [0, kv_valid), and [0, kv_valid) for a pad row s >=
+// kv_valid, so no softmax row is empty (splash's pad_rows term).
 // q, k, v are read through (batch, head, seq) byte strides with a contiguous
 // head dim, so one kernel reads q heads-major [B,H,S,D] (the K3 output), v
 // seq-major [B,S,H*D] (the GEMM output -- this is the head split the TPU did
@@ -39,6 +44,18 @@
 // exp(-inf - -inf) = NaN. The output goes through shared memory (Q's rows of
 // the same warpgroup, same swizzle) and a TMA store, which clips the rows past
 // Sq.
+//
+// Band mode is the same pipeline over a window of kv tiles. A q tile [q0, q0 +
+// 128) visits only the tiles [j_lo, j_hi) that hold a column of some row's band
+// (band_tiles; every tile if it holds a pad row), so the work falls with the
+// band: at r = 1 and 1560 tokens a frame (1.3B 480p) ~15% of the dense tiles.
+// Producer and consumers derive the same window from the block index and count
+// ring stages and phases from the iteration i = j - j_lo, never from j. Each
+// consumer thread keeps the column bounds [lo, hi) of its two rows (one
+// division a row per block); a tile that is not inside both is masked with two
+// integer compares an element. A row may see nothing of a visited tile (the
+// tile serves the block's other rows): the -inf guard above keeps it finite,
+// and every valid row sees its own frame, so l > 0 at the end.
 #include "sm90.cuh"
 
 namespace {
@@ -56,12 +73,42 @@ constexpr int kBarBytes = 128;
 constexpr int kSmemBytes = 1024 + kTile * (1 + 2 * kStages) + kBarBytes;
 constexpr int kSchedBar = 1;              // named barriers 1, 2: the consumers' turns
 constexpr int kEpiBar = 3;                // named barriers 3, 4: one per consumer, epilogue
+constexpr int kMaxHeads = 64;             // band mode: radii in the launch parameters
 
 struct Params {
   CUtensorMap q, k, v, o;
   int kv_valid;
   float scale_log2;
+  int tpf;                                // band mode: tokens per latent frame
+  int radius[kMaxHeads];                  // band mode: each head's radius, in frames
 };
+
+// The kv columns [lo, hi) that query row q sees in band mode.
+__device__ __forceinline__ void row_band(int q, int tpf, int r, int valid, int& lo, int& hi) {
+  if (q >= valid) {
+    lo = 0;
+    hi = valid;
+  } else {
+    const int f = q / tpf;
+    lo = max(0, (f - r) * tpf);
+    hi = min(valid, (f + r + 1) * tpf);
+  }
+}
+
+// The kv tiles [j_lo, j_hi) that the q tile [q0, q0 + BQ) visits in band mode:
+// from the first column of its first row's band to the last of its last row's,
+// or the whole valid prefix if it holds a pad row. Mirrored on the host by
+// models/attention.py::band_kv_tiles.
+__device__ __forceinline__ void band_tiles(int q0, int tpf, int r, int valid, int& j_lo,
+                                           int& j_hi) {
+  if (q0 + BQ > valid) {
+    j_lo = 0;
+    j_hi = (valid + BKV - 1) / BKV;
+  } else {
+    j_lo = max(0, q0 / tpf - r) * tpf / BKV;
+    j_hi = (min(((q0 + BQ - 1) / tpf + r + 1) * tpf, valid) + BKV - 1) / BKV;
+  }
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
@@ -93,17 +140,24 @@ __device__ __forceinline__ void start_pv(float (&o)[64], const uint32_t (&p)[32]
                      desc_advance(v_desc, kk * 2048), 1);
 }
 
-// Online-softmax step on the raw scores of one tile: masks (last partial tile
-// only), moves the running max, turns s into the unnormalised probs, adds
-// their row sums, and returns the factors by which earlier sums shrink.
+// Online-softmax step on the raw scores of one tile: masks (dense: the last
+// partial tile, columns >= hi; band: a tile not inside both rows' bands,
+// columns outside [lo, hi) of their row), moves the running max, turns s into
+// the unnormalised probs, adds their row sums, and returns the factors by which
+// earlier sums shrink.
+template <bool kBand>
 __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m_run)[2], float (&l_run)[2],
-                                             float (&alpha)[2], float scale_log2, bool partial,
-                                             int col0, int kv_valid) {
-  if (partial) {
+                                             float (&alpha)[2], float scale_log2, bool masked,
+                                             int col0, const int (&lo)[2], const int (&hi)[2]) {
+  if (masked) {
 #pragma unroll
     for (int i = 0; i < 64; ++i) {
       const int col = col0 + (i >> 2) * 8 + (i & 1);
-      if (col >= kv_valid) s[i] = -INFINITY;
+      if constexpr (kBand) {
+        if (col < lo[(i >> 1) & 1] || col >= hi[(i >> 1) & 1]) s[i] = -INFINITY;
+      } else {
+        if (col >= hi[0]) s[i] = -INFINITY;
+      }
     }
   }
   float mx[2] = {-INFINITY, -INFINITY};
@@ -144,6 +198,7 @@ __device__ __forceinline__ void scale_rows(float (&o)[64], const float (&f)[2]) 
   for (int i = 0; i < 64; ++i) o[i] *= f[(i >> 1) & 1];
 }
 
+template <bool kBand>
 __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(16) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024u - (wanq::smem_addr(smem_raw) & 1023u)) & 1023u);
@@ -156,7 +211,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(const __grid_con
   const int wg = tid >> 7;
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int n_tiles = (p.kv_valid + BKV - 1) / BKV;
+  // kv tiles j_lo .. j_lo + n_tiles - 1; ring stage and phase follow i = j - j_lo
+  int j_lo = 0, n_tiles = (p.kv_valid + BKV - 1) / BKV;
+  if constexpr (kBand) {
+    int j_hi;
+    band_tiles(q0, p.tpf, p.radius[h], p.kv_valid, j_lo, j_hi);
+    n_tiles = j_hi - j_lo;
+  }
 
   if (tid == 0) {
     mbar_init(&bars->q_full, 1);
@@ -181,17 +242,17 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(const __grid_con
       mbar_expect_tx(&bars->q_full, kTile);
       tma_load_4d(sQ, &p.q, &bars->q_full, 0, q0, h, b);
       tma_load_4d(sQ + kHalf, &p.q, &bars->q_full, 64, q0, h, b);
-      for (int j = 0; j < n_tiles; ++j) {
-        const int st = j % kStages;
-        const uint32_t ph = (j / kStages) & 1;
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % kStages, col = (j_lo + i) * BKV;
+        const uint32_t ph = (i / kStages) & 1;
         mbar_wait(&bars->k_empty[st], ph ^ 1);
         mbar_expect_tx(&bars->k_full[st], kTile);
-        tma_load_4d(sK + st * kTile, &p.k, &bars->k_full[st], 0, j * BKV, h, b);
-        tma_load_4d(sK + st * kTile + kHalf, &p.k, &bars->k_full[st], 64, j * BKV, h, b);
+        tma_load_4d(sK + st * kTile, &p.k, &bars->k_full[st], 0, col, h, b);
+        tma_load_4d(sK + st * kTile + kHalf, &p.k, &bars->k_full[st], 64, col, h, b);
         mbar_wait(&bars->v_empty[st], ph ^ 1);
         mbar_expect_tx(&bars->v_full[st], kTile);
-        tma_load_4d(sV + st * kTile, &p.v, &bars->v_full[st], 0, j * BKV, h, b);
-        tma_load_4d(sV + st * kTile + kHalf, &p.v, &bars->v_full[st], 64, j * BKV, h, b);
+        tma_load_4d(sV + st * kTile, &p.v, &bars->v_full[st], 0, col, h, b);
+        tma_load_4d(sV + st * kTile + kHalf, &p.v, &bars->v_full[st], 64, col, h, b);
       }
     }
   } else {
@@ -205,6 +266,23 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(const __grid_con
     const uint64_t v_desc0 = mnmajor_desc(wanq::smem_addr(sV), kHalf);
     const bool tail_partial = (p.kv_valid % BKV) != 0;
     const float scale_log2 = p.scale_log2;
+    // the column bounds of this thread's two rows (dense: [0, kv_valid))
+    int lo[2] = {0, 0}, hi[2] = {p.kv_valid, p.kv_valid};
+    if constexpr (kBand) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        row_band(q0 + cw * 64 + warp * 16 + g + r * 8, p.tpf, p.radius[h], p.kv_valid, lo[r],
+                 hi[r]);
+    }
+    // whether tile i needs the mask
+    auto masked = [&](int i) {
+      if constexpr (kBand) {
+        const int c0 = (j_lo + i) * BKV;
+        return c0 < max(lo[0], lo[1]) || c0 + BKV > min(hi[0], hi[1]);
+      } else {
+        return tail_partial && i == n_tiles - 1;
+      }
+    };
 
     float o[64], s[64];
     uint32_t pfrag[32];
@@ -226,28 +304,28 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(const __grid_con
     wgmma_wait<0>();
     fence_regs(s);
     if (lane == 0) mbar_arrive(&bars->k_empty[0]);
-    softmax_tile(s, m_run, l_run, alpha, scale_log2, tail_partial && n_tiles == 1, tig * 2,
-                 p.kv_valid);
+    softmax_tile<kBand>(s, m_run, l_run, alpha, scale_log2, masked(0), j_lo * BKV + tig * 2,
+                        lo, hi);
     pack_probs(pfrag, s);
-    for (int j = 1; j < n_tiles; ++j) {
-      const int st = j % kStages, sv = (j - 1) % kStages;
-      const uint32_t ph = (j / kStages) & 1, ph_v = ((j - 1) / kStages) & 1;
+    for (int i = 1; i < n_tiles; ++i) {
+      const int st = i % kStages, sv = (i - 1) % kStages;
+      const uint32_t ph = (i / kStages) & 1, ph_v = ((i - 1) / kStages) & 1;
       mbar_wait(&bars->k_full[st], ph);
       bar_sync(kSchedBar + cw, 256);
       wgmma_fence();
       start_qk(s, q_desc, desc_advance(k_desc0, st * kTile));
       wgmma_commit();
-      scale_rows(o, alpha);  // by the factors of tile j - 1, whose probs pfrag holds
+      scale_rows(o, alpha);  // by the factors of tile i - 1, whose probs pfrag holds
       mbar_wait(&bars->v_full[sv], ph_v);
       wgmma_fence();
       start_pv(o, pfrag, desc_advance(v_desc0, sv * kTile));
       wgmma_commit();
       bar_arrive(kSchedBar + (cw ^ 1), 256);
-      wgmma_wait<1>();  // S of tile j is there; O += P V of tile j - 1 still runs
+      wgmma_wait<1>();  // S of tile i is there; O += P V of tile i - 1 still runs
       fence_regs(s);
       if (lane == 0) mbar_arrive(&bars->k_empty[st]);
-      softmax_tile(s, m_run, l_run, alpha, scale_log2, tail_partial && j == n_tiles - 1,
-                   j * BKV + tig * 2, p.kv_valid);
+      softmax_tile<kBand>(s, m_run, l_run, alpha, scale_log2, masked(i),
+                          (j_lo + i) * BKV + tig * 2, lo, hi);
       wgmma_wait<0>();
       fence_regs(o);
       if (lane == 0) mbar_arrive(&bars->v_empty[sv]);
@@ -311,16 +389,17 @@ bool make_map(CUtensorMap* map, const void* base, long long seq, int heads, long
 
 // q/k/v/o: bf16, head dim 128 contiguous, bases 16-byte aligned; `strides`
 // holds the byte strides of (seq, head, batch) for q, k, v and o in turn,
-// multiples of 16. 1 <= kv_valid <= Sk; scale > 0.
+// multiples of 16. 1 <= kv_valid <= Sk; scale > 0. tpf = 0: dense mode; tpf
+// >= 1: band mode with radii[h] >= 0 (a host array of H <= 64 ints) frames.
 WANQ_API int wanq_flash_attention(const void* q, const void* k, const void* v, void* o,
                                   long long B, int H, int Sq, int Sk, long long q_ss,
                                   long long q_sh, long long q_sb, long long k_ss,
                                   long long k_sh, long long k_sb, long long v_ss,
                                   long long v_sh, long long v_sb, long long o_ss,
                                   long long o_sh, long long o_sb, int kv_valid, float scale,
-                                  void* stream) {
+                                  int tpf, const int* radii, void* stream) {
   if (B == 0 || Sq == 0) return 0;
-  if (kv_valid < 1 || kv_valid > Sk || !(scale > 0.f) || B > 65535 || H > 65535)
+  if (kv_valid < 1 || kv_valid > Sk || !(scale > 0.f) || B > 65535 || H > 65535 || tpf < 0)
     return (int)cudaErrorInvalidValue;
   const long long qs[3] = {q_ss, q_sh, q_sb}, ks[3] = {k_ss, k_sh, k_sb};
   const long long vs[3] = {v_ss, v_sh, v_sb}, os[3] = {o_ss, o_sh, o_sb};
@@ -331,10 +410,25 @@ WANQ_API int wanq_flash_attention(const void* q, const void* k, const void* v, v
     return (int)cudaErrorInvalidValue;
   p.kv_valid = kv_valid;
   p.scale_log2 = scale * 1.4426950408889634f;
+  p.tpf = 0;
+  if (tpf > 0) {
+    if (radii == nullptr || H > kMaxHeads) return (int)cudaErrorInvalidValue;
+    // a frame longer than the sequence, or a radius past its last frame, is
+    // the same band as one that just covers it: clamping keeps (f + r + 1) * tpf
+    // within 5 * max(Sq, Sk)
+    const int s_max = Sq > Sk ? Sq : Sk;
+    p.tpf = tpf < s_max ? tpf : s_max;
+    const int n_frames = (s_max + p.tpf - 1) / p.tpf;
+    for (int h = 0; h < H; ++h) {
+      if (radii[h] < 0) return (int)cudaErrorInvalidValue;
+      p.radius[h] = radii[h] < n_frames ? radii[h] : n_frames;
+    }
+  }
   dim3 grid((Sq + BQ - 1) / BQ, H, (unsigned)B);
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  auto kernel = p.tpf > 0 ? flash_fwd_kernel<true> : flash_fwd_kernel<false>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       kSmemBytes);
   if (e != cudaSuccess) return (int)e;
-  flash_fwd_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(p);
+  kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }

@@ -25,6 +25,11 @@ JAX's unfused chain):
 Sites whose policy is not fusable (W4A4: 4-bit activations; every site in
 sim mode) take the unfused chain through ``qlinear`` (K9 for W4A4).
 
+Temporal window (``QuantCtx.attn_window``): ``dit_forward`` resolves it
+against the latent grid; the plain self-attention paths then run K4's band
+mode (``models/attention.py``). Calibration runs dense, and a window does not
+compose with attention quantization.
+
 Attention quantization (a quant YAML's ``attn:`` / ``cross_attn:``
 sections): under ``attn:`` self-attention leaves the fused q/k path (the
 softmax scale is not folded into q's rope tables, K3 is skipped) and runs
@@ -36,6 +41,7 @@ cross-attention runs the simulated quantizers in both modes.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple
@@ -46,6 +52,7 @@ import torch.nn.functional as F
 
 from wanq_tpu_torch.configs import WanConfig
 from wanq_tpu_torch.models.attention import (
+    TemporalWindow,
     attention,
     attention_heads_major,
     cross_attention_heads_major,
@@ -66,7 +73,7 @@ from wanq_tpu_torch.ops.rmsnorm_rope import (
     rms_split_heads,
     split_heads,
 )
-from wanq_tpu_torch.quant.attn import quantized_attention
+from wanq_tpu_torch.quant.attn import pooled_attn_map, quantized_attention
 from wanq_tpu_torch.quant.qlinear import (
     QuantCtx,
     ffn0_gelu_quant_from_prequant,
@@ -254,6 +261,9 @@ def _self_attention(p: Params, name: str, ctx: Optional[QuantCtx],
     # the quant and calib paths apply their own
     plain_attn = not (attn_quant or calib)
     q_scale = 1.0 / math.sqrt(hd) if plain_attn else 1.0
+    # the temporal window, resolved by dit_forward (None = dense); calibration
+    # runs dense and attention quant refuses it there
+    window = ctx.attn_window if ctx is not None and plain_attn else None
 
     if cfg.qk_norm and plain_attn and hd == 128:
         ca, sb = pad_tables(cos, sin, valid_len, s)
@@ -261,7 +271,8 @@ def _self_attention(p: Params, name: str, ctx: Optional[QuantCtx],
                             num_heads=n, eps=cfg.eps, out_dtype=dtype)
         kh = rms_rope_heads(k, p["norm_k"], ca, sb, num_heads=n, eps=cfg.eps,
                             out_dtype=dtype)
-        y = attention_heads_major(qh, kh, split_heads(v.to(dtype), n), k_valid_len=valid_len)
+        y = attention_heads_major(qh, kh, split_heads(v.to(dtype), n), k_valid_len=valid_len,
+                                  window=window)
         if resolves_fp(ctx, f"{name}.o"):
             return _o_proj_heads_major(p["o"], y, dtype)
         # int o over the merged row, a view of K4's seq-major output: the
@@ -281,6 +292,10 @@ def _self_attention(p: Params, name: str, ctx: Optional[QuantCtx],
         # per-(head, dim) absmax of the attention inputs
         for tag, tensor in (("q", q), ("k", k), ("v", v)):
             ctx.collect[f"{name}.attn_{tag}"] = tensor.float().abs().amax(dim=(0, 1))
+        if ctx.attn_map_pool:
+            # pooled post-softmax map: reorder tables, window radii
+            ctx.collect[f"{name}.attn_map"] = pooled_attn_map(
+                q, k, ctx.attn_map_pool, k_valid_len=valid_len, reduce=ctx.attn_map_reduce)
     if attn_quant and ctx.mode == "int8":
         # hardware path: K10a + K10 (q/k per 512-token block, v per channel,
         # 127-level probs); the f32 [B, S, N, D] output merges as a view
@@ -289,7 +304,8 @@ def _self_attention(p: Params, name: str, ctx: Optional[QuantCtx],
         y = quantized_attention(q, k, v, ctx.attn, k_valid_len=valid_len,
                                 perm=ctx.attn_perms.get(name))
     else:
-        y = attention(q, k, v, scale=1.0 if plain_attn else None, k_valid_len=valid_len)
+        y = attention(q, k, v, scale=1.0 if plain_attn else None, k_valid_len=valid_len,
+                      window=window)
     return qlinear(ctx, f"{name}.o", p["o"], y.reshape(b, s, n * hd), dtype)
 
 
@@ -408,6 +424,32 @@ def head_forward(p: Params, x: torch.Tensor, e: torch.Tensor, cfg: WanConfig,
     return qlinear(ctx, "head.head", p["head"]["head"], xn.to(cfg.dtype))
 
 
+def resolve_window(aw, grid: Tuple[int, int, int], num_heads: int) -> Optional[TemporalWindow]:
+    """``QuantCtx.attn_window`` against the latent grid (F, H, W): an int
+    radius, a per-head tuple (a negative entry is dense for that head: it
+    becomes F, which covers every frame pair; uniform radii collapse to the
+    scalar form) or a ready TemporalWindow. None (dense) when every head's
+    band covers every frame pair, or for a negative scalar."""
+    tpf = grid[1] * grid[2]
+    if isinstance(aw, TemporalWindow):
+        win = aw
+    elif isinstance(aw, (tuple, list)):
+        radii = tuple(int(r) for r in aw)
+        if len(radii) != num_heads:
+            raise ValueError(f"{len(radii)} window radii for {num_heads} heads")
+        radii = tuple(grid[0] if r < 0 else r for r in radii)
+        if len(set(radii)) == 1:
+            win = TemporalWindow(tokens_per_frame=tpf, radius=radii[0])
+        else:
+            win = TemporalWindow(tokens_per_frame=tpf, radius=max(radii), head_radii=radii)
+    else:
+        if int(aw) < 0:
+            return None
+        win = TemporalWindow(tokens_per_frame=tpf, radius=int(aw))
+    min_r = min(win.head_radii) if win.head_radii else win.radius
+    return None if min_r >= grid[0] - 1 else win
+
+
 def dit_forward(params: Params, cfg: WanConfig, x: torch.Tensor, t: torch.Tensor,
                 context: torch.Tensor, seq_len: int,
                 ctx: Optional[QuantCtx] = None) -> torch.Tensor:
@@ -415,18 +457,22 @@ def dit_forward(params: Params, cfg: WanConfig, x: torch.Tensor, t: torch.Tensor
     text_dim]. Returns [B, C_out, F, H, W] float32."""
     if cfg.model_type != "t2v":
         raise NotImplementedError("i2v is not ported yet (ROADMAP Queue 1 item 9)")
-    if ctx is not None and ctx.attn_window is not None:
-        if ctx.attn is not None and ctx.mode in ("sim", "int8"):
-            raise NotImplementedError(
-                "attn_window does not compose with attention-map quantization: the "
-                "sim materializes the full map and the int8 kernel is dense; window "
-                "the plain/int8-GEMM deployment instead (drop the attn: section)")
-        raise NotImplementedError(
-            "temporal-window attention is not ported yet (ROADMAP Queue 1 item 6)")
     dtype = cfg.dtype
     b = x.shape[0]
     grid = (x.shape[2] // cfg.patch_size[0], x.shape[3] // cfg.patch_size[1],
             x.shape[4] // cfg.patch_size[2])
+    if ctx is not None and ctx.attn_window is not None:
+        win = resolve_window(ctx.attn_window, grid, cfg.num_heads)
+        if win is not None and ctx.attn is not None and ctx.mode in ("sim", "int8"):
+            raise NotImplementedError(
+                "attn_window does not compose with attention-map quantization: the "
+                "sim materializes the full map and the int8 kernel is dense; window "
+                "the plain/int8-GEMM deployment instead (drop the attn: section)")
+        # calibration and map capture run dense (window selection needs the
+        # full map's mass); collect stays the caller's dict
+        dense_pass = ctx.mode == "calib" or bool(ctx.attn_map_pool)
+        ctx = dataclasses.replace(ctx, attn_window=None if dense_pass else win,
+                                  collect=ctx.collect)
     tokens = patchify(x, cfg.patch_size)
     xq = qlinear(None, "patch_embedding", params["patch_embedding"], tokens.to(dtype), dtype)
     valid_len = xq.shape[1]

@@ -111,7 +111,9 @@ class WanT2V:
             if self.quant_ctx is None or self.quant_ctx.mode != "calib":
                 raise ValueError("collect_calib needs a calib-mode quant_ctx")
             ctx = self.quant_ctx
-        elif self.quant_ctx is not None and self.quant_ctx.mode in ("sim", "int8"):
+        elif self.quant_ctx is not None and (self.quant_ctx.mode in ("sim", "int8")
+                                             or self.quant_ctx.attn_window is not None):
+            # an fp-mode ctx matters when it carries the temporal window
             ctx = self.quant_ctx
         else:
             ctx = None

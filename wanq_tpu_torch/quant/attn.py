@@ -15,6 +15,11 @@ The hardware execution of an ``attn:`` section is the int8 flash kernel
 (``ops/attn_int8.py``); this module is what sim mode runs, and what a
 ``cross_attn:`` section runs in both modes. It materializes the [S, S] map,
 so it is for small sequences.
+
+Calibration helpers: pooled attention-map capture (:func:`pooled_attn_map`,
+chunked) feeds the reorder tables and the choice of temporal-window radii
+(:func:`select_temporal_windows`, :func:`collapse_window_radii`,
+:func:`per_head_window_radii`).
 """
 
 from __future__ import annotations
@@ -30,7 +35,6 @@ from wanq_tpu_torch.ops.fused import true_div
 from wanq_tpu_torch.quant.quantizers import QuantizerCfg, dynamic_fake_quant, n_levels_for
 
 _EPS = 1e-6
-_WINDOW_ITEM = "ROADMAP Queue 1 item 6 (temporal windows)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -203,20 +207,95 @@ def generate_reorder_tables(attn_maps: Dict[str, Any], pool: int = 1,
     return out
 
 
-def pooled_attn_map(*args, **kwargs):
-    raise NotImplementedError(f"pooled attention-map capture is not ported yet ({_WINDOW_ITEM})")
+def pooled_attn_map(q: torch.Tensor, k: torch.Tensor, pool: int,
+                    scale: Optional[float] = None, k_valid_len: Optional[int] = None,
+                    chunk: int = 1024, reduce: str = "max") -> torch.Tensor:
+    """Pooled post-softmax attention map for calibration. q, k: [B, S, N, D]
+    (post-rope). Returns [N, S // pool, S // pool]: over batch and each pool x
+    pool cell, the max (``reduce='max'``, the reference's 2D max-pool; feeds
+    reorder tables) or the mean (``'mean'``, mass-preserving; what
+    :func:`select_temporal_windows` needs). Computed a q chunk at a time, the
+    chunk halved until its f32 score block [B, N, chunk, S] fits in ~1.5 GB,
+    so the [S, S] map never materializes. The operands are rounded to bf16
+    (q after the scale) and their products summed in f32; the softmax is f32."""
+    if reduce not in ("max", "mean"):
+        raise ValueError(f"reduce must be 'max' or 'mean', got {reduce!r}")
+    b, s, n, d = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    if s % pool:
+        raise ValueError(f"pool {pool} must divide the sequence length {s}")
+    while chunk > pool and b * n * chunk * s * 4 > 1.5e9:
+        chunk //= 2
+    chunk = min(chunk, s)
+    while s % chunk:
+        chunk //= 2
+    chunk = max(chunk, pool)
+    if chunk % pool:
+        raise ValueError(f"pool {pool} must divide the q chunk {chunk}")
+    qh = q.transpose(1, 2).to(torch.bfloat16)                  # [B, N, S, D]
+    kt = k.transpose(1, 2).to(torch.bfloat16).float().transpose(-1, -2)
+    kv_mask = None
+    if k_valid_len is not None and k_valid_len < s:
+        kv_mask = torch.arange(s, device=q.device) < k_valid_len
+    pooled = []
+    for c0 in range(0, s, chunk):
+        qc = (qh[:, :, c0:c0 + chunk].float() * scale).to(torch.bfloat16).float()
+        scores = torch.matmul(qc, kt)                            # [B, N, chunk, S] f32
+        if kv_mask is not None:
+            scores = scores.masked_fill(~kv_mask, torch.finfo(torch.float32).min)
+        pb = torch.softmax(scores, dim=-1).reshape(b, n, chunk // pool, pool, s // pool, pool)
+        pooled.append(pb.mean(dim=(0, 3, 5)) if reduce == "mean" else pb.amax(dim=(0, 3, 5)))
+    return torch.cat(pooled, dim=1)
 
 
-def select_temporal_windows(*args, **kwargs):
-    raise NotImplementedError(f"window selection is not ported yet ({_WINDOW_ITEM})")
+def select_temporal_windows(attn_maps: Dict[str, Any], tokens_per_frame: int, pool: int,
+                            threshold: float = 0.95,
+                            valid_len: Optional[int] = None) -> Dict[str, np.ndarray]:
+    """Calibration-driven sliding-window radii (host numpy). ``attn_maps``:
+    {layer: [H, Sp, Sp]} MEAN-pooled post-softmax maps. For each head, the
+    smallest radius r (latent frames) such that the attention mass within
+    |frame(q) - frame(k)| <= r is at least ``threshold`` of the total.
+    Returns {layer: [H] int32 radii}."""
+    out = {}
+    for layer, maps in attn_maps.items():
+        maps = np.asarray(maps, dtype=np.float64)
+        h, sp, _ = maps.shape
+        # frame of each pooled cell (its centre); cells past the valid prefix
+        # carry ~zero mass (masked softmax)
+        frames = (np.arange(sp) * pool + pool // 2) // tokens_per_frame
+        n_frames = int(frames[-1]) + 1
+        if valid_len is not None:
+            n_frames = min(n_frames, -(-valid_len // tokens_per_frame))
+        dist = np.abs(frames[:, None] - frames[None, :])
+        radii = np.empty(h, dtype=np.int32)
+        for i in range(h):
+            total = maps[i].sum()
+            if total <= 0:
+                radii[i] = n_frames - 1
+                continue
+            for r in range(n_frames):
+                if maps[i][dist <= r].sum() / total >= threshold:
+                    radii[i] = r
+                    break
+            else:
+                radii[i] = n_frames - 1
+        out[layer] = radii
+    return out
 
 
-def collapse_window_radii(*args, **kwargs):
-    raise NotImplementedError(f"window radii are not ported yet ({_WINDOW_ITEM})")
+def collapse_window_radii(windows: Dict[str, Any]) -> int:
+    """One deployable radius for every layer and head: the max, so no head
+    loses more mass than its own threshold."""
+    return int(max(int(np.max(r)) for r in windows.values()))
 
 
-def per_head_window_radii(*args, **kwargs):
-    raise NotImplementedError(f"window radii are not ported yet ({_WINDOW_ITEM})")
+def per_head_window_radii(windows: Dict[str, Any]) -> np.ndarray:
+    """One radius per head, the max over layers: [H]. K4 reads a radius per
+    head, so cheap heads stop paying the global max. Pass ``tuple(...)`` as
+    ``QuantCtx.attn_window`` or comma-joined to ``--attn_window``."""
+    return np.max(np.stack([np.asarray(r, dtype=int) for r in windows.values()], axis=0),
+                  axis=0)
 
 
 def quantized_attention(

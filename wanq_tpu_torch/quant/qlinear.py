@@ -69,15 +69,27 @@ class QuantCtx:
     # input seen this call (plus .act_max/.act_min with collect_minmax)
     collect: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
     collect_minmax: bool = False
-    # sliding temporal-window attention (raises: not ported)
+    # calib extras: pool factor of the post-softmax attention-map capture (0 =
+    # off) and its reduce: "max" feeds reorder tables, "mean" (mass-preserving)
+    # feeds select_temporal_windows
+    attn_map_pool: int = 0
+    attn_map_reduce: str = "max"
+    # sliding temporal-window self-attention (K4's band mode): an int radius
+    # in latent frames, a per-head tuple (a negative entry = dense for that
+    # head), or a models.attention.TemporalWindow; dit_forward resolves the
+    # first two against the latent grid. None = dense.
     attn_window: Any = None
 
     def __post_init__(self):
         if self.mode not in MODES:
             raise ValueError(f"unknown quant mode {self.mode!r}")
-        if self.attn_window is not None:
+        if self.attn_map_reduce not in ("max", "mean"):
+            raise ValueError(f"attn_map_reduce must be 'max' or 'mean', "
+                             f"got {self.attn_map_reduce!r}")
+        if self.attn_map_pool and self.mode != "calib":
             raise NotImplementedError(
-                "temporal-window attention is not ported yet (ROADMAP Queue 1 item 6)")
+                "attention-map capture from a deployed model (WanT2V.capture_attn_maps) "
+                "is not ported yet (ROADMAP Queue 1 item 6); capture in calib mode")
 
     def policy(self, name: str) -> LayerPolicy:
         return self.policies.get(name, FP_POLICY)
