@@ -12,7 +12,9 @@ non-zero:
    per source, in parallel) into wanq_tpu_torch/_build/; cuobjdump then
    counts the wgmma (HGMMA, IGMMA) and TMA (UTMALDG, UTMASTG) instructions
    of the two attention kernels and the three wgmma int GEMMs (K2, K8, K9) in
-   the library, and the build log gives every kernel's registers and spills;
+   the library, and the build log gives every kernel's registers and spills
+   (no spill allowed in the wgmma kernels, K1, K3 and K7); the SASS
+   instruction counts of K3's and K7's instantiations are printed;
 2. each kernel against its plain PyTorch version on the card at the main
    paths' shapes (T2V-1.3B, 832x480x81, batched CFG: B=2, seq 32768 with
    32760 valid tokens, M = 65536 token rows), with the warm median of
@@ -27,7 +29,10 @@ non-zero:
    radii 0, 1, 2 and one per-head vector, with planted pad and out-of-band
    k/v, and timed at radii 0, 1, 2, 4, 8 beside its bound, its visited-tile
    fraction and scaled_dot_product_attention with the band as a boolean mask;
-   a band that covers every frame is timed next to the dense launch;
+   a band that covers every frame is timed next to the dense launch. K3 and
+   K7 are also held and timed at the T2V-14B widths (K3 at C = 5120, K7's
+   GELU at the 14B ffn width 13824), and K7's GELU table on all 65536 bf16
+   inputs bit for bit against the kernels' gelu_tanh;
 3. the seven paths through the CLIs at full 1.3B width and depth, random
    weights from a seed, 3 UniPC steps each: W8A8 (get_calib_data
    --collect_minmax, 1 step, then quant_generate --hardware under
@@ -89,9 +94,9 @@ YAML = "quant_configs/wan_w8a8_speed.yaml"
 #   cross k/v FP, ffn.2 static): K1 for q/k/v, cross q and ffn.0; K7 for the
 #   self and cross o inputs; K8 for self q/k/v/o, cross q/o and ffn.2, and in
 #   its GELU + quant mode (a counter of its own) for ffn.0.
-# W8A8 + attn section: self-attention leaves the fused q/k path (plain
-#   RMSNorm + RoPE, then K10a + K10), so K3 only splits the cross q and K4
-#   only runs cross-attention.
+# W8A8 + attn section: self-attention runs K3 for q and k with unscaled
+#   tables (K10 applies the softmax scale), then K10a + K10; K3 also splits
+#   the cross q, and K4 runs cross-attention only.
 # sim (no --hardware): every linear is fake-quant + a bf16 GEMM; no int kernel.
 # W8A8 with --attn_window 1: w8a8's launches, self-attention in K4's band mode
 #   (a counter of its own), cross-attention in its dense mode.
@@ -105,7 +110,7 @@ PATHS = {
     "w4a4": ("quant_configs/wan_w4a4.yaml",
              {"rms_rope_heads": 3, "attention": 2, "w4a4_linear": 8}),
     "w8a8_attn": (ATTN_YAML, {"ln_modulate_quant": 3, "w8a8_linear": 5,
-                              "w8a8_linear_gelu_quant": 1, "rms_rope_heads": 1,
+                              "w8a8_linear_gelu_quant": 1, "rms_rope_heads": 3,
                               "attention": 1, "quantize_qkv_int8": 1, "attention_int8": 1}),
     "w8a8_sim": (YAML, {"rms_rope_heads": 3, "attention": 2}),
     "w4a8_static": ("quant_configs/wan_w4a8_14b.yaml",
@@ -286,28 +291,41 @@ def kernel_checks(torch, results):
         del a, w, wt, args
         torch.cuda.empty_cache()
 
-    # K3 -- RMSNorm + RoPE + heads-major, [2, 32768, 1536] -> [2, 12, 32768, 128]
+    # K3 -- RMSNorm + RoPE + heads-major, [2, 32768, C] -> [2, C / 128, 32768, 128]
+    # at the 1.3B width (rope with K4's q-scaled tables, and the cross-q
+    # split) and the 14B width (40 heads); the tables are built outside the
+    # timed calls
     ca, sb = rope_tables_interleaved((21, 30, 52), d)
     ca, sb = pad_tables(torch.from_numpy(ca.copy()).to(dev), torch.from_numpy(sb.copy()).to(dev),
                         valid, s)
     qs = 1.0 / d ** 0.5
-    x = torch.randn((b, s, c), device=dev, generator=g).bfloat16()
-    wn = torch.rand((c,), device=dev, generator=g) + 0.5
-    for detail, kern, plain in (
-        ("rope, q-scaled tables", lambda: _k3_cuda(x, wn, ca * qs, sb * qs, n, 1e-6, torch.bfloat16),
-         lambda: rms_rope_heads_plain(x, wn, ca * qs, sb * qs, n)),
-        ("split only (cross q)", lambda: _k3_cuda(x, wn, None, None, n, 1e-6, torch.bfloat16),
-         lambda: rms_split_heads_plain(x, wn, n)),
-    ):
-        got, want = kern().float(), plain().float()
-        frac, err = bf16_ulp_check(torch, got, want)
-        check(frac <= 1e-4 and err <= 1e-2 * want.abs().max().item(),
-              f"K3 {detail}: {frac:.2e} of elements beyond one bf16 ulp, max abs err {err}")
-        record("rms_rope_heads", err, cuda_ms(kern), cuda_ms(plain, reps=3),
-               f"[2,32768,1536]->[2,12,32768,128] {detail} (beyond 1 ulp: {frac:.2e})",
-               b * s * c * 4 + c * 4 + (2 * s * d * 4 if detail.startswith("rope") else 0),
-               8 * b * s * c, "f32")
-        del got, want
+    caq, sbq = ca * qs, sb * qs
+    for cw in (c, 5120):
+        nh = cw // d
+        x = torch.randn((b, s, cw), device=dev, generator=g).bfloat16()
+        wn = torch.rand((cw,), device=dev, generator=g) + 0.5
+        cases = [("rope, q-scaled tables", lambda: _k3_cuda(x, wn, caq, sbq, nh, 1e-6, torch.bfloat16),
+                  lambda: rms_rope_heads_plain(x, wn, caq, sbq, nh))]
+        if cw == c:
+            cases.append(("split only (cross q)",
+                          lambda: _k3_cuda(x, wn, None, None, nh, 1e-6, torch.bfloat16),
+                          lambda: rms_split_heads_plain(x, wn, nh)))
+        for detail, kern, plain in cases:
+            got, want = kern().float(), plain().float()
+            frac, err = bf16_ulp_check(torch, got, want)
+            check(frac <= 1e-4 and err <= 1e-2 * want.abs().max().item(),
+                  f"K3 C={cw} {detail}: {frac:.2e} of elements beyond one bf16 ulp, "
+                  f"max abs err {err}")
+            del got, want
+            ms = cuda_ms(kern, reps=9)
+            nbytes = b * s * cw * 4 + cw * 4 + (2 * s * d * 4 if detail.startswith("rope") else 0)
+            record("rms_rope_heads", err, ms, cuda_ms(plain, reps=3),
+                   f"[2,32768,{cw}]->[2,{nh},32768,128] {detail} (beyond 1 ulp: {frac:.2e}; "
+                   f"{nbytes / ms / 1e6:.0f} GB/s)", nbytes, 8 * b * s * cw, "f32")
+        copy_note(torch, x)
+        del x
+    del ca, sb, caq, sbq
+    torch.cuda.empty_cache()
 
     # K4 -- attention: cross (Sk = 512) and self (32768, valid 32760). The
     # outputs are small (std ~ sqrt(e / Sk)), so the limits scale with them:
@@ -619,6 +637,41 @@ def int8_attention_checks(torch, record, q, k, vh, valid, qs, t4_self):
           f"K10 vs K4: max abs relative error {rel_max}, rel-L2 {rel_l2}")
 
 
+def copy_note(torch, x):
+    """A note beside the memory-bound kernels: what a plain copy of x (PyTorch's
+    clone: every byte read once and written once) reaches on this card, the
+    practical rate of device memory for a stream that reads and writes alike.
+    The kernels' bounds stay the published 3.35 TB/s."""
+    ms = cuda_ms(lambda: x.clone(), reps=9)
+    nbytes = 2 * x.numel() * x.element_size()
+    log(f"  note: torch clone of {list(x.shape)} {str(x.dtype)[6:]} ({nbytes / 1e6:.1f} MB read "
+        f"and written): {ms:.3f} ms, {nbytes / ms / 1e6:.0f} GB/s")
+
+
+def gelu_table_check(torch):
+    """K7 takes the GELU of a bf16 x from a table of 1 + tanh(inner) that each
+    block builds with the kernels' gelu_tanh_factor, and from the identities
+    f = 1, 2, 0 outside it: all 65536 bf16 inputs (NaNs and infinities too)
+    must give the kernels' gelu_tanh bit for bit (a NaN only where it gives
+    NaN). PyTorch's own CUDA GELU on the same values is printed beside it."""
+    from wanq_tpu_torch.ops.fused import gelu_bf16_table_check
+
+    table, direct = gelu_bf16_table_check()
+    torch.cuda.synchronize()
+    nan = torch.isnan(direct)
+    same_nan = torch.equal(torch.isnan(table), nan)
+    differ = (table[~nan].view(torch.int32) != direct[~nan].view(torch.int32)).sum().item()
+    x = torch.arange(65536, device=table.device, dtype=torch.int32).to(torch.int16)
+    x = x.view(torch.bfloat16).float()
+    ref = torch.nn.functional.gelu(x, approximate="tanh")
+    fin = torch.isfinite(ref) & ~nan
+    vs_torch = (table[fin].view(torch.int32) != ref[fin].view(torch.int32)).sum().item()
+    log(f"  quant_sum GELU table, all 65536 bf16 inputs: {differ} differ from gelu_tanh "
+        f"(NaN where it gives NaN: {same_nan}, {int(nan.sum())} NaNs); against torch's CUDA "
+        f"GELU on the {int(fin.sum())} finite ones: {vs_torch} differ")
+    check(same_nan and differ == 0, f"K7 GELU table: {differ} values differ, NaNs agree {same_nan}")
+
+
 def int4_checks(torch, g, record):
     """K7, K8 (all three modes) and K9 against their plain versions at the
     4-bit paths' shapes (M = 65536 token rows), plus ragged-M tails for K8
@@ -632,10 +685,12 @@ def int4_checks(torch, g, record):
     ragged = (m - 8, m + 3)
 
     # K7 -- the ffn.2 input [2, 32768, 8960] with GELU, the o input
-    # [2, 32768, 1536] without, bf16. Codes equal except <= 0.1% one-unit
-    # flips (the kernel's tanhf and torch's GELU may differ by ulps); scale
-    # rel <= 1e-6; sum rel <= 1e-6 on rows whose codes agree.
-    for c, gelu in ((8960, True), (1536, False)):
+    # [2, 32768, 1536] without, and the 14B ffn.2 input [2, 32768, 13824] with
+    # GELU, bf16. Codes equal except <= 0.1% one-unit flips (the kernels' GELU
+    # and torch's may differ by ulps); scale rel <= 1e-6; sum rel <= 1e-6 on rows
+    # whose codes agree.
+    gelu_table_check(torch)
+    for c, gelu in ((8960, True), (1536, False), (13824, True)):
         x = (torch.randn((2, 32768, c), device=dev, generator=g) * 2 + 0.2).bfloat16()
         got, want = quant_sum_cuda(x, gelu), quant_sum_plain(x, gelu)
         torch.cuda.synchronize()
@@ -650,14 +705,17 @@ def int4_checks(torch, g, record):
               f"K7 C={c}: scale rel {s_rel:.2e}, {sum_bad} sums off by > 1e-6 rel")
         err = (got[0].float() * got[1][..., None] - want[0].float() * want[1][..., None])
         err = err.abs().max().item()
-        ms = cuda_ms(lambda: quant_sum_cuda(x, gelu))
+        del got, want, diff
+        ms = cuda_ms(lambda: quant_sum_cuda(x, gelu), reps=9)
         gbs = x.numel() * 3 / ms / 1e6
         record("quant_sum", err, ms, cuda_ms(lambda: quant_sum_plain(x, gelu), reps=3),
                f"[2,32768,{c}] bf16 gelu={gelu} (codes differing: {frac:.2e}, scale rel "
                f"{s_rel:.1e}; {gbs:.0f} GB/s)",
                x.numel() * 3 + 2 * 32768 * 8, (20 if gelu else 6) * x.numel(), "f32")
-        del x, got, want, diff, err
-    torch.cuda.empty_cache()
+        if c == 8960:
+            copy_note(torch, x)
+        del x
+        torch.cuda.empty_cache()
 
     def operands(k, n, int4_a):
         mm = max(ragged)
@@ -1113,9 +1171,11 @@ def calib_maps_check(torch, small, p_cpu):
 
 
 # kernels whose build must show no spill: the wgmma kernels (a spill there
-# means ptxas gave up on the setmaxnreg budgets) and K1
+# means ptxas gave up on the setmaxnreg budgets), and K1, K3 and K7, which
+# hold a row in registers
 NO_SPILL = ("flash_fwd_kernel", "attn_int8_kernel", "w8a8_gemm_kernel", "w4a8_gemm_kernel",
-            "w4a4_gemm_kernel", "ln_mod_quant_kernel")
+            "w4a4_gemm_kernel", "ln_mod_quant_kernel", "rms_rope_heads_kernel",
+            "quant_sum_kernel")
 
 
 def ptxas_records(log_text: str):
@@ -1183,6 +1243,18 @@ def hopper_evidence(_lib, nvcc: str) -> None:
             check(not serialised, f"{kernel}: serialised wgmma: {serialised[:1]}")
     check(not re.search(r"\bIMMA\b", res.stdout),
           "an mma.sync int GEMM (IMMA) is left in the library")
+    # K3 and K7 hold a row in registers: their instantiations' static
+    # instruction counts, and the SASS itself for reading
+    rows = [f for f in functions if "rms_rope_heads_kernel" in f.split("\n", 1)[0]
+            or "quant_sum_kernel" in f.split("\n", 1)[0]]
+    with open(OUT / "sass_k3_k7.txt", "w") as f:
+        for fn in rows:
+            f.write("Function : " + fn)
+            mangled = fn.split("\n", 1)[0].strip()
+            short = "rms_rope_heads_kernel" if "rms_rope" in mangled else "quant_sum_kernel"
+            inst = re.search(rf"{short}(I\w+?E)EvNS", mangled)
+            n_inst = len(re.findall(r"/\*[0-9a-f]{4,}\*/", fn))
+            log(f"  SASS {short}{' ' + inst.group(1) if inst else ''}: {n_inst} instructions")
 
 
 def main() -> int:

@@ -32,7 +32,8 @@ than one step (max|want| / 127) from it. K4's band mode is held to K4's
 limits against the plain version with the band mask; a stage or phase that
 producer and consumers count differently hangs the card instead of failing,
 so each band test waits for the card with a deadline and ends the process
-past it (``_finish_within``).
+past it (``_finish_within``), and so do the tests of K3's and K7's
+persistent forms. K7's GELU table is held on every bf16 value bit for bit.
 """
 
 import math
@@ -97,25 +98,69 @@ def test_k2_kernel_matches_plain_ragged_m(dev, gen, out_dtype):
     assert torch.equal(got, w8a8_linear_plain(a, w, s_a, s_w, out_dtype=out_dtype))
 
 
-def test_k3_kernel_matches_plain(dev, gen):
+def _check_k3(got, want):
+    g, wv = got.float(), want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(wv.abs().clamp_min(1e-30))) - 7)
+    beyond = ((g - wv).abs() > ulp).float().mean().item()
+    assert beyond <= 1e-4 and (g - wv).abs().max().item() <= 1e-2 * wv.abs().max().item()
+
+
+# 12 heads (C = 1536, one warp a row), 40 (C = 5120, four warps a row), 3 (C =
+# 384: lanes idle past the row); B * S no multiple of the warps of a block, so
+# the groups' runs of positions are ragged
+@pytest.mark.parametrize("rope", [True, False], ids=["rope", "split"])
+@pytest.mark.parametrize("b,s,n", [(2, 100, 12), (3, 301, 12), (3, 301, 40), (1, 301, 3),
+                                   (1, 301, 40)])
+def test_k3_kernel_matches_plain(dev, gen, b, s, n, rope):
+    """K3 at the 1.3B and 14B widths and a narrow one, with the rope (the
+    tables' identity tail from token s - 11 on, q-scaled as K4's q takes them)
+    and without (the cross-q split), within one bf16 ulp but for <= 1e-4 of
+    elements; the kernel's launch is counted."""
+    from wanq_tpu_torch.models.rope import pad_tables
     from wanq_tpu_torch.ops.rmsnorm_rope import (
         rms_rope_heads, rms_rope_heads_plain, rms_split_heads, rms_split_heads_plain)
 
-    b, s, n, d = 2, 100, 12, 128
-    x = torch.randn((b, s, n * d), device=dev, generator=gen).bfloat16()
+    d, valid = 128, s - 11
+    x = (torch.randn((b, s, n * d), device=dev, generator=gen) * 3).bfloat16()
     w = torch.rand((n * d,), device=dev, generator=gen) + 0.5
-    ang = torch.rand((s, d // 2), device=dev, generator=gen) * 6
-    ca = torch.cos(ang).repeat_interleave(2, dim=1) * 0.0884
-    sb = torch.sin(ang).repeat_interleave(2, dim=1) * 0.0884
+    ang = torch.rand((valid, d // 2), device=dev, generator=gen) * 6
+    ca = torch.cos(ang).repeat_interleave(2, dim=1)
+    sb = torch.sin(ang).repeat_interleave(2, dim=1)
     sb[:, 0::2] *= -1
-    for got, want in (
-        (rms_rope_heads(x, w, ca, sb, n), rms_rope_heads_plain(x, w, ca, sb, n)),
-        (rms_split_heads(x, w, n), rms_split_heads_plain(x, w, n)),
-    ):
-        g, wv = got.float(), want.float()
-        ulp = torch.exp2(torch.floor(torch.log2(wv.abs().clamp_min(1e-30))) - 7)
-        beyond = ((g - wv).abs() > ulp).float().mean().item()
-        assert beyond <= 1e-4 and (g - wv).abs().max().item() <= 1e-2 * wv.abs().max().item()
+    ca, sb = (t * 0.0884 for t in pad_tables(ca, sb, valid, s))
+    _lib.reset_launch_counts()
+    if rope:
+        got, want = rms_rope_heads(x, w, ca, sb, n), rms_rope_heads_plain(x, w, ca, sb, n)
+    else:
+        got, want = rms_split_heads(x, w, n), rms_split_heads_plain(x, w, n)
+    _finish_within(60, f"K3 B={b} S={s} heads={n} rope={rope}")
+    assert _lib.launch_counts() == {"rms_rope_heads": 1}
+    assert got.shape == (b, n, s, d) and got.dtype == torch.bfloat16
+    _check_k3(got, want)
+
+
+def test_k3_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    """Head dim 128 only, at most 6144 channels, bf16 x, [S, 128] tables, [C]
+    gains: anything else raises on a CUDA tensor (no plain fallback)."""
+    from wanq_tpu_torch.ops.rmsnorm_rope import rms_rope_heads, rms_split_heads
+
+    x = torch.zeros((1, 8, 256), device=dev).bfloat16()
+    w = torch.ones((256,), device=dev)
+    ca, sb = torch.ones((8, 128), device=dev), torch.zeros((8, 128), device=dev)
+    wide = torch.zeros((1, 8, 6272), device=dev).bfloat16()
+    bad = [
+        lambda: rms_split_heads(x, w, 4),                                  # head dim 64
+        lambda: rms_rope_heads(x, w, ca[:, :64], sb[:, :64], 4),
+        lambda: rms_split_heads(wide, torch.ones((6272,), device=dev), 49),  # C > 6144
+        lambda: rms_split_heads(x.float(), w, 2),                          # dtype
+        lambda: rms_split_heads(x, w[:128], 2),                            # gains
+        lambda: rms_rope_heads(x, w, ca[:4], sb[:4], 2),                   # tables
+        lambda: rms_rope_heads(x, w, ca.cpu(), sb.cpu(), 2),               # CPU tables
+        lambda: rms_split_heads(x, w, 2, out_dtype=torch.float32),
+    ]
+    for fn in bad:
+        with pytest.raises(ValueError):
+            fn()
 
 
 def _k4_close(got, want):
@@ -335,7 +380,9 @@ def test_fp_linear_on_card_keeps_the_f32_accumulator(dev, gen):
     assert ((got.cpu() - want).norm() / want.norm()).item() <= 1e-5
 
 
-@pytest.mark.parametrize("c", [1536, 8960])
+# the 1.3B dim and ffn width (one warp a row; six warps), the 14B dim and ffn
+# width (four and nine warps a row)
+@pytest.mark.parametrize("c", [1536, 8960, 5120, 13824])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_k7_kernel_matches_plain(dev, gen, c, dtype):
     from wanq_tpu_torch.ops.fused import quant_sum_cuda, quant_sum_plain
@@ -354,7 +401,35 @@ def test_k7_kernel_matches_plain(dev, gen, c, dtype):
             same = diff.amax(dim=-1) == 0
             torch.testing.assert_close(got[2][same], want[2][same], rtol=1e-6, atol=0)
     got = quant_sum_cuda(x.reshape(7, 43, c), True)
+    _finish_within(60, f"K7 C={c} {dtype}")
     assert got[0].shape == (7, 43, c) and got[1].shape == (7, 43)
+
+
+def test_k7_gelu_table_on_every_bf16_value(dev):
+    """K7 takes the GELU of a bf16 x from a table of 1 + tanh(inner) built with
+    the kernels' own gelu_tanh_factor, and from the identities f = 1, 2, 0 past
+    its range: all 65536 bf16 values, NaNs and infinities included, give
+    gelu_tanh's bits exactly (a NaN may only meet a NaN)."""
+    from wanq_tpu_torch.ops.fused import gelu_bf16_table_check
+
+    _lib.reset_launch_counts()
+    table, direct = gelu_bf16_table_check(dev)
+    _finish_within(60, "K7 GELU table check")
+    assert _lib.launch_counts() == {"gelu_bf16_check": 1}
+    nan = torch.isnan(direct)
+    assert torch.equal(torch.isnan(table), nan) and nan.sum().item() == 254 + 1  # -inf too
+    assert torch.equal(table[~nan].view(torch.int32), direct[~nan].view(torch.int32))
+
+
+def test_k7_wrapper_raises_on_rows_wider_than_it_holds(dev):
+    from wanq_tpu_torch.ops.fused import quant_sum_cuda
+
+    for c, dtype in ((18440, torch.bfloat16), (20000, torch.bfloat16), (13828, torch.float32)):
+        with pytest.raises(ValueError):
+            quant_sum_cuda(torch.zeros((2, c), device=dev, dtype=dtype))
+    got = quant_sum_cuda(torch.ones((3, 18432), device=dev).bfloat16(), gelu=True)
+    _finish_within(60, "K7 C=18432")
+    assert torch.equal(got[0], torch.full((3, 18432), 127, dtype=torch.int8, device=dev))
 
 
 @pytest.mark.parametrize("m", [333, 1024 + 3])

@@ -312,15 +312,16 @@ def test_dit_forward_int8_with_attn_section_matches_jax(rng):
 
 
 def test_self_attention_int8_branch_skips_the_fused_qk_path(rng, monkeypatch):
-    """Under an attn section q's softmax scale is not folded into the rope
-    tables and K3's wrapper is not called; attention_int8 gets [B, S, N, D]
-    operands and the valid length, and its f32 output reaches the
-    o-projection as a [B, S, N*D] view."""
+    """Under an attn section self-attention skips the fused q/k path into K4:
+    q's softmax scale is not folded into the rope tables, so K3 runs q and k
+    with the same unscaled tables; attention_int8 gets [B, S, N, D] views of
+    K3's heads-major outputs and the valid length, and its f32 output reaches
+    the o-projection as a [B, S, N*D] view."""
     cfg_j, pj, cfg_t, pt = _models(3, **BF16)
     x, t, ctx = _inputs(rng)
     _, tctx = _ctxs(cfg_j, pj, _calib(cfg_t, pt, x, t, ctx), ATTN, "int8", attn=SECTION)
-    calls, o_in = [], []
-    real, qlin = tdit.attention_int8, tdit.qlinear
+    calls, o_in, k3 = [], [], []
+    real, qlin, real_k3 = tdit.attention_int8, tdit.qlinear, tdit.rms_rope_heads
 
     def rec(q, k, v, **kw):
         calls.append((q.shape, q.dtype, kw))
@@ -332,18 +333,23 @@ def test_self_attention_int8_branch_skips_the_fused_qk_path(rng, monkeypatch):
             o_in.append(xx)
         return qlin(c, name, p, xx, *a, **k)
 
-    def no_k3(*a, **k):
-        raise AssertionError("the fused RMSNorm+RoPE kernel path was taken")
+    def k3_rec(xx, w, ca, sb, **kw):
+        k3.append((ca, sb, real_k3(xx, w, ca, sb, **kw)))
+        return k3[-1][2]
 
     monkeypatch.setattr(tdit, "attention_int8", rec)
     monkeypatch.setattr(tdit, "qlinear", qlinear_rec)
-    monkeypatch.setattr(tdit, "rms_rope_heads", no_k3)
+    monkeypatch.setattr(tdit, "rms_rope_heads", k3_rec)
     tdit.dit_forward(pt, cfg_t, torch.from_numpy(x), torch.from_numpy(t),
                      torch.from_numpy(ctx), 64, ctx=tctx)
     assert len(calls) == 2 * cfg_t.num_layers and len(o_in) == cfg_t.num_layers
     assert calls[0] == ((2, 64, 2, 128), torch.bfloat16, {"k_valid_len": 60})
     assert calls[1].dtype == torch.float32 and o_in[0].shape == (2, 64, 256)
     assert o_in[0].untyped_storage().data_ptr() == calls[1].untyped_storage().data_ptr()
+    assert len(k3) == 2 * cfg_t.num_layers
+    for ca, sb, _ in k3:  # unscaled: cos and sin themselves, identity past 60
+        assert ca is k3[0][0] and sb is k3[0][1]
+        assert ca.abs().max().item() == 1.0 and torch.equal(ca[60:], torch.ones_like(ca[60:]))
 
 
 @pytest.mark.parametrize("mode", ["int8", "sim"])

@@ -31,12 +31,18 @@ mode (``models/attention.py``). Calibration runs dense, and a window does not
 compose with attention quantization.
 
 Attention quantization (a quant YAML's ``attn:`` / ``cross_attn:``
-sections): under ``attn:`` self-attention leaves the fused q/k path (the
-softmax scale is not folded into q's rope tables, K3 is skipped) and runs
-plain RMSNorm + RoPE, then the int8 flash attention in int8 mode (K10a ->
-K10, ``ops/attn_int8.py``) or the simulated quantizers in sim mode
-(``quant/attn.py``, with the layer's reorder table). Under ``cross_attn:``
-cross-attention runs the simulated quantizers in both modes.
+sections): under ``attn:`` self-attention leaves K4. In int8 mode q and k
+still go through K3, with unscaled tables (the int8 attention applies the
+softmax scale itself), into the int8 flash attention (K10a -> K10,
+``ops/attn_int8.py``), which takes K3's heads-major output as
+[B, S, N, D] views. Sim mode runs plain RMSNorm + RoPE into the simulated
+quantizers (``quant/attn.py``, with the layer's reorder table), and so does
+calibration (it collects [B, S, N, D] absmaxes and pooled maps). Under
+``cross_attn:`` cross-attention runs the simulated quantizers in both modes.
+
+The rope tables, padded to the sequence with the identity and, for K4's q,
+scaled by the softmax scale, are built once per ``dit_forward``
+(:func:`self_attn_tables`) and shared by every block.
 """
 
 from __future__ import annotations
@@ -44,7 +50,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -211,6 +217,23 @@ def _rope_tables_on(grid: Tuple[int, int, int], head_dim: int, device: torch.dev
             torch.from_numpy(np.array(sb)).to(device))
 
 
+class SelfAttnTables(NamedTuple):
+    """K3's rope tables [S, D] for one forward: padded to S with the identity
+    (ca = 1, sb = 0), and the same scaled by the softmax scale for K4's q."""
+
+    ca: torch.Tensor
+    sb: torch.Tensor
+    ca_q: torch.Tensor
+    sb_q: torch.Tensor
+
+
+def self_attn_tables(cos: torch.Tensor, sin: torch.Tensor, valid_len: int, seq_len: int,
+                     head_dim: int) -> SelfAttnTables:
+    ca, sb = pad_tables(cos, sin, valid_len, seq_len)
+    q_scale = 1.0 / math.sqrt(head_dim)
+    return SelfAttnTables(ca, sb, ca * q_scale, sb * q_scale)
+
+
 def patchify(x: torch.Tensor, patch_size: Tuple[int, int, int]) -> torch.Tensor:
     """[B, C, F, H, W] -> [B, L, C*pt*ph*pw] (Conv3d stride == kernel)."""
     b, c, f, h, w = x.shape
@@ -240,9 +263,10 @@ def _o_proj_heads_major(po: Params, y: torch.Tensor, dtype) -> torch.Tensor:
 def _self_attention(p: Params, name: str, ctx: Optional[QuantCtx],
                     x: Optional[torch.Tensor], cfg: WanConfig, cos: torch.Tensor,
                     sin: torch.Tensor, valid_len: int, dtype,
-                    prequant=None) -> torch.Tensor:
+                    prequant=None, tables: Optional[SelfAttnTables] = None) -> torch.Tensor:
     """Self-attention sublayer. ``prequant``: (q8, scale, sum) from the
-    fused LN+modulate+quant producer, shared by the q/k/v GEMMs."""
+    fused LN+modulate+quant producer, shared by the q/k/v GEMMs; ``tables``:
+    K3's tables for this sequence (built here when not given)."""
     n, hd = cfg.num_heads, cfg.head_dim
     if prequant is not None:
         q8, s_a, ssum = prequant
@@ -265,11 +289,24 @@ def _self_attention(p: Params, name: str, ctx: Optional[QuantCtx],
     # runs dense and attention quant refuses it there
     window = ctx.attn_window if ctx is not None and plain_attn else None
 
-    if cfg.qk_norm and plain_attn and hd == 128:
-        ca, sb = pad_tables(cos, sin, valid_len, s)
-        qh = rms_rope_heads(q, p["norm_q"], ca * q_scale, sb * q_scale,
+    int8_attn = attn_quant and ctx.mode == "int8"
+    if cfg.qk_norm and hd == 128 and (plain_attn or int8_attn):
+        if tables is None:
+            tables = self_attn_tables(cos, sin, valid_len, s, hd)
+        if int8_attn:
+            # K3 with unscaled tables (K10 applies the softmax scale), then
+            # K10a + K10 on [B, S, N, D] views of its heads-major output; the
+            # f32 [B, S, N, D] output merges as a view
+            qh = rms_rope_heads(q, p["norm_q"], tables.ca, tables.sb, num_heads=n,
+                                eps=cfg.eps, out_dtype=q.dtype)
+            kh = rms_rope_heads(k, p["norm_k"], tables.ca, tables.sb, num_heads=n,
+                                eps=cfg.eps, out_dtype=k.dtype)
+            y = attention_int8(qh.transpose(1, 2), kh.transpose(1, 2),
+                               v.reshape(b, s, n, hd).to(dtype), k_valid_len=valid_len)
+            return qlinear(ctx, f"{name}.o", p["o"], y.reshape(b, s, n * hd), dtype)
+        qh = rms_rope_heads(q, p["norm_q"], tables.ca_q, tables.sb_q,
                             num_heads=n, eps=cfg.eps, out_dtype=dtype)
-        kh = rms_rope_heads(k, p["norm_k"], ca, sb, num_heads=n, eps=cfg.eps,
+        kh = rms_rope_heads(k, p["norm_k"], tables.ca, tables.sb, num_heads=n, eps=cfg.eps,
                             out_dtype=dtype)
         y = attention_heads_major(qh, kh, split_heads(v.to(dtype), n), k_valid_len=valid_len,
                                   window=window)
@@ -296,9 +333,9 @@ def _self_attention(p: Params, name: str, ctx: Optional[QuantCtx],
             # pooled post-softmax map: reorder tables, window radii
             ctx.collect[f"{name}.attn_map"] = pooled_attn_map(
                 q, k, ctx.attn_map_pool, k_valid_len=valid_len, reduce=ctx.attn_map_reduce)
-    if attn_quant and ctx.mode == "int8":
-        # hardware path: K10a + K10 (q/k per 512-token block, v per channel,
-        # 127-level probs); the f32 [B, S, N, D] output merges as a view
+    if int8_attn:
+        # K10a + K10 (q/k per 512-token block, v per channel, 127-level
+        # probs) behind the plain chain: no qk_norm, or a head dim K3 lacks
         y = attention_int8(q, k, v, k_valid_len=valid_len)
     elif attn_quant:
         y = quantized_attention(q, k, v, ctx.attn, k_valid_len=valid_len,
@@ -350,8 +387,10 @@ def _cross_attention(p: Params, name: str, ctx: Optional[QuantCtx],
 
 def block_forward(p: Params, name: str, ctx: Optional[QuantCtx], x: torch.Tensor,
                   e: torch.Tensor, context: torch.Tensor, cfg: WanConfig,
-                  cos: torch.Tensor, sin: torch.Tensor, valid_len: int) -> torch.Tensor:
-    """One transformer block. x [B, L, C] in the residual dtype."""
+                  cos: torch.Tensor, sin: torch.Tensor, valid_len: int,
+                  tables: Optional[SelfAttnTables] = None) -> torch.Tensor:
+    """One transformer block. x [B, L, C] in the residual dtype; ``tables``:
+    the forward's K3 tables (built by the self-attention when not given)."""
     dtype = cfg.dtype
     ee = p["modulation"].float() + e.float()
     e0, e1, e2, e3, e4, e5 = [ee[:, i] for i in range(6)]
@@ -366,15 +405,15 @@ def block_forward(p: Params, name: str, ctx: Optional[QuantCtx], x: torch.Tensor
         prequant = ln_modulate_quant_static(
             x, e0, e1, ctx.state[qkv_sites[0]]["delta_a"], eps=cfg.eps)
         y = _self_attention(p["self_attn"], f"{name}.self_attn", ctx, None, cfg,
-                            cos, sin, valid_len, dtype, prequant=prequant)
+                            cos, sin, valid_len, dtype, prequant=prequant, tables=tables)
     elif int8_fusable(ctx, qkv_sites):
         prequant = ln_modulate_quant(x, e0, e1, eps=cfg.eps)
         y = _self_attention(p["self_attn"], f"{name}.self_attn", ctx, None, cfg,
-                            cos, sin, valid_len, dtype, prequant=prequant)
+                            cos, sin, valid_len, dtype, prequant=prequant, tables=tables)
     else:
         xn1 = layer_norm(x, cfg.eps) * (1.0 + e1[:, None, :]) + e0[:, None, :]
         y = _self_attention(p["self_attn"], f"{name}.self_attn", ctx, xn1.to(dtype), cfg,
-                            cos, sin, valid_len, dtype)
+                            cos, sin, valid_len, dtype, tables=tables)
     x = (x.float() + y.float() * e2[:, None, :]).to(x.dtype)
 
     if cq_static or (cfg.cross_attn_norm and int8_fusable(ctx, [cq_site])):
@@ -496,10 +535,11 @@ def dit_forward(params: Params, cfg: WanConfig, x: torch.Tensor, t: torch.Tensor
     c = qlinear(ctx, "text_embedding.2", params["text_embedding"]["2"], c, dtype).to(dtype)
 
     cos, sin = _rope_tables_on(grid, cfg.head_dim, x.device)
+    tables = self_attn_tables(cos, sin, valid_len, seq_len, cfg.head_dim)
 
     xf = xq.to(cfg.res_dtype)
     for i in range(cfg.num_layers):
         xf = block_forward(params["blocks"][i], f"blocks.{i}", ctx, xf, e0, c, cfg,
-                           cos, sin, valid_len)
+                           cos, sin, valid_len, tables=tables)
     out = head_forward(params, xf, e, cfg, ctx)
     return unpatchify(out.float(), grid, cfg.patch_size, cfg.out_dim)

@@ -55,6 +55,7 @@ _SIGNATURES = {
     "wanq_w8a8_gemm": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "wanq_w8a8_gemm_gelu_quant": [_P] * 10 + [_I, _I, _I, _P],
     "wanq_quant_sum": [_P, _I, _I, _P, _P, _P, _P, _LL, _I, _P],
+    "wanq_gelu_bf16_check": [_P, _P, _P],
     "wanq_w4a8_gemm": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "wanq_w4a8_gemm_gelu_quant": [_P] * 10 + [_I, _I, _I, _P],
     "wanq_w4a4_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

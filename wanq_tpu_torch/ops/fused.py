@@ -25,6 +25,9 @@ from wanq_tpu_torch.ops import _lib
 
 _EPS = 1e-6
 K1_MAX_C = 6144  # the widest row the K1 kernel takes (four warps x 1536 channels)
+# the widest row the K7 kernel takes: twelve warps x 1536 channels for bf16;
+# for f32 its ring of rows fills shared memory at 13824
+K7_MAX_C = {torch.bfloat16: 18432, torch.float32: 13824}
 
 Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -71,14 +74,17 @@ def quant_sum_plain(x: torch.Tensor, gelu: bool = False,
 def quant_sum_cuda(x: torch.Tensor, gelu: bool = False,
                    channel_scale: Optional[torch.Tensor] = None) -> Triple:
     """Kernel K7 on CUDA tensors. x [..., C] bf16 or f32, C a multiple of
-    8 (bf16) / 4 (f32)."""
+    8 (bf16) / 4 (f32) and at most 18432 (bf16) / 13824 (f32); Wan's widths
+    run to the 14B ffn's 13824. A bf16 x takes its GELU through K7's table, an
+    f32 x through tanhf: both are ``gelu_tanh`` bit for bit."""
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"x: bf16 or f32 expected, got {x.dtype}")
     if not x.is_cuda:
         raise ValueError("x must be a CUDA tensor")
     c = x.shape[-1]
-    if c == 0 or c % (8 if x.dtype == torch.bfloat16 else 4):
-        raise ValueError(f"C={c} must be a positive multiple of 8 (bf16) / 4 (f32)")
+    if c == 0 or c > K7_MAX_C[x.dtype] or c % (8 if x.dtype == torch.bfloat16 else 4):
+        raise ValueError(f"C={c} must be a positive multiple of 8 (bf16) / 4 (f32), at most "
+                         f"{K7_MAX_C[x.dtype]} for {x.dtype}")
     lead = x.shape[:-1]
     x2 = x.reshape(-1, c).contiguous()
     if x2.data_ptr() % 16:
@@ -99,6 +105,17 @@ def quant_sum_cuda(x: torch.Tensor, gelu: bool = False,
         _lib.ptr(channel_scale), q.data_ptr(), s.data_ptr(), ssum.data_ptr(), rows, c,
     )
     return q.reshape(*lead, c), s.reshape(lead), ssum.reshape(lead)
+
+
+def gelu_bf16_table_check(device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tanh-GELU of every bf16 value (index i = its 16 bits) on the card,
+    f32 [65536] each: through K7's factor table, and through the kernels'
+    direct ``gelu_tanh`` (csrc/common.cuh). A check of K7's table, made by
+    chip_smoke.py and the card tests; no path calls it."""
+    table = torch.empty((65536,), dtype=torch.float32, device=device)
+    direct = torch.empty_like(table)
+    _lib.launch("gelu_bf16_check", "wanq_gelu_bf16_check", table.data_ptr(), direct.data_ptr())
+    return table, direct
 
 
 def quant_sum(x: torch.Tensor, gelu: bool = False,

@@ -11,7 +11,10 @@ seq-major, so on the main path neither is a pass over memory.
 
 Tables (ca, sb) [S, D] follow wanq_tpu's caller contract: pre-padded to S
 with the identity (ca=1, sb=0) beyond the valid tokens, and pre-scaled on
-the q side by the softmax scale.
+the q side by the softmax scale where the attention that follows does not
+apply it (K4); the int8 attention applies its own, so its q tables are
+unscaled. The kernel takes head dim 128 and up to 6144 channels (the 1.3B
+and 14B widths, 1536 and 5120); the plain versions take any.
 """
 
 from __future__ import annotations
@@ -46,16 +49,24 @@ def rms_split_heads_plain(x, w, num_heads: int, eps: float = 1e-6,
     return y.transpose(1, 2).to(out_dtype)
 
 
+K3_HEAD_DIM = 128  # the head dim the K3 kernel is built for
+K3_MAX_C = 6144    # the widest row it holds in registers (four warps x 1536 channels)
+
+
 def _k3_cuda(x, w, ca, sb, num_heads, eps, out_dtype):
     _lib.require_cuda(x, torch.bfloat16, "x")
     if out_dtype != torch.bfloat16:
         raise ValueError(f"the K3 kernel writes bf16, not {out_dtype}")
     b, s, nd = x.shape
     d = nd // num_heads
-    if d * num_heads != nd or d % 8:
-        raise ValueError(f"head dim {nd}/{num_heads} must be a multiple of 8")
+    if d * num_heads != nd or d != K3_HEAD_DIM or nd > K3_MAX_C:
+        raise ValueError(f"K3 takes head dim {K3_HEAD_DIM} and at most {K3_MAX_C} channels, "
+                         f"got {num_heads} heads over {nd}")
     x = x.contiguous()
     w = w.float().contiguous()
+    _lib.require_cuda(w, torch.float32, "w")
+    if w.shape != (nd,):
+        raise ValueError(f"w: [N*D] = ({nd},) expected, got {tuple(w.shape)}")
     if ca is not None:
         ca = ca.float().contiguous()
         sb = sb.float().contiguous()
@@ -63,6 +74,9 @@ def _k3_cuda(x, w, ca, sb, num_heads, eps, out_dtype):
             raise ValueError(f"rope tables must be [S, D] = {(s, d)}")
         _lib.require_cuda(ca, torch.float32, "ca")
         _lib.require_cuda(sb, torch.float32, "sb")
+    for t, name in ((x, "x"), (w, "w"), (ca, "ca"), (sb, "sb")):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel loads 16 bytes a lane)")
     out = torch.empty((b, num_heads, s, d), dtype=torch.bfloat16, device=x.device)
     _lib.launch(
         "rms_rope_heads", "wanq_rms_rope_heads",
