@@ -13,8 +13,9 @@ non-zero:
    counts the wgmma (HGMMA, IGMMA) and TMA (UTMALDG, UTMASTG) instructions
    of the two attention kernels and the three wgmma int GEMMs (K2, K8, K9) in
    the library, and the build log gives every kernel's registers and spills
-   (no spill allowed in the wgmma kernels, K1, K3 and K7); the SASS
-   instruction counts of K3's and K7's instantiations are printed;
+   (no spill allowed in the wgmma kernels, K1, K3, K7 and K10a's two); the
+   SASS instruction counts and TMA copy counts (UBLKCP, UTMALDG) of K3's,
+   K7's and K10a's kernels are printed (K10a must have tensor-map loads);
 2. each kernel against its plain PyTorch version on the card at the main
    paths' shapes (T2V-1.3B, 832x480x81, batched CFG: B=2, seq 32768 with
    32760 valid tokens, M = 65536 token rows), with the warm median of
@@ -29,10 +30,13 @@ non-zero:
    radii 0, 1, 2 and one per-head vector, with planted pad and out-of-band
    k/v, and timed at radii 0, 1, 2, 4, 8 beside its bound, its visited-tile
    fraction and scaled_dot_product_attention with the band as a boolean mask;
-   a band that covers every frame is timed next to the dense launch. K3 and
-   K7 are also held and timed at the T2V-14B widths (K3 at C = 5120, K7's
-   GELU at the 14B ffn width 13824), and K7's GELU table on all 65536 bf16
-   inputs bit for bit against the kernels' gelu_tanh;
+   a band that covers every frame is timed next to the dense launch. K3,
+   K7 and K10a are also held and timed at the T2V-14B widths (K3 at C =
+   5120, K7's GELU at the 14B ffn width 13824, K10a at 720p's [2, 40,
+   75776, 128]), and K7's GELU table on all 65536 bf16 inputs bit for bit
+   against the kernels' gelu_tanh. Beside K3, K7 and K10a a plain clone of
+   the same bytes gives the card's practical memory rate, and beside K10a the
+   bytes it really moves (v read twice) are printed next to its bound's;
 3. the seven paths through the CLIs at full 1.3B width and depth, random
    weights from a seed, 3 UniPC steps each: W8A8 (get_calib_data
    --collect_minmax, 1 step, then quant_generate --hardware under
@@ -60,7 +64,12 @@ non-zero:
    config under each YAML, with a cross_attn section, and in sim mode with a
    blockwise attn section and reorder tables, on the card against the same on
    the CPU; and the calibration sweep of get_calib_data with --attn_map_pool
-   (pooled attention maps) on the small config, on the card against the CPU.
+   (pooled attention maps) on the small config, on the card against the CPU;
+   and one more CFG forward of w8a8_attn at t=999 with models/dit.py's
+   attention_int8 swapped for the plain versions on the card (K10a's and
+   K10's), printed against the kernel forward and each against w8a8 and
+   bf16: whether w8a8_attn's distance to w8a8 is int8 attention's rounding
+   or K10's own error (gated only on a finite prediction).
 
 The third-to-last line is the kernels' JSON record, then the card's name
 and power limit, and the last line {"ok": true, "device": {...}}.
@@ -575,24 +584,14 @@ def int8_attention_checks(torch, record, q, k, vh, valid, qs, t4_self):
     keys the function itself reads 0.20, see the comment at the check)."""
     from wanq_tpu_torch.models.attention import _flash_cuda
     from wanq_tpu_torch.ops.attn_int8 import (
-        attention_int8, attention_int8_blocked, attention_int8_cuda, quantize_qkv_int8_cuda,
-        quantize_qkv_int8_plain, v_from_kernel_layout, v_kernel_layout)
+        attention_int8, attention_int8_blocked, attention_int8_cuda, v_from_kernel_layout)
 
     b, n, s, d = q.shape
     k = k.clone()
     k[:, :, valid:] = 3.0   # pad k rows that would win the softmax if unmasked
     views = (q, k, vh)      # [B, H, S, D]; vh strided over [B, S, H*D]
-    got = quantize_qkv_int8_cuda(*views)
-    want = quantize_qkv_int8_plain(*views)
-    torch.cuda.synchronize()
-    same = all(torch.equal(got[i], want[i]) for i in (0, 1, 3, 4, 5))
-    same = same and torch.equal(got[2], v_kernel_layout(want[2]))
-    check(same, "K10a: scales or codes differ from the plain version")
-    del want
-    record("quantize_qkv_int8", 0.0, cuda_ms(lambda: quantize_qkv_int8_cuda(*views)),
-           cuda_ms(lambda: quantize_qkv_int8_plain(*views), warmup=1, reps=3),
-           "q/k/v [2,12,32768,128] bf16 views -> int8 + scales (codes and scales equal)",
-           3 * b * n * s * d * 3 + (2 * s // 512 + d) * b * n * 4, 6 * 3 * b * n * s * d, "f32")
+    got = k10a_check(torch, record, views, "q/k/v [2,12,32768,128] bf16 views")
+    copy_note(torch, q, k, vh)
 
     qi, ki, vt, s_q, s_k, s_v = got
     kern = lambda: attention_int8_cuda(qi, ki, vt, s_q, s_k, s_v, qs, valid)
@@ -635,17 +634,64 @@ def int8_attention_checks(torch, record, q, k, vh, valid, qs, t4_self):
         f"{rel_max:.4f} (limit 0.3), rel-L2 {rel_l2:.4f} (limit 0.08)")
     check(rel_max < 0.3 and rel_l2 < 0.08,
           f"K10 vs K4: max abs relative error {rel_max}, rel-L2 {rel_l2}")
+    del y8, y4, v3, got, s_q, s_k, s_v
+    torch.cuda.empty_cache()
+
+    # K10a at the T2V-14B 720p shape (40 heads, 75776 tokens) and the same views
+    g14 = torch.Generator(device=q.device).manual_seed(14)
+    q14, k14 = (torch.randn((b, 40, 75776, d), device=q.device, generator=g14).bfloat16()
+                for _ in range(2))
+    v14 = torch.randn((b, 75776, 40 * d), device=q.device, generator=g14).bfloat16()
+    v14 = v14.view(b, 75776, 40, d).transpose(1, 2)
+    k10a_check(torch, record, (q14, k14, v14), "q/k/v [2,40,75776,128] bf16 views (T2V-14B 720p)")
+    copy_note(torch, q14, k14, v14)
+    del q14, k14, v14
+    torch.cuda.empty_cache()
 
 
-def copy_note(torch, x):
-    """A note beside the memory-bound kernels: what a plain copy of x (PyTorch's
-    clone: every byte read once and written once) reaches on this card, the
-    practical rate of device memory for a stream that reads and writes alike.
-    The kernels' bounds stay the published 3.35 TB/s."""
-    ms = cuda_ms(lambda: x.clone(), reps=9)
-    nbytes = 2 * x.numel() * x.element_size()
-    log(f"  note: torch clone of {list(x.shape)} {str(x.dtype)[6:]} ({nbytes / 1e6:.1f} MB read "
-        f"and written): {ms:.3f} ms, {nbytes / ms / 1e6:.0f} GB/s")
+def copy_note(torch, *xs):
+    """A note beside the memory-bound kernels: what a plain copy of the
+    tensors xs (PyTorch's clone: every byte read once and written once)
+    reaches on this card, the practical rate of device memory for a stream
+    that reads and writes alike. The kernels' bounds stay the published
+    3.35 TB/s."""
+    ms = cuda_ms(lambda: [x.clone() for x in xs], reps=9)
+    nbytes = 2 * sum(x.numel() * x.element_size() for x in xs)
+    what = " + ".join(f"{list(x.shape)} {str(x.dtype)[6:]}" for x in xs)
+    log(f"  note: torch clone of {what} ({nbytes / 1e6:.1f} MB read and written): {ms:.3f} ms, "
+        f"{nbytes / ms / 1e6:.0f} GB/s")
+
+
+def k10a_check(torch, record, views, detail):
+    """K10a on bf16 [B, H, S, 128] views against its plain version: scales
+    and codes equal, stated before the first run. Its bound reads q, k and v
+    once; the kernel reads v twice, and the bytes it moves are printed beside
+    the bound's."""
+    from wanq_tpu_torch.ops.attn_int8 import (
+        quantize_qkv_int8_cuda, quantize_qkv_int8_plain, quantize_qkv_int8_traffic,
+        v_kernel_layout)
+
+    b, n, s, d = views[0].shape
+    got = quantize_qkv_int8_cuda(*views)
+    want = quantize_qkv_int8_plain(*views)
+    torch.cuda.synchronize()
+    same = all(torch.equal(got[i], want[i]) for i in (0, 1, 3, 4, 5))
+    same = same and torch.equal(got[2], v_kernel_layout(want[2]))
+    check(same, f"K10a {detail}: scales or codes differ from the plain version")
+    del want
+    torch.cuda.empty_cache()
+    bound, moved = quantize_qkv_int8_traffic(b, n, s, d)
+    ms = cuda_ms(lambda: quantize_qkv_int8_cuda(*views), reps=9)
+    # ten calls between one pair of events: the wrapper's host time of the
+    # later calls hides behind the card's work, as it does in a forward
+    ms10 = cuda_ms(lambda: [quantize_qkv_int8_cuda(*views) for _ in range(10)], reps=5) / 10
+    record("quantize_qkv_int8", 0.0, ms,
+           cuda_ms(lambda: quantize_qkv_int8_plain(*views), warmup=1, reps=3),
+           f"{detail} -> int8 + scales (codes and scales equal; moves {moved / 1e6:.1f} MB, "
+           f"v read twice, {moved / ms / 1e6:.0f} GB/s; ten calls back to back {ms10:.3f} ms a "
+           f"call, {moved / ms10 / 1e6:.0f} GB/s; aim <= 1.7x the bound)",
+           bound, 6 * 3 * b * n * s * d, "f32")
+    return got
 
 
 def gelu_table_check(torch):
@@ -879,8 +925,8 @@ def _to_device(tree, dev):
 KERNEL_NAMES = {"ln_mod_quant_kernel": "K1", "w8a8_gemm_kernel": "K2",
                 "rms_rope_heads_kernel": "K3", "flash_fwd_kernel": "K4",
                 "quant_sum_kernel": "K7", "w4a8_gemm_kernel": "K8", "w4a4_gemm_kernel": "K9",
-                "attn_int8_kernel": "K10", "qk_quant_kernel": "K10a",
-                "v_absmax_kernel": "K10a", "v_quant_kernel": "K10a"}
+                "attn_int8_kernel": "K10", "qkv_absmax_quant_kernel": "K10a",
+                "v_quant_kernel": "K10a"}
 
 
 def profile_steps(torch, steps):
@@ -1001,7 +1047,7 @@ def fidelity(torch, calib_path):
     with torch.no_grad():
         fps = {w: {guide: step(c, guide).cpu().numpy().astype(np.float64) for guide in (5.0, 1.0)}
                for w, c in fp_ctxs.items()}
-    w8a8_cond = None  # the W8A8 kernel path's conditional prediction
+    preds = {}  # (label, guide) -> noise prediction, of w8a8 and w8a8_attn
     for label, ctx in ctxs.items():
         res = {}
         for guide, fp64 in fps[WINDOWS.get(label)].items():
@@ -1010,14 +1056,14 @@ def fidelity(torch, calib_path):
             if not np.isfinite(q64).all():
                 failures.append(f"non-finite {label} noise prediction")
             res[guide] = psnr_cos(fp64, q64)
-            if guide == 1.0 and label == "w8a8":
-                w8a8_cond = q64
+            if label in ("w8a8", "w8a8_attn"):
+                preds[label, guide] = q64
             if guide == 1.0 and label in ("w8a8_attn", *SIM_PATHS):
                 # against the W8A8 kernel path on the same linears: what the
                 # int8 attention alone changes, and sim, which quantizes alike
                 # (the same scales and codes through bf16 GEMMs of the
                 # dequantized operands)
-                psnr_hw, cos_hw = psnr_cos(w8a8_cond, q64)
+                psnr_hw, cos_hw = psnr_cos(preds["w8a8", 1.0], q64)
                 log(f"  {label} vs the w8a8 kernel path, conditional: PSNR {psnr_hw:.2f} dB, "
                     f"cosine {cos_hw:.6f}")
                 if label in SIM_PATHS and psnr_hw < 30.0:
@@ -1039,6 +1085,9 @@ def fidelity(torch, calib_path):
             failures.append(f"{label} PSNR {psnr:.2f} dB < 30 dB")
         if label not in ("w8a8", "w8a8_sim", *WINDOWS) and (cos1 < 0.9 or cos < 0.5):
             failures.append(f"{label} cosine {cos1:.4f} (guide 1) < 0.9 or {cos:.4f} (CFG) < 0.5")
+
+    failures += int8_attention_plain_route(torch, np, step, ctxs["w8a8_attn"], preds,
+                                           {g: fps[None][g] for g in (5.0, 1.0)}, psnr_cos)
 
     # the FP linears keep the f32 accumulator on the card, as on the CPU
     po = params["blocks"][0]["self_attn"]["o"]
@@ -1125,6 +1174,51 @@ def fidelity(torch, calib_path):
     check(not failures, "; ".join(failures))
 
 
+def int8_attention_plain_route(torch, np, step, ctx, preds, fps, psnr_cos):
+    """Is the ~58 dB between w8a8_attn and w8a8 the rounding that int8
+    attention does by definition, or K10's own error? One more CFG forward
+    of w8a8_attn at t=999 in which models/dit.py's attention_int8 runs the
+    plain versions on the card (quantize_qkv_int8_plain, then
+    attention_int8_blocked with q_chunk 8192: the function's 512-block grid
+    step by step), printed against the kernel forward and each against w8a8
+    and bf16, with CFG 5 and conditional. Limit, stated before the first
+    run: the plain route's prediction is finite; the distances are printed,
+    not gated. The launch counts of the kernel run were read in phase 3."""
+    import wanq_tpu_torch.models.dit as dit
+    from wanq_tpu_torch.ops.attn_int8 import (
+        BLK, attention_int8_blocked, quantize_qkv_int8_plain)
+
+    def plain_route(q, k, v, sm_scale=None, k_valid_len=None, blk=BLK):
+        s = q.shape[1]
+        scale = 1.0 / math.sqrt(q.shape[-1]) if sm_scale is None else sm_scale
+        quantized = quantize_qkv_int8_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                            v.transpose(1, 2), blk)
+        out = attention_int8_blocked(*quantized, scale, k_valid_len=k_valid_len or s,
+                                     q_chunk=8192)
+        return out[:, :, :s].transpose(1, 2).contiguous()
+
+    kernel_route, dit.attention_int8 = dit.attention_int8, plain_route
+    try:
+        with torch.no_grad():
+            plain = {g: step(ctx, g).cpu().numpy().astype(np.float64) for g in (5.0, 1.0)}
+    finally:
+        dit.attention_int8 = kernel_route
+    failures = []
+    for g, name in ((5.0, "CFG 5.0"), (1.0, "conditional")):
+        if not np.isfinite(plain[g]).all():
+            failures.append(f"w8a8_attn through the plain versions: non-finite {name} prediction")
+            continue
+        pk, _ = psnr_cos(plain[g], preds["w8a8_attn", g])
+        kw, _ = psnr_cos(preds["w8a8", g], preds["w8a8_attn", g])
+        pw, _ = psnr_cos(preds["w8a8", g], plain[g])
+        kf, _ = psnr_cos(fps[g], preds["w8a8_attn", g])
+        pf, _ = psnr_cos(fps[g], plain[g])
+        log(f"  w8a8_attn {name} (t=999): kernels (K10a + K10) vs plain versions PSNR {pk:.2f} "
+            f"dB; vs w8a8: kernels {kw:.2f} dB, plain versions {pw:.2f} dB; vs bf16: kernels "
+            f"{kf:.2f} dB, plain versions {pf:.2f} dB")
+    return failures
+
+
 def calib_maps_check(torch, small, p_cpu):
     """get_calib_data --attn_map_pool 8 --attn_map_reduce mean at the small
     config (head dim 128, 4 latent frames of 20 tokens, seq 80): the sweep it
@@ -1171,11 +1265,12 @@ def calib_maps_check(torch, small, p_cpu):
 
 
 # kernels whose build must show no spill: the wgmma kernels (a spill there
-# means ptxas gave up on the setmaxnreg budgets), and K1, K3 and K7, which
-# hold a row in registers
+# means ptxas gave up on the setmaxnreg budgets), K1, K3 and K7, which hold a
+# row in registers, and K10a's two, which hold half a tile (q/k) or a
+# channel-by-row block (v) in registers
 NO_SPILL = ("flash_fwd_kernel", "attn_int8_kernel", "w8a8_gemm_kernel", "w4a8_gemm_kernel",
             "w4a4_gemm_kernel", "ln_mod_quant_kernel", "rms_rope_heads_kernel",
-            "quant_sum_kernel")
+            "quant_sum_kernel", "qkv_absmax_quant_kernel", "v_quant_kernel")
 
 
 def ptxas_records(log_text: str):
@@ -1243,18 +1338,26 @@ def hopper_evidence(_lib, nvcc: str) -> None:
             check(not serialised, f"{kernel}: serialised wgmma: {serialised[:1]}")
     check(not re.search(r"\bIMMA\b", res.stdout),
           "an mma.sync int GEMM (IMMA) is left in the library")
-    # K3 and K7 hold a row in registers: their instantiations' static
-    # instruction counts, and the SASS itself for reading
-    rows = [f for f in functions if "rms_rope_heads_kernel" in f.split("\n", 1)[0]
-            or "quant_sum_kernel" in f.split("\n", 1)[0]]
-    with open(OUT / "sass_k3_k7.txt", "w") as f:
-        for fn in rows:
-            f.write("Function : " + fn)
+    # K3, K7 and K10a stream rows or tiles into shared memory by TMA (bulk
+    # copies UBLKCP, tensor-map loads UTMALDG): their instantiations' static
+    # instruction and copy counts, and the SASS itself for reading. K10a's
+    # kernels must have their tensor-map loads.
+    streams = ("rms_rope_heads_kernel", "quant_sum_kernel", "qkv_absmax_quant_kernel",
+               "v_quant_kernel")
+    with open(OUT / "sass_k3_k7_k10a.txt", "w") as f:
+        for fn in functions:
             mangled = fn.split("\n", 1)[0].strip()
-            short = "rms_rope_heads_kernel" if "rms_rope" in mangled else "quant_sum_kernel"
+            short = next((k for k in streams if k in mangled), None)
+            if short is None:
+                continue
+            f.write("Function : " + fn)
             inst = re.search(rf"{short}(I\w+?E)EvNS", mangled)
             n_inst = len(re.findall(r"/\*[0-9a-f]{4,}\*/", fn))
-            log(f"  SASS {short}{' ' + inst.group(1) if inst else ''}: {n_inst} instructions")
+            copies = {op: len(re.findall(rf"\b{op}\b", fn)) for op in ("UBLKCP", "UTMALDG")}
+            log(f"  SASS {short}{' ' + inst.group(1) if inst else ''}: {n_inst} instructions, "
+                + ", ".join(f"{op} {n}" for op, n in copies.items()))
+            if KERNEL_NAMES[short] == "K10a":
+                check(copies["UTMALDG"] > 0, f"{short}: no TMA tensor-map load in the SASS")
 
 
 def main() -> int:

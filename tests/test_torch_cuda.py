@@ -928,6 +928,99 @@ def test_k10a_producer_equals_plain(dev, gen, s):
     assert torch.equal(v_from_kernel_layout(got[2]), want[2])
 
 
+def _check_k10a(views, what):
+    """K10a code for code against its plain version, the card waited for with
+    a deadline (a ring stage counted differently by the producer and the
+    block hangs the card)."""
+    from wanq_tpu_torch.ops.attn_int8 import (
+        quantize_qkv_int8_cuda, quantize_qkv_int8_plain, v_kernel_layout)
+
+    got = quantize_qkv_int8_cuda(*views)
+    _finish_within(60, what)
+    want = quantize_qkv_int8_plain(*views)
+    for i, name in zip((0, 1, 3, 4, 5), ("qi", "ki", "s_q", "s_k", "s_v")):
+        assert torch.equal(got[i], want[i]), f"{what}: {name}"
+    assert torch.equal(got[2], v_kernel_layout(want[2])), f"{what}: vt"
+    return got, want
+
+
+def _k10a_views(dev, gen, b, s, h, layout):
+    """q, k, v as [B, H, S, 128] views. "path": q and k heads-major and
+    contiguous (K3's outputs), v over a seq-major [B, S, H * 128] (K2's
+    output), as models/dit.py passes them; "strided": q and k over
+    [B, S, H, 128] (the plain chain's), v over rows padded to H * 128 + 64
+    channels, every stride a multiple of 16 bytes and none contiguous."""
+    def rnd(*shape):
+        return torch.randn(shape, device=dev, generator=gen).bfloat16()
+
+    if layout == "path":
+        q, k = rnd(b, h, s, 128), rnd(b, h, s, 128)
+    else:
+        q, k = rnd(b, s, h, 128).transpose(1, 2), rnd(b, s, h, 128).transpose(1, 2)
+    pad = 0 if layout == "path" else 64
+    v = rnd(b, s, h * 128 + pad)[..., :h * 128].unflatten(-1, (h, 128)).transpose(1, 2)
+    return q, k, v
+
+
+@pytest.mark.parametrize("layout", ["path", "strided"])
+@pytest.mark.parametrize("b,h", [(1, 1), (2, 12), (1, 40)])
+@pytest.mark.parametrize("s", [1, 511, 512, 513, 32760])
+def test_k10a_shapes_and_layouts_equal_plain(dev, gen, s, b, h, layout):
+    """Ragged S (the pad rows of the last block arrive as zeros from the
+    tensor map, also where a whole 64-row box lies past S), one head to the
+    14B's 40, the main path's views and strided ones."""
+    _check_k10a(_k10a_views(dev, gen, b, s, h, layout), f"K10a S={s} B={b} H={h} {layout}")
+
+
+def test_k10a_zero_blocks_ties_and_extreme_magnitudes(dev, gen):
+    """A zero q block (scale 1e-6), a k block whose absmax is 127 (scale 1:
+    every .5 value is a tie that rounds to even), a k block near bf16's
+    largest value (scale > 2**20, the division outside FastDiv's range), v
+    channels at 3e38, 1e-30 (scale 1e-6) and zero, and one v channel at 2**-60."""
+    b, h, s = 2, 3, 2048
+    q, k, v = _k10a_views(dev, gen, b, s, h, "path")
+    q[0, 1, 512:1024] = 0.0
+    ties = (torch.arange(-254, 255, device=dev) / 2.0).bfloat16()  # -127, -126.5, ..., 127
+    k[1, 2, :512] = ties[torch.randint(0, len(ties), (512, 128), device=dev, generator=gen)]
+    k[1, 2, 0, 0] = 127.0
+    k[0, 0, 1024:1536] *= 3e37
+    v[0, 0, :, 5] = (torch.linspace(-1.0, 1.0, s, device=dev) * 3e38).bfloat16()
+    v[1, 1, :, 7] = 1e-30
+    v[1, 2, :, 9] = 0.0
+    v[0, 2, :, 100] = 2.0 ** -60
+    got, _ = _check_k10a((q, k, v), "K10a zero blocks, ties, extremes")
+    assert got[3][0, 1, 1].item() == pytest.approx(1e-6) and got[4][1, 2, 0].item() == 1.0
+    assert got[4][0, 0, 2].item() > 2.0 ** 20
+
+
+def test_k10a_raises_on_what_its_tensor_maps_do_not_take(dev, gen):
+    from wanq_tpu_torch.ops.attn_int8 import quantize_qkv_int8_cuda
+
+    b, h, s = 1, 2, 600
+    q, k, v = _k10a_views(dev, gen, b, s, h, "path")
+    flat = torch.zeros((b, s, h * 128 + 4), device=dev).bfloat16()
+    bad = {
+        "head dim 64": q[..., :64],
+        "f32": q.float(),
+        "head dim strided": torch.zeros((b, h, s, 256), device=dev).bfloat16()[..., ::2],
+        "seq stride of 8 bytes past 16": flat[..., :h * 128].unflatten(-1, (h, 128))
+        .transpose(1, 2),
+        "base 2 bytes off": torch.zeros(b * h * s * 128 + 1, device=dev).bfloat16()[1:]
+        .view(b, h, s, 128),
+        "CPU tensor": q.cpu(),
+        "shape": q[:, :, :500],
+    }
+    for what, t in bad.items():
+        with pytest.raises(ValueError):
+            quantize_qkv_int8_cuda(q, k, t)
+        with pytest.raises(ValueError):
+            quantize_qkv_int8_cuda(t, k, v)
+    _lib.reset_launch_counts()
+    quantize_qkv_int8_cuda(q, k, v)
+    _finish_within(60, "K10a after refusals")
+    assert _lib.launch_counts() == {"quantize_qkv_int8": 1}
+
+
 @pytest.mark.parametrize("s,valid", [(1024, None), (1024, 1000), (1536, 520), (512, 1)])
 def test_k10_kernel_matches_blocked_plain(dev, gen, s, valid):
     from wanq_tpu_torch.ops.attn_int8 import (

@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
 """Times the port's two attention kernels on one NVIDIA card.
 
-    python3 tools/torch_attn_bench.py [--reps 5]
+    python3 tools/torch_attn_bench.py [--reps 5] [--only k10a]
 
 K4 (bf16 flash attention, ``csrc/flash_attention.cu``) on the self-attention
 shape of T2V-1.3B at 832x480x81 with batched CFG ([2, 12, 32768, 128], 32760
 valid keys) and on the cross-attention shape (512 keys), beside
 ``torch.nn.functional.scaled_dot_product_attention`` on the same operands;
 K10a + K10 (int8 attention, ``csrc/quantize_qkv_int8.cu`` and
-``csrc/attention_int8.cu``) on the self-attention shape. Prints the card's
+``csrc/attention_int8.cu``) on the self-attention shape. ``--only k10a``
+times K10a alone at that shape and at T2V-14B 720p ([2, 40, 75776, 128]):
+code for code against its plain version, each of its two launches' device
+time (torch.profiler), the bytes it moves beside its bound's, and a plain
+copy of the same q, k and v bytes. Prints the card's
 name and power limit, warm medians of CUDA-event times, and the rates they
 mean. Correctness is held by ``chip_smoke.py`` and
 ``tests/test_torch_cuda.py``; this script only checks the outputs against
@@ -18,6 +22,7 @@ each other loosely so that a broken kernel is not timed.
 from __future__ import annotations
 
 import argparse
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -42,6 +47,7 @@ def cuda_ms(torch, fn, reps):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--only", choices=["k10a"])
     args = ap.parse_args()
     import torch
 
@@ -56,6 +62,8 @@ def main() -> int:
     print(f"nvidia-smi name, power.limit: {smi}", flush=True)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
+    if args.only == "k10a":
+        return k10a_bench(torch, g, args.reps)
     b, n, s, d, valid = 2, 12, 32768, 128, 32760
     qs = 1.0 / d ** 0.5
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -93,6 +101,53 @@ def main() -> int:
     t10 = cuda_ms(torch, lambda: attention_int8_cuda(*quant, qs, valid), args.reps)
     print(f"K10 [2,12,32768,128] int8 valid 32760: {t10:.3f} ms ({flops / t10 / 1e9:.0f} TOP/s); "
           f"K10a {t10a:.3f} ms; (K10a + K10) / K4 self {(t10 + t10a) / t4:.3f}", flush=True)
+    return 0
+
+
+def k10a_bench(torch, g, reps):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from wanq_tpu_torch.ops.attn_int8 import (
+        quantize_qkv_int8_cuda, quantize_qkv_int8_plain, quantize_qkv_int8_traffic,
+        v_kernel_layout)
+
+    dev = g.device
+    for b, n, s in ((2, 12, 32768), (2, 40, 75776)):
+        q = torch.randn((b, n, s, 128), device=dev, generator=g).bfloat16()
+        k = torch.randn((b, n, s, 128), device=dev, generator=g).bfloat16()
+        v_flat = torch.randn((b, s, n * 128), device=dev, generator=g).bfloat16()
+        vh = v_flat.view(b, s, n, 128).transpose(1, 2)
+        got = quantize_qkv_int8_cuda(q, k, vh)
+        want = quantize_qkv_int8_plain(q, k, vh)
+        same = all(torch.equal(got[i], want[i]) for i in (0, 1, 3, 4, 5)) and torch.equal(
+            got[2], v_kernel_layout(want[2]))
+        del got, want
+        torch.cuda.empty_cache()
+        t = cuda_ms(torch, lambda: quantize_qkv_int8_cuda(q, k, vh), reps)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                quantize_qkv_int8_cuda(q, k, vh)
+            torch.cuda.synchronize()
+        per = {}
+        for e in prof.events():
+            name = re.search(r"\w+_kernel", e.name)
+            if e.device_type == DeviceType.CUDA and name:
+                per[name[0]] = (per.get(name[0], 0.0)
+                                + (e.time_range.end - e.time_range.start) / 1e3 / reps)
+        t_copy = cuda_ms(torch, lambda: (q.clone(), k.clone(), v_flat.clone()), reps)
+        bound, moved = quantize_qkv_int8_traffic(b, n, s)
+        copy_bytes = 4 * 3 * q.numel()
+        print(f"K10a [{b},{n},{s},128]: equal to the plain version: {same}; {t:.3f} ms "
+              f"({', '.join(f'{k_} {v_:.3f}' for k_, v_ in per.items())}); bound "
+              f"{bound / 3.35e9:.3f} ms ({bound / 1e6:.1f} MB), moves {moved / 1e6:.1f} MB "
+              f"({moved / t / 1e6:.0f} GB/s); clone of q, k, v ({copy_bytes / 1e6:.1f} MB "
+              f"read and written) {t_copy:.3f} ms ({copy_bytes / t_copy / 1e6:.0f} GB/s)",
+              flush=True)
+        if not same:
+            return 1
+        del q, k, v_flat, vh
+        torch.cuda.empty_cache()
     return 0
 
 

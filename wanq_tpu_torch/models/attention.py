@@ -169,17 +169,17 @@ def _sdpa_reference(q, k, v, scale: float, k_valid_len: Optional[int],
 
 
 def tensor_map_layout(t: torch.Tensor, name: str = "operand"):
-    """What K4's 4-D tensor map (TMA) needs of a logical [B, N, S, D] view:
-    ``(dims, byte_strides)`` with dims ``(D, S, N, B)``, innermost first, and
-    the byte strides of ``(S, N, B)``. The view may have any strides (q
-    heads-major, v over the GEMM output [B, S, N*D], cross k/v seq-major)
-    as long as the head dim is 128 and contiguous, every other stride is a
-    positive multiple of 16 bytes and the base is 16-byte aligned; anything
-    else raises. A dimension of size 1 never moves, so its stride is
-    replaced by one row's bytes."""
+    """What the 4-D tensor maps (TMA) of K4 and K10a need of a logical
+    [B, N, S, D] view: ``(dims, byte_strides)`` with dims ``(D, S, N, B)``,
+    innermost first, and the byte strides of ``(S, N, B)``. The view may
+    have any strides (q heads-major, v over the GEMM output [B, S, N*D],
+    cross k/v seq-major) as long as the head dim is 128 and contiguous,
+    every other stride is a positive multiple of 16 bytes and the base is
+    16-byte aligned; anything else raises. A dimension of size 1 never
+    moves, so its stride is replaced by one row's bytes."""
     if t.ndim != 4 or t.shape[-1] != 128 or t.stride(-1) != 1:
-        raise ValueError(f"{name}: K4 needs [B, N, S, 128] with a contiguous head dim, "
-                         f"got shape {tuple(t.shape)} strides {t.stride()}")
+        raise ValueError(f"{name}: the TMA kernels need [B, N, S, 128] with a contiguous "
+                         f"head dim, got shape {tuple(t.shape)} strides {t.stride()}")
     b, n, s, d = t.shape
     row = d * t.element_size()
     strides = []

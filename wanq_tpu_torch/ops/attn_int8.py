@@ -36,6 +36,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from wanq_tpu_torch.models.attention import tensor_map_layout
 from wanq_tpu_torch.ops import _lib
 from wanq_tpu_torch.ops.fused import true_div
 
@@ -123,19 +124,28 @@ def v_from_kernel_layout(vt: torch.Tensor) -> torch.Tensor:
     return v.transpose(2, 3).contiguous()
 
 
+def quantize_qkv_int8_traffic(b: int, h: int, s: int, d: int = 128) -> Tuple[int, int]:
+    """(bound bytes, bytes K10a moves) for q, k, v bf16 [b, h, s, d]: the
+    bound reads each input once and writes each output once; the kernel
+    reads v a second time (its codes need the scale over every token) and
+    writes and reads its partial maxima of v, f32 [b, h, s_pad / 512, d]."""
+    s_pad = _rup(s, BLK)
+    nblk = s_pad // BLK
+    outputs = 3 * b * h * s_pad * d + 4 * b * h * (2 * nblk + d)
+    bound = 3 * 2 * b * h * s * d + outputs
+    return bound, bound + 2 * b * h * s * d + 2 * 4 * b * h * nblk * d
+
+
 def quantize_qkv_int8_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Quantized:
-    """Kernel K10a. q, k, v: bf16 CUDA [B, H, S, 128] views of any
-    (batch, head, seq) strides with a contiguous head dim. Returns
-    (qi, ki [B, H, S_pad, 128], vt [B, H, 128, S_pad] in K10's layout,
-    s_q, s_k [B, H, S_pad / 512], s_v [B, H, 128])."""
+    """Kernel K10a. q, k, v: bf16 CUDA [B, H, S, 128] views with a contiguous
+    head dim, every other stride a positive multiple of 16 bytes and bases
+    16-byte aligned (what its TMA tensor maps take: ``tensor_map_layout``).
+    Returns (qi, ki [B, H, S_pad, 128], vt [B, H, 128, S_pad] in K10's
+    layout, s_q, s_k [B, H, S_pad / 512], s_v [B, H, 128])."""
+    layouts = []
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         _lib.require_cuda(t, torch.bfloat16, name)
-        if t.ndim != 4 or t.shape[-1] != 128 or t.stride(-1) != 1:
-            raise ValueError(f"{name}: K10a needs [B, H, S, 128] with a contiguous head "
-                             f"dim, got shape {tuple(t.shape)} strides {t.stride()}")
-        if any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16:
-            raise ValueError(f"{name}: strides must be multiples of 8 and the base "
-                             "16-byte aligned")
+        layouts.append(tensor_map_layout(t, name)[1])
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)} must agree")
     b, h, s, d = q.shape
@@ -147,16 +157,12 @@ def quantize_qkv_int8_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) ->
     s_q = torch.empty((b, h, s_pad // BLK), dtype=torch.float32, device=dev)
     s_k = torch.empty_like(s_q)
     s_v = torch.empty((b, h, d), dtype=torch.float32, device=dev)
-    scratch = torch.empty((b, h, d), dtype=torch.int32, device=dev)
-
-    def strides(t):  # batch, seq, head
-        return t.stride(0), t.stride(2), t.stride(1)
-
+    v_part = torch.empty((b, h, s_pad // BLK, d), dtype=torch.float32, device=dev)
     _lib.launch(
         "quantize_qkv_int8", "wanq_quantize_qkv_int8",
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), *strides(q), *strides(k), *strides(v),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), *(st for strides in layouts for st in strides),
         qi.data_ptr(), ki.data_ptr(), vt.data_ptr(), s_q.data_ptr(), s_k.data_ptr(),
-        s_v.data_ptr(), scratch.data_ptr(), b, h, s, s_pad,
+        s_v.data_ptr(), v_part.data_ptr(), b, h, s, s_pad,
     )
     return qi, ki, vt, s_q, s_k, s_v
 
