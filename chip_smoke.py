@@ -36,8 +36,15 @@ non-zero:
    75776, 128]), and K7's GELU table on all 65536 bf16 inputs bit for bit
    against the kernels' gelu_tanh. Beside K3, K7 and K10a a plain clone of
    the same bytes gives the card's practical memory rate, and beside K10a the
-   bytes it really moves (v read twice) are printed next to its bound's;
-3. the seven paths through the CLIs at full 1.3B width and depth, random
+   bytes it really moves (v read twice) are printed next to its bound's. At
+   the viditq path's shape: K7 on f32 rows without GELU, with and without a
+   channel_scale (codes and scales equal), K1 with a channel_scale (these
+   three printed, not summed into the kernels line, whose K7 and K1 totals
+   keep the shapes of earlier runs), the f32
+   rotation product x @ Q (torch.mm, TF32 off) against its bound, one whole
+   viditq site through qlinear, and PTQ's f64 weight rotation on the card
+   (equal to the CPU's);
+3. the eight paths through the CLIs at full 1.3B width and depth, random
    weights from a seed, 3 UniPC steps each: W8A8 (get_calib_data
    --collect_minmax, 1 step, then quant_generate --hardware under
    wan_w8a8_speed.yaml), mixed W4A8 (wan_w4a8_mixed.yaml), Atom W4A4
@@ -46,7 +53,9 @@ non-zero:
    W4A8 at every linear with a static ffn.2 scale (wan_w4a8_14b.yaml,
    --hardware, the same calibration) and W8A8 with a temporal window of one
    latent frame (w8a8_win1: wan_w8a8_speed.yaml --hardware --attn_window 1,
-   the same calibration: self-attention runs K4's band mode);
+   the same calibration: self-attention runs K4's band mode) and ViDiT-Q
+   (viditq: quant_configs/config.yaml, the same calibration through cli.ptq,
+   whose npz artifact quant_generate --quant_params --hardware deploys);
    per-step time, peak memory, finite latents, and kernel launch counts,
    reset just before each path and read just after, equal to the 30-block
    totals of PATHS below, which shows no plain version ran (the GELU +
@@ -58,12 +67,15 @@ non-zero:
    >= 30 dB with CFG; 4-bit paths and int8 attention: cosine >= 0.9
    conditional, >= 0.5 with CFG; simulated W8A8 vs the W8A8 kernel path:
    >= 30 dB conditional; w8a8_win1 against bf16 with the same window: PSNR
-   >= 30 dB with CFG, its distance to dense bf16 printed); fp_linear on the
-   card against the CPU's f32 product; one CFG forward of each under
-   torch.profiler (wall time, device time by kernel, idle share); a small
-   config under each YAML, with a cross_attn section, and in sim mode with a
-   blockwise attn section and reorder tables, on the card against the same on
-   the CPU; and the calibration sweep of get_calib_data with --attn_map_pool
+   >= 30 dB with CFG, its distance to dense bf16 printed; viditq from the
+   phase-3 artifact: PSNR >= 30 dB with CFG, and sim vs int8 mode from the
+   same artifact >= 30 dB conditional, with the PTQ timed on the card);
+   fp_linear on the card against the CPU's f32 product; one CFG forward of
+   each under torch.profiler (wall time, device time by kernel, idle share);
+   a small config under each YAML, with a cross_attn section, under a
+   smooth_quant dict (masks at every block linear: K1 and K7 with
+   channel_scale), and in sim mode with a blockwise attn section and reorder
+   tables, on the card against the same on the CPU; and the calibration sweep of get_calib_data with --attn_map_pool
    (pooled attention maps) on the small config, on the card against the CPU;
    and one more CFG forward of w8a8_attn at t=999 with models/dit.py's
    attention_int8 swapped for the plain versions on the card (K10a's and
@@ -109,7 +121,13 @@ YAML = "quant_configs/wan_w8a8_speed.yaml"
 # sim (no --hardware): every linear is fake-quant + a bf16 GEMM; no int kernel.
 # W8A8 with --attn_window 1: w8a8's launches, self-attention in K4's band mode
 #   (a counter of its own), cross-attention in its dense mode.
+# ViDiT-Q (quant_configs/config.yaml, the source's shipped config: SmoothQuant
+#   mask + Hadamard rotation, W8A8 on self-attention q/k/v, the rest bf16):
+#   rotated q/k/v are not fusable, so each takes plain LN + modulate, x * mask
+#   @ rotation (an f32 library product), K7 on the f32 rows and K2; K3 and K4
+#   as in bf16.
 ATTN_YAML = "quant_configs/wan_w8a8_attn.yaml"
+VIDITQ_YAML = "quant_configs/config.yaml"
 PATHS = {
     "w8a8": (YAML, {"ln_modulate_quant": 3, "w8a8_linear": 5, "w8a8_linear_gelu_quant": 1,
                     "rms_rope_heads": 3, "attention": 2}),
@@ -127,11 +145,15 @@ PATHS = {
                      "quant_sum": 2, "rms_rope_heads": 3, "attention": 2}),
     "w8a8_win1": (YAML, {"ln_modulate_quant": 3, "w8a8_linear": 5, "w8a8_linear_gelu_quant": 1,
                          "rms_rope_heads": 3, "attention": 1, "attention_band": 1}),
+    "viditq": (VIDITQ_YAML, {"quant_sum": 3, "w8a8_linear": 3, "rms_rope_heads": 3,
+                             "attention": 2}),
 }
 SIM_PATHS = ("w8a8_sim",)                        # quant_generate without --hardware
 WINDOWS = {"w8a8_win1": 1}                       # quant_generate --attn_window
-# static ffn.2 scale from calibration
-CALIB_PATHS = ("w8a8", "w8a8_attn", "w8a8_sim", "w4a8_static", "w8a8_win1")
+# cli.ptq writes the quant-state artifact, quant_generate --quant_params loads it
+PTQ_PATHS = ("viditq",)
+# static ffn.2 scale or SmoothQuant masks from calibration
+CALIB_PATHS = ("w8a8", "w8a8_attn", "w8a8_sim", "w4a8_static", "w8a8_win1", "viditq")
 SOURCES = {
     "ln_modulate_quant": ("wanq_tpu_torch/csrc/ln_modulate_quant.cu",
                           "wanq_tpu/ops/fused.py:172"),
@@ -220,22 +242,26 @@ def kernel_checks(torch, results):
     g = torch.Generator(device=dev).manual_seed(0)
     b, s, valid, c, n, d = 2, 32768, 32760, 1536, 12, 128
 
-    def record(name, err, ms, plain_ms, detail, nbytes, ops, op_type, library_ms=None):
+    def record(name, err, ms, plain_ms, detail, nbytes, ops, op_type, library_ms=None,
+               summed=True):
         """One shape of one kernel. ``nbytes``: inputs read once + outputs
         written once; ``ops``: the function's operations of ``op_type``.
-        A kernel checked at several shapes sums its times and bounds."""
-        r = results.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                                      "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0,
-                                      "library_ms": None})
+        A kernel checked at several shapes sums its times and bounds into
+        the kernels line; a shape with ``summed=False`` is printed only, so
+        the line's totals keep the shapes of earlier runs."""
         bytes_ms, ops_ms = nbytes / HBM_BPS * 1e3, ops / PEAK_OPS[op_type] * 1e3
-        r["max_abs_err"] = max(r["max_abs_err"], float(err))
-        r["ms"] += ms
-        r["plain_ms"] += plain_ms
-        r["bytes_ms"] += bytes_ms
-        r["ops_ms"] += ops_ms
-        r["bound_ms"] += max(bytes_ms, ops_ms)
-        if library_ms is not None:
-            r["library_ms"] = (r["library_ms"] or 0.0) + library_ms
+        if summed:
+            r = results.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                                          "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0,
+                                          "library_ms": None})
+            r["max_abs_err"] = max(r["max_abs_err"], float(err))
+            r["ms"] += ms
+            r["plain_ms"] += plain_ms
+            r["bytes_ms"] += bytes_ms
+            r["ops_ms"] += ops_ms
+            r["bound_ms"] += max(bytes_ms, ops_ms)
+            if library_ms is not None:
+                r["library_ms"] = (r["library_ms"] or 0.0) + library_ms
         lib = "" if library_ms is None else f"  library {library_ms:.3f} ms"
         log(f"  {name} {detail}: max_abs_err {err:.3e}  kernel {ms:.3f} ms  "
             f"plain {plain_ms:.3f} ms{lib}  bound {max(bytes_ms, ops_ms):.3f} ms "
@@ -396,6 +422,7 @@ def kernel_checks(torch, results):
     del q, k, v_flat, vh, qsc
     torch.cuda.empty_cache()
     int4_checks(torch, g, record)
+    viditq_checks(torch, g, record)
 
 
 def band_pairs(s, tpf, r, valid):
@@ -718,6 +745,112 @@ def gelu_table_check(torch):
     check(same_nan and differ == 0, f"K7 GELU table: {differ} values differ, NaNs agree {same_nan}")
 
 
+def viditq_checks(torch, g, record):
+    """The viditq path's shapes ([2, 32768, 1536], M = 65536 rows):
+    K7 on the f32 rotated rows without GELU, without and with a
+    channel_scale (a mask-only SmoothQuant site), codes and scales equal to
+    the plain version's and sums within rel 1e-6 (stated before the first
+    run: without GELU every step is the plain version's own f32 arithmetic);
+    K1 with a channel_scale (the masked ffn.0 of a smooth_quant config),
+    K1's limits; the f32 rotation product x @ Q by torch.mm with TF32 off
+    (a library product on the path, as in the JAX package, timed against its
+    bound and held to an f64 product); one whole viditq site (x * mask @ Q,
+    K7, K2) through qlinear; and rotate_weight_fwht, PTQ's f64 weight
+    rotation, at 1536 x 1536 and 8960 x 1536, equal to the CPU's."""
+    from wanq_tpu_torch.ops.fused import (
+        ln_modulate_quant_cuda, ln_modulate_quant_plain, quant_sum_cuda, quant_sum_plain)
+    from wanq_tpu_torch.quant import QuantConfig
+    from wanq_tpu_torch.quant.hadamard import rotate_weight_fwht, rotation_for_dim
+    from wanq_tpu_torch.quant.ptq import prepare_quant_state
+    from wanq_tpu_torch.quant.qlinear import QuantCtx, qlinear
+
+    dev = torch.device("cuda")
+    b, s, c = 2, 32768, 1536
+    rows = b * s
+    cs = torch.rand((c,), device=dev, generator=g) + 0.5
+    x = torch.randn((b, s, c), device=dev, generator=g) * 2 + 0.2
+    for scale in (None, cs):
+        got, want = quant_sum_cuda(x, channel_scale=scale), quant_sum_plain(x, channel_scale=scale)
+        torch.cuda.synchronize()
+        s_rel = ((got[2] - want[2]).abs() / want[2].abs().clamp_min(1e-30)).max().item()
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]) and s_rel <= 1e-6,
+              f"K7 f32 channel_scale={scale is not None}: codes or scales differ, sum rel {s_rel}")
+        del got, want
+        ms = cuda_ms(lambda: quant_sum_cuda(x, channel_scale=scale), reps=9)
+        nbytes = x.numel() * 5 + rows * 8 + (0 if scale is None else 4 * c)
+        record("quant_sum", 0.0, ms,
+               cuda_ms(lambda: quant_sum_plain(x, channel_scale=scale), reps=3),
+               f"[2,32768,1536] f32 gelu=False channel_scale={scale is not None} (the viditq "
+               f"site's rotated rows; codes and scales equal; {nbytes / ms / 1e6:.0f} GB/s; "
+               f"not summed into the kernels line)",
+               nbytes, (7 if scale is not None else 6) * x.numel(), "f32", summed=False)
+
+    # K1 with a channel_scale, x [2, 32768, 1536] bf16 (smooth_quant ffn.0)
+    xb = (torch.randn((b, s, c), device=dev, generator=g) * 2 + 0.3).bfloat16()
+    shift = torch.randn((b, c), device=dev, generator=g) * 0.5
+    smod = torch.randn((b, c), device=dev, generator=g) * 0.5
+    got = ln_modulate_quant_cuda(xb, shift, smod, channel_scale=cs)
+    want = ln_modulate_quant_plain(xb, shift, smod, channel_scale=cs)
+    torch.cuda.synchronize()
+    diff = (got[0].int() - want[0].int()).abs()
+    frac = (diff > 0).float().mean().item()
+    check(diff.max().item() <= 1 and frac <= 1e-3,
+          f"K1 channel_scale codes differ: max {diff.max()}, {frac}")
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
+    err = (got[0].float() * got[1][..., None] - want[0].float() * want[1][..., None]).abs().max()
+    del got, want, diff
+    record("ln_modulate_quant", err.item(),
+           cuda_ms(lambda: ln_modulate_quant_cuda(xb, shift, smod, channel_scale=cs)),
+           cuda_ms(lambda: ln_modulate_quant_plain(xb, shift, smod, channel_scale=cs), reps=3),
+           f"[2,32768,1536] bf16 with channel_scale (codes differing: {frac:.2e}; not summed "
+           f"into the kernels line)",
+           b * s * c * 3 + b * s * 8 + 2 * b * c * 4 + 4 * c, 11 * b * s * c, "f32",
+           summed=False)
+
+    # the rotation product, f32 [65536, 1536] x [1536, 1536]
+    rot = rotation_for_dim(c, seed=0, device=dev)
+    x2 = x.reshape(rows, c)
+    y = torch.mm(x2, rot)
+    ref = (x2[:4096].double() @ rot.double()).float()
+    rel = ((y[:4096] - ref).norm() / ref.norm()).item()
+    check(rel <= 1e-6, f"rotation product rel-L2 {rel} against f64 (TF32 on?)")
+    ms = cuda_ms(lambda: torch.mm(x2, rot))
+    ops, nbytes = 2 * rows * c * c, 2 * rows * c * 4 + c * c * 4
+    bound = max(ops / PEAK_OPS["f32"], nbytes / HBM_BPS) * 1e3
+    log(f"  rotation product x @ Q (torch.mm, f32, TF32 off) [65536,1536] x [1536,1536]: "
+        f"{ms:.3f} ms ({ops / ms / 1e9:.1f} TFLOP/s), bound {bound:.3f} ms ({ops / 1e12:.3f} T f32 "
+        f"ops over 67 TFLOP/s; {nbytes / 1e6:.1f} MB) -> {ms / bound:.2f}x; rel-L2 vs f64 "
+        f"{rel:.2e}; a library product on the viditq path (3 a block), no kernel of the port")
+    del y, ref
+
+    # one viditq site through qlinear: bf16 x -> x * mask @ Q -> K7 -> K2 (f32 out)
+    w = torch.randn((c, c), device=dev, generator=g) * 0.03
+    qcfg = QuantConfig.from_dict({"weight": {"n_bits": 8, "sym": False},
+                                  "act": {"n_bits": 8, "sym": True},
+                                  "viditq": {"alpha": 0.5665, "layer_name_regex": ""}})
+    calib = {"lin": xb.float().abs().reshape(rows, c).amax(0).cpu().numpy()[None]}
+    pol, st, rots = prepare_quant_state({"lin": {"w": w}}, ["lin"], qcfg, calib=calib,
+                                        targets="int8")
+    ctx = QuantCtx(mode="int8", policies=pol, state=st, rotations=rots)
+    ms_site = cuda_ms(lambda: qlinear(ctx, "lin", {"w": w}, xb))
+    log(f"  one viditq site (qlinear: x * mask @ Q, K7 on the f32 rows, K2 1536 -> 1536 f32 "
+        f"out) [2,32768,1536] bf16: {ms_site:.3f} ms; the rotation product {ms:.3f} ms of it")
+    del x, x2, xb, w, st, ctx
+    torch.cuda.empty_cache()
+
+    # PTQ's f64 weight rotation on the card against the CPU
+    for k_in, n_out in ((1536, 1536), (8960, 1536)):
+        wr = torch.randn((k_in, n_out), device=dev, generator=g)
+        got = rotate_weight_fwht(wr, 17)
+        same = torch.equal(got.cpu(), rotate_weight_fwht(wr.cpu(), 17))
+        check(same, f"rotate_weight_fwht [{k_in},{n_out}] card != CPU")
+        ms = cuda_ms(lambda: rotate_weight_fwht(wr, 17))
+        log(f"  rotate_weight_fwht [{k_in},{n_out}] f64 on the card: {ms:.3f} ms, equal to the "
+            f"CPU's in f32")
+        del wr, got
+    torch.cuda.empty_cache()
+
+
 def int4_checks(torch, g, record):
     """K7, K8 (all three modes) and K9 against their plain versions at the
     4-bit paths' shapes (M = 65536 token rows), plus ragged-M tails for K8
@@ -867,7 +1000,7 @@ def run_path(torch, label, launches, calib_path=None):
     and read just after."""
     import numpy as np
 
-    from wanq_tpu_torch.cli import quant_generate
+    from wanq_tpu_torch.cli import ptq, quant_generate
     from wanq_tpu_torch.ops import _lib
 
     yaml, per_block = PATHS[label]
@@ -879,6 +1012,18 @@ def run_path(torch, label, launches, calib_path=None):
         marks.append(time.perf_counter())
 
     extra = ["--calib_data", calib_path] if calib_path else []
+    if label in PTQ_PATHS:
+        # the ptq stage writes the artifact that quant_generate deploys
+        art = str(OUT / f"quant_params_{label}.npz")
+        _lib.reset_launch_counts()
+        t0 = time.time()
+        ptq.generate(ptq.parse_args(cli_args(yaml, extra + ["--save_path", art])))
+        torch.cuda.synchronize()
+        log(f"  [{label}] cli.ptq {yaml} (incl. random init and the npz write): "
+            f"{time.time() - t0:.1f} s, {os.path.getsize(art) / 2**20:.1f} MiB; launches "
+            f"{_lib.launch_counts()}")
+        check(not _lib.launch_counts(), f"{label}: PTQ launched {_lib.launch_counts()}")
+        extra = ["--quant_params", art]
     hw = [] if label in SIM_PATHS else ["--hardware"]
     if label in WINDOWS:
         hw += ["--attn_window", str(WINDOWS[label])]
@@ -894,8 +1039,10 @@ def run_path(torch, label, launches, calib_path=None):
     step_s = [marks[i + 1] - marks[i] for i in range(len(marks) - 1)]
     check(len(step_s) == STEPS - 1, f"expected {STEPS - 1} step intervals, got {len(step_s)}")
     mean = sum(step_s) / len(step_s)
-    log(f"  [{label}] {yaml}: quant_generate {' '.join(hw) or '(simulated)'} ({STEPS} steps, "
-        f"incl. random init + PTQ): {time.time() - t0:.1f} s; denoise step s (steps 2-{STEPS}): "
+    log(f"  [{label}] {yaml}: quant_generate "
+        f"{' '.join(hw + extra[:1] * (label in PTQ_PATHS)) or '(simulated)'} "
+        f"({STEPS} steps, incl. random init + PTQ or the artifact's load): "
+        f"{time.time() - t0:.1f} s; denoise step s (steps 2-{STEPS}): "
         f"{', '.join(f'{x:.3f}' for x in step_s)}; mean {mean:.3f} s")
     log(f"  [{label}] peak torch.cuda.max_memory_allocated: {peak / 2**30:.2f} GiB")
     log(f"  [{label}] launches: {counts}")
@@ -931,21 +1078,26 @@ KERNEL_NAMES = {"ln_mod_quant_kernel": "K1", "w8a8_gemm_kernel": "K2",
 
 def profile_steps(torch, steps):
     """One CFG forward of each step function: its wall time unprofiled
-    (host clock around a synchronized call, after a warm call), then its
-    device time by kernel under torch.profiler. The idle share is 1 - the
+    (host clock around a synchronized call, after a warm call) and the peak
+    memory it allocates beyond what is held before it, then its device time
+    by kernel under torch.profiler. The idle share is 1 - the
     union of device-activity intervals / the profiled call's wall time.
     The whole table goes to _smoke_out/profile_<label>.txt."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    walls = {}
+    walls, peaks = {}, {}
     for label, fn in steps.items():
         fn()
         torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         walls[label] = (time.perf_counter() - t0) * 1e3
+        # what the forward allocates beyond the weights and states held
+        peaks[label] = (torch.cuda.max_memory_allocated() - held) / 2**30
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             fn()
@@ -976,7 +1128,8 @@ def profile_steps(torch, steps):
                 f.write(f"{t:10.3f} ms  n={cnt:5d}  {name}\n")
         log(f"  profile {label} (one CFG forward, t=999): wall {walls[label]:.1f} ms "
             f"unprofiled; device time {dev_ms:.1f} ms; idle share "
-            f"{max(0.0, 1 - busy / 1e3 / prof_wall):.4f}")
+            f"{max(0.0, 1 - busy / 1e3 / prof_wall):.4f}; the forward's own peak "
+            f"allocation {peaks[label]:.2f} GiB")
         ours = {}
         for name, (t, cnt) in rows:
             for sub, tag in KERNEL_NAMES.items():
@@ -1005,7 +1158,7 @@ def fidelity(torch, calib_path):
     from wanq_tpu_torch.models.params import attn_perms_from_numpy
     from wanq_tpu_torch.quant import QuantConfig
     from wanq_tpu_torch.quant.attn import AttnQuantCfg
-    from wanq_tpu_torch.quant.ptq import prepare_quant_state
+    from wanq_tpu_torch.quant.ptq import load_quant_state, prepare_quant_state, rebuild_rotations
     from wanq_tpu_torch.quant.qlinear import QuantCtx, fp_linear
 
     cfg = WAN_CONFIGS[TASK]
@@ -1013,13 +1166,31 @@ def fidelity(torch, calib_path):
     params = load_params(args, cfg)
     context, context_null = (torch.from_numpy(a).cuda() for a in load_contexts(args, cfg))
     calib = dict(np.load(calib_path))
+    names = linear_layer_names(cfg)
     ctxs = {}  # every path's quant state on the same weights
+    sim_of = {}  # a PTQ path's sim-mode ctx on the same artifact
     for label, (yaml, _) in PATHS.items():
         qcfg = QuantConfig.from_yaml(yaml)
         mode = "sim" if label in SIM_PATHS else "int8"
-        policies, state, _ = prepare_quant_state(params, linear_layer_names(cfg), qcfg,
-                                                 calib=calib, targets=mode)
-        ctxs[label] = QuantCtx(mode=mode, policies=policies, state=state,
+        if label in PTQ_PATHS:
+            # the artifact phase 3 deployed (written by cli.ptq from the same
+            # seed-42 weights and calibration); the PTQ itself timed here
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prepare_quant_state(params, names, qcfg, calib=calib)
+            torch.cuda.synchronize()
+            n_q = sum(qcfg.resolve(n).is_quantized for n in names)
+            log(f"  [{label}] prepare_quant_state on the card ({n_q} layers: masks, f64 weight "
+                f"rotations, double fake-quant, targets both): {time.perf_counter() - t0:.3f} s")
+            state, seed = load_quant_state(str(OUT / f"quant_params_{label}.npz"), device="cuda")
+            policies = {n: qcfg.resolve(n) for n in names}
+            rotations = rebuild_rotations(state, policies, seed)
+            sim_of[label] = QuantCtx(mode="sim", policies=policies, state=state,
+                                     rotations=rotations)
+        else:
+            policies, state, rotations = prepare_quant_state(params, names, qcfg, calib=calib,
+                                                             targets=mode)
+        ctxs[label] = QuantCtx(mode=mode, policies=policies, state=state, rotations=rotations,
                                attn=qcfg.attn_cfg, cross_attn=qcfg.cross_attn_cfg,
                                attn_window=WINDOWS.get(label))
     shape = compute_target_shape(cfg, (832, 480), FRAMES)
@@ -1056,7 +1227,7 @@ def fidelity(torch, calib_path):
             if not np.isfinite(q64).all():
                 failures.append(f"non-finite {label} noise prediction")
             res[guide] = psnr_cos(fp64, q64)
-            if label in ("w8a8", "w8a8_attn"):
+            if label in ("w8a8", "w8a8_attn", *PTQ_PATHS):
                 preds[label, guide] = q64
             if guide == 1.0 and label in ("w8a8_attn", *SIM_PATHS):
                 # against the W8A8 kernel path on the same linears: what the
@@ -1081,9 +1252,18 @@ def fidelity(torch, calib_path):
             w_psnr, w_cos = psnr_cos(fps[None][5.0], fps[WINDOWS[label]][5.0])
             log(f"  {label} vs dense bf16 FP, CFG 5.0: PSNR {d_psnr:.2f} dB, cosine {d_cos:.6f} "
                 f"(bf16 with the window vs dense bf16: {w_psnr:.2f} dB, cosine {w_cos:.6f})")
-        if label in ("w8a8", "w8a8_sim", *WINDOWS) and psnr < 30.0:
+        if label in sim_of:
+            # sim and int8 mode from the same artifact quantize alike
+            with torch.no_grad():
+                q64 = step(sim_of[label], 1.0).cpu().numpy().astype(np.float64)
+            psnr_s, cos_s = psnr_cos(preds[label, 1.0], q64)
+            log(f"  {label} sim vs int8 mode from the same artifact, conditional: PSNR "
+                f"{psnr_s:.2f} dB, cosine {cos_s:.6f}")
+            if psnr_s < 30.0:
+                failures.append(f"{label} sim vs int8 {psnr_s:.2f} dB < 30 dB")
+        if label in ("w8a8", "w8a8_sim", *WINDOWS, *PTQ_PATHS) and psnr < 30.0:
             failures.append(f"{label} PSNR {psnr:.2f} dB < 30 dB")
-        if label not in ("w8a8", "w8a8_sim", *WINDOWS) and (cos1 < 0.9 or cos < 0.5):
+        if label not in ("w8a8", "w8a8_sim", *WINDOWS, *PTQ_PATHS) and (cos1 < 0.9 or cos < 0.5):
             failures.append(f"{label} cosine {cos1:.4f} (guide 1) < 0.9 or {cos:.4f} (CFG) < 0.5")
 
     failures += int8_attention_plain_route(torch, np, step, ctxs["w8a8_attn"], preds,
@@ -1116,7 +1296,7 @@ def fidelity(torch, calib_path):
             t0 = time.perf_counter() - t0
             log(f"  bf16 with --attn_window {WINDOWS[label]} / dense bf16 forward wall time: "
                 f"{t1 / t0:.3f} ({t1 * 1e3:.1f} / {t0 * 1e3:.1f} ms, warm)")
-    del params, ctxs, pipe
+    del params, ctxs, sim_of, pipe
     torch.cuda.empty_cache()
 
     # a small config (head dim 128) under each YAML, through the kernels vs
@@ -1143,19 +1323,25 @@ def fidelity(torch, calib_path):
         "n_bits": 8, "sym": True, "group": "block", "block_size": 16, "int8_scale": True}})
     perms = {f"blocks.{i}.self_attn": np.stack([rs.permutation(64) for _ in range(2)])
              for i in range(2)}
-    cases = {label: (yaml, "sim" if label in SIM_PATHS else "int8", {})
+    cases = {label: (QuantConfig.from_yaml(yaml), "sim" if label in SIM_PATHS else "int8", {})
              for label, (yaml, _) in PATHS.items()}
-    cases["w8a8 + cross_attn section"] = (YAML, "int8", {
+    cases["w8a8 + cross_attn section"] = (QuantConfig.from_yaml(YAML), "int8", {
         "cross_attn": AttnQuantCfg.from_dict(section)})
-    cases["w8a8 sim + blockwise attn, perms"] = (YAML, "sim", {"attn": block, "perms": perms})
-    for label, (yaml, mode, extra) in cases.items():
+    cases["w8a8 sim + blockwise attn, perms"] = (QuantConfig.from_yaml(YAML), "sim",
+                                                 {"attn": block, "perms": perms})
+    # SmoothQuant masks at every block linear: K1 and K7 take them as channel_scale
+    cases["smooth_quant W8A8 dict"] = (QuantConfig.from_dict({
+        "weight": {"n_bits": 8, "sym": False}, "act": {"n_bits": 8, "sym": True},
+        "smooth_quant": {"alpha": 0.5665, "layer_name_regex": ""},
+        "remain_fp_regex": r"text_embedding|time_embedding|time_projection|head\.head"}),
+        "int8", {})
+    for label, (qcfg, mode, extra) in cases.items():
         outs = {}
-        qcfg = QuantConfig.from_yaml(yaml)
         for dev in ("cpu", "cuda"):
             p = _to_device(p_cpu, dev)
-            pol, st, _ = prepare_quant_state(p, linear_layer_names(small), qcfg,
-                                             calib=small_calib, targets=mode)
-            ctx = QuantCtx(mode=mode, policies=pol, state=st,
+            pol, st, rot = prepare_quant_state(p, linear_layer_names(small), qcfg,
+                                               calib=small_calib, targets=mode)
+            ctx = QuantCtx(mode=mode, policies=pol, state=st, rotations=rot,
                            attn=extra.get("attn", qcfg.attn_cfg),
                            cross_attn=extra.get("cross_attn", qcfg.cross_attn_cfg),
                            attn_perms=attn_perms_from_numpy(extra.get("perms", {}), dev),

@@ -830,6 +830,109 @@ def test_ptq_state_on_card_equals_cpu(dev, yaml):
             assert torch.equal(st_dev[name][key].cpu(), val), (name, key)
 
 
+def _codes_close(got, want, what, flip_frac=1e-3):
+    """int codes equal except one-unit flips on <= flip_frac."""
+    diff = (got.int() - want.int()).abs()
+    assert diff.max() <= 1 and (diff > 0).float().mean() <= flip_frac, what
+
+
+@pytest.mark.parametrize("dim", [96, 256])
+def test_viditq_state_on_card_equals_cpu(dev, dim):
+    """config.yaml (ViDiT-Q W8A8 on q/k/v) made on the card against the CPU:
+    the f64 weight rotation, the mask (torch.pow on the card may differ by
+    an ulp: rel <= 1e-6) and the double fake-quant; codes equal except
+    one-unit flips on <= 1e-3 of them, scales rel <= 1e-6, w_q within one
+    step where a code flipped; the rotations equal (dim 96: base order 12,
+    a K x K f64 product on the card; 256: butterflies only)."""
+    import os
+
+    from wanq_tpu_torch.configs import tiny_config
+    from wanq_tpu_torch.models.dit import init_params, linear_layer_names
+    from wanq_tpu_torch.quant import QuantConfig
+    from wanq_tpu_torch.quant.ptq import prepare_quant_state
+
+    cfg = tiny_config(dim=dim, num_heads=2, ffn_dim=2 * dim, param_dtype="bfloat16")
+    qcfg = QuantConfig.from_yaml(os.path.join(os.path.dirname(__file__), "..",
+                                              "quant_configs", "config.yaml"))
+    rng = np.random.default_rng(1)
+    calib = {n: np.abs(rng.normal(size=(2, dim))).astype(np.float32)
+             for n in linear_layer_names(cfg) if ".self_attn." in n}
+    p_cpu = init_params(cfg, 1, device="cpu")
+    _, st_cpu, rot_cpu = prepare_quant_state(p_cpu, linear_layer_names(cfg), qcfg, calib=calib)
+    _, st_dev, rot_dev = prepare_quant_state(init_params(cfg, 1, device=dev),
+                                             linear_layer_names(cfg), qcfg, calib=calib)
+    assert sorted(st_cpu) == sorted(st_dev) and len(st_cpu) == 6
+    for name, st in st_cpu.items():
+        got = {k: v.cpu() for k, v in st_dev[name].items()}
+        assert sorted(got) == sorted(st)
+        _codes_close(got["w_int8"], st["w_int8"], name)
+        step = st["delta_w"][None, :]
+        assert bool(((got["w_q"] - st["w_q"]).abs() <= 1.001 * step).all()), name
+        for key in ("channel_mask", "delta_w", "scale_w", "zp_w", "zp_w_int"):
+            torch.testing.assert_close(got[key], st[key], rtol=1e-6, atol=0)
+    assert sorted(rot_dev) == sorted(rot_cpu) == [dim]
+    assert rot_dev[dim].is_cuda and torch.equal(rot_dev[dim].cpu(), rot_cpu[dim])
+
+
+@pytest.mark.parametrize("n", [96, 1536, 5120])
+def test_rotation_for_dim_on_card_equals_cpu(dev, n):
+    """The dense activation-side rotation built in f64 on the card equals
+    the CPU's in f32 (the K x K base product's f64 rounding is absorbed by
+    the cast)."""
+    from wanq_tpu_torch.quant.hadamard import rotation_for_dim
+
+    got = rotation_for_dim(n, seed=0, device=dev)
+    assert got.is_cuda and got.dtype == torch.float32
+    assert torch.equal(got.cpu(), rotation_for_dim(n, seed=0, device="cpu"))
+
+
+@pytest.mark.parametrize("c_in,c_out", [(1536, 1536), (8960, 1536)])
+def test_rotate_weight_fwht_on_card_equals_cpu(dev, c_in, c_out):
+    """The f64 weight rotation at the 1.3B q/k/v and ffn.2 shapes on the
+    card against the CPU: equal in f32."""
+    from wanq_tpu_torch.quant.hadamard import rotate_weight_fwht
+
+    w = torch.from_numpy(np.random.default_rng(2).normal(size=(c_in, c_out)).astype(np.float32))
+    got = rotate_weight_fwht(w.to(dev), 17)
+    assert got.is_cuda and got.dtype == torch.float32 and got.shape == (c_in, c_out)
+    assert torch.equal(got.cpu(), rotate_weight_fwht(w, 17))
+
+
+@pytest.mark.parametrize("method", ["smooth_quant", "viditq"])
+def test_qlinear_masked_and_rotated_int8_on_card(dev, method):
+    """One int8 site under each method on the card against the CPU on the
+    same state: a mask-only site gives K7 the mask as channel_scale, a
+    rotated one quantizes the f32 rotated rows in K7 (the rotation product
+    sums in another order than the CPU's, so a code can flip): one K7 and
+    one K2 launch, rel-L2 <= 1e-3."""
+    from wanq_tpu_torch.quant import QuantConfig
+    from wanq_tpu_torch.quant.ptq import prepare_quant_state
+    from wanq_tpu_torch.quant.qlinear import QuantCtx, qlinear
+
+    rng = np.random.default_rng(3)
+    w = torch.from_numpy(rng.normal(size=(1536, 1536)).astype(np.float32) * 0.03)
+    x = torch.from_numpy(rng.normal(size=(2, 700, 1536)).astype(np.float32)).bfloat16()
+    x[..., 11] *= 40
+    qcfg = QuantConfig.from_dict({"weight": {"n_bits": 8, "sym": False},
+                                  "act": {"n_bits": 8, "sym": True},
+                                  method: {"alpha": 0.5665, "layer_name_regex": ""}})
+    calib = {"lin": x.float().abs().reshape(-1, 1536).amax(0).numpy()[None]}
+    pol, st, rot = prepare_quant_state({"lin": {"w": w}}, ["lin"], qcfg, calib=calib,
+                                       targets="int8")
+    ctx = QuantCtx(mode="int8", policies=pol, state=st, rotations=rot)
+    want = qlinear(ctx, "lin", {"w": w}, x)
+    ctx_dev = QuantCtx(mode="int8", policies=pol,
+                       state={"lin": {k: v.to(dev) for k, v in st["lin"].items()}},
+                       rotations={d: r.to(dev) for d, r in rot.items()})
+    _lib.reset_launch_counts()
+    got = qlinear(ctx_dev, "lin", {"w": w.to(dev)}, x.to(dev))
+    torch.cuda.synchronize()
+    assert _lib.launch_counts() == {"quant_sum": 1, "w8a8_linear": 1}
+    assert got.dtype == torch.float32
+    rel = float((got.cpu() - want).norm() / want.norm())
+    assert rel <= 1e-3, rel
+
+
 def test_w4_wrappers_raise_on_bad_layouts(dev):
     from wanq_tpu_torch.ops.fused import ln_modulate_quant_cuda, quant_sum_cuda
     from wanq_tpu_torch.ops.qgemm import (

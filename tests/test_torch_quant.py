@@ -210,9 +210,6 @@ def test_unported_quant_branches_raise():
     assert QuantCtx(mode="int8", attn_window=1).attn_window == 1
     params = tdit.init_params(tiny_config(), 0, device="cpu")
     names = tdit.linear_layer_names(tiny_config())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):  # ViDiT-Q: mask + rotation
-        tptq.prepare_quant_state(params, names, tconfig.QuantConfig.from_yaml(
-            os.path.join(ROOT, "quant_configs", "config.yaml")))
     for yaml in ("wan_w4a8_gptq.yaml", "wan_svdquant.yaml"):  # GPTQ, SVDQuant low-rank
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tptq.prepare_quant_state(params, names, tconfig.QuantConfig.from_yaml(

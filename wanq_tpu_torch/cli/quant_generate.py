@@ -12,7 +12,15 @@ self-attention to +-R latent frames: K4's band mode on the card.
         --calib_data quant_data/calib_data.npz --hardware --sample_steps 3
 
 --calib_data is needed only for static activations (the W8A8 speed
-config's ffn.2); wan_w4a8_mixed.yaml and wan_w4a4.yaml run without it.
+config's ffn.2) and for SmoothQuant masks; wan_w4a8_mixed.yaml and
+wan_w4a4.yaml run without it. ``--quant_params`` deploys a saved artifact
+instead of quantizing on the fly: the npz of ``cli.ptq`` (or of wanq_tpu's
+ptq; the rotations are rebuilt from its seed), or a reference
+``quant_params.pth``:
+
+    python -m wanq_tpu_torch.cli.quant_generate --task t2v-1.3B --random_init \
+        --quant_config quant_configs/config.yaml --quant_params quant_params.npz \
+        --hardware --strip_fp
 """
 
 from __future__ import annotations
@@ -36,7 +44,14 @@ from wanq_tpu_torch.configs import SIZE_CONFIGS, WAN_CONFIGS
 from wanq_tpu_torch.models.dit import linear_layer_names
 from wanq_tpu_torch.pipelines.text2video import WanT2V
 from wanq_tpu_torch.quant import QuantConfig
-from wanq_tpu_torch.quant.ptq import prepare_quant_state
+from wanq_tpu_torch.quant.ptq import (
+    load_quant_state,
+    load_reference_quant_params,
+    prepare_quant_state,
+    rebuild_rotations,
+    state_from_reference_params,
+    strip_quantized_weights,
+)
 from wanq_tpu_torch.quant.qlinear import QuantCtx
 
 
@@ -49,15 +64,23 @@ def parse_args(argv=None):
     add_common_args(p)
     p.add_argument("--quant_config", type=str, required=True)
     p.add_argument("--calib_data", type=str, default=None,
-                   help="get_calib_data npz (needed for static activations)")
+                   help="get_calib_data npz (needed for static activations and "
+                        "SmoothQuant masks when quantizing on the fly)")
+    p.add_argument("--quant_params", type=str, default=None,
+                   help="quant-state npz from the ptq stage (either package's), or a "
+                        "reference quant_params.pth; quantized on the fly if omitted")
     p.add_argument("--hardware", action="store_true",
                    help="int kernel path; default is simulated quantization")
+    p.add_argument("--strip_fp", action="store_true",
+                   help="free the FP copies of the quantized weights (the sim and int "
+                        "paths read the quant state only)")
     return p.parse_args(argv)
 
 
 def generate(args, on_step=None):
-    """Quantize the weights (RTN + calibration scales), run the simulated
-    or int denoise loop and save the latents; returns the npz path.
+    """Quantize the weights (or load a saved quant state), run the
+    simulated or int denoise loop and save the latents; returns the npz
+    path.
     ``on_step(i, t, latents)`` runs after each solver step."""
     setup_logging()
     validate_args(args)
@@ -68,12 +91,31 @@ def generate(args, on_step=None):
     if qcfg.cache is not None:
         logging.info(CACHE_IGNORED, args.quant_config)
     params = load_params(args, cfg)
-    calib = dict(np.load(args.calib_data)) if args.calib_data else None
+    names = linear_layer_names(cfg)
     t0 = time.time()
-    policies, state, _ = prepare_quant_state(params, linear_layer_names(cfg), qcfg,
-                                             calib=calib, targets=mode)
-    logging.info("computed quant state: %d layers in %.2fs", len(state), time.time() - t0)
-    ctx = QuantCtx(mode=mode, policies=policies, state=state,
+    if args.quant_params and args.quant_params.endswith(".pth"):
+        # rotated layers raise: the artifact does not hold their matrices
+        policies = {n: qcfg.resolve(n) for n in names}
+        state = state_from_reference_params(
+            params, policies, load_reference_quant_params(args.quant_params), targets=mode)
+        rotations = {}
+        logging.info("deployed from reference artifact %s: %d layers", args.quant_params,
+                     len(state))
+    elif args.quant_params:
+        policies = {n: qcfg.resolve(n) for n in names}
+        state, seed = load_quant_state(args.quant_params, device=args.device, targets=mode)
+        rotations = rebuild_rotations(state, policies, seed)
+        logging.info("loaded quant state %s: %d layers (seed %d) in %.2fs", args.quant_params,
+                     len(state), seed, time.time() - t0)
+    else:
+        calib = dict(np.load(args.calib_data)) if args.calib_data else None
+        policies, state, rotations = prepare_quant_state(params, names, qcfg, calib=calib,
+                                                         targets=mode)
+        logging.info("computed quant state: %d layers in %.2fs", len(state), time.time() - t0)
+    if args.strip_fp:
+        params = strip_quantized_weights(params, policies)
+        logging.info("stripped the FP copies of the quantized weights")
+    ctx = QuantCtx(mode=mode, policies=policies, state=state, rotations=rotations,
                    attn=qcfg.attn_cfg, cross_attn=qcfg.cross_attn_cfg,
                    attn_window=parse_attn_window(args))
 

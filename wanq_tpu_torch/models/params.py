@@ -51,6 +51,11 @@ def params_from_numpy(tree: Any, device="cuda") -> Any:
     return _tensor(tree, device)
 
 
+# the int weight entries of a quant state: K-major in the port, [C_in(/2),
+# C_out] in the JAX package and in the npz artifact
+INT_WEIGHTS = ("w_int8", "w_int4", "w_int4g")
+
+
 def quant_state_from_numpy(state: Mapping[str, Mapping[str, Any]],
                            device="cuda") -> Dict[str, Dict[str, torch.Tensor]]:
     """JAX quant state -> port quant state; the int weights (``w_int8``,
@@ -61,7 +66,7 @@ def quant_state_from_numpy(state: Mapping[str, Mapping[str, Any]],
         layer = {}
         for key, val in st.items():
             arr = np.asarray(val)
-            if key in ("w_int8", "w_int4", "w_int4g"):
+            if key in INT_WEIGHTS:
                 arr = np.ascontiguousarray(arr.T)
             layer[key] = _tensor(arr, device)
         out[name] = layer

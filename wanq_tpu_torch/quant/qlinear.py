@@ -24,6 +24,12 @@ the JAX package stores [C_in, C_out]) or packed ``w_int4`` [C_out, C_in/2],
 ``scale_w``/``zp_w_int`` [C_out] export params, ``delta_w``/``zp_w`` and,
 for static activations, ``delta_a``/``zp_a``; W4A4 layers hold only packed
 ``w_int4g`` [C_out, C_in/2] and ``scale_wg`` [C_in/128, C_out].
+
+SmoothQuant, QuaRot and ViDiT-Q layers transform the activation before its
+quantizer, in sim and int8 mode alike: ``x * channel_mask`` [C_in], then
+``@ ctx.rotations[C_in]``, an f32 product (TF32 off, as the CLIs set it).
+A mask-only site in int8 mode hands the mask to K7 as its ``channel_scale``
+(the same function); a rotated site quantizes the f32 rotated rows in K7.
 """
 
 from __future__ import annotations
@@ -60,6 +66,9 @@ class QuantCtx:
     mode: str = "fp"
     policies: Dict[str, LayerPolicy] = dataclasses.field(default_factory=dict)
     state: Dict[str, Dict[str, torch.Tensor]] = dataclasses.field(default_factory=dict)
+    # activation-side rotations {C_in: f32 [C_in, C_in]} of quarot / viditq
+    # layers (quant.ptq.prepare_quant_state, rebuild_rotations)
+    rotations: Dict[int, torch.Tensor] = dataclasses.field(default_factory=dict)
     # attention quantization: quant.attn.AttnQuantCfg instances or None
     attn: Any = None
     cross_attn: Any = None
@@ -125,15 +134,7 @@ def resolves_fp(ctx: Optional[QuantCtx], name: str) -> bool:
     return not ctx.policy(name).is_quantized
 
 
-def _check_method(policy: LayerPolicy, name: str) -> None:
-    if policy.uses_rotation or policy.uses_channel_mask:
-        raise NotImplementedError(
-            f"{name}: {policy.method} (SmoothQuant/Hadamard) is not ported yet "
-            "(ROADMAP Queue 1 item 5)")
-
-
 def _check_int8_policy(policy: LayerPolicy, name: str) -> None:
-    _check_method(policy, name)
     if policy.act is None or not policy.act.sym:
         raise NotImplementedError(
             f"{name}: the int path implements symmetric activations only")
@@ -169,29 +170,51 @@ def qlinear(ctx: Optional[QuantCtx], name: str, params: Params, x: torch.Tensor,
     b, n, c = x.shape
     bias = params.get("b")
     if ctx.mode == "sim":
-        return _sim_linear(policy, name, st, bias, x, compute_dtype)
+        return _sim_linear(policy, st, bias, _transformed(ctx, policy, st, x), compute_dtype)
     _check_int8_policy(policy, name)
     if policy.is_w4a4:
         # x [B, N, C] -> [B*N, C] is a view; the act quant runs inside
-        y = w4a4_linear(x.reshape(b * n, c), st["w_int4g"], st["scale_wg"],
-                        None if bias is None else bias.float(), group=policy.group)
+        y = w4a4_linear(_transformed(ctx, policy, st, x).reshape(b * n, c), st["w_int4g"],
+                        st["scale_wg"], None if bias is None else bias.float(),
+                        group=policy.group)
         return y.reshape(b, n, -1)
     if not policy.act.dynamic:
+        # the transformed input, as sim mode quantizes it (the weight was
+        # divided by the mask and rotated)
         scale = st["delta_a"].reshape(())
-        q = torch.clamp(torch.round(x.float() / scale), -128, 127).to(torch.int8)
+        xf = _transformed(ctx, policy, st, x).float()
+        q = torch.clamp(torch.round(xf / scale), -128, 127).to(torch.int8)
         s_a = scale.expand(b, n).contiguous()
         sum_a = s_a * q.float().sum(dim=-1)
+    elif policy.uses_rotation:
+        q, s_a, sum_a = quant_sum(_transformed(ctx, policy, st, x))  # K7 on the f32 rows
     else:
-        q, s_a, sum_a = quant_sum(x)  # K7 without GELU on the card
+        # K7 without GELU on the card; a SmoothQuant mask is its channel_scale
+        q, s_a, sum_a = quant_sum(x, channel_scale=st.get("channel_mask"))
     return _int_linear(st, q, s_a, sum_a, bias, torch.float32)
 
 
-def _sim_linear(policy: LayerPolicy, name: str, st, bias, x: torch.Tensor,
+def _transformed(ctx: QuantCtx, policy: LayerPolicy, st, x: torch.Tensor) -> torch.Tensor:
+    """The method's activation transform, f32 [B, N, C]: ``x * mask`` for
+    smooth_quant / viditq, then ``@ rotation`` for quarot / viditq; x as
+    given for the other methods."""
+    if not (policy.uses_channel_mask or policy.uses_rotation):
+        return x
+    xf = x.float()
+    if policy.uses_channel_mask:
+        xf = xf * st["channel_mask"]
+    if policy.uses_rotation:
+        b, n, c = xf.shape
+        xf = torch.mm(xf.reshape(b * n, c), ctx.rotations[c]).reshape(b, n, c)
+    return xf
+
+
+def _sim_linear(policy: LayerPolicy, st, bias, x: torch.Tensor,
                 compute_dtype) -> torch.Tensor:
-    """Simulated quantization of one linear: the activation is fake-quantized
-    in f32, rounded to ``compute_dtype`` with the fake-quant weight ``w_q``,
-    and multiplied as fp_linear multiplies (f32 sums, f32 bias)."""
-    _check_method(policy, name)
+    """Simulated quantization of one linear: the (transformed) activation is
+    fake-quantized in f32, rounded to ``compute_dtype`` with the fake-quant
+    weight ``w_q``, and multiplied as fp_linear multiplies (f32 sums, f32
+    bias)."""
     b, n, c = x.shape
     xf = x.float()
     if policy.is_w4a4:
