@@ -30,10 +30,18 @@ non-zero:
    radii 0, 1, 2 and one per-head vector, with planted pad and out-of-band
    k/v, and timed at radii 0, 1, 2, 4, 8 beside its bound, its visited-tile
    fraction and scaled_dot_product_attention with the band as a boolean mask;
-   a band that covers every frame is timed next to the dense launch. K3,
-   K7 and K10a are also held and timed at the T2V-14B widths (K3 at C =
-   5120, K7's GELU at the 14B ffn width 13824, K10a at 720p's [2, 40,
-   75776, 128]), and K7's GELU table on all 65536 bf16 inputs bit for bit
+   a band that covers every frame is timed next to the dense launch. The
+   T2V-14B shapes (dim 5120, ffn 13824, 40 heads) too: K1 at C = 5120, K2
+   and K8 at 5120 -> 5120 and 5120 -> 13824 (bf16 out, and the GELU + quant
+   mode) and 13824 -> 5120 (f32 out) with a ragged M, K3 at C = 5120 (rope,
+   and the cross-q split), K7 on the 5120-wide o input and the 13824-wide
+   GELU input, K4 with 40 heads: dense self-attention at 480p (S 32768) and
+   720p (S 75776, 75600 valid; its plain version timed in one call) and
+   cross-attention at 480p (B 2) and 720p (B 1, as sequential CFG runs it),
+   and K10a at 720p's [2, 40, 75776, 128]. The 14B shapes this script added
+   with T2V-14B (all but K3's rope, K7's GELU and K10a) are printed, not
+   summed into the kernels line, so its totals keep the shapes of earlier
+   runs; and K7's GELU table on all 65536 bf16 inputs bit for bit
    against the kernels' gelu_tanh. Beside K3, K7 and K10a a plain clone of
    the same bytes gives the card's practical memory rate, and beside K10a the
    bytes it really moves (v read twice) are printed next to its bound's. At
@@ -44,8 +52,9 @@ non-zero:
    rotation product x @ Q (torch.mm, TF32 off) against its bound, one whole
    viditq site through qlinear, and PTQ's f64 weight rotation on the card
    (equal to the CPU's);
-3. the eight paths through the CLIs at full 1.3B width and depth, random
-   weights from a seed, 3 UniPC steps each: W8A8 (get_calib_data
+3. the paths of PATHS through the CLIs, random weights drawn on the card
+   from a seed (init_params_on_device) and random text states. At full 1.3B
+   width and depth, 3 UniPC steps each: W8A8 (get_calib_data
    --collect_minmax, 1 step, then quant_generate --hardware under
    wan_w8a8_speed.yaml), mixed W4A8 (wan_w4a8_mixed.yaml), Atom W4A4
    (wan_w4a4.yaml), W8A8 with int8 attention (wan_w8a8_attn.yaml,
@@ -55,14 +64,29 @@ non-zero:
    latent frame (w8a8_win1: wan_w8a8_speed.yaml --hardware --attn_window 1,
    the same calibration: self-attention runs K4's band mode) and ViDiT-Q
    (viditq: quant_configs/config.yaml, the same calibration through cli.ptq,
-   whose npz artifact quant_generate --quant_params --hardware deploys);
-   per-step time, peak memory, finite latents, and kernel launch counts,
-   reset just before each path and read just after, equal to the 30-block
-   totals of PATHS below, which shows no plain version ran (the GELU +
-   quant mode of K2 and of K8 has a counter of its own: the paths with a
-   static ffn.2 scale launch it once a block, so no plain GELU + quant chain
-   runs behind a GEMM);
-4. fidelity and profile: one step's noise prediction of each path vs bf16
+   whose npz artifact quant_generate --quant_params --hardware deploys); two
+   checks of the CFG schedules: w8a8 with --cfg_mode sequential (its first
+   step against w8a8's batched one: rel-L2 <= 1e-3, equal bits printed) and
+   w8a8 over 8 steps under a static step cache (--reuse_interval 2
+   --cfg_cache_interval 2 --cache_warmup 2 --cache_tail 2: the actions of
+   StepCachePolicy.plan). Then T2V-14B at full width and depth (dim 5120,
+   40 layers, 40 heads) after its own 1-step calibration at 480p, each with
+   --strip_fp (the CLI logs the memory held before and after): wan_w4a8_14b
+   and wan_w8a8_14b at 832x480x81, 3 steps (the YAML's adaptive cache plans
+   all-full steps); wan_w4a8_14b at 480p over 8 steps, where the YAML's
+   adaptive policy decides (its trace printed, its actions equal to
+   simulate_adaptive_actions replayed on the trace's own drifts, the time
+   of each step by action); and wan_w4a8_14b at 1280x720x81 (seq 75776) with
+   --cfg_mode sequential, 2 steps. Per path: step times, peak memory,
+   finite latents of the task's shape, and kernel launch counts, reset just
+   before each path and read just after, equal to the per-block counts of
+   PATHS x the layers x the forwards its step actions took (a full step one
+   batched forward, two under sequential CFG; a cond step one; a reuse step
+   none), which shows no plain version ran (the GELU + quant mode of K2 and
+   of K8 has a counter of its own: the paths with a static ffn.2 scale
+   launch it once a block, so no plain GELU + quant chain runs behind a
+   GEMM);
+4. fidelity and profile: one step's noise prediction of each 1.3B path vs bf16
    FP on the same weights, with CFG 5 and conditional alone (W8A8: PSNR
    >= 30 dB with CFG; 4-bit paths and int8 attention: cosine >= 0.9
    conditional, >= 0.5 with CFG; simulated W8A8 vs the W8A8 kernel path:
@@ -81,7 +105,12 @@ non-zero:
    attention_int8 swapped for the plain versions on the card (K10a's and
    K10's), printed against the kernel forward and each against w8a8 and
    bf16: whether w8a8_attn's distance to w8a8 is int8 attention's rounding
-   or K10's own error (gated only on a finite prediction).
+   or K10's own error (gated only on a finite prediction). Then T2V-14B at
+   480p: w8a8_14b and w4a8_14b against bf16 with the 1.3B gates (W8A8 PSNR
+   >= 30 dB with CFG, W4A8 cosine >= 0.9 conditional and >= 0.5 with CFG),
+   the memory of the weights and of each quant state, each forward and
+   bf16's under torch.profiler, and one sequential-CFG step of w4a8_14b and
+   of bf16 at 720p.
 
 The third-to-last line is the kernels' JSON record, then the card's name
 and power limit, and the last line {"ok": true, "device": {...}}.
@@ -128,9 +157,17 @@ YAML = "quant_configs/wan_w8a8_speed.yaml"
 #   as in bf16.
 ATTN_YAML = "quant_configs/wan_w8a8_attn.yaml"
 VIDITQ_YAML = "quant_configs/config.yaml"
+W4A8_14B_YAML = "quant_configs/wan_w4a8_14b.yaml"
+W8A8 = {"ln_modulate_quant": 3, "w8a8_linear": 5, "w8a8_linear_gelu_quant": 1,
+        "rms_rope_heads": 3, "attention": 2}
+W4A8_STATIC = {"ln_modulate_quant": 3, "w4a8_linear": 7, "w4a8_linear_gelu_quant": 1,
+               "quant_sum": 2, "rms_rope_heads": 3, "attention": 2}
+# W8A8 at 14B (wan_w8a8_14b.yaml: 8-bit weights at every block linear but
+#   cross k/v, ffn.2 static): K1 for q/k/v, cross q and ffn.0; K7 for the
+#   self and cross o inputs; K2 for self q/k/v/o, cross q/o and ffn.2, and in
+#   its GELU + quant mode for ffn.0.
 PATHS = {
-    "w8a8": (YAML, {"ln_modulate_quant": 3, "w8a8_linear": 5, "w8a8_linear_gelu_quant": 1,
-                    "rms_rope_heads": 3, "attention": 2}),
+    "w8a8": (YAML, W8A8),
     "w4a8_mixed": ("quant_configs/wan_w4a8_mixed.yaml",
                    {"ln_modulate_quant": 2, "w8a8_linear": 4, "rms_rope_heads": 3,
                     "attention": 2, "quant_sum": 2, "w4a8_linear": 2}),
@@ -140,20 +177,50 @@ PATHS = {
                               "w8a8_linear_gelu_quant": 1, "rms_rope_heads": 3,
                               "attention": 1, "quantize_qkv_int8": 1, "attention_int8": 1}),
     "w8a8_sim": (YAML, {"rms_rope_heads": 3, "attention": 2}),
-    "w4a8_static": ("quant_configs/wan_w4a8_14b.yaml",
-                    {"ln_modulate_quant": 3, "w4a8_linear": 7, "w4a8_linear_gelu_quant": 1,
-                     "quant_sum": 2, "rms_rope_heads": 3, "attention": 2}),
+    "w4a8_static": (W4A8_14B_YAML, W4A8_STATIC),
     "w8a8_win1": (YAML, {"ln_modulate_quant": 3, "w8a8_linear": 5, "w8a8_linear_gelu_quant": 1,
                          "rms_rope_heads": 3, "attention": 1, "attention_band": 1}),
     "viditq": (VIDITQ_YAML, {"quant_sum": 3, "w8a8_linear": 3, "rms_rope_heads": 3,
                              "attention": 2}),
+    # two checks of the CFG schedules at 1.3B: w8a8 with sequential CFG (its
+    # first step held against w8a8's batched one) and w8a8 under a static
+    # step cache (counts from StepCachePolicy.plan)
+    "w8a8_seq": (YAML, W8A8),
+    "w8a8_static_cache": (YAML, W8A8),
+    # T2V-14B at full width and depth (dim 5120, 40 layers, 40 heads), --strip_fp
+    "w4a8_14b": (W4A8_14B_YAML, W4A8_STATIC),
+    "w8a8_14b": ("quant_configs/wan_w8a8_14b.yaml",
+                 {"ln_modulate_quant": 3, "w8a8_linear": 7, "w8a8_linear_gelu_quant": 1,
+                  "quant_sum": 2, "rms_rope_heads": 3, "attention": 2}),
+    "w4a8_14b_cache": (W4A8_14B_YAML, W4A8_STATIC),
+    "w4a8_14b_720p": (W4A8_14B_YAML, W4A8_STATIC),
+}
+TASK_14B = "t2v-14B"
+# how a path's run differs from the 1.3B default (TASK, SIZE, STEPS, no flags).
+# The 14B YAML's cache: section (the adaptive policy, warmup 2, tail 2) plans
+# all-full steps for 3 or fewer steps; over 8 the policy decides.
+RUNS = {
+    "w8a8_seq": {"flags": ("--cfg_mode", "sequential")},
+    "w8a8_static_cache": {"steps": 8, "flags": (
+        "--cfg_cache_interval", "2", "--reuse_interval", "2", "--cache_warmup", "2",
+        "--cache_tail", "2")},
+    "w4a8_14b": {"task": TASK_14B, "flags": ("--strip_fp",)},
+    "w8a8_14b": {"task": TASK_14B, "flags": ("--strip_fp",)},
+    "w4a8_14b_cache": {"task": TASK_14B, "steps": 8, "flags": ("--strip_fp",)},
+    "w4a8_14b_720p": {"task": TASK_14B, "size": "1280*720", "steps": 2,
+                      "flags": ("--strip_fp", "--cfg_mode", "sequential")},
 }
 SIM_PATHS = ("w8a8_sim",)                        # quant_generate without --hardware
 WINDOWS = {"w8a8_win1": 1}                       # quant_generate --attn_window
 # cli.ptq writes the quant-state artifact, quant_generate --quant_params loads it
 PTQ_PATHS = ("viditq",)
-# static ffn.2 scale or SmoothQuant masks from calibration
-CALIB_PATHS = ("w8a8", "w8a8_attn", "w8a8_sim", "w4a8_static", "w8a8_win1", "viditq")
+# the paths that take no calibration; every other path gets its task's
+# (a static ffn.2 scale or SmoothQuant masks)
+NO_CALIB_PATHS = ("w4a8_mixed", "w4a4")
+# the paths phase 4 holds against bf16: the eight 1.3B deployments, and 14B
+FIDELITY_13B = ("w8a8", "w4a8_mixed", "w4a4", "w8a8_attn", "w8a8_sim", "w4a8_static",
+                "w8a8_win1", "viditq")
+FIDELITY_14B = ("w8a8_14b", "w4a8_14b")
 SOURCES = {
     "ln_modulate_quant": ("wanq_tpu_torch/csrc/ln_modulate_quant.cu",
                           "wanq_tpu/ops/fused.py:172"),
@@ -173,6 +240,10 @@ SOURCES = {
 # launch counters of a kernel's further modes -> the kernel they belong to
 MODES = {"w8a8_linear_gelu_quant": "w8a8_linear", "w4a8_linear_gelu_quant": "w4a8_linear",
          "attention_band": "attention"}
+# (K, N, out type) of the int GEMM sites: 1.3B q/k/v, ffn.0, ffn.2; T2V-14B
+# the square sites, ffn.0, ffn.2
+GEMM_SHAPES = ((1536, 1536, "bfloat16"), (1536, 8960, "bfloat16"), (8960, 1536, "float32"),
+               (5120, 5120, "bfloat16"), (5120, 13824, "bfloat16"), (13824, 5120, "float32"))
 # NVIDIA H100 SXM data sheet, dense: device memory bytes/s and operations/s
 HBM_BPS = 3.35e12
 PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
@@ -268,32 +339,37 @@ def kernel_checks(torch, results):
             f"({nbytes / 1e6:.1f} MB -> {bytes_ms:.3f} ms; {ops / 1e12:.3f} T {op_type} ops "
             f"-> {ops_ms:.3f} ms)")
 
-    # K1 -- LN + modulate + int8 quant, x [2, 32768, 1536] bf16
-    x = (torch.randn((b, s, c), device=dev, generator=g) * 2 + 0.3).bfloat16()
-    shift = torch.randn((b, c), device=dev, generator=g) * 0.5
-    scale = torch.randn((b, c), device=dev, generator=g) * 0.5
-    got = ln_modulate_quant_cuda(x, shift, scale)
-    want = ln_modulate_quant_plain(x, shift, scale)
-    torch.cuda.synchronize()
-    diff = (got[0].int() - want[0].int()).abs()
-    frac = (diff > 0).float().mean().item()
-    check(diff.max().item() <= 1 and frac <= 1e-3, f"K1 codes differ: max {diff.max()}, {frac}")
-    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
-    err = (got[0].float() * got[1][..., None] - want[0].float() * want[1][..., None]).abs().max()
-    record("ln_modulate_quant", err.item(),
-           cuda_ms(lambda: ln_modulate_quant_cuda(x, shift, scale)),
-           cuda_ms(lambda: ln_modulate_quant_plain(x, shift, scale), reps=3),
-           f"[2,32768,1536] bf16 (codes differing: {frac:.2e})",
-           b * s * c * 3 + b * s * 8 + 2 * b * c * 4, 10 * b * s * c, "f32")
-    del x, got, want, diff
+    # K1 -- LN + modulate + int8 quant, x [2, 32768, C] bf16, C = 1536 and the
+    # T2V-14B width 5120
+    for cw in (c, 5120):
+        x = (torch.randn((b, s, cw), device=dev, generator=g) * 2 + 0.3).bfloat16()
+        shift = torch.randn((b, cw), device=dev, generator=g) * 0.5
+        scale = torch.randn((b, cw), device=dev, generator=g) * 0.5
+        got = ln_modulate_quant_cuda(x, shift, scale)
+        want = ln_modulate_quant_plain(x, shift, scale)
+        torch.cuda.synchronize()
+        diff = (got[0].int() - want[0].int()).abs()
+        frac = (diff > 0).float().mean().item()
+        check(diff.max().item() <= 1 and frac <= 1e-3,
+              f"K1 C={cw} codes differ: max {diff.max()}, {frac}")
+        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
+        err = (got[0].float() * got[1][..., None] - want[0].float() * want[1][..., None])
+        record("ln_modulate_quant", err.abs().max().item(),
+               cuda_ms(lambda: ln_modulate_quant_cuda(x, shift, scale)),
+               cuda_ms(lambda: ln_modulate_quant_plain(x, shift, scale), reps=3),
+               f"[2,32768,{cw}] bf16 (codes differing: {frac:.2e})",
+               b * s * cw * 3 + b * s * 8 + 2 * b * cw * 4, 10 * b * s * cw, "f32",
+               summed=cw == c)
+        del x, got, want, diff, err
 
-    # K2 -- W8A8 GEMM at M = 65536 for the three (K, N) of the path, each in
-    # the out type its site has: exact, also at ragged M and in the other out
-    # type. Then its GELU + quant mode at ffn.0's shape against the plain chain.
+    # K2 -- W8A8 GEMM at M = 65536 for the three (K, N) of the 1.3B paths and
+    # the three of T2V-14B, each in the out type its site has: exact, also at
+    # ragged M (1.3B: both out types, M - 8 and M + 3; 14B: the site's, M + 3).
+    # Then its GELU + quant mode at ffn.0's shape against the plain chain.
     m = b * s
-    ragged = (m - 8, m + 3)
-    for k, nn, out_dtype in ((1536, 1536, torch.bfloat16), (1536, 8960, torch.bfloat16),
-                             (8960, 1536, torch.float32)):
+    for k, nn, out_name in GEMM_SHAPES:
+        out_dtype, wide = getattr(torch, out_name), 5120 in (k, nn)  # wide: a 14B site
+        ragged = (m + 3,) if wide else (m - 8, m + 3)
         a = torch.randint(-128, 128, (max(ragged), k), device=dev, generator=g, dtype=torch.int8)
         w = torch.randint(-128, 128, (nn, k), device=dev, generator=g, dtype=torch.int8)
         s_a = torch.rand((max(ragged),), device=dev, generator=g) * 0.02 + 1e-3
@@ -302,7 +378,7 @@ def kernel_checks(torch, results):
         zp = torch.randint(-20, 20, (nn,), device=dev, generator=g).float()
         bias = torch.randn((nn,), device=dev, generator=g)
         for mm in (m, *ragged):
-            for dt in (torch.bfloat16, torch.float32):
+            for dt in ((out_dtype,) if wide else (torch.bfloat16, torch.float32)):
                 args = (a[:mm], w, s_a[:mm], s_w, sum_a[:mm], zp, bias, dt)
                 got, want = w8a8_linear_cuda(*args), w8a8_linear_plain(*args)
                 torch.cuda.synchronize()
@@ -314,22 +390,24 @@ def kernel_checks(torch, results):
         tops = 2 * m * k * nn / ms / 1e9
         wt = w.t()
         t_mm = cuda_ms(lambda: torch._int_mm(a[:m], wt))
-        record("w8a8_linear", err, ms, cuda_ms(lambda: w8a8_linear_plain(*args), reps=3),
-               f"M=65536 K={k} N={nn} {str(out_dtype)[6:]} out, exact in both out types also at "
-               f"M=65528 and 65539 ({tops:.0f} TOP/s; note: torch._int_mm, the bare int8 product "
+        record("w8a8_linear", err, ms, cuda_ms(lambda: w8a8_linear_plain(*args),
+                                               warmup=0 if wide else 2, reps=1 if wide else 3),
+               f"M=65536 K={k} N={nn} {str(out_dtype)[6:]} out, exact "
+               f"{'at M=65539 too' if wide else 'in both out types also at M=65528 and 65539'} "
+               f"({tops:.0f} TOP/s; note: torch._int_mm, the bare int8 product "
                f"of the same operands with an int32 output, {t_mm:.3f} ms)",
                m * k + nn * k + m * nn * (2 if out_dtype == torch.bfloat16 else 4) + 8 * m
-               + 12 * nn, 2 * m * k * nn, "int8")
-        if nn == 8960:
+               + 12 * nn, 2 * m * k * nn, "int8", summed=not wide)
+        if nn in (8960, 13824):
             gelu_quant_check(torch, record, "w8a8_linear", (a, w, s_a, s_w, sum_a, zp, bias), m,
                              ragged, ms)
         del a, w, wt, args
         torch.cuda.empty_cache()
 
     # K3 -- RMSNorm + RoPE + heads-major, [2, 32768, C] -> [2, C / 128, 32768, 128]
-    # at the 1.3B width (rope with K4's q-scaled tables, and the cross-q
-    # split) and the 14B width (40 heads); the tables are built outside the
-    # timed calls
+    # at the 1.3B width and the 14B width (40 heads), each with rope (K4's
+    # q-scaled tables) and as the cross-q split; the tables are built outside
+    # the timed calls
     ca, sb = rope_tables_interleaved((21, 30, 52), d)
     ca, sb = pad_tables(torch.from_numpy(ca.copy()).to(dev), torch.from_numpy(sb.copy()).to(dev),
                         valid, s)
@@ -339,13 +417,13 @@ def kernel_checks(torch, results):
         nh = cw // d
         x = torch.randn((b, s, cw), device=dev, generator=g).bfloat16()
         wn = torch.rand((cw,), device=dev, generator=g) + 0.5
-        cases = [("rope, q-scaled tables", lambda: _k3_cuda(x, wn, caq, sbq, nh, 1e-6, torch.bfloat16),
-                  lambda: rms_rope_heads_plain(x, wn, caq, sbq, nh))]
-        if cw == c:
-            cases.append(("split only (cross q)",
-                          lambda: _k3_cuda(x, wn, None, None, nh, 1e-6, torch.bfloat16),
-                          lambda: rms_split_heads_plain(x, wn, nh)))
+        cases = (("rope, q-scaled tables", lambda: _k3_cuda(x, wn, caq, sbq, nh, 1e-6, torch.bfloat16),
+                  lambda: rms_rope_heads_plain(x, wn, caq, sbq, nh)),
+                 ("split only (cross q)",
+                  lambda: _k3_cuda(x, wn, None, None, nh, 1e-6, torch.bfloat16),
+                  lambda: rms_split_heads_plain(x, wn, nh)))
         for detail, kern, plain in cases:
+            rope = detail.startswith("rope")
             got, want = kern().float(), plain().float()
             frac, err = bf16_ulp_check(torch, got, want)
             check(frac <= 1e-4 and err <= 1e-2 * want.abs().max().item(),
@@ -353,10 +431,11 @@ def kernel_checks(torch, results):
                   f"max abs err {err}")
             del got, want
             ms = cuda_ms(kern, reps=9)
-            nbytes = b * s * cw * 4 + cw * 4 + (2 * s * d * 4 if detail.startswith("rope") else 0)
+            nbytes = b * s * cw * 4 + cw * 4 + (2 * s * d * 4 if rope else 0)
             record("rms_rope_heads", err, ms, cuda_ms(plain, reps=3),
                    f"[2,32768,{cw}]->[2,{nh},32768,128] {detail} (beyond 1 ulp: {frac:.2e}; "
-                   f"{nbytes / ms / 1e6:.0f} GB/s)", nbytes, 8 * b * s * cw, "f32")
+                   f"{nbytes / ms / 1e6:.0f} GB/s)", nbytes, 8 * b * s * cw, "f32",
+                   summed=cw == c or rope)
         copy_note(torch, x)
         del x
     del ca, sb, caq, sbq
@@ -421,8 +500,78 @@ def kernel_checks(torch, results):
     int8_attention_checks(torch, record, q, k, vh, valid, qs, t4_self)
     del q, k, v_flat, vh, qsc
     torch.cuda.empty_cache()
+    attention_14b_checks(torch, record, attn_err)
     int4_checks(torch, g, record)
     viditq_checks(torch, g, record)
+
+
+def attention_14b_checks(torch, record, attn_err):
+    """K4 at T2V-14B's 40 heads x 128. Dense self-attention at 480p (S
+    32768, 32760 valid) and 720p (S 75776, 75600 valid): q heads-major with
+    the softmax scale folded in, k heads-major, v the strided view over [2,
+    S, 5120] as on the path, the pad rows of k/v planted (k 0, v 100); its
+    plain version is one call, timed (seconds at 720p). Cross-attention at
+    480p (B 2, batched CFG) and 720p (B 1, sequential CFG): q heads-major,
+    the 512 text keys and values seq-major [B, 512, 40, 128] read through
+    heads-major views (row stride 5120), as on the path. Each held to K4's
+    limits against the plain version and timed beside
+    scaled_dot_product_attention (self: on k/v[:valid])."""
+    from wanq_tpu_torch.models.attention import _flash_cuda, _sdpa_reference
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(40)
+    b, n, d = 2, 40, 128
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for bc, s, tag in ((2, 32768, "480p"), (1, 75776, "720p")):
+        qs = d ** -0.5
+        q = torch.randn((bc, n, s, d), device=dev, generator=g).bfloat16()
+        ctx_k = torch.randn((bc, 512, n, d), device=dev, generator=g).bfloat16()
+        ctx_v = torch.randn((bc, 512, n, d), device=dev, generator=g).bfloat16()
+        kh, vh = ctx_k.transpose(1, 2), ctx_v.transpose(1, 2)
+        kern = lambda: _flash_cuda(q, kh, vh, qs, 512)
+        plain = lambda: _sdpa_reference(q.transpose(1, 2), ctx_k, ctx_v, qs, None, q_chunk=8192)
+        err, rel = attn_err(kern(), plain(), f"cross 40 heads {tag}")
+        record("attention", err, cuda_ms(kern), cuda_ms(plain, reps=3),
+               f"cross q [{bc},40,{s},128] heads-major, k/v [{bc},512,40,128] seq-major "
+               f"(T2V-14B {tag}; rel-L2 {rel:.2e}; library = scaled_dot_product_attention)",
+               2 * (2 * bc * n * s * d + 2 * bc * n * 512 * d), 4 * bc * n * s * 512 * d, "bf16",
+               library_ms=cuda_ms(lambda: sdpa(q, kh, vh, scale=qs)), summed=False)
+        del q, ctx_k, ctx_v, kh, vh, kern, plain
+        torch.cuda.empty_cache()
+    for s, valid, tag, chunk in ((32768, 32760, "480p", 512), (75776, 75600, "720p", 256)):
+        qsc = (torch.randn((b, n, s, d), device=dev, generator=g) * d ** -0.5).bfloat16()
+        k = torch.randn((b, n, s, d), device=dev, generator=g).bfloat16()
+        v_flat = torch.randn((b, s, n * d), device=dev, generator=g).bfloat16()
+        k[:, :, valid:] = 0.0
+        v_flat[:, valid:] = 100.0
+        vh = v_flat.view(b, s, n, d).transpose(1, 2)
+        kern = lambda: _flash_cuda(qsc, k, vh, 1.0, valid)
+        got = kern()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = _sdpa_reference(qsc.transpose(1, 2), k.transpose(1, 2), vh.transpose(1, 2), 1.0,
+                               valid, q_chunk=chunk)
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        err, rel = attn_err(got, want, f"self 40 heads {tag}")
+        pad_err, pad_rel = attn_err(got[:, valid:], want[:, valid:],
+                                    f"self 40 heads {tag} pad rows")
+        del got, want
+        torch.cuda.empty_cache()
+        ms = cuda_ms(kern, warmup=1, reps=3)
+        flops = 4 * b * n * s * valid * d
+        kv, vv = k[:, :, :valid], vh[:, :, :valid]
+        record("attention", err, ms, plain_ms,
+               f"self [2,40,{s},128] valid {valid} (T2V-14B {tag}), pad k/v planted (rel-L2 "
+               f"{rel:.2e}; pad q rows err {pad_err:.3e}, rel-L2 {pad_rel:.2e}; "
+               f"{flops / ms / 1e9:.0f} TFLOP/s; plain: one call; library = "
+               f"scaled_dot_product_attention on k/v[:valid])",
+               2 * 4 * b * n * s * d, flops, "bf16",
+               library_ms=cuda_ms(lambda: sdpa(qsc, kv, vv, scale=1.0), warmup=1, reps=3),
+               summed=False)
+        del qsc, k, v_flat, vh, kv, vv
+        torch.cuda.empty_cache()
 
 
 def band_pairs(s, tpf, r, valid):
@@ -564,7 +713,8 @@ def band_checks(torch, record, qsc, k, vh, v_flat, valid, t4_self, attn_err, tpf
 
 def gelu_quant_check(torch, record, kernel, operands, m, ragged, bf16_ms):
     """The GELU + quant mode of ``kernel`` (K2 ``w8a8_linear`` or K8
-    ``w4a8_linear``) at ffn.0's shape (1536 -> 8960, M = 65536) against its
+    ``w4a8_linear``) at ffn.0's shape (1536 -> 8960 or, at 14B, 5120 ->
+    13824; M = 65536) against its
     plain chain (the plain GEMM with a bf16 output, tanh-GELU in f32,
     static-scale int8 quant, row sums). Limits, stated before the first run:
     codes equal (every step of the epilogue is the plain chain's own
@@ -593,11 +743,15 @@ def gelu_quant_check(torch, record, kernel, operands, m, ragged, bf16_ms):
         del got, want
     ops = (a[:m], w, s_a[:m], s_w, scale2, sum_a[:m], zp, bias)
     ms = cuda_ms(lambda: cuda_fn(*ops))
-    record(kernel, 0.0, ms, cuda_ms(lambda: plain_fn(*ops), reps=3),
+    wide = n > 8960  # a 14B site: one timed call of the plain chain
+    record(kernel, 0.0, ms, cuda_ms(lambda: plain_fn(*ops), warmup=0 if wide else 2,
+                                    reps=1 if wide else 3),
            f"GELU + quant mode M=65536 K={k} N={n} int8 out + row sums, codes, s2 and sm2 equal "
-           f"also at M=65528 and 65539 ({2 * m * k * n / ms / 1e9:.0f} TOP/s; "
+           f"also at M={', '.join(str(r) for r in ragged)} "
+           f"({2 * m * k * n / ms / 1e9:.0f} TOP/s; "
            f"{ms / bf16_ms:.3f} x the bf16-out mode; codes at +-127: {sat:.3f})",
-           m * k + w.numel() + m * n + 12 * m + 12 * n + 4, 2 * m * k * n, "int8")
+           m * k + w.numel() + m * n + 12 * m + 12 * n + 4, 2 * m * k * n, "int8",
+           summed=not wide)
 
 
 def int8_attention_checks(torch, record, q, k, vh, valid, qs, t4_self):
@@ -861,15 +1015,15 @@ def int4_checks(torch, g, record):
 
     dev = torch.device("cuda")
     m = 2 * 32768
-    ragged = (m - 8, m + 3)
 
     # K7 -- the ffn.2 input [2, 32768, 8960] with GELU, the o input
-    # [2, 32768, 1536] without, and the 14B ffn.2 input [2, 32768, 13824] with
-    # GELU, bf16. Codes equal except <= 0.1% one-unit flips (the kernels' GELU
+    # [2, 32768, 1536] without, the 14B ffn.2 input [2, 32768, 13824] with
+    # GELU and the 14B o input [2, 32768, 5120] without, bf16. Codes equal
+    # except <= 0.1% one-unit flips (the kernels' GELU
     # and torch's may differ by ulps); scale rel <= 1e-6; sum rel <= 1e-6 on rows
     # whose codes agree.
     gelu_table_check(torch)
-    for c, gelu in ((8960, True), (1536, False), (13824, True)):
+    for c, gelu in ((8960, True), (1536, False), (13824, True), (5120, False)):
         x = (torch.randn((2, 32768, c), device=dev, generator=g) * 2 + 0.2).bfloat16()
         got, want = quant_sum_cuda(x, gelu), quant_sum_plain(x, gelu)
         torch.cuda.synchronize()
@@ -890,14 +1044,15 @@ def int4_checks(torch, g, record):
         record("quant_sum", err, ms, cuda_ms(lambda: quant_sum_plain(x, gelu), reps=3),
                f"[2,32768,{c}] bf16 gelu={gelu} (codes differing: {frac:.2e}, scale rel "
                f"{s_rel:.1e}; {gbs:.0f} GB/s)",
-               x.numel() * 3 + 2 * 32768 * 8, (20 if gelu else 6) * x.numel(), "f32")
+               x.numel() * 3 + 2 * 32768 * 8, (20 if gelu else 6) * x.numel(), "f32",
+               summed=c != 5120)
         if c == 8960:
             copy_note(torch, x)
         del x
         torch.cuda.empty_cache()
 
     def operands(k, n, int4_a):
-        mm = max(ragged)
+        mm = m + 3
         lo, hi = (-8, 8) if int4_a else (-128, 128)
         a = torch.randint(lo, hi, (mm, k), device=dev, generator=g, dtype=torch.int8)
         wp = torch.randint(-128, 128, (n, k // 2), device=dev, generator=g, dtype=torch.int8)
@@ -909,8 +1064,9 @@ def int4_checks(torch, g, record):
     # ffn.0's shape against the plain chain.
     from wanq_tpu_torch.quant.quantizers import unpack_int4
 
-    for k, n, out_dtype in ((1536, 1536, torch.bfloat16), (1536, 8960, torch.bfloat16),
-                            (8960, 1536, torch.float32)):
+    for k, n, out_name in GEMM_SHAPES:
+        out_dtype, wide = getattr(torch, out_name), 5120 in (k, n)  # wide: a 14B site
+        ragged = (m + 3,) if wide else (m - 8, m + 3)
         a, wp = operands(k, n, False)
         s_a = torch.rand((a.shape[0],), device=dev, generator=g) * 0.02 + 1e-3
         sum_a = s_a * a.float().sum(-1)
@@ -918,7 +1074,7 @@ def int4_checks(torch, g, record):
         zp = torch.randint(0, 16, (n,), device=dev, generator=g).float()
         bias = torch.randn((n,), device=dev, generator=g)
         for mm in (m, *ragged):
-            for dt in (torch.bfloat16, torch.float32):
+            for dt in ((out_dtype,) if wide else (torch.bfloat16, torch.float32)):
                 args = (a[:mm], wp, s_a[:mm], s_w, sum_a[:mm], zp, bias, dt)
                 got, want = w4a8_linear_cuda(*args), w4a8_linear_plain(*args)
                 torch.cuda.synchronize()
@@ -929,13 +1085,15 @@ def int4_checks(torch, g, record):
         ms = cuda_ms(lambda: w4a8_linear_cuda(*args))
         wt = unpack_int4(wp).t()
         t_mm = cuda_ms(lambda: torch._int_mm(a[:m], wt))
-        record("w4a8_linear", err, ms, cuda_ms(lambda: w4a8_linear_plain(*args), reps=3),
-               f"M=65536 K={k} N={n} {str(out_dtype)[6:]} out, exact in both out types also at "
-               f"M=65528 and 65539 ({2 * m * k * n / ms / 1e9:.0f} TOP/s; note: torch._int_mm, the "
+        record("w4a8_linear", err, ms, cuda_ms(lambda: w4a8_linear_plain(*args),
+                                               warmup=0 if wide else 2, reps=1 if wide else 3),
+               f"M=65536 K={k} N={n} {out_name} out, exact "
+               f"{'at M=65539 too' if wide else 'in both out types also at M=65528 and 65539'} "
+               f"({2 * m * k * n / ms / 1e9:.0f} TOP/s; note: torch._int_mm, the "
                f"bare int8 product on the unpacked weight with an int32 output, {t_mm:.3f} ms)",
                m * k + n * k // 2 + m * n * (2 if out_dtype == torch.bfloat16 else 4)
-               + 8 * m + 12 * n, 2 * m * k * n, "int8")
-        if n == 8960:
+               + 8 * m + 12 * n, 2 * m * k * n, "int8", summed=not wide)
+        if n in (8960, 13824):
             gelu_quant_check(torch, record, "w4a8_linear", (a, wp, s_a, s_w, sum_a, zp, bias), m,
                              ragged, ms)
         del a, wp, wt, args
@@ -948,7 +1106,7 @@ def int4_checks(torch, g, record):
         s_a = torch.rand((a.shape[0], k // 128), device=dev, generator=g) * 0.02 + 1e-3
         s_w = torch.rand((k // 128, n), device=dev, generator=g) * 0.02 + 1e-3
         bias = torch.randn((n,), device=dev, generator=g)
-        for mm in ((m, *ragged) if k == n else (m,)):
+        for mm in ((m, m - 8, m + 3) if k == n else (m,)):
             args = (a[:mm], wp, s_a[:mm], s_w, bias)
             got, want = w4a4_linear_cuda(*args), w4a4_linear_plain(*args)
             torch.cuda.synchronize()
@@ -972,44 +1130,95 @@ def int4_checks(torch, g, record):
 # ---------------------------------------------------------------------------
 
 
-def cli_args(yaml, extra):
-    return ["--task", TASK, "--size", SIZE, "--frame_num", str(FRAMES), "--random_init",
+def cli_args(yaml, extra, task=TASK, size=SIZE):
+    return ["--task", task, "--size", size, "--frame_num", str(FRAMES), "--random_init",
             "--quant_config", yaml, "--device", "cuda", *extra]
 
 
-def calibrate(torch):
-    """get_calib_data --collect_minmax, 1 step: the W8A8 path's static
-    ffn.2 scale comes from it."""
+def calibrate(torch, task=TASK, yaml=YAML):
+    """get_calib_data --collect_minmax, 1 batched step at 480p: the static
+    ffn.2 scale of the task's paths (at 14B it serves 720p too: the scale is
+    per tensor) comes from it."""
     from wanq_tpu_torch.cli import get_calib_data
     from wanq_tpu_torch.ops import _lib
 
-    calib_path = str(OUT / "calib_data.npz")
+    calib_path = str(OUT / f"calib_data_{task}.npz")
     t0 = time.time()
     _lib.reset_launch_counts()
-    get_calib_data.generate(get_calib_data.parse_args(cli_args(YAML, [
-        "--collect_minmax", "--sample_steps", "1", "--calib_save_path", calib_path])))
+    torch.cuda.reset_peak_memory_stats()
+    get_calib_data.generate(get_calib_data.parse_args(cli_args(yaml, [
+        "--collect_minmax", "--sample_steps", "1", "--calib_save_path", calib_path], task)))
     torch.cuda.synchronize()
-    log(f"  get_calib_data (1 step, incl. random init): {time.time() - t0:.1f} s; "
+    log(f"  get_calib_data {task} (1 step, incl. random init on the card): "
+        f"{time.time() - t0:.1f} s; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"launches {_lib.launch_counts()} (calibration runs FP)")
     return calib_path
 
 
+def step_actions(label, args, lat_file, steps):
+    """The actions of each denoise step of a path's run, checked against the
+    policy its arguments and YAML give (cache_policy_from_args, as
+    quant_generate builds it): all 'full' without a step cache; a static
+    schedule equal to StepCachePolicy.plan; an adaptive one equal to
+    simulate_adaptive_actions replayed on the run's own drifts (the trace
+    saved beside the latents)."""
+    from wanq_tpu_torch.cli.common import cache_policy_from_args
+    from wanq_tpu_torch.pipelines.text2video import (
+        AdaptiveCachePolicy, simulate_adaptive_actions)
+    from wanq_tpu_torch.quant import QuantConfig
+
+    pol = cache_policy_from_args(args, QuantConfig.from_yaml(args.quant_config))
+    stats = json.loads(str(lat_file["cache_stats"])) if "cache_stats" in lat_file else None
+    if pol is None:
+        acts = ["full"] * steps
+    elif not isinstance(pol, AdaptiveCachePolicy):
+        acts = pol.plan(steps)
+    else:
+        trace = json.loads(str(lat_file["cache_trace"]))
+        drifts, acts = [0.0] * steps, ["full"] * steps
+        for e in trace:
+            drifts[e["step"]], acts[e["step"]] = e["d"], e["act"]
+        replay = simulate_adaptive_actions(pol, drifts)
+        if trace:
+            log(f"  [{label}] adaptive trace ({pol}): " + "; ".join(
+                f"step {e['step']} d {e['d']:.4f} acc {e['acc']:.4f} {e['act']}"
+                + (f" o {e['o']:.4f}" if "o" in e else "") for e in trace))
+            log(f"  [{label}] simulate_adaptive_actions on the trace's drifts: {replay}")
+        check(replay == acts, f"{label}: the loop's actions {acts} != the replay {replay}")
+    if pol is not None:
+        check(stats == {a: acts.count(a) for a in ("full", "cond", "reuse")},
+              f"{label}: cache_stats {stats} != the actions {acts}")
+    return acts
+
+
 def run_path(torch, label, launches, calib_path=None):
-    """quant_generate (--hardware unless the path is simulated) for STEPS
-    steps under the path's YAML; the launch counts are reset just before
-    and read just after."""
+    """quant_generate (--hardware unless the path is simulated) under the
+    path's YAML, task, size, steps and flags (RUNS); the launch counts are
+    reset just before and read just after, and must equal the per-block
+    counts x the layers x the forwards the step actions took (a full step one
+    batched forward or, under sequential CFG, two; a cond step one B-sized
+    forward, the same launches; a reuse step none). Returns the mean step
+    time and the latents after the first step (on the host)."""
     import numpy as np
 
     from wanq_tpu_torch.cli import ptq, quant_generate
+    from wanq_tpu_torch.configs import SIZE_CONFIGS, WAN_CONFIGS
     from wanq_tpu_torch.ops import _lib
+    from wanq_tpu_torch.pipelines.text2video import compute_target_shape
 
     yaml, per_block = PATHS[label]
+    run = RUNS.get(label, {})
+    task, size, steps = run.get("task", TASK), run.get("size", SIZE), run.get("steps", STEPS)
+    flags = list(run.get("flags", ()))
+    cfg = WAN_CONFIGS[task]
     lat_path = str(OUT / f"latents_{label}.npz")
-    marks = []
+    marks, first = [], []
 
     def on_step(i, t, latents):
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
+        if i == 0:
+            first.append(latents.cpu())
 
     extra = ["--calib_data", calib_path] if calib_path else []
     if label in PTQ_PATHS:
@@ -1017,7 +1226,7 @@ def run_path(torch, label, launches, calib_path=None):
         art = str(OUT / f"quant_params_{label}.npz")
         _lib.reset_launch_counts()
         t0 = time.time()
-        ptq.generate(ptq.parse_args(cli_args(yaml, extra + ["--save_path", art])))
+        ptq.generate(ptq.parse_args(cli_args(yaml, extra + ["--save_path", art], task, size)))
         torch.cuda.synchronize()
         log(f"  [{label}] cli.ptq {yaml} (incl. random init and the npz write): "
             f"{time.time() - t0:.1f} s, {os.path.getsize(art) / 2**20:.1f} MiB; launches "
@@ -1027,38 +1236,60 @@ def run_path(torch, label, launches, calib_path=None):
     hw = [] if label in SIM_PATHS else ["--hardware"]
     if label in WINDOWS:
         hw += ["--attn_window", str(WINDOWS[label])]
+    hw += flags
+    args = quant_generate.parse_args(cli_args(yaml, extra + [
+        *hw, "--sample_steps", str(steps), "--save_file", lat_path], task, size))
     torch.cuda.reset_peak_memory_stats()
     _lib.reset_launch_counts()
     t0 = time.time()
-    quant_generate.generate(quant_generate.parse_args(cli_args(yaml, extra + [
-        *hw, "--sample_steps", str(STEPS), "--save_file", lat_path])),
-        on_step=on_step)
+    quant_generate.generate(args, on_step=on_step)
     counts = _lib.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    # steps 2..STEPS, each from one step's end to the next's (synchronized)
+    # steps 2..steps, each from one step's end to the next's (synchronized)
     step_s = [marks[i + 1] - marks[i] for i in range(len(marks) - 1)]
-    check(len(step_s) == STEPS - 1, f"expected {STEPS - 1} step intervals, got {len(step_s)}")
-    mean = sum(step_s) / len(step_s)
-    log(f"  [{label}] {yaml}: quant_generate "
+    check(len(step_s) == steps - 1, f"expected {steps - 1} step intervals, got {len(step_s)}")
+    lat_file = np.load(lat_path)
+    acts = step_actions(label, args, lat_file, steps)
+    full_s = [x for x, a in zip(step_s, acts[1:]) if a == "full"]
+    mean = sum(full_s) / len(full_s)
+    log(f"  [{label}] {yaml} {task} {size}x{FRAMES}: quant_generate "
         f"{' '.join(hw + extra[:1] * (label in PTQ_PATHS)) or '(simulated)'} "
-        f"({STEPS} steps, incl. random init + PTQ or the artifact's load): "
-        f"{time.time() - t0:.1f} s; denoise step s (steps 2-{STEPS}): "
-        f"{', '.join(f'{x:.3f}' for x in step_s)}; mean {mean:.3f} s")
+        f"({steps} steps, incl. random init + PTQ or the artifact's load): "
+        f"{time.time() - t0:.1f} s; denoise step s (steps 2-{steps}): "
+        f"{', '.join(f'{x:.3f} ({a})' for x, a in zip(step_s, acts[1:]))}; mean of the full "
+        f"steps {mean:.3f} s")
     log(f"  [{label}] peak torch.cuda.max_memory_allocated: {peak / 2**30:.2f} GiB")
     log(f"  [{label}] launches: {counts}")
+    sequential = "sequential" in flags
+    forwards = sum({"full": 2 if sequential else 1, "cond": 1, "reuse": 0}[a] for a in acts)
+    log(f"  [{label}] actions {acts}: {forwards} forwards of {cfg.num_layers} blocks")
     for name in (*SOURCES, *MODES):
-        want = per_block.get(name, 0) * 30 * STEPS
+        want = per_block.get(name, 0) * cfg.num_layers * forwards
         check(counts.get(name, 0) == want,
               f"{label}: {name} {counts.get(name, 0)} launches, want {want}")
     for name, cnt in counts.items():  # a mode's launches are its kernel's
         name = MODES.get(name, name)
         launches[name] = launches.get(name, 0) + cnt
 
-    lat = np.load(lat_path)["latents"]
-    check(lat.shape == (1, 16, 21, 60, 104), f"{label}: latents shape {lat.shape}")
+    lat = lat_file["latents"]
+    shape = (1, *compute_target_shape(cfg, SIZE_CONFIGS[size], FRAMES))
+    check(lat.shape == shape, f"{label}: latents shape {lat.shape}, want {shape}")
     check(bool(np.isfinite(lat).all()), f"{label}: non-finite latents")
     log(f"  [{label}] latents {lat.shape} finite, std {lat.std():.4f}")
-    return mean
+    return mean, first[0]
+
+
+def cfg_mode_check(torch, first):
+    """w8a8's first denoise step with sequential CFG (two B-sized forwards)
+    against the batched one (one [2B] forward), from the same weights, noise
+    and calibration: rel-L2 <= 1e-3 (a B-sized and a 2B-sized cuBLAS GEMM at
+    the FP sites may sum in another order; the int kernels treat rows alike);
+    whether the bits are equal is printed."""
+    a, b = first["w8a8"].double(), first["w8a8_seq"].double()
+    rel = ((a - b).norm() / a.norm()).item()
+    log(f"  w8a8 first step, sequential vs batched CFG: rel-L2 {rel:.3e}; equal bits: "
+        f"{torch.equal(first['w8a8'], first['w8a8_seq'])}")
+    check(rel <= 1e-3, f"sequential CFG {rel:.3e} rel-L2 from batched")
 
 
 def _to_device(tree, dev):
@@ -1069,6 +1300,15 @@ def _to_device(tree, dev):
     return None if tree is None else tree.to(dev)
 
 
+def psnr_cos(want, got):
+    """PSNR over want's range and cosine of two float64 arrays."""
+    import numpy as np
+
+    rng = float(want.max() - want.min()) or 1.0
+    psnr = 10 * np.log10(rng ** 2 / float(np.mean((want - got) ** 2)))
+    return psnr, float((want * got).sum() / np.linalg.norm(want) / np.linalg.norm(got))
+
+
 KERNEL_NAMES = {"ln_mod_quant_kernel": "K1", "w8a8_gemm_kernel": "K2",
                 "rms_rope_heads_kernel": "K3", "flash_fwd_kernel": "K4",
                 "quant_sum_kernel": "K7", "w4a8_gemm_kernel": "K8", "w4a4_gemm_kernel": "K9",
@@ -1076,13 +1316,14 @@ KERNEL_NAMES = {"ln_mod_quant_kernel": "K1", "w8a8_gemm_kernel": "K2",
                 "v_quant_kernel": "K10a"}
 
 
-def profile_steps(torch, steps):
+def profile_steps(torch, steps, ref="bf16"):
     """One CFG forward of each step function: its wall time unprofiled
     (host clock around a synchronized call, after a warm call) and the peak
     memory it allocates beyond what is held before it, then its device time
     by kernel under torch.profiler. The idle share is 1 - the
     union of device-activity intervals / the profiled call's wall time.
-    The whole table goes to _smoke_out/profile_<label>.txt."""
+    The whole table goes to _smoke_out/profile_<label>.txt; each wall time
+    is printed against that of ``ref``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1143,8 +1384,8 @@ def profile_steps(torch, steps):
         for name, (t, cnt) in rows[:8]:
             log(f"    {t:9.2f} ms {100 * t / dev_ms:5.1f}%  n={cnt:4d}  {name[:90]}")
     for label in walls:
-        if label != "bf16":
-            log(f"  {label} / bf16 forward wall time: {walls[label] / walls['bf16']:.3f}")
+        if label != ref:
+            log(f"  {label} / {ref} forward wall time: {walls[label] / walls[ref]:.3f}")
 
 
 def fidelity(torch, calib_path):
@@ -1169,8 +1410,8 @@ def fidelity(torch, calib_path):
     names = linear_layer_names(cfg)
     ctxs = {}  # every path's quant state on the same weights
     sim_of = {}  # a PTQ path's sim-mode ctx on the same artifact
-    for label, (yaml, _) in PATHS.items():
-        qcfg = QuantConfig.from_yaml(yaml)
+    for label in FIDELITY_13B:
+        qcfg = QuantConfig.from_yaml(PATHS[label][0])
         mode = "sim" if label in SIM_PATHS else "int8"
         if label in PTQ_PATHS:
             # the artifact phase 3 deployed (written by cli.ptq from the same
@@ -1201,11 +1442,6 @@ def fidelity(torch, calib_path):
 
     def step(ctx, guide=5.0):
         return pipe._step(lat, 999.0, context, context_null, guide, ctx, seq_len)
-
-    def psnr_cos(want, got):
-        rng = float(want.max() - want.min()) or 1.0
-        psnr = 10 * np.log10(rng ** 2 / float(np.mean((want - got) ** 2)))
-        return psnr, float((want * got).sum() / np.linalg.norm(want) / np.linalg.norm(got))
 
     # CFG 5 scales the (cond - uncond) difference, and with it the
     # quantization error of both halves, by 5; guide 1 is the conditional
@@ -1267,7 +1503,7 @@ def fidelity(torch, calib_path):
             failures.append(f"{label} cosine {cos1:.4f} (guide 1) < 0.9 or {cos:.4f} (CFG) < 0.5")
 
     failures += int8_attention_plain_route(torch, np, step, ctxs["w8a8_attn"], preds,
-                                           {g: fps[None][g] for g in (5.0, 1.0)}, psnr_cos)
+                                           {g: fps[None][g] for g in (5.0, 1.0)})
 
     # the FP linears keep the f32 accumulator on the card, as on the CPU
     po = params["blocks"][0]["self_attn"]["o"]
@@ -1323,8 +1559,9 @@ def fidelity(torch, calib_path):
         "n_bits": 8, "sym": True, "group": "block", "block_size": 16, "int8_scale": True}})
     perms = {f"blocks.{i}.self_attn": np.stack([rs.permutation(64) for _ in range(2)])
              for i in range(2)}
-    cases = {label: (QuantConfig.from_yaml(yaml), "sim" if label in SIM_PATHS else "int8", {})
-             for label, (yaml, _) in PATHS.items()}
+    cases = {label: (QuantConfig.from_yaml(PATHS[label][0]),
+                     "sim" if label in SIM_PATHS else "int8", {})
+             for label in (*FIDELITY_13B, "w8a8_14b")}
     cases["w8a8 + cross_attn section"] = (QuantConfig.from_yaml(YAML), "int8", {
         "cross_attn": AttnQuantCfg.from_dict(section)})
     cases["w8a8 sim + blockwise attn, perms"] = (QuantConfig.from_yaml(YAML), "sim",
@@ -1360,7 +1597,115 @@ def fidelity(torch, calib_path):
     check(not failures, "; ".join(failures))
 
 
-def int8_attention_plain_route(torch, np, step, ctx, preds, fps, psnr_cos):
+def fidelity_14b(torch, calib_path):
+    """T2V-14B at 480p from phase 3's seed (the same weights and text
+    states) and its calibration: one CFG forward at t=999 of bf16 and of
+    each path of FIDELITY_14B, the path's noise prediction against bf16's
+    with CFG 5 and conditional (the gates of the 1.3B paths: W8A8 PSNR >= 30
+    dB with CFG; W4A8 cosine >= 0.9 conditional and >= 0.5 with CFG), the
+    device memory of the weights and of each quant state, then each forward
+    under torch.profiler (wall time against bf16's, the forward's own peak
+    allocation, kernels by device time); then one sequential-CFG step of
+    w4a8_14b and of bf16 at 720p (seq 75776), timed on the host clock."""
+    import numpy as np
+
+    from wanq_tpu_torch.cli.common import load_contexts, load_params
+    from wanq_tpu_torch.configs import SIZE_CONFIGS, WAN_CONFIGS
+    from wanq_tpu_torch.models.dit import linear_layer_names
+    from wanq_tpu_torch.pipelines.text2video import (
+        WanT2V, compute_seq_len, compute_target_shape)
+    from wanq_tpu_torch.quant import QuantConfig
+    from wanq_tpu_torch.quant.ptq import prepare_quant_state
+    from wanq_tpu_torch.quant.qlinear import QuantCtx
+
+    cfg = WAN_CONFIGS[TASK_14B]
+    args = argparse.Namespace(base_seed=42, device="cuda", context_file=None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = load_params(args, cfg)
+    torch.cuda.synchronize()
+    log(f"  {TASK_14B} random init on the card: {time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held")
+    context, context_null = (torch.from_numpy(a).cuda() for a in load_contexts(args, cfg))
+    calib = dict(np.load(calib_path))
+    names = linear_layer_names(cfg)
+    shape = compute_target_shape(cfg, SIZE_CONFIGS[SIZE], FRAMES)
+    seq_len = compute_seq_len(cfg, shape)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    lat = torch.randn((1, *shape), generator=g, device="cuda")
+    pipe = WanT2V(cfg, params, device="cuda")
+
+    def step(ctx):
+        return pipe._step(lat, 999.0, context, context_null, 5.0, ctx, seq_len)
+
+    def predictions(ctx):
+        """CFG 5 and the conditional prediction of one batched forward."""
+        with torch.no_grad():
+            cond, uncond = pipe._split(lat, 999.0, context, context_null, ctx, seq_len)
+            return {5.0: (uncond + 5.0 * (cond - uncond)).cpu().numpy().astype(np.float64),
+                    1.0: cond.cpu().numpy().astype(np.float64)}
+
+    fp = predictions(None)
+    ctxs, failures = {}, []
+    for label in FIDELITY_14B:
+        qcfg = QuantConfig.from_yaml(PATHS[label][0])
+        held = torch.cuda.memory_allocated()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pol, st, rot = prepare_quant_state(params, names, qcfg, calib=calib, targets="int8")
+        torch.cuda.synchronize()
+        n_q = sum(p.is_quantized for p in pol.values())
+        log(f"  [{label}] prepare_quant_state on the card ({n_q} layers): "
+            f"{time.perf_counter() - t0:.2f} s; the state "
+            f"{(torch.cuda.memory_allocated() - held) / 2**30:.2f} GiB")
+        ctxs[label] = QuantCtx(mode="int8", policies=pol, state=st, rotations=rot)
+        q = predictions(ctxs[label])
+        if not all(np.isfinite(v).all() for v in q.values()):
+            failures.append(f"non-finite {label} noise prediction")
+        (psnr, cos), (psnr1, cos1) = psnr_cos(fp[5.0], q[5.0]), psnr_cos(fp[1.0], q[1.0])
+        log(f"  {label} vs bf16 FP noise prediction ({TASK_14B} {SIZE}x{FRAMES}, t=999): CFG 5.0 "
+            f"PSNR {psnr:.2f} dB, cosine {cos:.6f}; conditional PSNR {psnr1:.2f} dB, cosine "
+            f"{cos1:.6f}")
+        if label.startswith("w8a8") and psnr < 30.0:
+            failures.append(f"{label} PSNR {psnr:.2f} dB < 30 dB")
+        if label.startswith("w4a8") and (cos1 < 0.9 or cos < 0.5):
+            failures.append(f"{label} cosine {cos1:.4f} (conditional) < 0.9 or {cos:.4f} (CFG) "
+                            f"< 0.5")
+    log(f"  held for the profile: {torch.cuda.memory_allocated() / 2**30:.2f} GiB (bf16 weights "
+        f"and both quant states)")
+    with torch.no_grad():
+        profile_steps(torch, {**{label: (lambda c=ctx: step(c)) for label, ctx in ctxs.items()},
+                              "bf16_14b": lambda: step(None)}, ref="bf16_14b")
+    # 720p (seq 75776), sequential CFG: one step's forwards of w4a8_14b and bf16
+    del ctxs["w8a8_14b"]
+    torch.cuda.empty_cache()
+    shape = compute_target_shape(cfg, SIZE_CONFIGS["1280*720"], FRAMES)
+    seq_len = compute_seq_len(cfg, shape)
+    lat = torch.randn((1, *shape), generator=g, device="cuda")
+    walls = {}
+    for label, ctx in (("w4a8_14b", ctxs["w4a8_14b"]), ("bf16", None)):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            pred = pipe._step(lat, 999.0, context, context_null, 5.0, ctx, seq_len,
+                              sequential=True)
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+        if not bool(torch.isfinite(pred).all()):
+            failures.append(f"non-finite {label} 720p noise prediction")
+        log(f"  {label} {TASK_14B} 1280*720x81 (seq {seq_len}), one sequential-CFG step's two "
+            f"forwards: {walls[label]:.3f} s; peak beyond the {held / 2**30:.2f} GiB held "
+            f"{(torch.cuda.max_memory_allocated() - held) / 2**30:.2f} GiB")
+        del pred
+    log(f"  w4a8_14b / bf16 at 720p, sequential CFG: {walls['w4a8_14b'] / walls['bf16']:.3f}")
+    del params, ctxs, pipe
+    torch.cuda.empty_cache()
+    check(not failures, "; ".join(failures))
+
+
+def int8_attention_plain_route(torch, np, step, ctx, preds, fps):
     """Is the ~58 dB between w8a8_attn and w8a8 the rounding that int8
     attention does by definition, or K10's own error? One more CFG forward
     of w8a8_attn at t=999 in which models/dit.py's attention_int8 runs the
@@ -1602,24 +1947,31 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"  phase 2: {time.time() - t0:.1f} s")
 
-    log(f"[3] the {len(PATHS)} paths through the CLIs, {TASK} {SIZE}x{FRAMES} (seq 32768), "
-        f"{STEPS} steps each")
+    log(f"[3] the {len(PATHS)} paths through the CLIs (1.3B {SIZE}x{FRAMES}, seq 32768; "
+        f"{TASK_14B} at 480p and 720p)")
     launches = {}
     t0 = time.time()
-    calib_path = calibrate(torch)
-    step_s = {}
+    calib = {TASK: calibrate(torch)}
+    step_s, first = {}, {}
     for label in PATHS:
-        step_s[label] = run_path(torch, label, launches,
-                                 calib_path if label in CALIB_PATHS else None)
+        task = RUNS.get(label, {}).get("task", TASK)
+        if task not in calib:
+            log(f"  phase 3 {TASK} paths: {time.time() - t0:.1f} s")
+            calib[task] = calibrate(torch, task, PATHS[label][0])
+        step_s[label], first[label] = run_path(torch, label, launches,
+                                               None if label in NO_CALIB_PATHS else calib[task])
         torch.cuda.empty_cache()
-    for label in PATHS:
-        if label != "w8a8":
-            log(f"  step time {label} / w8a8: {step_s[label] / step_s['w8a8']:.3f}")
+    cfg_mode_check(torch, first)
+    for label in FIDELITY_13B[1:]:
+        log(f"  step time {label} / w8a8: {step_s[label] / step_s['w8a8']:.3f}")
+    log(f"  step time w4a8_14b / w8a8_14b: {step_s['w4a8_14b'] / step_s['w8a8_14b']:.3f}")
     log(f"  phase 3: {time.time() - t0:.1f} s")
 
     log("[4] fidelity and profile")
     t0 = time.time()
-    fidelity(torch, calib_path)
+    fidelity(torch, calib[TASK])
+    log(f"  phase 4 {TASK}: {time.time() - t0:.1f} s")
+    fidelity_14b(torch, calib[TASK_14B])
     log(f"  phase 4: {time.time() - t0:.1f} s")
     log(f"total {time.time() - t_all:.1f} s")
 

@@ -34,6 +34,13 @@ producer and consumers count differently hangs the card instead of failing,
 so each band test waits for the card with a deadline and ends the process
 past it (``_finish_within``), and so do the tests of K3's and K7's
 persistent forms. K7's GELU table is held on every bf16 value bit for bit.
+At the T2V-14B shapes (dim 5120, ffn 13824, 40 heads): K1 and K7 at 5120 over
+ragged rows, K2 and K8 at every 14B site shape with ragged M, and K4 at 720p
+(S 75776, 75600 valid) against the plain version on the q rows at both ends,
+each at the limits above; ``init_params_on_device`` on the card: equal bits
+per seed and a peak below the model plus twice its largest tensor. K1,
+K2, K3, K4 (self and cross) and K7 give a row of a batch of 2 the bits
+they give it alone.
 """
 
 import math
@@ -1245,3 +1252,193 @@ def test_k10_full_shape_against_plain(dev, gen):
     print(f"K10 full shape: rel-L2 {rel:.3e}, beyond one step {far:.3e}; K10 {t10:.3f} ms, "
           f"K10a {t10a:.3f} ms")
     assert rel <= 1e-3 and far <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# T2V-14B shapes (dim 5120, ffn 13824, 40 heads) and the draw on the card
+# ---------------------------------------------------------------------------
+
+
+def test_k1_k7_at_14b_width_ragged_rows(dev, gen):
+    """K1 and K7 (bf16, the o input: no GELU) at C = 5120 over 2 x 1003 rows
+    (no multiple of a block's rows), at their stated limits."""
+    from wanq_tpu_torch.ops.fused import (
+        ln_modulate_quant_cuda, ln_modulate_quant_plain, quant_sum_cuda, quant_sum_plain)
+
+    b, s, c = 2, 1003, 5120
+    x = (torch.randn((b, s, c), device=dev, generator=gen) * 2 + 0.3).bfloat16()
+    shift = torch.randn((b, c), device=dev, generator=gen) * 0.5
+    scale = torch.randn((b, c), device=dev, generator=gen) * 0.5
+    got = ln_modulate_quant_cuda(x, shift, scale)
+    want = ln_modulate_quant_plain(x, shift, scale)
+    diff = (got[0].int() - want[0].int()).abs()
+    assert diff.max().item() <= 1 and (diff > 0).float().mean().item() <= 1e-3
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
+    got = quant_sum_cuda(x.reshape(b * s, c))
+    want = quant_sum_plain(x.reshape(b * s, c))
+    _finish_within(60, "K7 C=5120")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[2], want[2], rtol=1e-6, atol=0)
+
+
+# (K, N, mode) of T2V-14B's int GEMM sites: the square sites (q/k/v/o, cross
+# q/o) with a bf16 output, ffn.0 with a bf16 output and in the GELU + quant
+# mode, ffn.2 with an f32 output; M ragged
+@pytest.mark.parametrize("k,n,mode", [(5120, 5120, "bf16"), (5120, 13824, "bf16"),
+                                      (5120, 13824, "gelu_quant"), (13824, 5120, "f32")])
+@pytest.mark.parametrize("kernel", ["w8a8_linear", "w4a8_linear"], ids=["K2", "K8"])
+def test_int_gemms_at_14b_shapes_match_plain(dev, gen, kernel, k, n, mode):
+    from wanq_tpu_torch.ops import qgemm
+
+    m = 1024 + 3
+    a = torch.randint(-128, 128, (m, k), device=dev, generator=gen, dtype=torch.int8)
+    w = torch.randint(-128, 128, (n, k // 2 if kernel == "w4a8_linear" else k), device=dev,
+                      generator=gen, dtype=torch.int8)
+    s_a = torch.rand((m,), device=dev, generator=gen) * 0.02 + 1e-3
+    s_w = torch.rand((n,), device=dev, generator=gen) * 0.1 / k ** 0.5 + 1e-5
+    sum_a = s_a * a.float().sum(-1)
+    zp = torch.randint(0, 16, (n,), device=dev, generator=gen).float()
+    bias = torch.randn((n,), device=dev, generator=gen)
+    if mode == "gelu_quant":
+        scale2 = torch.tensor(0.021, device=dev)
+        ops = (a, w, s_a, s_w, scale2, sum_a, zp, bias)
+        got = getattr(qgemm, f"{kernel}_gelu_quant_cuda")(*ops)
+        want = getattr(qgemm, f"{kernel}_gelu_quant_plain")(*ops)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+    else:
+        ops = (a, w, s_a, s_w, sum_a, zp, bias, getattr(torch, {"bf16": "bfloat16",
+                                                                 "f32": "float32"}[mode]))
+        got = getattr(qgemm, f"{kernel}_cuda")(*ops)
+        assert torch.equal(got, getattr(qgemm, f"{kernel}_plain")(*ops))
+
+
+def test_k4_40_heads_720p_pad_planted(dev, gen):
+    """K4's dense self-attention at T2V-14B 720p: 40 heads, S 75776 with 75600
+    valid, the pad rows of k/v planted (k 0, v 100), q heads-major with the
+    scale folded in and v the strided view over [1, S, 5120]. The plain
+    version runs on the first 512 q rows and on the last 1024 (the valid
+    boundary and the pad rows), which see every key; K4's limits."""
+    from wanq_tpu_torch.models.attention import _flash_cuda, _sdpa_reference
+
+    s, valid = 75776, 75600
+    q, k, vh = _band_inputs(dev, gen, 1, 40, s, valid)
+    got = _flash_cuda(q, k, vh, 1.0, valid)
+    _finish_within(120, "K4 40 heads at 720p")
+    for rows in (slice(0, 512), slice(s - 1024, s)):
+        want = _sdpa_reference(q[:, :, rows].transpose(1, 2), k.transpose(1, 2),
+                               vh.transpose(1, 2), 1.0, valid, q_chunk=256)
+        _k4_close(got[:, rows], want)
+
+
+def test_init_params_on_device_on_the_card(dev):
+    """T2V-14B's tree at 2 of its 40 layers, drawn on the card: the same
+    seed gives the same bits, another seed other bits, the tensors land on
+    the card in the config's dtypes, and the draw's peak allocation stays
+    below the model plus twice its largest tensor (it holds one f32 block of
+    64 MB beside the model)."""
+    import dataclasses
+
+    from wanq_tpu_torch.configs import WAN_CONFIGS
+    from wanq_tpu_torch.models.dit import init_params_on_device
+
+    cfg = dataclasses.replace(WAN_CONFIGS["t2v-14B"], num_layers=2)
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for v in tree.values() for x in leaves(v)]
+        if isinstance(tree, list):
+            return [x for v in tree for x in leaves(v)]
+        return [] if tree is None else [tree]
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    a = leaves(init_params_on_device(cfg, 42, device=dev))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    model = sum(t.numel() * t.element_size() for t in a)
+    largest = max(t.numel() * t.element_size() for t in a)
+    assert largest == 5120 * 6 * 5120 * 2  # time_projection.1
+    assert peak < model + 2 * largest, (peak, model, largest)
+    assert all(t.is_cuda for t in a)
+    assert {t.dtype for t in a if t.ndim == 2} == {torch.bfloat16}
+    b = leaves(init_params_on_device(cfg, 42, device=dev))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    del b
+    c = leaves(init_params_on_device(cfg, 43, device=dev))
+    drawn = [(x, y) for x, y in zip(a, c) if x.ndim >= 2 and x.float().std() > 0]
+    assert drawn and not any(torch.equal(x, y) for x, y in drawn)
+
+
+def test_forward_row_equals_a_lone_forward_on_the_card(dev):
+    """The conditional row of a batched CFG forward equals a lone B = 1
+    forward bit for bit on the card (a small config with head dim 128, so
+    the fused routes, bf16 residual): what makes sequential CFG the same
+    function as batched. The time embedding runs row by row for this."""
+    from wanq_tpu_torch.configs import tiny_config
+    from wanq_tpu_torch.models.dit import dit_forward, init_params_on_device
+
+    cfg = tiny_config(dim=256, num_heads=2, num_layers=2, ffn_dim=512, text_len=32,
+                      text_dim=64, freq_dim=64, param_dtype="bfloat16",
+                      residual_dtype="bfloat16")
+    params = init_params_on_device(cfg, 3, device=dev)
+    params["head"]["head"]["w"] = (torch.randn((256, 64), device=dev) * 0.02).bfloat16()
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn((1, 16, 3, 8, 10), device=dev, generator=g)
+    c = torch.randn((2, 32, 64), device=dev, generator=g)
+    t = torch.full((2,), 999.0, device=dev)
+    with torch.no_grad():
+        pair = dit_forward(params, cfg, torch.cat([x, x]), t, c, 64)
+        lone = dit_forward(params, cfg, x, t[:1], c[:1], 64)
+    assert torch.equal(pair[:1], lone)
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4 self", "K4 cross", "K7"])
+def test_kernel_row_of_a_batch_equals_it_alone(dev, gen, kernel):
+    """Each hand kernel of the bf16 and W8A8 forwards gives the first row of
+    a batch of 2 the bits it gives that row alone (for the GEMM, the first
+    half of the token rows): with the row-by-row time embedding, this is
+    what makes sequential CFG the batched forward's function."""
+    from wanq_tpu_torch.models.attention import _flash_cuda
+    from wanq_tpu_torch.models.rope import pad_tables, rope_tables_interleaved
+    from wanq_tpu_torch.ops.fused import ln_modulate_quant_cuda, quant_sum_cuda
+    from wanq_tpu_torch.ops.qgemm import w8a8_linear_cuda
+    from wanq_tpu_torch.ops.rmsnorm_rope import _k3_cuda
+
+    b, s, valid, c, n, d = 2, 2048, 2040, 1536, 12, 128
+    x = (torch.randn((b, s, c), device=dev, generator=gen) * 2).bfloat16()
+    one = x[:1].contiguous()
+    if kernel == "K1":
+        shift, scale = (torch.randn((b, c), device=dev, generator=gen) for _ in range(2))
+        pair = ln_modulate_quant_cuda(x, shift, scale)
+        lone = ln_modulate_quant_cuda(one, shift[:1].contiguous(), scale[:1].contiguous())
+        pair = tuple(t[:1] for t in pair[:2])
+        lone = lone[:2]
+    elif kernel == "K2":
+        a = torch.randint(-128, 128, (b * s, c), device=dev, generator=gen, dtype=torch.int8)
+        w = torch.randint(-128, 128, (c, c), device=dev, generator=gen, dtype=torch.int8)
+        s_a = torch.rand((b * s,), device=dev, generator=gen) * 0.02 + 1e-3
+        s_w = torch.rand((c,), device=dev, generator=gen) * 0.01
+        pair = (w8a8_linear_cuda(a, w, s_a, s_w, None, None, None, torch.bfloat16)[:s],)
+        lone = (w8a8_linear_cuda(a[:s].contiguous(), w, s_a[:s].contiguous(), s_w, None, None,
+                                 None, torch.bfloat16),)
+    elif kernel == "K3":
+        ca, sb = (torch.from_numpy(t.copy()).to(dev)
+                  for t in rope_tables_interleaved((2, 30, 34), d))
+        ca, sb = pad_tables(ca, sb, valid, s)
+        wn = torch.rand((c,), device=dev, generator=gen) + 0.5
+        pair = (_k3_cuda(x, wn, ca, sb, n, 1e-6, torch.bfloat16)[:1],)
+        lone = (_k3_cuda(one, wn, ca, sb, n, 1e-6, torch.bfloat16),)
+    elif kernel == "K7":
+        pair = tuple(t[:1] for t in quant_sum_cuda(x))
+        lone = quant_sum_cuda(one)
+    else:
+        q = (torch.randn((b, n, s, d), device=dev, generator=gen) * 0.09).bfloat16()
+        sk = s if kernel == "K4 self" else 512
+        k, v = (torch.randn((b, n, sk, d), device=dev, generator=gen).bfloat16()
+                for _ in range(2))
+        kv_valid, sc = (valid, 1.0) if kernel == "K4 self" else (512, 0.088)
+        pair = (_flash_cuda(q, k, v, sc, kv_valid)[:1],)
+        lone = (_flash_cuda(q[:1], k[:1], v[:1], sc, kv_valid),)
+    _finish_within(60, f"{kernel} batch of 2 and of 1")
+    assert all(torch.equal(u, w) for u, w in zip(pair, lone))

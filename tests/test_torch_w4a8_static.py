@@ -21,6 +21,7 @@ elements (the f32 reduction order may flip a rounding tie), scale rtol 1e-5,
 the scaled sum rtol 1e-5 on rows whose codes agree.
 """
 
+import json
 import os
 
 import jax
@@ -246,9 +247,12 @@ def test_k1_wrapper_refuses_what_the_kernel_does_not_take():
 
 
 def test_cache_section_is_kept_and_reported_as_ignored(tmp_path, capsys):
-    """wan_w4a8_14b.yaml carries step-cache defaults. The port has no step
-    cache yet: QuantConfig keeps the section, quant_generate says once that it
-    is ignored, and the latents equal those of the same YAML without it."""
+    """wan_w4a8_14b.yaml carries step-cache defaults (the adaptive policy
+    fitted at 14B). QuantConfig keeps the section and quant_generate now runs
+    it: the log names the policy and its action counts. Two steps under warmup
+    2 / tail 2 plan all-full, so the latents equal those of the same YAML
+    without the section (the name predates the port of the step cache, when
+    the section was reported as ignored)."""
     import yaml as pyyaml
 
     from wanq_tpu_torch.cli import get_calib_data, quant_generate
@@ -275,11 +279,15 @@ def test_cache_section_is_kept_and_reported_as_ignored(tmp_path, capsys):
             common + ["--quant_config", yaml, "--calib_data", calib, "--hardware",
                       "--sample_steps", "2", "--save_file", str(tmp_path / f"{label}.npz")]))
         # the CLIs log to stdout
-        said = [ln for ln in capsys.readouterr().out.splitlines()
-                if "cache: section is ignored" in ln]
-        assert len(said) == (1 if label == "cached" else 0)
-        if said:
-            assert W4A8_STATIC in said[0] and "not ported" in said[0]
+        said = capsys.readouterr().out
+        assert "cache: section is ignored" not in said
+        if label == "cached":
+            assert "step cache: AdaptiveCachePolicy(threshold=0.5, warmup=2, tail=2" in said
+            assert "step cache actions: {'full': 2, 'cond': 0, 'reuse': 0}" in said
+            assert json.loads(str(np.load(out)["cache_stats"])) == {
+                "full": 2, "cond": 0, "reuse": 0}
+        else:
+            assert "step cache: off" in said and "cache_stats" not in np.load(out)
         lats[label] = np.load(out)["latents"]
     assert np.isfinite(lats["cached"]).all()
     np.testing.assert_array_equal(lats["cached"], lats["uncached"])

@@ -5,7 +5,17 @@ section switches self-attention to the int8 flash kernel under --hardware
 and to the simulated attention quantizers without it; a ``cross_attn:``
 section runs the simulated quantizers on cross-attention in both modes.
 ``--attn_window R`` (or one radius per head, ``r0,r1,...``) bands
-self-attention to +-R latent frames: K4's band mode on the card.
+self-attention to +-R latent frames: K4's band mode on the card. A quant
+YAML's ``cache:`` section (the 14B YAMLs ship the adaptive step cache
+fitted at 14B) or the cache flags cache steps (``--cache_threshold 0``
+turns the section off); the action counts are logged and, with the adaptive
+trace, saved beside the latents (``cache_stats``, ``cache_trace``: JSON).
+``--cfg_mode sequential`` runs the CFG pair as two forwards, as T2V-14B at
+720p needs on one card:
+
+    python -m wanq_tpu_torch.cli.quant_generate --task t2v-14B --size 1280*720 \
+        --random_init --quant_config quant_configs/wan_w4a8_14b.yaml \
+        --calib_data calib_14b.npz --hardware --strip_fp --cfg_mode sequential
 
     python -m wanq_tpu_torch.cli.quant_generate --task t2v-1.3B --size 832*480 \
         --frame_num 81 --random_init --quant_config quant_configs/wan_w8a8_speed.yaml \
@@ -26,6 +36,7 @@ ptq; the rotations are rebuilt from its seed), or a reference
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import time
 
@@ -34,6 +45,7 @@ import torch
 
 from wanq_tpu_torch.cli.common import (
     add_common_args,
+    cache_policy_from_args,
     load_contexts,
     load_params,
     parse_attn_window,
@@ -55,10 +67,6 @@ from wanq_tpu_torch.quant.ptq import (
 from wanq_tpu_torch.quant.qlinear import QuantCtx
 
 
-CACHE_IGNORED = ("%s: the cache: section is ignored (the step caches are not ported yet); "
-                 "every denoise step runs the full forward")
-
-
 def parse_args(argv=None):
     p = argparse.ArgumentParser("wanq_tpu_torch quant_generate")
     add_common_args(p)
@@ -73,7 +81,8 @@ def parse_args(argv=None):
                    help="int kernel path; default is simulated quantization")
     p.add_argument("--strip_fp", action="store_true",
                    help="free the FP copies of the quantized weights (the sim and int "
-                        "paths read the quant state only)")
+                        "paths read the quant state only); logs the device memory held "
+                        "before and after")
     return p.parse_args(argv)
 
 
@@ -88,8 +97,8 @@ def generate(args, on_step=None):
     cfg = WAN_CONFIGS[args.task]
     size = SIZE_CONFIGS[args.size]
     qcfg = QuantConfig.from_yaml(args.quant_config)
-    if qcfg.cache is not None:
-        logging.info(CACHE_IGNORED, args.quant_config)
+    cache_policy = cache_policy_from_args(args, qcfg)
+    logging.info("step cache: %s", cache_policy or "off")
     params = load_params(args, cfg)
     names = linear_layer_names(cfg)
     t0 = time.time()
@@ -113,8 +122,11 @@ def generate(args, on_step=None):
                                                          targets=mode)
         logging.info("computed quant state: %d layers in %.2fs", len(state), time.time() - t0)
     if args.strip_fp:
+        held = _held_gib(args.device)
         params = strip_quantized_weights(params, policies)
-        logging.info("stripped the FP copies of the quantized weights")
+        logging.info("stripped the FP copies of the quantized weights; device memory held "
+                     "%s -> %s GiB (peak so far %s GiB)", held, _held_gib(args.device),
+                     _held_gib(args.device, peak=True))
     ctx = QuantCtx(mode=mode, policies=policies, state=state, rotations=rotations,
                    attn=qcfg.attn_cfg, cross_attn=qcfg.cross_attn_cfg,
                    attn_window=parse_attn_window(args))
@@ -126,16 +138,33 @@ def generate(args, on_step=None):
         torch.from_numpy(context), torch.from_numpy(context_null), size=size,
         frame_num=args.frame_num, shift=args.sample_shift,
         sampling_steps=args.sample_steps, guide_scale=args.sample_guide_scale,
-        seed=args.base_seed, on_step=on_step,
+        seed=args.base_seed, cache_policy=cache_policy, cfg_mode=args.cfg_mode,
+        on_step=on_step,
     )
     if latents.is_cuda:
         torch.cuda.synchronize()
-    logging.info("quant (%s) denoise done in %.2fs", mode, time.time() - t0)
+    logging.info("quant (%s) denoise done in %.2fs (%s CFG; peak device memory %s GiB)", mode,
+                 time.time() - t0, args.cfg_mode, _held_gib(args.device, peak=True))
+    record = {}
+    if pipe.last_cache_stats is not None:
+        logging.info("step cache actions: %s", pipe.last_cache_stats)
+        record["cache_stats"] = json.dumps(pipe.last_cache_stats)
+    if pipe.last_adaptive_trace is not None:
+        logging.info("adaptive trace: %s", pipe.last_adaptive_trace)
+        record["cache_trace"] = json.dumps(pipe.last_adaptive_trace)
     save_file = args.save_file or (
         f"quant_{mode}_{args.task}_{args.size.replace('*', 'x')}_seed{args.base_seed}.npz")
-    np.savez(save_file, latents=latents.cpu().numpy())
+    np.savez(save_file, latents=latents.cpu().numpy(), **record)
     logging.info("saved %s", save_file)
     return save_file
+
+
+def _held_gib(device, peak: bool = False) -> str:
+    """Device memory allocated now (or its peak), in GiB; 'n/a' off the card."""
+    if torch.device(device).type != "cuda":
+        return "n/a"
+    n = torch.cuda.max_memory_allocated() if peak else torch.cuda.memory_allocated()
+    return f"{n / 2**30:.2f}"
 
 
 if __name__ == "__main__":

@@ -133,32 +133,10 @@ def sinusoidal_embedding_1d(dim: int, t: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def init_params(cfg: WanConfig, seed: int = 0, device="cuda") -> Params:
-    """Random init drawn from ``np.random.default_rng(seed)`` on the host in
-    the same order as wanq_tpu's init_params, so both packages make the
-    same weights from the same seed. The tensors land on ``device``, the
-    card unless the caller asks for the CPU."""
-    dtype = cfg.dtype
+def _param_tree(cfg: WanConfig, lin, modulation, device) -> Params:
+    """The DiT's parameter tree, its weights drawn by ``lin(c_in, c_out,
+    scheme)`` and ``modulation(n)`` in wanq_tpu's order."""
     d = cfg.dim
-    rng = np.random.default_rng(seed)
-
-    def t(a, dt=torch.float32):
-        return torch.from_numpy(a).to(device=device, dtype=dt)
-
-    def lin(c_in, c_out, scheme="xavier"):
-        if scheme == "xavier":
-            bound = math.sqrt(6.0 / (c_in + c_out))
-            w = rng.uniform(-bound, bound, (c_in, c_out)).astype(np.float32)
-        elif scheme == "normal02":
-            w = (rng.standard_normal((c_in, c_out)) * 0.02).astype(np.float32)
-        elif scheme == "zeros":
-            w = np.zeros((c_in, c_out), np.float32)
-        else:
-            raise ValueError(scheme)
-        return {"w": t(w, dtype), "b": torch.zeros((c_out,), device=device)}
-
-    def modulation(n):
-        return t((rng.standard_normal((1, n, d)) / math.sqrt(d)).astype(np.float32))
 
     def ones():
         return torch.ones((d,), device=device)
@@ -190,6 +168,71 @@ def init_params(cfg: WanConfig, seed: int = 0, device="cuda") -> Params:
             "modulation": modulation(6),
         })
     return params
+
+
+def init_params(cfg: WanConfig, seed: int = 0, device="cuda") -> Params:
+    """Random init drawn from ``np.random.default_rng(seed)`` on the host in
+    the same order as wanq_tpu's init_params, so both packages make the
+    same weights from the same seed. The tensors land on ``device``, the
+    card unless the caller asks for the CPU."""
+    rng = np.random.default_rng(seed)
+
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(a).to(device=device, dtype=dt)
+
+    def lin(c_in, c_out, scheme="xavier"):
+        if scheme == "xavier":
+            bound = math.sqrt(6.0 / (c_in + c_out))
+            w = rng.uniform(-bound, bound, (c_in, c_out)).astype(np.float32)
+        elif scheme == "normal02":
+            w = (rng.standard_normal((c_in, c_out)) * 0.02).astype(np.float32)
+        elif scheme == "zeros":
+            w = np.zeros((c_in, c_out), np.float32)
+        else:
+            raise ValueError(scheme)
+        return {"w": t(w, cfg.dtype), "b": torch.zeros((c_out,), device=device)}
+
+    def modulation(n):
+        return t((rng.standard_normal((1, n, cfg.dim)) / math.sqrt(cfg.dim)).astype(np.float32))
+
+    return _param_tree(cfg, lin, modulation, device)
+
+
+# the f32 elements init_params_on_device draws at once
+_DRAW_BLOCK = 1 << 24
+
+
+def init_params_on_device(cfg: WanConfig, seed: int = 0, device="cuda") -> Params:
+    """Random init drawn on ``device`` by a ``torch.Generator`` seeded with
+    ``seed`` (counterpart of wanq_tpu's init_params_on_device): no host copy
+    of the weights, so T2V-14B (28.6 GB of bf16) draws in seconds. The
+    schemes and the tree are :func:`init_params`' (xavier-uniform, normal x
+    0.02, zeros for ``head.head``, modulation N(0, 1) / sqrt(dim)); the bits
+    are not, as torch cannot reproduce numpy's or jax.random's streams. Each
+    weight is drawn in f32 blocks of rows of at most ``_DRAW_BLOCK``
+    elements, each cast to ``cfg.dtype`` at once, so the peak is the model
+    plus one such block (64 MB)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def lin(c_in, c_out, scheme="xavier"):
+        w = torch.zeros((c_in, c_out), dtype=cfg.dtype, device=device)
+        if scheme not in ("xavier", "normal02", "zeros"):
+            raise ValueError(scheme)
+        rows = max(1, _DRAW_BLOCK // c_out)
+        for r in range(0, c_in if scheme != "zeros" else 0, rows):
+            block = torch.empty((min(rows, c_in - r), c_out), device=device)
+            if scheme == "xavier":
+                bound = math.sqrt(6.0 / (c_in + c_out))
+                block.uniform_(-bound, bound, generator=gen)
+            else:
+                block.normal_(0.0, 0.02, generator=gen)
+            w[r:r + rows] = block
+        return {"w": w, "b": torch.zeros((c_out,), device=device)}
+
+    def modulation(n):
+        return torch.randn((1, n, cfg.dim), generator=gen, device=device) / math.sqrt(cfg.dim)
+
+    return _param_tree(cfg, lin, modulation, device)
 
 
 def linear_layer_names(cfg: WanConfig) -> List[str]:
@@ -489,6 +532,33 @@ def resolve_window(aw, grid: Tuple[int, int, int], num_heads: int) -> Optional[T
     return None if min_r >= grid[0] - 1 else win
 
 
+TIME_LAYERS = ("time_embedding.0", "time_embedding.2", "time_projection.1")
+
+
+def time_embedding(params: Params, cfg: WanConfig, t: torch.Tensor,
+                   ctx: Optional[QuantCtx] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The time embedding e [B, C] and the blocks' modulation e0 [B, 6, C]
+    of the timesteps t [B]. Where its three linears run FP (every shipped
+    config), each row runs on its own, so a row's embedding does not depend
+    on the batch it rides in: cuBLAS sums a one-row product in another order
+    than a two-row one (~5e-7 relative), and the bf16 residual turns that
+    into one-ulp flips in every block, ~6e-3 apart at the output of T2V-1.3B,
+    which would set a sequential-CFG forward apart from its row of the
+    batched pair."""
+    if t.shape[0] > 1 and all(resolves_fp(ctx, name) for name in TIME_LAYERS):
+        rows = [time_embedding(params, cfg, t[i:i + 1], ctx) for i in range(t.shape[0])]
+        return torch.cat([r[0] for r in rows]), torch.cat([r[1] for r in rows])
+    e = sinusoidal_embedding_1d(cfg.freq_dim, t)
+    e = qlinear(ctx, "time_embedding.0", params["time_embedding"]["0"], e[:, None, :],
+                torch.float32)
+    e = F.silu(e)
+    e = qlinear(ctx, "time_embedding.2", params["time_embedding"]["2"], e,
+                torch.float32)[:, 0]
+    e0 = qlinear(ctx, "time_projection.1", params["time_projection"]["1"],
+                 F.silu(e)[:, None, :], torch.float32)
+    return e, e0.reshape(t.shape[0], 6, cfg.dim)
+
+
 def dit_forward(params: Params, cfg: WanConfig, x: torch.Tensor, t: torch.Tensor,
                 context: torch.Tensor, seq_len: int,
                 ctx: Optional[QuantCtx] = None) -> torch.Tensor:
@@ -497,7 +567,6 @@ def dit_forward(params: Params, cfg: WanConfig, x: torch.Tensor, t: torch.Tensor
     if cfg.model_type != "t2v":
         raise NotImplementedError("i2v is not ported yet (ROADMAP Queue 1 item 9)")
     dtype = cfg.dtype
-    b = x.shape[0]
     grid = (x.shape[2] // cfg.patch_size[0], x.shape[3] // cfg.patch_size[1],
             x.shape[4] // cfg.patch_size[2])
     if ctx is not None and ctx.attn_window is not None:
@@ -520,15 +589,7 @@ def dit_forward(params: Params, cfg: WanConfig, x: torch.Tensor, t: torch.Tensor
     if valid_len < seq_len:
         xq = F.pad(xq, (0, 0, 0, seq_len - valid_len))
 
-    e = sinusoidal_embedding_1d(cfg.freq_dim, t)
-    e = qlinear(ctx, "time_embedding.0", params["time_embedding"]["0"], e[:, None, :],
-                torch.float32)
-    e = F.silu(e)
-    e = qlinear(ctx, "time_embedding.2", params["time_embedding"]["2"], e,
-                torch.float32)[:, 0]
-    e0 = qlinear(ctx, "time_projection.1", params["time_projection"]["1"],
-                 F.silu(e)[:, None, :], torch.float32)
-    e0 = e0.reshape(b, 6, cfg.dim)
+    e, e0 = time_embedding(params, cfg, t, ctx)
 
     c = qlinear(ctx, "text_embedding.0", params["text_embedding"]["0"], context.to(dtype), dtype)
     c = gelu_tanh(c).to(dtype)

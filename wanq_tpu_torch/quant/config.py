@@ -100,9 +100,9 @@ class QuantConfig:
         # attention quantization sections (self / cross)
         self.attn_cfg = AttnQuantCfg.from_dict(raw.get("attn"))
         self.cross_attn_cfg = AttnQuantCfg.from_dict(raw.get("cross_attn"))
-        # step-cache defaults tuned for this config's model scale: kept as
-        # read; the step caches are not ported, so nothing consumes them yet
-        # (cli/quant_generate.py says so once)
+        # step-cache defaults tuned for this config's model scale, kept as
+        # read: cli/common.py::cache_policy_from_config makes the policy
+        # that quant_generate runs unless the cache flags override it
         self.cache: Optional[Dict[str, Any]] = raw.get("cache")
         self._re_cache: Dict[str, "re.Pattern"] = {}
 
