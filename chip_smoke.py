@@ -297,6 +297,77 @@ def check(cond: bool, what: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Wan2.1 checkpoint writers (phase 5 and the tests)
+# ---------------------------------------------------------------------------
+
+DIT_INDEX = "diffusion_pytorch_model.safetensors.index.json"
+
+
+def reference_state_dict(params, cfg):
+    """The port's DiT params -> the reference's state dict: its key names,
+    linear weights [C_out, C_in] and the 5-D patch embedding; no tensor is
+    copied to the host."""
+    sd = {}
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{prefix}{k}.")
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(v, f"{prefix}{i}.")
+        elif node is not None:
+            sd[prefix[:-1]] = node
+
+    walk(params, "")
+    out = {}
+    for path, v in sd.items():
+        if path == "patch_embedding.w":
+            key, v = "patch_embedding.weight", v.t().reshape(
+                cfg.dim, cfg.in_dim, *cfg.patch_size)
+        elif path.endswith(".w"):
+            key, v = path[:-2] + ".weight", v.t() if v.dim() == 2 else v
+        elif path.endswith(".b"):
+            key = path[:-2] + ".bias"
+        elif path.endswith((".norm_q", ".norm_k")):
+            key = path + ".weight"
+        else:  # the modulation tables
+            key = path
+        out[key] = v.contiguous()
+    return out
+
+
+def write_dit_checkpoint(params, cfg, ckpt_dir, shards: int = 2) -> int:
+    """Write the DiT params as a Wan2.1 checkpoint dir: ``shards``
+    safetensors files with the reference's keys and layouts, and their
+    index JSON. One shard at a time passes through the host. Returns the
+    bytes written."""
+    from safetensors.torch import save_file
+
+    os.makedirs(ckpt_dir, exist_ok=True)
+    sd = reference_state_dict(params, cfg)
+    keys = list(sd)
+    per = -(-len(keys) // shards)
+    weight_map, total = {}, 0
+    for i in range(shards):
+        fname = f"diffusion_pytorch_model-{i + 1:05d}-of-{shards:05d}.safetensors"
+        part = {k: sd[k].cpu() for k in keys[i * per:(i + 1) * per]}
+        save_file(part, os.path.join(ckpt_dir, fname))
+        total += sum(v.numel() * v.element_size() for v in part.values())
+        weight_map.update({k: fname for k in part})
+    with open(os.path.join(ckpt_dir, DIT_INDEX), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f)
+    return total
+
+
+def write_vae_checkpoint(params, path) -> None:
+    """Write flat VAE params as the reference's Wan2.1_VAE.pth state dict."""
+    import torch
+
+    torch.save({k: v.cpu() for k, v in params.items()}, path)
+
+
+# ---------------------------------------------------------------------------
 # phase 2: kernels vs plain versions at main-path shapes
 # ---------------------------------------------------------------------------
 
@@ -1705,6 +1776,273 @@ def fidelity_14b(torch, calib_path):
     check(not failures, "; ".join(failures))
 
 
+# ---------------------------------------------------------------------------
+# phase 5: whole generate
+# ---------------------------------------------------------------------------
+
+CKPT = OUT / f"ckpt_{TASK}"
+T5_VALID = (37, 113)  # the valid lengths of the seeded prompt and negative prompt
+
+
+def _timed(torch, owner, name, store):
+    """Wrap ``owner.name`` (a method or a module's function) to append each
+    call's seconds (synchronized) to ``store``; returns the original."""
+    orig = getattr(owner, name)
+
+    def run(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*a, **k)
+        torch.cuda.synchronize()
+        store.append(time.perf_counter() - t0)
+        return out
+
+    setattr(owner, name, run)
+    return orig
+
+
+def _rel(torch, want, got) -> float:
+    want, got = want.double().cpu(), got.double().cpu()
+    return float((want - got).norm() / want.norm())
+
+
+def _psnr_video(np, want, got) -> float:
+    """PSNR over the video range [-1, 1]."""
+    err = np.mean((np.asarray(want, np.float64) - np.asarray(got, np.float64)) ** 2)
+    return float(10 * np.log10(4.0 / err)) if err > 0 else float("inf")
+
+
+def t5_phase(torch, np):
+    """umT5-XXL drawn on the card, two seeded [1, 512] id rows (a prompt and
+    a negative prompt with ragged valid lengths) encoded into the context
+    file; then its first 2 layers on the card against the CPU (bf16, the
+    prompt row; rel-L2 <= 4e-3: 1.6e-3 in the first card run, where both sides
+    multiply bf16 operands in f32 and round the attention's P·V product and
+    the FFN's gated product to bf16 at the same sites). Returns (context
+    file, first encode s)."""
+    import dataclasses
+
+    from wanq_tpu_torch.configs import WAN_CONFIGS
+    from wanq_tpu_torch.models import t5 as t5m
+
+    cfg, wan = t5m.UMT5_XXL, WAN_CONFIGS[TASK]
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = t5m.init_t5_params_on_device(cfg, seed=0)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    n = sum(v.numel() for v in _leaves(params))
+    enc = t5m.T5EncoderModel(wan.text_len, cfg=cfg, params=params, device="cuda")
+    g = np.random.default_rng(7)
+    ids = g.integers(0, cfg.vocab_size, (2, wan.text_len))
+    mask = (np.arange(wan.text_len)[None] < np.asarray(T5_VALID)[:, None]).astype(np.int64)
+    enc_s = []
+    for _ in range(2):  # the first pass, then a warm one
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states = [enc.encode_ids(ids[i:i + 1], mask[i:i + 1]) for i in range(2)]
+        torch.cuda.synchronize()
+        enc_s.append(time.perf_counter() - t0)
+    log(f"  umT5-XXL ({n / 1e9:.2f} B params, {n * 2 / 2**30:.2f} GiB bf16) drawn on the card: "
+        f"{draw_s:.2f} s; encode_ids of 2 x [1, {wan.text_len}] (valid {T5_VALID}): "
+        f"{enc_s[0]:.3f} s, warm {enc_s[1]:.3f} s; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for st, valid in zip(states, T5_VALID):
+        check(tuple(st.shape) == (1, wan.text_len, cfg.dim), f"T5 states {tuple(st.shape)}")
+        check(bool(torch.isfinite(st).all()), "non-finite T5 states")
+        check(float(st[0, valid:].abs().max()) == 0.0 and float(st[0, :valid].abs().max()) > 0,
+              "T5 states not zero exactly past the valid length")
+    ctx_file = str(OUT / "context_t5.npz")
+    np.savez(ctx_file, context=states[0].cpu().numpy(), context_null=states[1].cpu().numpy())
+    # the first 2 layers at full width, on the card and on the CPU
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    p2 = {"token_embedding": params["token_embedding"], "blocks": params["blocks"][:2],
+          "norm": params["norm"]}
+    ids1, mask1 = torch.from_numpy(ids[:1]), torch.from_numpy(mask[:1])
+    with torch.no_grad():
+        card = t5m.encoder_forward(p2, cfg2, ids1.cuda(), mask1.cuda())
+        t0 = time.perf_counter()
+        host = t5m.encoder_forward(_to_device(p2, "cpu"), cfg2, ids1, mask1)
+    rel = _rel(torch, host, card)
+    log(f"  umT5-XXL, 2 of 24 layers, bf16, 512 ids (valid {T5_VALID[0]}): card vs CPU rel-L2 "
+        f"{rel:.3e} (the CPU's {time.perf_counter() - t0:.1f} s)")
+    check(rel <= 4e-3, f"T5 card vs CPU rel-L2 {rel:.3e} > 4e-3")
+    del enc, params, p2, states, card
+    torch.cuda.empty_cache()
+    return ctx_file, enc_s[0]
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def vae_checks(torch, np, vae_params):
+    """The full-width VAE on the card against the CPU on a [1, 16, 2, 30,
+    52] latent (5 frames at 240x416): f32 rel-L2 <= 1e-4, bf16 PSNR >= 35
+    dB against the CPU's f32; the 720p latent's single frame (90x160 =
+    14400 tokens) through attention_block, row-blockwise against one-shot on
+    the card, rel-L2 <= 1e-5."""
+    from wanq_tpu_torch.models import vae as vaem
+
+    g = torch.Generator().manual_seed(5)
+    z = torch.randn((1, 16, 2, 30, 52), generator=g)
+    t0 = time.perf_counter()
+    host = vaem.WanVAE(params=vae_params, device="cpu").decode(z)
+    host_s = time.perf_counter() - t0
+    card = vaem.WanVAE(params=vae_params, device="cuda").decode(z.cuda())
+    card16 = vaem.WanVAE(params=vae_params, device="cuda",
+                         compute_dtype=torch.bfloat16).decode(z.cuda())
+    rel, psnr = _rel(torch, host, card), _psnr_video(np, host.numpy(), card16.cpu().numpy())
+    log(f"  VAE decode {tuple(z.shape)} -> {tuple(host.shape)} (the CPU's {host_s:.1f} s): f32 "
+        f"card vs CPU rel-L2 {rel:.3e}; bf16 card vs f32 CPU PSNR {psnr:.2f} dB")
+    check(rel <= 1e-4, f"VAE f32 card vs CPU rel-L2 {rel:.3e} > 1e-4")
+    check(psnr >= 35.0, f"VAE bf16 card vs f32 CPU PSNR {psnr:.2f} dB < 35")
+    p = {k: v.cuda() for k, v in vae_params.items() if k.startswith("decoder.middle.1.")}
+    x = torch.randn((1, 384, 1, 90, 160), generator=g).cuda()
+    blocked = vaem.attention_block(p, "decoder.middle.1", x)
+    limit = vaem._ATTN_BLOCKWISE_MIN_HW
+    vaem._ATTN_BLOCKWISE_MIN_HW = 1 << 30
+    try:
+        one_shot = vaem.attention_block(p, "decoder.middle.1", x)
+    finally:
+        vaem._ATTN_BLOCKWISE_MIN_HW = limit
+    rel = _rel(torch, one_shot, blocked)
+    log(f"  VAE attention_block at 90x160 (14400 tokens, 384 channels): blockwise "
+        f"({vaem._ATTN_Q_BLOCK}-row blocks) vs one-shot on the card rel-L2 {rel:.3e}")
+    check(rel <= 1e-5, f"blockwise vs one-shot attention rel-L2 {rel:.3e} > 1e-5")
+
+
+def whole_generate(torch, calib_path, launches):
+    """Phase 5: a Wan2.1 checkpoint dir from the seed-42 weights, umT5-XXL
+    on the card, fp_generate from --random_init and from --ckpt_dir (equal
+    latent bits), the W8A8 main path through cli.generate down to the
+    decoded video, the VAE and T5 on the card against the CPU, and the 720p
+    bf16 decode of phase 3's w4a8_14b_720p latents."""
+    import numpy as np
+
+    from wanq_tpu_torch.cli import fp_generate, generate, ptq
+    from wanq_tpu_torch.cli.common import load_params
+    from wanq_tpu_torch.configs import WAN_CONFIGS
+    from wanq_tpu_torch.models import params as params_mod
+    from wanq_tpu_torch.models import vae as vaem
+    from wanq_tpu_torch.ops import _lib
+    from wanq_tpu_torch.pipelines.text2video import WanT2V
+
+    cfg = WAN_CONFIGS[TASK]
+    t0 = time.perf_counter()
+    params = load_params(argparse.Namespace(base_seed=42, device="cuda", random_init=True), cfg)
+    shutil.rmtree(CKPT, ignore_errors=True)
+    nbytes = write_dit_checkpoint(params, cfg, str(CKPT))
+    del params
+    torch.cuda.empty_cache()
+    vae_params = vaem.init_vae_params(vaem.WAN_VAE_CFG, seed=0, device="cpu")
+    write_vae_checkpoint(vae_params, str(CKPT / cfg.vae_checkpoint))
+    log(f"  {CKPT.name}: the seed-42 {TASK} DiT as 2 safetensors shards + index "
+        f"({nbytes / 2**30:.2f} GiB), {cfg.vae_checkpoint} "
+        f"({os.path.getsize(CKPT / cfg.vae_checkpoint) / 2**30:.2f} GiB): "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    ctx_file, t5_enc_s = t5_phase(torch, np)
+
+    denoise_s, decode_s, load_s = [], [], []
+    timed = [(owner, name, _timed(torch, owner, name, store)) for owner, name, store in (
+        (WanT2V, "generate", denoise_s), (vaem.WanVAE, "decode", decode_s),
+        (params_mod, "load_wan_checkpoint", load_s))]
+    try:
+        common = ["--task", TASK, "--size", SIZE, "--frame_num", str(FRAMES), "--sample_steps",
+                  str(STEPS), "--context_file", ctx_file, "--device", "cuda"]
+        lat = {}
+        for label, flags in (("random_init", ["--random_init"]),
+                             ("ckpt_dir", ["--ckpt_dir", str(CKPT)])):
+            out = np.load(fp_generate.generate(fp_generate.parse_args(
+                common + flags + ["--save_file", str(OUT / f"fp_{label}.npz")])))
+            lat[label] = out["latents"]
+            if label == "ckpt_dir":
+                fp_video = out["video"]
+        log(f"  fp_generate {STEPS} steps, --random_init vs --ckpt_dir: denoise "
+            f"{denoise_s[0]:.2f} / {denoise_s[1]:.2f} s; load_wan_checkpoint {load_s[0]:.2f} s; "
+            f"f32 VAE decode {decode_s[0]:.2f} s; latents equal bits: "
+            f"{np.array_equal(lat['random_init'], lat['ckpt_dir'])}")
+        check(np.array_equal(lat["random_init"], lat["ckpt_dir"]),
+              "fp_generate latents differ between --random_init and --ckpt_dir")
+
+        art = str(OUT / "quant_params_w8a8.npz")
+        ptq.generate(ptq.parse_args(["--task", TASK, "--size", SIZE, "--frame_num", str(FRAMES),
+                                     "--random_init", "--quant_config", YAML, "--calib_data",
+                                     calib_path, "--save_path", art, "--device", "cuda"]))
+        save = str(OUT / "generate_w8a8.npz")
+        args = generate.parse_args(common + [
+            "--random_init", "--ckpt_dir", str(CKPT), "--quant_config", YAML,
+            "--quant_params", art, "--hardware", "--vae_dtype", "float32", "--save_file", save])
+        del denoise_s[:], decode_s[:]
+        torch.cuda.reset_peak_memory_stats()
+        _lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        generate.generate(args)
+        counts = _lib.launch_counts()
+        total_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        for owner, name, orig in timed:
+            setattr(owner, name, orig)
+    log(f"  [generate w8a8] cli.generate --random_init --ckpt_dir --quant_params --hardware "
+        f"({STEPS} steps, f32 VAE): {total_s:.1f} s; T5 encode {t5_enc_s:.3f} s (the context "
+        f"file's, above), denoise {denoise_s[0]:.2f} s, VAE decode {decode_s[0]:.2f} s; peak "
+        f"{peak / 2**30:.2f} GiB; launches {counts}")
+    per_block = PATHS["w8a8"][1]
+    for name in (*SOURCES, *MODES):
+        want = per_block.get(name, 0) * cfg.num_layers * STEPS
+        check(counts.get(name, 0) == want,
+              f"generate w8a8: {name} {counts.get(name, 0)} launches, want {want}")
+    for name, cnt in counts.items():
+        name = MODES.get(name, name)
+        launches[name] = launches.get(name, 0) + cnt
+    out = np.load(save)
+    video = out["video"]
+    check(video.shape == (1, 3, FRAMES, 480, 832), f"video shape {video.shape}")
+    check(bool(np.isfinite(video).all()), "non-finite video")
+    check(float(np.abs(video).max()) <= 1.0 and float(video.std()) > 0,
+          "video outside [-1, 1] or constant")
+    files = sorted(f for f in os.listdir(OUT) if f.startswith("generate_w8a8."))
+    log(f"  video {video.shape} finite in [{video.min():.3f}, {video.max():.3f}], std "
+        f"{video.std():.4f}; files written: {files} (a video file needs imageio)")
+    vae32 = vaem.WanVAE(params=vae_params, device="cuda")
+    again = vae32.decode(torch.from_numpy(out["latents"]).cuda()).cpu().numpy()
+    check(np.array_equal(again, video), "decoding the saved latents again gives other bits")
+    log(f"  decoding the saved latents again: equal bits; PSNR against fp_generate "
+        f"--ckpt_dir's video (a reading: random VAE weights): "
+        f"{_psnr_video(np, fp_video, video):.2f} dB")
+    del vae32
+    torch.cuda.empty_cache()
+
+    vae_checks(torch, np, vae_params)
+
+    vae16 = vaem.WanVAE(params=vae_params, device="cuda", compute_dtype=torch.bfloat16)
+    lat720 = np.load(OUT / "latents_w4a8_14b_720p.npz")["latents"]
+    for label, z in (("720p w4a8_14b_720p", lat720), ("480p generate w8a8", out["latents"])):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v = vae16.decode(torch.from_numpy(z).cuda())
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        check(bool(torch.isfinite(v).all()), f"non-finite bf16 decode of {label}")
+        note = ""
+        if label.startswith("480p"):
+            note = (f"; f32 {decode_s[0]:.2f} s; bf16 vs f32 PSNR "
+                    f"{_psnr_video(np, video, v.cpu().numpy()):.2f} dB")
+        log(f"  bf16 VAE decode of the {label} latents {z.shape} -> {tuple(v.shape)}: "
+            f"{sec:.2f} s, peak {peak / 2**30:.2f} GiB{note}")
+        del v
+
+
 def int8_attention_plain_route(torch, np, step, ctx, preds, fps):
     """Is the ~58 dB between w8a8_attn and w8a8 the rounding that int8
     attention does by definition, or K10's own error? One more CFG forward
@@ -1973,6 +2311,12 @@ def main() -> int:
     log(f"  phase 4 {TASK}: {time.time() - t0:.1f} s")
     fidelity_14b(torch, calib[TASK_14B])
     log(f"  phase 4: {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    log(f"[5] whole generate ({TASK} {SIZE}x{FRAMES}: checkpoint dir, umT5-XXL, VAE)")
+    t0 = time.time()
+    whole_generate(torch, calib[TASK], launches)
+    log(f"  phase 5: {time.time() - t0:.1f} s")
     log(f"total {time.time() - t_all:.1f} s")
 
     record = {"kernels": [

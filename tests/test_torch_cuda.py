@@ -40,7 +40,10 @@ ragged rows, K2 and K8 at every 14B site shape with ragged M, and K4 at 720p
 each at the limits above; ``init_params_on_device`` on the card: equal bits
 per seed and a peak below the model plus twice its largest tensor. K1,
 K2, K3, K4 (self and cross) and K7 give a row of a batch of 2 the bits
-they give it alone.
+they give it alone. Whole generate: the full-width VAE decodes on the card
+as on the CPU (f32 rel-L2 <= 1e-4, bf16 PSNR >= 35 dB), umT5's widths at 2
+layers encode on the card as on the CPU (rel-L2 <= 4e-3), and
+``load_wan_checkpoint`` reads every tensor straight onto the card.
 """
 
 import math
@@ -1442,3 +1445,114 @@ def test_kernel_row_of_a_batch_equals_it_alone(dev, gen, kernel):
         lone = (_flash_cuda(q[:1], k[:1], v[:1], sc, kv_valid),)
     _finish_within(60, f"{kernel} batch of 2 and of 1")
     assert all(torch.equal(u, w) for u, w in zip(pair, lone))
+
+
+# ---------------------------------------------------------------------------
+# whole generate: the VAE, umT5 and the checkpoint loader on the card
+# ---------------------------------------------------------------------------
+
+
+def _rel(want, got) -> float:
+    want, got = want.double().cpu(), got.double().cpu()
+    return float((want - got).norm() / want.norm())
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def test_vae_decode_card_vs_cpu_f32_and_bf16(dev):
+    """The full-width VAE (WAN_VAE_CFG) decodes 3 latent frames of 8x8 on
+    the card as on the CPU: f32 (cuDNN, TF32 off) rel-L2 <= 1e-4, bf16
+    PSNR >= 35 dB over [-1, 1] against the CPU's f32."""
+    from wanq_tpu_torch.models import vae as vaem
+
+    params = vaem.init_vae_params(vaem.WAN_VAE_CFG, seed=1, device="cpu")
+    z = torch.randn((1, 16, 3, 8, 8), generator=torch.Generator().manual_seed(2))
+    host = vaem.WanVAE(params=params, device="cpu").decode(z)
+    card = vaem.WanVAE(params=params, device=dev).decode(z.to(dev))
+    card16 = vaem.WanVAE(params=params, device=dev, compute_dtype=torch.bfloat16).decode(z.to(dev))
+    assert card.shape == card16.shape == host.shape == (1, 3, 9, 64, 64)
+    assert card16.dtype == torch.float32
+    assert _rel(host, card) <= 1e-4
+    mse = float((host.double() - card16.double().cpu()).square().mean())
+    assert 10 * math.log10(4.0 / mse) >= 35.0
+
+
+def test_t5_encoder_two_layers_card_vs_cpu(dev):
+    """umT5-XXL's widths (dim 4096, ffn 10240, 64 heads; a 1024-token
+    vocabulary), 2 layers, bf16, 512 ids with a ragged mask: the card's
+    states against the CPU's rel-L2 <= 4e-3 (both multiply bf16 operands
+    in f32; chip_smoke.py read 1.6e-3 at umT5-XXL's vocabulary), exactly zero
+    past the mask."""
+    import dataclasses
+
+    from wanq_tpu_torch.models import t5 as t5m
+
+    cfg = dataclasses.replace(t5m.UMT5_XXL, num_layers=2, vocab_size=1024)
+    params = t5m.init_t5_params_on_device(cfg, seed=3, device=dev)
+    g = torch.Generator().manual_seed(4)
+    ids = torch.randint(0, cfg.vocab_size, (2, 512), generator=g)
+    mask = (torch.arange(512)[None] < torch.tensor([[77], [301]])).long()
+    card = t5m.T5EncoderModel(512, cfg=cfg, params=params, device=dev).encode_ids(ids, mask)
+    host_params = _tree_to(params, "cpu")
+    host = t5m.T5EncoderModel(512, cfg=cfg, params=host_params, device="cpu").encode_ids(ids, mask)
+    assert card.shape == (2, 512, 4096) and bool(torch.isfinite(card).all())
+    assert float(card[0, 77:].abs().max()) == 0.0 and float(card[1, 301:].abs().max()) == 0.0
+    assert _rel(host, card) <= 4e-3
+
+
+def test_load_wan_checkpoint_reads_straight_onto_the_card(dev, tmp_path, monkeypatch):
+    """safe_open(..., framework="pt", device=<the card>): every tensor the
+    loader reads is already on the card (no host copy of the model), and
+    every param lands there with the bits that were written."""
+    import safetensors
+
+    from wanq_tpu_torch.configs import tiny_config
+    from wanq_tpu_torch.models import dit as tdit
+    from wanq_tpu_torch.models.params import load_wan_checkpoint
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.pop(0)
+    cfg = tiny_config(param_dtype="bfloat16")
+    params = tdit.init_params(cfg, 5, device="cpu")
+    chip_smoke.write_dit_checkpoint(params, cfg, str(tmp_path), shards=3)
+    opened, read = [], []
+    real = safetensors.safe_open
+
+    class Spy:
+        def __init__(self, path, framework, device="cpu"):
+            opened.append((framework, device))
+            self.f = real(path, framework=framework, device=device)
+
+        def __enter__(self):
+            self.f.__enter__()
+            return self
+
+        def __exit__(self, *exc):
+            return self.f.__exit__(*exc)
+
+        def keys(self):
+            return self.f.keys()
+
+        def get_tensor(self, key):
+            t = self.f.get_tensor(key)
+            read.append(t.device.type)
+            return t
+
+    monkeypatch.setattr(safetensors, "safe_open", Spy)
+    got = load_wan_checkpoint(str(tmp_path), dtype=cfg.dtype, device=dev)
+    assert len(opened) == 3 and all(o == ("pt", str(dev)) for o in opened)
+    assert read and set(read) == {"cuda"}
+    want = chip_smoke.reference_state_dict(params, cfg)
+    back = chip_smoke.reference_state_dict(got, cfg)
+    assert sorted(want) == sorted(back)
+    for k in want:
+        assert back[k].is_cuda and torch.equal(back[k].cpu(), want[k]), k

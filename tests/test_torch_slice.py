@@ -336,7 +336,10 @@ def test_port_imports_neither_jax_nor_wanq_tpu():
     offenders = [f for f in files if bad.search(open(f).read()) or lazy.search(open(f).read())]
     assert not offenders, offenders
     code = ("import sys, wanq_tpu_torch.cli.quant_generate, wanq_tpu_torch.cli.get_calib_data,"
-            " wanq_tpu_torch.models.params, wanq_tpu_torch.ops.attn_int8,"
+            " wanq_tpu_torch.cli.generate, wanq_tpu_torch.cli.fp_generate,"
+            " wanq_tpu_torch.models.params, wanq_tpu_torch.models.t5,"
+            " wanq_tpu_torch.models.vae, wanq_tpu_torch.models.tokenizers,"
+            " wanq_tpu_torch.utils.video, wanq_tpu_torch.ops.attn_int8,"
             " wanq_tpu_torch.quant.attn; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'wanq_tpu')))")
     env = dict(os.environ, PYTHONPATH=ROOT)

@@ -1,31 +1,39 @@
-"""Shared CLI plumbing (counterpart of wanq_tpu/cli/common.py, the subset
-the calibration -> int8 inference chain needs).
+"""Shared CLI plumbing (counterpart of wanq_tpu/cli/common.py).
 
-The runs are checkpoint-free: ``--random_init`` weights from a seed (drawn
-on the card for a CUDA ``--device``), and text states random or from
-``--context_file`` (checkpoints, T5 and the prompt flags come with the T5
-port). The step-cache flags and a quant YAML's ``cache:`` section become a
-policy through :func:`cache_policy_from_args`.
-The multi-device flags are accepted for command-line parity and raise when
-set: multi-GPU is not ported yet.
+The DiT's weights come from a Wan2.1 checkpoint dir (``--ckpt_dir``) or
+from a seed (``--random_init``, drawn on the card for a CUDA ``--device``;
+with both flags the DiT is random and the VAE and T5 come from the dir).
+The text states come from ``--context_file``, else from the dir's umT5
+encoder run on ``--prompt`` / ``--neg_prompt``, else from a seed. The
+step-cache flags and a quant YAML's ``cache:`` section become a policy
+through :func:`cache_policy_from_args`. The multi-device flags, T5 FSDP and
+prompt extension are accepted for command-line parity and raise when set:
+they are not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import logging
+import os
 import sys
+import time
 from typing import Tuple
 
 import numpy as np
 import torch
 
-from wanq_tpu_torch.configs import SIZE_CONFIGS, SUPPORTED_SIZES, WAN_CONFIGS
+from wanq_tpu_torch.configs import SAMPLE_NEG_PROMPT, SIZE_CONFIGS, SUPPORTED_SIZES, WAN_CONFIGS
 
 _MULTI_DEVICE_FLAGS = ("ulysses_size", "ring_size", "dp_size", "fsdp_size")
 # what an unset cache flag means when no YAML section supplies it
 CACHE_DEFAULTS = {"warmup": 4, "tail": 4, "order": 0}
+EXAMPLE_PROMPT = (
+    "Two anthropomorphic cats in comfy boxing gear and bright gloves fight "
+    "intensely on a spotlighted stage."
+)
 
 
 def add_common_args(p: argparse.ArgumentParser, default_steps: int = 50):
@@ -33,13 +41,20 @@ def add_common_args(p: argparse.ArgumentParser, default_steps: int = 50):
     p.add_argument("--size", type=str, default="832*480", choices=list(SIZE_CONFIGS))
     p.add_argument("--frame_num", type=int, default=81, help="4n+1 frames")
     p.add_argument("--ckpt_dir", type=str, default=None,
-                   help="Wan2.1 checkpoint dir (not ported yet: use --random_init)")
+                   help="Wan2.1 checkpoint dir: the DiT's sharded safetensors and their "
+                        "index JSON, Wan2.1_VAE.pth, models_t5_umt5-xxl-enc-bf16.pth and "
+                        "the google/umt5-xxl tokenizer files")
     p.add_argument("--random_init", action="store_true",
-                   help="random weights from --base_seed instead of a checkpoint")
+                   help="random DiT weights from --base_seed instead of the checkpoint's "
+                        "(the VAE and T5 still come from --ckpt_dir when it is given)")
+    p.add_argument("--prompt", type=str, default=EXAMPLE_PROMPT)
+    p.add_argument("--neg_prompt", type=str, default=SAMPLE_NEG_PROMPT)
     p.add_argument("--context_file", type=str, default=None,
                    help="npz with precomputed 'context'/'context_null' "
-                        "text-encoder states")
+                        "text-encoder states (skips T5)")
     p.add_argument("--base_seed", type=int, default=42)
+    p.add_argument("--sample_solver", type=str, default="unipc", choices=["unipc", "dpm++"],
+                   help="dpm++ is not ported yet")
     p.add_argument("--sample_steps", type=int, default=default_steps)
     p.add_argument("--sample_shift", type=float, default=5.0)
     p.add_argument("--sample_guide_scale", type=float, default=5.0)
@@ -51,6 +66,21 @@ def add_common_args(p: argparse.ArgumentParser, default_steps: int = 50):
         p.add_argument(f"--{flag}", type=int, default=1,
                        help="multi-GPU (not ported yet; must stay 1)")
     p.add_argument("--dit_fsdp", action="store_true", help="multi-GPU (not ported yet)")
+    p.add_argument("--t5_fsdp", action="store_true", help="multi-GPU (not ported yet)")
+    p.add_argument("--t5_cpu", action="store_true",
+                   help="run the T5 encoder on the host CPU (the card's memory stays free "
+                        "for the DiT)")
+    p.add_argument("--offload_model", type=str, default=None,
+                   help="accepted for the reference CLI's sake and ignored: T5 is freed "
+                        "before the denoise, the DiT stays on the card")
+    p.add_argument("--vae_dtype", type=str, default="float32", choices=["float32", "bfloat16"],
+                   help="VAE compute dtype (the reference's WanVAE(dtype=...)): bfloat16 "
+                        "halves the weights' and activations' bytes; the video stays float32")
+    p.add_argument("--use_prompt_extend", action="store_true", help="not ported yet")
+    p.add_argument("--prompt_extend_method", type=str, default="local_qwen",
+                   choices=["dashscope", "local_qwen"])
+    p.add_argument("--prompt_extend_model", type=str, default=None)
+    p.add_argument("--prompt_extend_target_lang", type=str, default="en", choices=["en", "zh"])
     p.add_argument("--attn_window", type=str, default="-1",
                    help="sliding temporal-window self-attention: band of +-N latent frames "
                         "(K4's band mode skips the kv tiles outside it). -1 = dense; a comma "
@@ -169,15 +199,22 @@ def validate_args(args):
     if args.size not in SUPPORTED_SIZES[args.task]:
         raise SystemExit(f"size {args.size} unsupported for {args.task}: "
                          f"{SUPPORTED_SIZES[args.task]}")
-    if any(getattr(args, f) != 1 for f in _MULTI_DEVICE_FLAGS) or args.dit_fsdp:
+    if (any(getattr(args, f) != 1 for f in _MULTI_DEVICE_FLAGS) or args.dit_fsdp
+            or args.t5_fsdp):
         raise NotImplementedError(
-            "multi-GPU runs are not ported yet (ROADMAP Queue 1 item 10)")
-    if args.ckpt_dir is not None:
+            "multi-GPU runs (--dit_fsdp, --t5_fsdp, the mesh sizes) are not ported yet "
+            "(ROADMAP Queue 1 item 10)")
+    if args.use_prompt_extend:
         raise NotImplementedError(
-            "checkpoint loading and the T5 encoder are not ported yet "
-            "(ROADMAP Queue 1 item 4); use --random_init")
-    if not args.random_init:
-        raise SystemExit("need --random_init (checkpoint loading is not ported yet)")
+            "prompt extension (--use_prompt_extend) is not ported yet (ROADMAP Queue 1 item 11)")
+    if WAN_CONFIGS[args.task].model_type == "i2v":
+        raise NotImplementedError("i2v is not ported yet (ROADMAP Queue 1 item 9)")
+    if args.sample_solver != "unipc":
+        raise NotImplementedError(
+            f"solver {args.sample_solver!r} is not ported yet (ROADMAP Queue 1 item 9)")
+    if args.ckpt_dir is None and not args.random_init and args.context_file is None:
+        raise SystemExit("need --ckpt_dir, or --random_init (+ optional --context_file) "
+                         "for checkpoint-free runs")
     if args.device.startswith("cuda"):
         if not torch.cuda.is_available():
             raise SystemExit("--device cuda but torch sees no CUDA device")
@@ -196,11 +233,17 @@ def setup_logging():
 
 
 def load_contexts(args, cfg) -> Tuple[np.ndarray, np.ndarray]:
-    """Text-encoder states: from --context_file, else random from
+    """Text-encoder states: from --context_file, else the checkpoint's T5 on
+    --prompt / --neg_prompt (on the host with --t5_cpu), else random from
     --base_seed (the same draw as wanq_tpu's load_contexts)."""
     if args.context_file:
         data = np.load(args.context_file)
         return data["context"], data["context_null"]
+    if getattr(args, "ckpt_dir", None):
+        from wanq_tpu_torch.models.t5 import encode_prompts
+
+        return encode_prompts(args.ckpt_dir, cfg, [args.prompt], [args.neg_prompt],
+                              on_cpu=args.t5_cpu, device=args.device)
     rng = np.random.default_rng(args.base_seed)
     shape = (1, cfg.text_len, cfg.text_dim)
     return (rng.normal(size=shape).astype(np.float32),
@@ -208,7 +251,8 @@ def load_contexts(args, cfg) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def load_params(args, cfg):
-    """--random_init weights on ``args.device``: drawn on the card by
+    """The DiT's weights on ``args.device``: the checkpoint's with
+    --ckpt_dir and no --random_init, else drawn on the card by
     ``init_params_on_device`` for a CUDA device (no host copy: T2V-14B is
     28.6 GB), by the host numpy draw of ``init_params`` otherwise (the same
     weights as wanq_tpu's from the same seed). init_params zero-inits
@@ -217,6 +261,10 @@ def load_params(args, cfg):
     base_seed + 1, by a torch.Generator on the card or numpy on the host
     (wanq_tpu draws it with jax.random, so that one tensor differs between
     the packages)."""
+    if getattr(args, "ckpt_dir", None) and not args.random_init:
+        from wanq_tpu_torch.models.params import load_wan_checkpoint
+
+        return load_wan_checkpoint(args.ckpt_dir, dtype=cfg.dtype, device=args.device)
     from wanq_tpu_torch.models.dit import init_params, init_params_on_device
 
     hw_shape = (cfg.dim, int(np.prod(cfg.patch_size)) * cfg.out_dim)
@@ -230,3 +278,61 @@ def load_params(args, cfg):
         head = torch.from_numpy((0.02 * rng.standard_normal(hw_shape)).astype(np.float32))
     params["head"]["head"]["w"] = head.to(device=args.device, dtype=cfg.dtype)
     return params
+
+
+def synced_time(device) -> float:
+    """time.time() after the device's queued work has finished."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return time.time()
+
+
+def free_device_memory(device) -> None:
+    """Return the cached blocks of freed tensors to the card."""
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def load_vae(args, cfg):
+    """The VAE of --ckpt_dir in --vae_dtype on --device; None, with a
+    warning, when the dir holds no VAE file (the latents are saved alone)."""
+    from wanq_tpu_torch.models.vae import WanVAE
+
+    try:
+        return WanVAE(vae_pth=os.path.join(args.ckpt_dir, cfg.vae_checkpoint),
+                      compute_dtype=getattr(torch, args.vae_dtype), device=args.device)
+    except FileNotFoundError as e:
+        logging.warning("VAE decode skipped: %s", e)
+        return None
+
+
+def decode_video(vae, latents, device) -> np.ndarray:
+    """VAE-decode latents to a float32 [B, 3, T, H, W] video in [-1, 1]."""
+    t0 = synced_time(device)
+    video = vae.decode(latents).cpu().numpy()
+    logging.info("VAE decode (%s) done in %.2fs, video %s", vae.compute_dtype,
+                 time.time() - t0, video.shape)
+    return video
+
+
+def save_outputs(save_file: str, out, fps: int) -> str:
+    """np.savez(save_file, **out), then, where ``out`` holds a 'video', the
+    video file beside it (an mp4, or a GIF where imageio has no mp4
+    backend). Without imageio no video file is written and the log says
+    so; the npz holds the frames either way (wanq_tpu's generate stops
+    there instead)."""
+    from wanq_tpu_torch.utils.video import cache_video
+
+    if not save_file.endswith(".npz"):
+        save_file += ".npz"  # np.savez appends it anyway; log the real path
+    np.savez(save_file, **out)
+    logging.info("saved %s", save_file)
+    if "video" in out:
+        try:
+            written = cache_video(out["video"], save_file[:-len(".npz")] + ".mp4", fps=fps)
+        except ImportError as e:
+            logging.warning("no video file written: %s", e)
+        else:
+            logging.info("wrote %s", written)
+    return save_file

@@ -1,0 +1,174 @@
+"""Unified generation CLI (counterpart of wanq_tpu/cli/generate.py): t2v and
+t2i (a one-frame t2v), FP or quantized (``--quant_config`` with the
+``--quant_params`` artifact of ptq, simulated or ``--hardware``), then the
+VAE decode of the latents in --vae_dtype when --ckpt_dir holds a VAE. i2v is
+not ported yet.
+
+    python -m wanq_tpu_torch.cli.generate --task t2v-1.3B --size 832*480 \
+        --ckpt_dir Wan2.1-T2V-1.3B --prompt "..." \
+        --quant_config quant_configs/wan_w8a8_speed.yaml \
+        --quant_params quant_params.npz --hardware --save_file gen.npz
+
+``--prompt_file`` serves one prompt per line from one process: the DiT and
+its quant state load once, one T5 encoder encodes every prompt and is freed
+before the first denoise, and each prompt gets its own npz (and video file).
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import time
+
+import numpy as np
+import torch
+
+from wanq_tpu_torch.cli.common import (
+    add_common_args,
+    cache_policy_from_args,
+    decode_video,
+    free_device_memory,
+    load_contexts,
+    load_params,
+    load_vae,
+    parse_attn_window,
+    save_outputs,
+    setup_logging,
+    synced_time,
+    validate_args,
+)
+from wanq_tpu_torch.configs import SIZE_CONFIGS, WAN_CONFIGS
+from wanq_tpu_torch.pipelines.text2video import WanT2V
+from wanq_tpu_torch.quant.qlinear import QuantCtx
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser("wanq_tpu_torch generate")
+    add_common_args(p)
+    p.add_argument("--image", type=str, default=None, help="input image (i2v: not ported yet)")
+    p.add_argument("--quant_config", type=str, default=None)
+    p.add_argument("--quant_params", type=str, default=None,
+                   help="quant-state npz from the ptq stage (either package's), or a "
+                        "reference quant_params.pth; needed with --quant_config")
+    p.add_argument("--hardware", action="store_true",
+                   help="int kernel path; default is simulated quantization")
+    p.add_argument("--prompt_file", type=str, default=None,
+                   help="serving loop: one prompt per line, every video from one process "
+                        "(t2v/t2i). The prompts are T5-encoded up front by one encoder, "
+                        "freed before the denoise; without --ckpt_dir or "
+                        "--context_file each line gets seeded random states")
+    return p.parse_args(argv)
+
+
+def _quant_config(args):
+    from wanq_tpu_torch.quant import QuantConfig
+
+    return QuantConfig.from_yaml(args.quant_config) if args.quant_config else None
+
+
+def _maybe_quant_ctx(args, cfg, params, qcfg):
+    """The QuantCtx of --quant_config / --quant_params (sim, or int8 with
+    --hardware); an fp-mode ctx that only carries --attn_window; or None."""
+    win = parse_attn_window(args)
+    if qcfg is None:
+        return QuantCtx(mode="fp", attn_window=win) if win is not None else None
+    if not args.quant_params:
+        raise SystemExit("--quant_config needs --quant_params (run ptq)")
+    from wanq_tpu_torch.cli.quant_generate import quantize_or_load
+
+    mode = "int8" if args.hardware else "sim"
+    policies, state, rotations = quantize_or_load(args, params, cfg, qcfg, mode)
+    return QuantCtx(mode=mode, policies=policies, state=state, rotations=rotations,
+                    attn=qcfg.attn_cfg, cross_attn=qcfg.cross_attn_cfg, attn_window=win)
+
+
+def _prompt_contexts(args, cfg, prompts):
+    """[n, text_len, text_dim] states for the prompts: the first n rows of
+    --context_file, else the checkpoint's T5 (one encoder for all), else seeded
+    random."""
+    n = len(prompts)
+    if args.context_file:
+        data = np.load(args.context_file)
+        ctx, ctx_null = data["context"], data["context_null"]
+        if ctx.shape[0] < n:
+            raise SystemExit(f"--context_file has {ctx.shape[0]} rows < {n} prompts")
+        return ctx, ctx_null
+    if args.ckpt_dir:
+        from wanq_tpu_torch.models.t5 import encode_prompts
+
+        return encode_prompts(args.ckpt_dir, cfg, prompts, [args.neg_prompt] * n,
+                              on_cpu=args.t5_cpu, device=args.device)
+    rng = np.random.default_rng(args.base_seed)
+    shape = (n, cfg.text_len, cfg.text_dim)
+    return (rng.normal(size=shape).astype(np.float32),
+            rng.normal(size=shape).astype(np.float32))
+
+
+def _serving_loop(args, cfg, pipe, common, vae, on_step):
+    """One npz (and video file) per line of --prompt_file, from one process."""
+    with open(args.prompt_file) as f:
+        prompts = [ln.strip() for ln in f if ln.strip()]
+    if not prompts:
+        raise SystemExit(f"no prompts in {args.prompt_file}")
+    ctx_all, ctxn_all = _prompt_contexts(args, cfg, prompts)
+    base = args.save_file or f"gen_{args.task}_{args.size.replace('*', 'x')}.npz"
+    saved = []
+    for i, prompt in enumerate(prompts):
+        t0 = time.time()
+        latents = pipe.generate(
+            torch.from_numpy(ctx_all[i:i + 1]), torch.from_numpy(ctxn_all[i:i + 1]),
+            size=SIZE_CONFIGS[args.size], on_step=on_step, **common)
+        out = {"latents": latents.cpu().numpy(), "prompt": np.asarray(prompt)}
+        if vae is not None:
+            out["video"] = decode_video(vae, latents, args.device)
+        saved.append(save_outputs(base.replace(".npz", f"_p{i}.npz"), out, cfg.sample_fps))
+        logging.info("prompt %d/%d in %.1fs -> %s", i + 1, len(prompts), time.time() - t0,
+                     saved[-1])
+    return saved
+
+
+def generate(args, on_step=None):
+    """Returns the npz path (a list of them with --prompt_file).
+    ``on_step(i, t, latents)`` runs after each solver step."""
+    setup_logging()
+    validate_args(args)
+    cfg = WAN_CONFIGS[args.task]
+    if args.task.startswith("t2i"):
+        args.frame_num = 1
+    t0 = synced_time(args.device)
+    params = load_params(args, cfg)
+    logging.info("params (%s) in %.2fs", "random" if args.random_init else args.ckpt_dir,
+                 synced_time(args.device) - t0)
+    context = context_null = None
+    if not args.prompt_file:  # the serving loop encodes its own batch
+        t0 = synced_time(args.device)
+        context, context_null = load_contexts(args, cfg)
+        logging.info("text states in %.2fs", synced_time(args.device) - t0)
+    # the YAML is read once: its quant state and its cache: section (the
+    # step-cache fallback) serve every prompt
+    qcfg = _quant_config(args)
+    qctx = _maybe_quant_ctx(args, cfg, params, qcfg)
+    pipe = WanT2V(cfg, params, quant_ctx=qctx, device=args.device)
+    vae = load_vae(args, cfg) if args.ckpt_dir else None
+    common = dict(frame_num=args.frame_num, shift=args.sample_shift,
+                  sample_solver=args.sample_solver, sampling_steps=args.sample_steps,
+                  guide_scale=args.sample_guide_scale, seed=args.base_seed,
+                  cfg_mode=args.cfg_mode, cache_policy=cache_policy_from_args(args, qcfg))
+    if args.prompt_file:
+        return _serving_loop(args, cfg, pipe, common, vae, on_step)
+    t0 = synced_time(args.device)
+    latents = pipe.generate(torch.from_numpy(context), torch.from_numpy(context_null),
+                            size=SIZE_CONFIGS[args.size], on_step=on_step, **common)
+    logging.info("denoise (%s) done in %.2fs, latents %s", qctx.mode if qctx else "fp",
+                 synced_time(args.device) - t0, tuple(latents.shape))
+    out = {"latents": latents.cpu().numpy()}
+    if vae is not None:
+        del pipe, qctx, params  # the decode gets the DiT's memory (T2V-14B at 720p)
+        free_device_memory(args.device)
+        out["video"] = decode_video(vae, latents, args.device)
+    save_file = args.save_file or f"gen_{args.task}_{args.size.replace('*', 'x')}.npz"
+    return save_outputs(save_file, out, cfg.sample_fps)
+
+
+if __name__ == "__main__":
+    generate(parse_args())

@@ -86,24 +86,15 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def generate(args, on_step=None):
-    """Quantize the weights (or load a saved quant state), run the
-    simulated or int denoise loop and save the latents; returns the npz
-    path.
-    ``on_step(i, t, latents)`` runs after each solver step."""
-    setup_logging()
-    validate_args(args)
-    mode = "int8" if args.hardware else "sim"
-    cfg = WAN_CONFIGS[args.task]
-    size = SIZE_CONFIGS[args.size]
-    qcfg = QuantConfig.from_yaml(args.quant_config)
-    cache_policy = cache_policy_from_args(args, qcfg)
-    logging.info("step cache: %s", cache_policy or "off")
-    params = load_params(args, cfg)
+def quantize_or_load(args, params, cfg, qcfg, mode: str):
+    """(policies, state, rotations) of ``mode`` ('sim' or 'int8'): from
+    ``--quant_params`` (the npz of either package's ptq, the rotations rebuilt
+    from its seed; or a reference ``quant_params.pth``, whose rotated layers
+    raise: it holds no matrices), else quantized on the fly from
+    ``--calib_data``."""
     names = linear_layer_names(cfg)
     t0 = time.time()
     if args.quant_params and args.quant_params.endswith(".pth"):
-        # rotated layers raise: the artifact does not hold their matrices
         policies = {n: qcfg.resolve(n) for n in names}
         state = state_from_reference_params(
             params, policies, load_reference_quant_params(args.quant_params), targets=mode)
@@ -121,6 +112,24 @@ def generate(args, on_step=None):
         policies, state, rotations = prepare_quant_state(params, names, qcfg, calib=calib,
                                                          targets=mode)
         logging.info("computed quant state: %d layers in %.2fs", len(state), time.time() - t0)
+    return policies, state, rotations
+
+
+def generate(args, on_step=None):
+    """Quantize the weights (or load a saved quant state), run the
+    simulated or int denoise loop and save the latents; returns the npz
+    path.
+    ``on_step(i, t, latents)`` runs after each solver step."""
+    setup_logging()
+    validate_args(args)
+    mode = "int8" if args.hardware else "sim"
+    cfg = WAN_CONFIGS[args.task]
+    size = SIZE_CONFIGS[args.size]
+    qcfg = QuantConfig.from_yaml(args.quant_config)
+    cache_policy = cache_policy_from_args(args, qcfg)
+    logging.info("step cache: %s", cache_policy or "off")
+    params = load_params(args, cfg)
+    policies, state, rotations = quantize_or_load(args, params, cfg, qcfg, mode)
     if args.strip_fp:
         held = _held_gib(args.device)
         params = strip_quantized_weights(params, policies)

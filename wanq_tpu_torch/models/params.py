@@ -1,4 +1,10 @@
-"""Converters from the JAX package's artifacts to the port's.
+"""Converters into the port's params: from a Wan2.1 checkpoint dir and from
+the JAX package's artifacts.
+
+A Wan2.1 checkpoint (sharded safetensors with the reference's key names and
+torch layouts) loads with :func:`load_wan_checkpoint`: linear weights
+[C_out, C_in] become the port's ``w`` [C_in, C_out], the 5-D patch
+embedding its dense per-patch ``w``.
 
 The JAX package's param pytree and quant state are plain nested
 dicts/lists of arrays. Given them as numpy arrays (``np.asarray`` on every
@@ -24,7 +30,10 @@ asks for the CPU.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+import json
+import os
+import re
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -79,3 +88,98 @@ def attn_perms_from_numpy(perms: Mapping[str, Any],
     ``QuantCtx.attn_perms`` holds (the JAX package keeps int32 arrays)."""
     return {name: torch.from_numpy(np.asarray(p).astype(np.int64)).to(device)
             for name, p in perms.items()}
+
+
+# ---------------------------------------------------------------------------
+# Wan2.1 checkpoints
+# ---------------------------------------------------------------------------
+
+INDEX_FILE = "diffusion_pytorch_model.safetensors.index.json"
+
+
+def _set(tree: Dict[str, Any], path: str, leaf):
+    parts = path.split(".")
+    node = tree
+    i = 0
+    while i < len(parts) - 1:
+        if parts[i] == "blocks":
+            idx = int(parts[i + 1])
+            lst = node.setdefault("blocks", [])
+            while len(lst) <= idx:
+                lst.append({})
+            node = lst[idx]
+            i += 2
+        else:
+            node = node.setdefault(parts[i], {})
+            i += 1
+    node[parts[-1]] = leaf
+
+
+def convert_tensor(key: str, v: torch.Tensor,
+                   dtype) -> Optional[Tuple[str, torch.Tensor, torch.dtype]]:
+    """One reference-layout tensor -> (param path, tensor in the port's
+    layout, dtype), or None for a tensor the port recomputes (the rope
+    ``freqs``)."""
+    if key == "patch_embedding.weight":
+        # [dim, in_dim, pt, ph, pw] -> [in_dim*pt*ph*pw, dim]
+        return "patch_embedding.w", v.reshape(v.shape[0], -1).t(), dtype
+    if key == "patch_embedding.bias":
+        return "patch_embedding.b", v, torch.float32
+    if re.search(r"\bmodulation$", key):
+        return key, v, torch.float32
+    if re.search(r"norm_q\.weight$|norm_k\.weight$|norm_k_img\.weight$", key):
+        return key.rsplit(".", 1)[0], v, torch.float32
+    if re.search(r"norm3\.(weight|bias)$", key):
+        leaf = "w" if key.endswith("weight") else "b"
+        return key.rsplit(".", 1)[0] + "." + leaf, v, torch.float32
+    if key.endswith(".weight") and v.dim() == 2:
+        return key[: -len(".weight")] + ".w", v.t(), dtype
+    if key.endswith(".weight") and v.dim() == 1:  # the layer norms of img_emb
+        return key[: -len(".weight")] + ".w", v, torch.float32
+    if key.endswith(".bias"):
+        return key[: -len(".bias")] + ".b", v, torch.float32
+    if key == "freqs":
+        return None  # the rope tables are recomputed (models/rope.py)
+    # an unknown auxiliary tensor: kept, so that it shows
+    return key, v, torch.float32
+
+
+def _convert_into(params: Dict[str, Any], items, dtype, device) -> Dict[str, Any]:
+    """Convert (key, tensor) pairs one at a time into ``params`` on ``device``."""
+    for key, val in items:
+        conv = convert_tensor(key, torch.as_tensor(val), dtype)
+        if conv is not None:
+            path, v, leaf_dtype = conv
+            _set(params, path, v.to(device=device, dtype=leaf_dtype).contiguous())
+    return params
+
+
+def convert_state_dict(sd: Mapping[str, torch.Tensor], dtype=torch.bfloat16,
+                       device="cuda") -> Dict[str, Any]:
+    """Reference-layout state dict {name: tensor} -> port params on ``device``."""
+    return _convert_into({}, sd.items(), dtype, device)
+
+
+def load_wan_checkpoint(ckpt_dir: str, dtype=torch.bfloat16, device="cuda") -> Dict[str, Any]:
+    """Load a Wan2.1 checkpoint dir: sharded safetensors and their index
+    JSON (the format WanModel.from_pretrained reads), or every
+    ``*.safetensors`` file in it without an index. Each tensor is read by
+    ``safe_open(..., framework="pt", device=...)`` straight onto ``device``,
+    converted there and kept, one at a time: the host never holds the model
+    (T2V-14B is 28.6 GB in bf16)."""
+    from safetensors import safe_open
+
+    index_path = os.path.join(ckpt_dir, INDEX_FILE)
+    if os.path.exists(index_path):
+        with open(index_path) as f:
+            files = sorted(set(json.load(f)["weight_map"].values()))
+    else:
+        files = sorted(f for f in os.listdir(ckpt_dir) if f.endswith(".safetensors"))
+    if not files:
+        raise FileNotFoundError(f"no safetensors files in {ckpt_dir}")
+    dev = torch.device(device)
+    params: Dict[str, Any] = {}
+    for fname in files:
+        with safe_open(os.path.join(ckpt_dir, fname), framework="pt", device=str(dev)) as f:
+            _convert_into(params, ((k, f.get_tensor(k)) for k in f.keys()), dtype, dev)
+    return params
