@@ -64,7 +64,14 @@ non-zero:
    latent frame (w8a8_win1: wan_w8a8_speed.yaml --hardware --attn_window 1,
    the same calibration: self-attention runs K4's band mode) and ViDiT-Q
    (viditq: quant_configs/config.yaml, the same calibration through cli.ptq,
-   whose npz artifact quant_generate --quant_params --hardware deploys); two
+   whose npz artifact quant_generate --quant_params --hardware deploys) and
+   GPTQ (w4a8_gptq: wan_w4a8_gptq.yaml after its own calibration,
+   get_calib_data --collect_hessian GPTQ_REGEX (self-attention, cross q and
+   o, ffn.0) --calib_rounds 3, one step a round: the Hessian sites and bytes printed
+   and counted; then cli.ptq, with each GPTQ solve timed by layer shape, and
+   quant_generate --quant_params --hardware) and SVDQuant (svdquant:
+   wan_svdquant.yaml, the shared calibration, through cli.ptq and
+   --quant_params --hardware: masks, rank-32 bf16 branches, K9); two
    checks of the CFG schedules: w8a8 with --cfg_mode sequential (its first
    step against w8a8's batched one: rel-L2 <= 1e-3, equal bits printed) and
    w8a8 over 8 steps under a static step cache (--reuse_interval 2
@@ -93,7 +100,11 @@ non-zero:
    >= 30 dB conditional; w8a8_win1 against bf16 with the same window: PSNR
    >= 30 dB with CFG, its distance to dense bf16 printed; viditq from the
    phase-3 artifact: PSNR >= 30 dB with CFG, and sim vs int8 mode from the
-   same artifact >= 30 dB conditional, with the PTQ timed on the card);
+   same artifact >= 30 dB conditional, with the PTQ timed on the card;
+   w4a8_gptq and svdquant from their artifacts at the 4-bit gates and sim vs
+   int8 >= 30 dB conditional, each printed beside its RTN twin, w4a8_static
+   and w4a4; and GPTQ's layer gate: at every Hessian site tr(dW^T H dW) of
+   the artifact's codes below RTN's on the same grid at >= 95% of them);
    fp_linear on the card against the CPU's f32 product; one CFG forward of
    each under torch.profiler (wall time, device time by kernel, idle share);
    a small config under each YAML, with a cross_attn section, under a
@@ -119,6 +130,7 @@ and power limit, and the last line {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -155,9 +167,19 @@ YAML = "quant_configs/wan_w8a8_speed.yaml"
 #   rotated q/k/v are not fusable, so each takes plain LN + modulate, x * mask
 #   @ rotation (an f32 library product), K7 on the f32 rows and K2; K3 and K4
 #   as in bf16.
+# GPTQ (wan_w4a8_gptq.yaml: wan_w4a8_14b.yaml with Hessian-aware rounding): the
+#   state is a drop-in, so W4A8_STATIC's launches.
+# SVDQuant (wan_svdquant.yaml: SmoothQuant masks at every linear, W4A4 on the
+#   residual of a rank-32 bf16 branch): K9 at the 8 sites on x * mask, as w4a4;
+#   the branch's two products are cuBLAS beside it.
 ATTN_YAML = "quant_configs/wan_w8a8_attn.yaml"
 VIDITQ_YAML = "quant_configs/config.yaml"
 W4A8_14B_YAML = "quant_configs/wan_w4a8_14b.yaml"
+GPTQ_YAML = "quant_configs/wan_w4a8_gptq.yaml"
+SVD_YAML = "quant_configs/wan_svdquant.yaml"
+# the Hessian sites of wan_w4a8_gptq.yaml's own calibration recipe (7 a block)
+GPTQ_REGEX = r"self_attn|cross_attn\.(q|o)|ffn\.0"
+W4A4 = {"rms_rope_heads": 3, "attention": 2, "w4a4_linear": 8}
 W8A8 = {"ln_modulate_quant": 3, "w8a8_linear": 5, "w8a8_linear_gelu_quant": 1,
         "rms_rope_heads": 3, "attention": 2}
 W4A8_STATIC = {"ln_modulate_quant": 3, "w4a8_linear": 7, "w4a8_linear_gelu_quant": 1,
@@ -171,8 +193,7 @@ PATHS = {
     "w4a8_mixed": ("quant_configs/wan_w4a8_mixed.yaml",
                    {"ln_modulate_quant": 2, "w8a8_linear": 4, "rms_rope_heads": 3,
                     "attention": 2, "quant_sum": 2, "w4a8_linear": 2}),
-    "w4a4": ("quant_configs/wan_w4a4.yaml",
-             {"rms_rope_heads": 3, "attention": 2, "w4a4_linear": 8}),
+    "w4a4": ("quant_configs/wan_w4a4.yaml", W4A4),
     "w8a8_attn": (ATTN_YAML, {"ln_modulate_quant": 3, "w8a8_linear": 5,
                               "w8a8_linear_gelu_quant": 1, "rms_rope_heads": 3,
                               "attention": 1, "quantize_qkv_int8": 1, "attention_int8": 1}),
@@ -182,6 +203,8 @@ PATHS = {
                          "rms_rope_heads": 3, "attention": 1, "attention_band": 1}),
     "viditq": (VIDITQ_YAML, {"quant_sum": 3, "w8a8_linear": 3, "rms_rope_heads": 3,
                              "attention": 2}),
+    "w4a8_gptq": (GPTQ_YAML, W4A8_STATIC),
+    "svdquant": (SVD_YAML, W4A4),
     # two checks of the CFG schedules at 1.3B: w8a8 with sequential CFG (its
     # first step held against w8a8's batched one) and w8a8 under a static
     # step cache (counts from StepCachePolicy.plan)
@@ -213,13 +236,19 @@ RUNS = {
 SIM_PATHS = ("w8a8_sim",)                        # quant_generate without --hardware
 WINDOWS = {"w8a8_win1": 1}                       # quant_generate --attn_window
 # cli.ptq writes the quant-state artifact, quant_generate --quant_params loads it
-PTQ_PATHS = ("viditq",)
+PTQ_PATHS = ("viditq", "w4a8_gptq", "svdquant")
 # the paths that take no calibration; every other path gets its task's
-# (a static ffn.2 scale or SmoothQuant masks)
+# (a static ffn.2 scale or SmoothQuant masks), or its own (CALIB_FLAGS):
+# w4a8_gptq's YAML recipe, one step a round
 NO_CALIB_PATHS = ("w4a8_mixed", "w4a4")
-# the paths phase 4 holds against bf16: the eight 1.3B deployments, and 14B
+CALIB_FLAGS = {"w4a8_gptq": ("--collect_hessian", GPTQ_REGEX, "--calib_rounds", "3")}
+# the paths phase 4 holds against bf16: the ten 1.3B deployments, and 14B
 FIDELITY_13B = ("w8a8", "w4a8_mixed", "w4a4", "w8a8_attn", "w8a8_sim", "w4a8_static",
-                "w8a8_win1", "viditq")
+                "w8a8_win1", "viditq", "w4a8_gptq", "svdquant")
+# gated at PSNR >= 30 dB with CFG 5; the others at the 4-bit cosines
+PSNR_GATED = ("w8a8", "w8a8_sim", "w8a8_win1", "viditq")
+# a 1.3B path beside the path it changes the rounding of
+RTN_TWIN = {"w4a8_gptq": "w4a8_static", "svdquant": "w4a4"}
 FIDELITY_14B = ("w8a8_14b", "w4a8_14b")
 SOURCES = {
     "ln_modulate_quant": ("wanq_tpu_torch/csrc/ln_modulate_quant.cu",
@@ -1206,23 +1235,45 @@ def cli_args(yaml, extra, task=TASK, size=SIZE):
             "--quant_config", yaml, "--device", "cuda", *extra]
 
 
-def calibrate(torch, task=TASK, yaml=YAML):
+def calibrate(torch, task=TASK, yaml=YAML, extra=(), tag=None):
     """get_calib_data --collect_minmax, 1 batched step at 480p: the static
     ffn.2 scale of the task's paths (at 14B it serves 720p too: the scale is
-    per tensor) comes from it."""
+    per tensor) comes from it. ``extra`` flags (a path's own recipe,
+    CALIB_FLAGS) write ``calib_data_<tag>.npz``; with --collect_hessian the
+    number of Hessians and their bytes are printed and the count checked
+    against the regex's sites."""
+    import re
+
+    import numpy as np
+
     from wanq_tpu_torch.cli import get_calib_data
+    from wanq_tpu_torch.configs import WAN_CONFIGS
+    from wanq_tpu_torch.models.dit import linear_layer_names
     from wanq_tpu_torch.ops import _lib
 
-    calib_path = str(OUT / f"calib_data_{task}.npz")
+    calib_path = str(OUT / f"calib_data_{tag or task}.npz")
     t0 = time.time()
     _lib.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     get_calib_data.generate(get_calib_data.parse_args(cli_args(yaml, [
-        "--collect_minmax", "--sample_steps", "1", "--calib_save_path", calib_path], task)))
+        "--collect_minmax", "--sample_steps", "1", "--calib_save_path", calib_path,
+        *extra], task)))
     torch.cuda.synchronize()
-    log(f"  get_calib_data {task} (1 step, incl. random init on the card): "
-        f"{time.time() - t0:.1f} s; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-        f"launches {_lib.launch_counts()} (calibration runs FP)")
+    log(f"  get_calib_data {task} {' '.join(extra)} (1 step a round, incl. random init on the "
+        f"card): {time.time() - t0:.1f} s; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{_lib.launch_counts()} (calibration runs FP)")
+    if "--collect_hessian" in extra:
+        regex = extra[extra.index("--collect_hessian") + 1]
+        want = [n for n in linear_layer_names(WAN_CONFIGS[task]) if re.search(regex, n)]
+        with np.load(calib_path) as d:
+            shapes = {k: d[k].shape for k in d.files if k.endswith(".hess")}
+        nbytes = sum(4 * a * b for a, b in shapes.values())
+        log(f"  {len(shapes)} Hessian sites ({len(want)} match {regex!r}), [C_in, C_in] f32: "
+            f"{nbytes / 1e9:.3f} GB, summed on the card and saved in the npz "
+            f"({os.path.getsize(calib_path) / 1e9:.3f} GB with the absmax and min/max stacks)")
+        check(sorted(shapes) == sorted(f"{n}.hess" for n in want),
+              f"Hessian sites {len(shapes)} != the regex's {len(want)}")
     return calib_path
 
 
@@ -1296,12 +1347,20 @@ def run_path(torch, label, launches, calib_path=None):
         # the ptq stage writes the artifact that quant_generate deploys
         art = str(OUT / f"quant_params_{label}.npz")
         _lib.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
-        ptq.generate(ptq.parse_args(cli_args(yaml, extra + ["--save_path", art], task, size)))
+        with timed_gptq(torch) as solves:
+            ptq.generate(ptq.parse_args(cli_args(yaml, extra + ["--save_path", art], task, size)))
         torch.cuda.synchronize()
         log(f"  [{label}] cli.ptq {yaml} (incl. random init and the npz write): "
-            f"{time.time() - t0:.1f} s, {os.path.getsize(art) / 2**20:.1f} MiB; launches "
+            f"{time.time() - t0:.1f} s, {os.path.getsize(art) / 2**20:.1f} MiB; peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
             f"{_lib.launch_counts()}")
+        if solves:
+            log(f"  [{label}] GPTQ solves on the card: {sum(map(len, solves.values()))} sites, "
+                f"{sum(map(sum, solves.values())):.2f} s in all; by [C_in, C_out]: " + "; ".join(
+                    f"{k}x{n}: {len(ts)} x {sum(ts) / len(ts):.3f} s" for (k, n), ts in
+                    sorted(solves.items())))
         check(not _lib.launch_counts(), f"{label}: PTQ launched {_lib.launch_counts()}")
         extra = ["--quant_params", art]
     hw = [] if label in SIM_PATHS else ["--hardware"]
@@ -1348,6 +1407,29 @@ def run_path(torch, label, launches, calib_path=None):
     check(bool(np.isfinite(lat).all()), f"{label}: non-finite latents")
     log(f"  [{label}] latents {lat.shape} finite, std {lat.std():.4f}")
     return mean, first[0]
+
+
+@contextlib.contextmanager
+def timed_gptq(torch):
+    """Wraps quant.ptq's gptq_quantize inside the block: each solve's seconds
+    (synchronized host clock) by weight shape [C_in, C_out]."""
+    from wanq_tpu_torch.quant import ptq as ptq_mod
+
+    real, solves = ptq_mod.gptq_quantize, {}
+
+    def timed(w, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(w, *a, **k)
+        torch.cuda.synchronize()
+        solves.setdefault(tuple(w.shape), []).append(time.perf_counter() - t0)
+        return out
+
+    ptq_mod.gptq_quantize = timed
+    try:
+        yield solves
+    finally:
+        ptq_mod.gptq_quantize = real
 
 
 def cfg_mode_check(torch, first):
@@ -1459,7 +1541,7 @@ def profile_steps(torch, steps, ref="bf16"):
             log(f"  {label} / {ref} forward wall time: {walls[label] / walls[ref]:.3f}")
 
 
-def fidelity(torch, calib_path):
+def fidelity(torch, calib_path, gptq_calib_path):
     import numpy as np
 
     from wanq_tpu_torch.cli.common import load_contexts, load_params
@@ -1487,15 +1569,17 @@ def fidelity(torch, calib_path):
         if label in PTQ_PATHS:
             # the artifact phase 3 deployed (written by cli.ptq from the same
             # seed-42 weights and calibration); the PTQ itself timed here
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            prepare_quant_state(params, names, qcfg, calib=calib)
-            torch.cuda.synchronize()
-            n_q = sum(qcfg.resolve(n).is_quantized for n in names)
-            log(f"  [{label}] prepare_quant_state on the card ({n_q} layers: masks, f64 weight "
-                f"rotations, double fake-quant, targets both): {time.perf_counter() - t0:.3f} s")
+            # where it takes the shared calibration (phase 3 times GPTQ's)
+            if label not in CALIB_FLAGS:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                prepare_quant_state(params, names, qcfg, calib=calib)
+                torch.cuda.synchronize()
+                n_q = sum(qcfg.resolve(n).is_quantized for n in names)
+                log(f"  [{label}] prepare_quant_state on the card ({n_q} layers, targets both): "
+                    f"{time.perf_counter() - t0:.3f} s")
             state, seed = load_quant_state(str(OUT / f"quant_params_{label}.npz"), device="cuda")
-            policies = {n: qcfg.resolve(n) for n in names}
+            policies = qcfg.resolve_all(names)
             rotations = rebuild_rotations(state, policies, seed)
             sim_of[label] = QuantCtx(mode="sim", policies=policies, state=state,
                                      rotations=rotations)
@@ -1526,6 +1610,7 @@ def fidelity(torch, calib_path):
         fps = {w: {guide: step(c, guide).cpu().numpy().astype(np.float64) for guide in (5.0, 1.0)}
                for w, c in fp_ctxs.items()}
     preds = {}  # (label, guide) -> noise prediction, of w8a8 and w8a8_attn
+    scores = {}  # label -> (PSNR, cosine) with CFG 5 and conditional
     for label, ctx in ctxs.items():
         res = {}
         for guide, fp64 in fps[WINDOWS.get(label)].items():
@@ -1546,7 +1631,7 @@ def fidelity(torch, calib_path):
                     f"cosine {cos_hw:.6f}")
                 if label in SIM_PATHS and psnr_hw < 30.0:
                     failures.append(f"{label} vs w8a8 kernel path {psnr_hw:.2f} dB < 30 dB")
-        (psnr, cos), (psnr1, cos1) = res[5.0], res[1.0]
+        (psnr, cos), (psnr1, cos1) = scores[label] = res[5.0], res[1.0]
         ref = (f"bf16 FP with --attn_window {WINDOWS[label]}" if label in WINDOWS
                else "bf16 FP")
         log(f"  {label} vs {ref} noise prediction (t=999): CFG 5.0 PSNR {psnr:.2f} dB, "
@@ -1568,10 +1653,16 @@ def fidelity(torch, calib_path):
                 f"{psnr_s:.2f} dB, cosine {cos_s:.6f}")
             if psnr_s < 30.0:
                 failures.append(f"{label} sim vs int8 {psnr_s:.2f} dB < 30 dB")
-        if label in ("w8a8", "w8a8_sim", *WINDOWS, *PTQ_PATHS) and psnr < 30.0:
+        if label in PSNR_GATED and psnr < 30.0:
             failures.append(f"{label} PSNR {psnr:.2f} dB < 30 dB")
-        if label not in ("w8a8", "w8a8_sim", *WINDOWS, *PTQ_PATHS) and (cos1 < 0.9 or cos < 0.5):
+        if label not in PSNR_GATED and (cos1 < 0.9 or cos < 0.5):
             failures.append(f"{label} cosine {cos1:.4f} (guide 1) < 0.9 or {cos:.4f} (CFG) < 0.5")
+    for label, twin in RTN_TWIN.items():
+        # not gated: on Gaussian weights neither method has outliers to recover
+        log(f"  {label} beside its RTN twin {twin}, vs bf16 FP: " + "; ".join(
+            f"{tag} PSNR {scores[lb][i][0]:.2f} dB, cosine {scores[lb][i][1]:.6f}"
+            for lb in (label, twin) for i, tag in ((0, f"{lb} CFG 5.0"), (1, "conditional"))))
+    failures += gptq_layer_gate(torch, np, params, ctxs["w4a8_gptq"], gptq_calib_path)
 
     failures += int8_attention_plain_route(torch, np, step, ctxs["w8a8_attn"], preds,
                                            {g: fps[None][g] for g in (5.0, 1.0)})
@@ -1618,7 +1709,7 @@ def fidelity(torch, calib_path):
     p_cpu = init_params(small, 3, device="cpu")
     p_cpu["head"]["head"]["w"] = torch.from_numpy(
         rs.standard_normal((256, 64)).astype(np.float32) * 0.02).bfloat16()
-    cc = QuantCtx(mode="calib", collect_minmax=True)
+    cc = QuantCtx(mode="calib", collect_minmax=True, hessian_regex=GPTQ_REGEX)
     dit_forward(p_cpu, small, x, t, c, 64, ctx=cc)
     small_calib = {kk: vv.float().numpy()[None] for kk, vv in cc.collect.items()}
     # beside the paths: a cross_attn section in int8 mode (the simulated
@@ -1647,8 +1738,15 @@ def fidelity(torch, calib_path):
         outs = {}
         for dev in ("cpu", "cuda"):
             p = _to_device(p_cpu, dev)
-            pol, st, rot = prepare_quant_state(p, linear_layer_names(small), qcfg,
-                                               calib=small_calib, targets=mode)
+            if dev == "cuda" and qcfg.weight_lowrank:
+                # the SVD sketch is drawn on the weight's device, so the card's
+                # factors are not the CPU's: the card runs the CPU's state (the
+                # split itself is held card vs CPU from one sketch by the card
+                # tests)
+                st, rot = _to_device(st, dev), {d: m.to(dev) for d, m in rot.items()}
+            else:
+                pol, st, rot = prepare_quant_state(p, linear_layer_names(small), qcfg,
+                                                   calib=small_calib, targets=mode)
             ctx = QuantCtx(mode=mode, policies=pol, state=st, rotations=rot,
                            attn=extra.get("attn", qcfg.attn_cfg),
                            cross_attn=extra.get("cross_attn", qcfg.cross_attn_cfg),
@@ -1666,6 +1764,43 @@ def fidelity(torch, calib_path):
             failures.append(f"small-config {label} rel-L2 {rel} > 2e-2")
     failures += calib_maps_check(torch, small, p_cpu)
     check(not failures, "; ".join(failures))
+
+
+def gptq_layer_gate(torch, np, params, ctx, calib_path):
+    """At every Hessian site of the w4a8_gptq artifact: GPTQ's objective
+    tr(dW^T H dW), dW = W - W_q in the GEMM's input space (the YAML's base
+    method: the raw input), of the artifact's int4 codes against RTN's on
+    the same grid, in f64 on the card. GPTQ must be lower at >= 95% of the
+    sites; the ratios' median and range are printed."""
+    from wanq_tpu_torch.quant.ptq import params_get
+    from wanq_tpu_torch.quant.quantizers import unpack_int4, weight_fake_quant
+
+    ratios = {}
+    t0 = time.perf_counter()
+    with np.load(calib_path) as d:
+        for key in d.files:
+            if not key.endswith(".hess"):
+                continue
+            name = key[:-len(".hess")]
+            h = torch.from_numpy(d[key]).cuda().double()
+            w = params_get(params, name)["w"].float()
+            st = ctx.state[name]
+            w_gptq = ((unpack_int4(st["w_int4"]).double() + st["zp_w_int"].double()[:, None])
+                      * st["scale_w"].double()[:, None]).t()
+            w_rtn = weight_fake_quant(w, ctx.policies[name].weight).double()
+            obj = [float(((h @ dw) * dw).sum()) for dw in (w.double() - w_gptq,
+                                                           w.double() - w_rtn)]
+            ratios[name] = obj[0] / obj[1]
+    r = np.array(list(ratios.values()))
+    below = float((r < 1.0).mean())
+    log(f"  w4a8_gptq layer gate ({len(r)} Hessian sites, {time.perf_counter() - t0:.1f} s): "
+        f"tr(dW^T H dW) GPTQ / RTN median {np.median(r):.4f} (min {r.min():.4f}, max "
+        f"{r.max():.4f}); GPTQ lower at {100 * below:.1f}% of the sites; by suffix: " + "; ".join(
+            f"{sfx} {np.median([v for k, v in ratios.items() if k.endswith(sfx)]):.4f}"
+            for sfx in ("self_attn.q", "self_attn.k", "self_attn.v", "self_attn.o",
+                        "cross_attn.q", "cross_attn.o", "ffn.0")))
+    return [] if below >= 0.95 and len(r) else [
+        f"GPTQ below RTN at {100 * below:.1f}% of {len(r)} Hessian sites < 95%"]
 
 
 def fidelity_14b(torch, calib_path):
@@ -2296,18 +2431,24 @@ def main() -> int:
         if task not in calib:
             log(f"  phase 3 {TASK} paths: {time.time() - t0:.1f} s")
             calib[task] = calibrate(torch, task, PATHS[label][0])
-        step_s[label], first[label] = run_path(torch, label, launches,
-                                               None if label in NO_CALIB_PATHS else calib[task])
+        if label in CALIB_FLAGS:
+            calib[label] = calibrate(torch, task, PATHS[label][0], CALIB_FLAGS[label], label)
+        step_s[label], first[label] = run_path(
+            torch, label, launches, None if label in NO_CALIB_PATHS else calib.get(label,
+                                                                                 calib[task]))
         torch.cuda.empty_cache()
     cfg_mode_check(torch, first)
     for label in FIDELITY_13B[1:]:
         log(f"  step time {label} / w8a8: {step_s[label] / step_s['w8a8']:.3f}")
+    for label, twin in RTN_TWIN.items():
+        log(f"  step time {label} / {twin}: {step_s[label] / step_s[twin]:.3f} "
+            f"({step_s[label]:.3f} / {step_s[twin]:.3f} s)")
     log(f"  step time w4a8_14b / w8a8_14b: {step_s['w4a8_14b'] / step_s['w8a8_14b']:.3f}")
     log(f"  phase 3: {time.time() - t0:.1f} s")
 
     log("[4] fidelity and profile")
     t0 = time.time()
-    fidelity(torch, calib[TASK])
+    fidelity(torch, calib[TASK], calib["w4a8_gptq"])
     log(f"  phase 4 {TASK}: {time.time() - t0:.1f} s")
     fidelity_14b(torch, calib[TASK_14B])
     log(f"  phase 4: {time.time() - t0:.1f} s")

@@ -312,7 +312,7 @@ def _chip_smoke():
 
 
 @pytest.mark.parametrize("label", ["w8a8", "w4a8_mixed", "w4a4", "w8a8_attn", "w4a8_static",
-                                   "w8a8_14b", "w4a8_14b"])
+                                   "w8a8_14b", "w4a8_14b", "w4a8_gptq", "svdquant"])
 def test_chip_smoke_launch_table_matches_the_routes(monkeypatch, label):
     """The counts ``chip_smoke.py`` asserts on the card (per block, times the
     layers and forwards) are the dispatchers a forward calls, here on the
@@ -329,7 +329,7 @@ def test_chip_smoke_launch_table_matches_the_routes(monkeypatch, label):
     x = torch.from_numpy(rng.normal(size=(2, 16, 3, 8, 10)).astype(np.float32))
     t = torch.tensor([999.0, 500.0])
     c = torch.from_numpy(rng.normal(size=(2, 32, 64)).astype(np.float32))
-    cc = QuantCtx(mode="calib", collect_minmax=True)
+    cc = QuantCtx(mode="calib", collect_minmax=True, hessian_regex=smoke.GPTQ_REGEX)
     tdit.dit_forward(params, cfg, x, t, c, 64, ctx=cc)
     calib = {k: v.float().numpy()[None] for k, v in cc.collect.items()}
     qcfg = QuantConfig.from_yaml(os.path.join(ROOT, yaml))

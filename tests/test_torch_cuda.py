@@ -943,6 +943,95 @@ def test_qlinear_masked_and_rotated_int8_on_card(dev, method):
     assert rel <= 1e-3, rel
 
 
+@pytest.mark.parametrize("act_order", [False, True], ids=["rows", "act_order"])
+def test_gptq_solve_on_card_matches_cpu(dev, act_order):
+    """GPTQ at a 1.3B site's K (1536, 12 blocks) on the card against the CPU
+    solve on the same weight and Hessian (one dead channel): cuSOLVER's
+    Cholesky and cuBLAS's block products sum in another order, so codes are
+    equal at >= 99% and never more than one apart, and the objective
+    tr(dW^T H dW) is within 1%."""
+    from wanq_tpu_torch.quant.gptq import gptq_quantize
+    from wanq_tpu_torch.quant.quantizers import QuantizerCfg
+
+    rng = np.random.default_rng(4)
+    k, n = 1536, 512
+    x = rng.normal(size=(4096, k)).astype(np.float32)
+    x = x @ (rng.normal(size=(k, k)).astype(np.float32) * 0.03 + np.eye(k, dtype=np.float32))
+    x[:, 100] = 0.0
+    h = torch.from_numpy(x.T @ x)
+    w = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32) * 0.03)
+    cfg = QuantizerCfg(4, False)
+    want = gptq_quantize(w, h, cfg, act_order=act_order)
+    got = gptq_quantize(w.to(dev), h.to(dev), cfg, act_order=act_order)
+    assert all(t.is_cuda for t in got)
+    diff = (got[1].cpu().int() - want[1].int()).abs()
+    assert int(diff.max()) <= 1 and float((diff == 0).float().mean()) >= 0.99
+
+    def objective(wq):
+        d = w.double() - wq.cpu().double()
+        return float(((h.double() @ d) * d).sum())
+
+    assert abs(objective(got[0]) - objective(want[0])) <= 0.01 * objective(want[0])
+
+
+def test_svd_lowrank_on_card_matches_cpu_from_one_sketch(dev, monkeypatch):
+    """The randomized SVD of an ffn.0-shaped weight [1536, 8960] with
+    outlier input channels on the card (cuBLAS, cuSOLVER) against the CPU's
+    from one sketch: L1 @ L2 within rel 1e-4."""
+    from wanq_tpu_torch.quant import svd
+
+    sketch = torch.randn((8960, 40), generator=torch.Generator().manual_seed(0))
+    monkeypatch.setattr(svd, "gaussian_sketch", lambda n, r, seed, device: sketch.to(device))
+    rng = np.random.default_rng(5)
+    scale = np.exp(rng.normal(0.0, 1.0, size=(1536, 1))).astype(np.float32)
+    w = torch.from_numpy(rng.normal(size=(1536, 8960)).astype(np.float32) * 0.03 * scale)
+    want = svd.svd_lowrank(w, 32)
+    got = svd.svd_lowrank(w.to(dev), 32)
+    prod_want, prod_got = want[0] @ want[1], (got[0] @ got[1]).cpu()
+    rel = float((prod_got - prod_want).norm() / prod_want.norm())
+    assert rel <= 1e-4, rel
+
+
+def test_qlinear_w4a4_mask_lowrank_int8_on_card(dev):
+    """An SVDQuant site (SmoothQuant mask, rank-32 bf16 branch, W4A4 residual)
+    in int8 mode on the card against its plain route on the CPU from one
+    state: one K9 launch on the masked f32 rows. Without the branch the two
+    are equal (the act quant is plain on both, K9 exact). The branch rounds
+    its rank-32 intermediate to bf16 before the second product, as wanq_tpu
+    does; cuBLAS sums the first in another order (~1e-6 relative), which
+    flips ~1e-3 of those roundings by one bf16 ulp: rel-L2 <= 1e-3 (1.7e-4
+    on an H100)."""
+    from wanq_tpu_torch.quant import QuantConfig
+    from wanq_tpu_torch.quant.ptq import prepare_quant_state
+    from wanq_tpu_torch.quant.qlinear import QuantCtx, qlinear
+
+    rng = np.random.default_rng(6)
+    w = torch.from_numpy(rng.normal(size=(1536, 8960)).astype(np.float32) * 0.03)
+    x = torch.from_numpy(rng.normal(size=(2, 700, 1536)).astype(np.float32)).bfloat16()
+    x[..., 11] *= 40
+    qcfg = QuantConfig.from_yaml(os.path.join(os.path.dirname(__file__), "..",
+                                              "quant_configs", "wan_svdquant.yaml"))
+    calib = {"lin": x.float().abs().reshape(-1, 1536).amax(0).numpy()[None]}
+    pol, st, _ = prepare_quant_state({"lin": {"w": w}}, ["lin"], qcfg, calib=calib,
+                                     targets="int8")
+    assert sorted(st["lin"]) == ["channel_mask", "lowrank_a", "lowrank_b", "scale_wg",
+                                 "w_int4g"]
+    want = qlinear(QuantCtx(mode="int8", policies=pol, state=st), "lin", {"w": w}, x)
+    ctx_dev = QuantCtx(mode="int8", policies=pol,
+                       state={"lin": {k: v.to(dev) for k, v in st["lin"].items()}})
+    _lib.reset_launch_counts()
+    got = qlinear(ctx_dev, "lin", {"w": w.to(dev)}, x.to(dev))
+    torch.cuda.synchronize()
+    assert _lib.launch_counts() == {"w4a4_linear": 1}
+    rel = float((got.cpu() - want).norm() / want.norm())
+    assert rel <= 1e-3, rel
+    for s in (st["lin"], ctx_dev.state["lin"]):
+        del s["lowrank_a"], s["lowrank_b"]
+    want = qlinear(QuantCtx(mode="int8", policies=pol, state=st), "lin", {"w": w}, x)
+    got = qlinear(ctx_dev, "lin", {"w": w.to(dev)}, x.to(dev))
+    assert torch.equal(got.cpu(), want)
+
+
 def test_w4_wrappers_raise_on_bad_layouts(dev):
     from wanq_tpu_torch.ops.fused import ln_modulate_quant_cuda, quant_sum_cuda
     from wanq_tpu_torch.ops.qgemm import (

@@ -250,13 +250,17 @@ def test_prepare_quant_state_config_yaml_matches_jax(rng):
 
 
 def test_unported_refusals_fire_before_the_calibration_check():
-    """GPTQ and SVDQuant low-rank still raise NotImplementedError, ahead of
-    the missing-calibration ValueError their YAMLs' masks would raise."""
+    """No refusal of an unported method is left: GPTQ and SVDQuant low-rank
+    are ported, so without calibration their YAMLs reach the calibration
+    checks a user can act on (wan_svdquant.yaml's masks need the absmax,
+    wan_w4a8_gptq.yaml's static ffn.2 the min/max; a GPTQ site without a
+    Hessian rounds by RTN) and never raise NotImplementedError."""
     cfg = tiny_config()
     params = tdit.init_params(cfg, 0, device="cpu")
     names = tdit.linear_layer_names(cfg)
-    for yaml in ("wan_w4a8_gptq.yaml", "wan_svdquant.yaml"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+    for yaml, msg in (("wan_w4a8_gptq.yaml", "static act quant needs calibration min/max"),
+                      ("wan_svdquant.yaml", "no calibration data")):
+        with pytest.raises(ValueError, match=msg):
             tptq.prepare_quant_state(params, names, tconfig.QuantConfig.from_yaml(
                 os.path.join(ROOT, "quant_configs", yaml)))
     with pytest.raises(ValueError, match="static activation quant cannot combine"):

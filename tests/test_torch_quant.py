@@ -208,9 +208,14 @@ def test_converters_keep_params_and_transpose_int8(rng):
 def test_unported_quant_branches_raise():
     # the window is ported: the ctx keeps it for dit_forward to resolve
     assert QuantCtx(mode="int8", attn_window=1).attn_window == 1
+    # map capture from a deployed model is not (item 6)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
+        QuantCtx(mode="int8", attn_map_pool=8)
+    # GPTQ and SVDQuant low-rank are ported: with an empty calibration their
+    # YAMLs stop at its checks, not at a refusal
     params = tdit.init_params(tiny_config(), 0, device="cpu")
     names = tdit.linear_layer_names(tiny_config())
-    for yaml in ("wan_w4a8_gptq.yaml", "wan_svdquant.yaml"):  # GPTQ, SVDQuant low-rank
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for yaml in ("wan_w4a8_gptq.yaml", "wan_svdquant.yaml"):
+        with pytest.raises(ValueError, match="calibration"):
             tptq.prepare_quant_state(params, names, tconfig.QuantConfig.from_yaml(
                 os.path.join(ROOT, "quant_configs", yaml)), calib={})

@@ -1,16 +1,25 @@
-"""Calibration CLI (counterpart of wanq_tpu/cli/get_calib_data.py).
+r"""Calibration CLI (counterpart of wanq_tpu/cli/get_calib_data.py).
 
 Runs an FP denoise sweep and saves per-layer activation statistics
 {layer: [T, C]} (absmax; with --collect_minmax also .act_max/.act_min) --
 the input to PTQ. With --attn_map_pool P it also saves each layer's pooled
 post-softmax self-attention map ``<layer>.attn_map`` [T, H, S/P, S/P] and the
 pool factor ``attn_map_pool``, from which quant.attn.select_temporal_windows
-chooses window radii (--attn_map_reduce mean). The sweep runs dense:
---attn_window is ignored.
+chooses window radii (--attn_map_reduce mean). With --collect_hessian
+REGEX it also saves each matching layer's input Hessian ``<layer>.hess``
+[C, C], summed in f64 over the steps on the device and saved as f32, for
+GPTQ rounding.
+--calib_rounds N runs N sweeps from seeds base_seed + i: the Hessians sum,
+the [T, ...] stacks concatenate. The sweep runs dense: --attn_window is
+ignored.
 
     python -m wanq_tpu_torch.cli.get_calib_data --task t2v-1.3B --size 832*480 \
         --frame_num 81 --random_init --collect_minmax --sample_steps 1 \
         --quant_config quant_configs/wan_w8a8_speed.yaml
+
+    python -m wanq_tpu_torch.cli.get_calib_data --task t2v-1.3B --random_init \
+        --quant_config quant_configs/wan_w4a8_gptq.yaml --collect_minmax \
+        --collect_hessian 'self_attn|cross_attn\.(q|o)|ffn\.0' --calib_rounds 3
 """
 
 from __future__ import annotations
@@ -51,6 +60,12 @@ def parse_args(argv=None):
     p.add_argument("--attn_map_reduce", type=str, default="max", choices=["max", "mean"],
                    help="pooling of the captured maps: 'max' feeds reorder tables, 'mean' "
                         "(mass-preserving) the choice of window radii")
+    p.add_argument("--collect_hessian", type=str, default=None, metavar="REGEX",
+                   help="also sum the input Hessian X^T X of the layers matching REGEX "
+                        "(GPTQ rounding); [C_in, C_in] f32 each, on the device")
+    p.add_argument("--calib_rounds", type=int, default=1,
+                   help="sweeps from seeds base_seed + i merged into one artifact: "
+                        "Hessians sum, the other stacks concatenate")
     return p.parse_args(argv)
 
 
@@ -72,16 +87,31 @@ def generate(args):
     context, context_null = load_contexts(args, cfg)
     pipe = WanT2V(cfg, params, quant_ctx=QuantCtx(
         mode="calib", collect_minmax=args.collect_minmax, attn_map_pool=args.attn_map_pool,
-        attn_map_reduce=args.attn_map_reduce), device=args.device)
+        attn_map_reduce=args.attn_map_reduce, hessian_regex=args.collect_hessian),
+        device=args.device)
     t0 = time.time()
-    stats = pipe.collect_calibration(
-        torch.from_numpy(context), torch.from_numpy(context_null),
-        size=size, frame_num=args.frame_num, shift=args.sample_shift,
-        sampling_steps=args.sample_steps, guide_scale=args.sample_guide_scale,
-        seed=args.base_seed,
-    )
-    logging.info("calibration sweep done in %.2fs: %d entries x %d steps",
-                 time.time() - t0, len(stats), args.sample_steps)
+    rounds = max(1, args.calib_rounds)
+    stats = {}
+    for rnd in range(rounds):
+        one = pipe.collect_calibration(
+            torch.from_numpy(context), torch.from_numpy(context_null),
+            size=size, frame_num=args.frame_num, shift=args.sample_shift,
+            sampling_steps=args.sample_steps, guide_scale=args.sample_guide_scale,
+            seed=args.base_seed + rnd,
+        )
+        for k, v in one.items():
+            if k not in stats:
+                stats[k] = v
+            elif k.endswith(".hess"):
+                stats[k] = stats[k] + v
+            else:
+                stats[k] = np.concatenate([stats[k], v], axis=0)
+    logging.info("calibration sweep done in %.2fs: %d entries (%d Hessians) x %d steps x %d "
+                 "rounds", time.time() - t0, len(stats),
+                 sum(k.endswith(".hess") for k in stats), args.sample_steps, rounds)
+    # the Hessians' f64 sums are saved as f32, as wanq_tpu saves them
+    stats = {k: v.float().cpu().numpy() if isinstance(v, torch.Tensor) else v
+             for k, v in stats.items()}
     if args.attn_map_pool:
         # the pool factor maps pooled cells back to token indices
         stats["attn_map_pool"] = np.asarray(args.attn_map_pool)

@@ -95,14 +95,14 @@ def quantize_or_load(args, params, cfg, qcfg, mode: str):
     names = linear_layer_names(cfg)
     t0 = time.time()
     if args.quant_params and args.quant_params.endswith(".pth"):
-        policies = {n: qcfg.resolve(n) for n in names}
+        policies = qcfg.resolve_all(names)
         state = state_from_reference_params(
             params, policies, load_reference_quant_params(args.quant_params), targets=mode)
         rotations = {}
         logging.info("deployed from reference artifact %s: %d layers", args.quant_params,
                      len(state))
     elif args.quant_params:
-        policies = {n: qcfg.resolve(n) for n in names}
+        policies = qcfg.resolve_all(names)
         state, seed = load_quant_state(args.quant_params, device=args.device, targets=mode)
         rotations = rebuild_rotations(state, policies, seed)
         logging.info("loaded quant state %s: %d layers (seed %d) in %.2fs", args.quant_params,

@@ -325,18 +325,24 @@ class WanT2V:
                                              context_null, guide_scale, seq_len,
                                              sequential, on_step)
             all_stats: Dict[str, List[np.ndarray]] = {}
+            # GPTQ input Hessians sum over the sweep in a running accumulator
+            # on the device ([C, C] f64 each: no per-step host copy)
+            hess: Dict[str, torch.Tensor] = {}
             for i, t in enumerate(sch.timesteps):
                 noise_pred = self._step(latents, float(t), context, context_null,
                                         guide_scale, ctx, seq_len, sequential)
                 if collect_calib:
                     for k, v in ctx.collect.items():
-                        all_stats.setdefault(k, []).append(v.float().cpu().numpy())
+                        if k.endswith(".hess"):
+                            hess[k] = v if k not in hess else hess[k] + v
+                        else:
+                            all_stats.setdefault(k, []).append(v.float().cpu().numpy())
                     ctx.collect.clear()
                 latents = sch.step(noise_pred, int(t), latents)
                 if on_step is not None:
                     on_step(i, float(t), latents)
         if collect_calib:
-            return latents, {k: np.stack(v, axis=0) for k, v in all_stats.items()}
+            return latents, {**{k: np.stack(v, axis=0) for k, v in all_stats.items()}, **hess}
         return latents
 
     def _generate_cached(self, policy, sch, latents, ctx, context, context_null,
@@ -413,7 +419,8 @@ class WanT2V:
     def collect_calibration(self, context, context_null, sampling_steps: int = 30,
                             **kw) -> Dict[str, np.ndarray]:
         """FP denoise sweep returning {layer: [T, C]} statistics, one row per
-        batched CFG step."""
+        batched CFG step, and {layer.hess: [C, C]} input Hessians summed over
+        the steps, on the device (with the ctx's ``hessian_regex``)."""
         if self.quant_ctx is None or self.quant_ctx.mode != "calib":
             raise ValueError("collect_calibration needs a calib-mode quant_ctx")
         _, stats = self.generate(context, context_null, sampling_steps=sampling_steps,

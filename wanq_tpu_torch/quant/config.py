@@ -170,3 +170,7 @@ class QuantConfig:
             gptq_act_order=self.weight_gptq_act_order, group=self.act_group,
             lowrank=self.weight_lowrank,
         )
+
+    def resolve_all(self, layer_names) -> Dict[str, LayerPolicy]:
+        """{layer path: its policy} for every name."""
+        return {name: self.resolve(name) for name in layer_names}

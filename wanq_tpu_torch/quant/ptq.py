@@ -19,8 +19,11 @@ made. 4-bit codes pack two per byte along C_in; a layer with an odd C_in
 keeps them unpacked in ``w_int8``, as the JAX package does. The methods:
 RTN (``base``), SmoothQuant (``smooth_quant``: a per-input-channel mask),
 QuaRot (``quarot``: a seeded Hadamard rotation per input width) and
-ViDiT-Q (``viditq``: both). GPTQ and SVDQuant low-rank are not ported yet
-and raise.
+ViDiT-Q (``viditq``: both). On the transformed weight, two optional steps:
+the SVDQuant low-rank split (``weight.lowrank_rank``: bf16 ``lowrank_a``
+[C_in, r] and ``lowrank_b`` [r, C_out], both modes read them) and GPTQ
+rounding of the (residual) weight against the layer's calibration Hessian
+``<layer>.hess`` (``weight.gptq``; RTN where no Hessian was collected).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 
 from wanq_tpu_torch.models.params import INT_WEIGHTS, quant_state_from_numpy
 from wanq_tpu_torch.quant.config import LayerPolicy, QuantConfig
+from wanq_tpu_torch.quant.gptq import gptq_quantize, transform_hessian
 from wanq_tpu_torch.quant.hadamard import (
     derived_rotation_seed,
     rotate_weight_fwht,
@@ -48,6 +52,7 @@ from wanq_tpu_torch.quant.quantizers import (
     weight_quant_params,
 )
 from wanq_tpu_torch.quant.smooth import channel_mask, clamp_act_absmax
+from wanq_tpu_torch.quant.svd import lowrank_split
 
 Params = Dict[str, Any]
 
@@ -62,15 +67,17 @@ def params_get(params: Params, path: str):
     return node
 
 
-def reduce_calib(calib: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
+def reduce_calib(calib: Mapping[str, Any]) -> Dict[str, Any]:
     """[T, C] per-step stacks -> per-channel max over steps, clamped >= 1e-3.
     ``.act_min`` entries reduce with min and skip the clamp; attention
-    captures (``.attn_*``) reduce with max and skip it."""
+    captures (``.attn_*``) reduce with max and skip it. An input Hessian
+    ``.hess`` stays as it is, [C, C] (numpy, or a tensor on its device), or
+    a [T, C, C] stack is summed where it lies."""
     out = {}
     for name, arr in calib.items():
         if name.endswith(".hess"):
-            raise NotImplementedError(
-                "GPTQ Hessians are not ported yet (ROADMAP Queue 1 item 7)")
+            out[name] = arr.sum(0) if arr.ndim == 3 else arr
+            continue
         a = np.asarray(arr, dtype=np.float32)
         if name.endswith(".act_min"):
             out[name] = a.min(axis=0) if a.ndim == 2 else a
@@ -85,14 +92,6 @@ def reduce_calib(calib: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
     return out
 
 
-def _refuse_unported(policy: LayerPolicy) -> None:
-    if policy.lowrank > 0:
-        raise NotImplementedError(
-            "SVDQuant low-rank is not ported yet (ROADMAP Queue 1 item 7)")
-    if policy.gptq and not policy.is_w4a4:
-        raise NotImplementedError("GPTQ is not ported yet (ROADMAP Queue 1 item 7)")
-
-
 def prepare_layer_state(
     policy: LayerPolicy,
     w: torch.Tensor,
@@ -100,6 +99,8 @@ def prepare_layer_state(
     rotation_seed: Optional[int] = None,
     targets: str = "both",
     act_minmax: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+    hessian=None,
+    act_rotation: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
     """Quant state for one layer. w [C_in, C_out]. Weight side per method:
 
@@ -108,13 +109,16 @@ def prepare_layer_state(
       quarot  w_q = FQ(rot(w))
       viditq  w_q = FQ(rot(FQ(w / mask)))   (the original's double fake-quant)
 
-    ``rot`` is the f64 transform on the weight's device."""
+    ``rot`` is the f64 transform on the weight's device. Then, on that
+    transformed weight: a low-rank policy splits off L1 @ L2 and quantizes
+    the residual; a GPTQ policy with a ``hessian`` (the raw input's [C_in,
+    C_in], taken into the GEMM's space with the mask and ``act_rotation``)
+    rounds by GPTQ instead of RTN, on the same grid."""
     if targets not in TARGETS:
         raise ValueError(f"targets must be one of {TARGETS}, got {targets!r}")
     wcfg = policy.weight
     if wcfg is None:
         raise ValueError("quantized layer without a weight quantizer")
-    _refuse_unported(policy)
     st: Dict[str, torch.Tensor] = {}
     wf = w.float()
     if policy.uses_channel_mask:
@@ -130,6 +134,12 @@ def prepare_layer_state(
         if rotation_seed is None:
             raise ValueError(f"{policy.method} needs a rotation seed")
         wf = rotate_weight_fwht(wf, rotation_seed)
+    if policy.lowrank > 0:
+        # the branch lives in the GEMM's input space; only the residual is
+        # quantized below
+        l1, l2, wf = lowrank_split(wf, policy.lowrank)
+        st["lowrank_a"] = l1.bfloat16()
+        st["lowrank_b"] = l2.bfloat16()
     if policy.is_w4a4:
         # Atom W4A4: symmetric int4 group quant along K for both operands;
         # the activation side quantizes per (token, group) inside qlinear
@@ -156,13 +166,23 @@ def prepare_layer_state(
             st["w_int4g"] = pack_int4(codes4)
             st["scale_wg"] = scale_g
         return st
-    if targets in ("sim", "both"):
-        st["w_q"] = weight_fake_quant(wf, wcfg)
-    d, z = weight_quant_params(wf, wcfg)
+    codes = None
+    if policy.gptq and hessian is not None:
+        hq = transform_hessian(torch.as_tensor(hessian, device=wf.device),
+                               channel_mask=st.get("channel_mask"), act_rotation=act_rotation)
+        w_gq, codes, d, z = gptq_quantize(wf, hq, wcfg, act_order=policy.gptq_act_order)
+        codes = codes.t().contiguous()  # K-major, as weight_int_quant's
+        if targets in ("sim", "both"):
+            st["w_q"] = w_gq
+    else:
+        if targets in ("sim", "both"):
+            st["w_q"] = weight_fake_quant(wf, wcfg)
+        d, z = weight_quant_params(wf, wcfg)
     st["delta_w"] = d
     st["zp_w"] = z
     if wcfg.active_bits in (4, 8) and targets in ("int8", "both"):
-        codes, d, z = weight_int_quant(wf, wcfg)
+        if codes is None:
+            codes, d, z = weight_int_quant(wf, wcfg)
         if wcfg.active_bits == 4 and codes.shape[1] % 2 == 0:
             st["w_int4"] = pack_int4(codes)
         else:
@@ -194,16 +214,19 @@ def _finish_static_act(st, policy: LayerPolicy, act_minmax, device=None) -> None
 
 
 def _layer_state(policy: LayerPolicy, name: str, w: torch.Tensor, calib_max, seed: int,
-                 targets: str, rot_dims: Dict[int, torch.device]):
-    """One layer's quant state after the calibration-key check; ``rot_dims``
-    collects {C_in: device} of the rotated layers, from which the caller
-    builds the runtime ``rotations``. The refusals of what is not ported
-    come first."""
-    _refuse_unported(policy)
-    rot_seed = None
+                 targets: str, rotations: Dict[int, torch.Tensor]):
+    """One layer's quant state after the calibration-key check. A rotated
+    layer adds its C_in's activation rotation to ``rotations`` (built once
+    per width, on the weight's device), which the runtime uses and a GPTQ
+    Hessian is transformed with. A GPTQ layer without ``<name>.hess`` in the
+    calibration rounds by RTN (the YAML's regex may cover a subset)."""
+    rot_seed = act_rotation = None
     if policy.uses_rotation:
-        rot_dims.setdefault(int(w.shape[0]), w.device)
-        rot_seed = derived_rotation_seed(int(w.shape[0]), seed)
+        c_in = int(w.shape[0])
+        if c_in not in rotations:
+            rotations[c_in] = rotation_for_dim(c_in, seed, device=w.device)
+        act_rotation = rotations[c_in]
+        rot_seed = derived_rotation_seed(c_in, seed)
     act_absmax = calib_max.get(name)
     if policy.uses_channel_mask and act_absmax is None:
         raise ValueError(f"layer {name} uses {policy.method} but no calibration data "
@@ -211,7 +234,9 @@ def _layer_state(policy: LayerPolicy, name: str, w: torch.Tensor, calib_max, see
     act_minmax = None
     if f"{name}.act_max" in calib_max:
         act_minmax = (calib_max[f"{name}.act_max"], calib_max[f"{name}.act_min"])
-    return prepare_layer_state(policy, w, act_absmax, rot_seed, targets, act_minmax=act_minmax)
+    hessian = calib_max.get(f"{name}.hess") if policy.gptq else None
+    return prepare_layer_state(policy, w, act_absmax, rot_seed, targets, act_minmax=act_minmax,
+                               hessian=hessian, act_rotation=act_rotation)
 
 
 def prepare_quant_state(
@@ -225,16 +250,15 @@ def prepare_quant_state(
     """Full-model PTQ. ``targets``: which deployed weights to make, 'sim'
     (fake-quant ``w_q``), 'int8' (int codes + export params) or 'both';
     ``seed`` keys the rotations. Returns (policies, state, rotations)."""
-    policies = {name: qcfg.resolve(name) for name in layer_names}
+    policies = qcfg.resolve_all(layer_names)
     calib_max = reduce_calib(calib) if calib is not None else {}
     state: Dict[str, Dict[str, torch.Tensor]] = {}
-    rot_dims: Dict[int, torch.device] = {}
+    rotations: Dict[int, torch.Tensor] = {}
     for name, policy in policies.items():
         if not policy.is_quantized:
             continue
         state[name] = _layer_state(policy, name, params_get(params, name)["w"], calib_max,
-                                   seed, targets, rot_dims)
-    rotations = {d: rotation_for_dim(d, seed, device=dev) for d, dev in rot_dims.items()}
+                                   seed, targets, rotations)
     return policies, state, rotations
 
 

@@ -30,11 +30,19 @@ quantizer, in sim and int8 mode alike: ``x * channel_mask`` [C_in], then
 ``@ ctx.rotations[C_in]``, an f32 product (TF32 off, as the CLIs set it).
 A mask-only site in int8 mode hands the mask to K7 as its ``channel_scale``
 (the same function); a rotated site quantizes the f32 rotated rows in K7.
+A site with an SVDQuant low-rank branch (``lowrank_a`` [C_in, r],
+``lowrank_b`` [r, C_out], bf16) adds ``(x' @ L1) @ L2`` to its quantized
+output in both modes, x' the transformed activation, as fp_linear
+multiplies (bf16 operands, f32 products); the fused producers refuse such
+sites. Calibration with ``QuantCtx.hessian_regex`` also collects each
+matching site's input Hessian ``<name>.hess`` = x^T x [C_in, C_in] over
+every token, summed in f64.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Any, Dict, Optional
 
 import torch
@@ -78,6 +86,8 @@ class QuantCtx:
     # input seen this call (plus .act_max/.act_min with collect_minmax)
     collect: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
     collect_minmax: bool = False
+    # calib: the sites (re.search) whose input Hessian is collected for GPTQ
+    hessian_regex: Optional[str] = None
     # calib extras: pool factor of the post-softmax attention-map capture (0 =
     # off) and its reduce: "max" feeds reorder tables, "mean" (mass-preserving)
     # feeds select_temporal_windows
@@ -161,6 +171,15 @@ def qlinear(ctx: Optional[QuantCtx], name: str, params: Params, x: torch.Tensor,
         if ctx.collect_minmax:
             ctx.collect[f"{name}.act_max"] = xf.amax(dim=lead)
             ctx.collect[f"{name}.act_min"] = xf.amin(dim=lead)
+        if ctx.hessian_regex and re.search(ctx.hessian_regex, name):
+            # f64 sums: at T2V-1.3B a few massive channels put most of a
+            # site's energy in one direction, and an f32 sum over a sweep's
+            # tokens errs by ~2e-5 of the top eigenvalue, more than GPTQ's
+            # damping (1% of the mean diagonal: down to 6.5e-6 of the top
+            # eigenvalue at C = 1536), which made the damped Hessian of
+            # blocks.29.self_attn.o indefinite
+            x2 = xf.reshape(-1, xf.shape[-1]).double()
+            ctx.collect[f"{name}.hess"] = x2.t() @ x2
         return fp_linear(params, x, compute_dtype)
 
     policy = ctx.policy(name)
@@ -170,28 +189,42 @@ def qlinear(ctx: Optional[QuantCtx], name: str, params: Params, x: torch.Tensor,
     b, n, c = x.shape
     bias = params.get("b")
     if ctx.mode == "sim":
-        return _sim_linear(policy, st, bias, _transformed(ctx, policy, st, x), compute_dtype)
+        xt = _transformed(ctx, policy, st, x)
+        return _maybe_lowrank(st, xt, _sim_linear(policy, st, bias, xt, compute_dtype))
     _check_int8_policy(policy, name)
     if policy.is_w4a4:
         # x [B, N, C] -> [B*N, C] is a view; the act quant runs inside
-        y = w4a4_linear(_transformed(ctx, policy, st, x).reshape(b * n, c), st["w_int4g"],
-                        st["scale_wg"], None if bias is None else bias.float(),
-                        group=policy.group)
-        return y.reshape(b, n, -1)
+        xt = _transformed(ctx, policy, st, x)
+        y = w4a4_linear(xt.reshape(b * n, c), st["w_int4g"], st["scale_wg"],
+                        None if bias is None else bias.float(), group=policy.group)
+        return _maybe_lowrank(st, xt, y.reshape(b, n, -1))
     if not policy.act.dynamic:
         # the transformed input, as sim mode quantizes it (the weight was
         # divided by the mask and rotated)
         scale = st["delta_a"].reshape(())
-        xf = _transformed(ctx, policy, st, x).float()
-        q = torch.clamp(torch.round(xf / scale), -128, 127).to(torch.int8)
+        xt = _transformed(ctx, policy, st, x).float()
+        q = torch.clamp(torch.round(xt / scale), -128, 127).to(torch.int8)
         s_a = scale.expand(b, n).contiguous()
         sum_a = s_a * q.float().sum(dim=-1)
     elif policy.uses_rotation:
-        q, s_a, sum_a = quant_sum(_transformed(ctx, policy, st, x))  # K7 on the f32 rows
+        xt = _transformed(ctx, policy, st, x)
+        q, s_a, sum_a = quant_sum(xt)  # K7 on the f32 rows
     else:
-        # K7 without GELU on the card; a SmoothQuant mask is its channel_scale
+        # K7 without GELU on the card; a SmoothQuant mask is its
+        # channel_scale, so x * mask is made only for a low-rank branch
+        xt = _transformed(ctx, policy, st, x) if "lowrank_a" in st else None
         q, s_a, sum_a = quant_sum(x, channel_scale=st.get("channel_mask"))
-    return _int_linear(st, q, s_a, sum_a, bias, torch.float32)
+    return _maybe_lowrank(st, xt, _int_linear(st, q, s_a, sum_a, bias, torch.float32))
+
+
+def _maybe_lowrank(st, xt: Optional[torch.Tensor], y: torch.Tensor) -> torch.Tensor:
+    """y + (xt @ L1) @ L2 where the layer has an SVDQuant branch: two rank-r
+    products of bf16 operands into f32, as fp_linear takes them, on the
+    transformed activation ``xt`` (the space the residual was split in)."""
+    if "lowrank_a" not in st:
+        return y
+    h = fp_linear({"w": st["lowrank_a"]}, xt)
+    return y + fp_linear({"w": st["lowrank_b"]}, h)
 
 
 def _transformed(ctx: QuantCtx, policy: LayerPolicy, st, x: torch.Tensor) -> torch.Tensor:
