@@ -122,6 +122,29 @@ non-zero:
    the memory of the weights and of each quant state, each forward and
    bf16's under torch.profiler, and one sequential-CFG step of w4a8_14b and
    of bf16 at 720p.
+5. whole generate (T2V-1.3B): a checkpoint dir, umT5-XXL, fp_generate from
+   --random_init and --ckpt_dir, cli.generate W8A8 to the decoded video, the
+   VAE and umT5 on the card against the CPU, bf16 decodes at 480p and 720p;
+6. image to video: I2V-14B at full width and depth (dim 5120, 40 layers,
+   clip_dim 1280) from a seeded [3, 480, 832] image at 832*480x81 (58 x 104
+   latents, seq 31668: no token is padded). Every kernel the path runs at its
+   shapes and at seq 32760 (K1, K3, K7, K2, K8, K4 self over all keys and
+   cross against 512 text and 257 CLIP tokens), printed beside its bound and
+   the library call, not summed into the kernels line; a checkpoint dir with
+   the full-width random VAE and CLIP's ViT-H/14 visual tower (bf16); cli.ptq
+   --random_init under wan_w4a8_mixed.yaml (RTN, --targets int8); cli.generate
+   --random_init --ckpt_dir --quant_params --hardware --sample_solver dpm++
+   --vae_dtype bfloat16, 3 steps, to a finite [1, 3, 81, 464, 832] video in
+   [-1, 1] (CLIP, the encode, each step and the decode timed; the launches of
+   each step exactly the per-block table x 40); with the bf16 weights and the
+   int8 state resident: CLIP and the f32 VAE encode on the card against the
+   CPU (rel-L2 <= 1e-4), the encode's time and peak in bf16 and f32, and one
+   CFG forward at t=999 of the quantized and the bf16 I2V model with the same
+   conditioning under the 4-bit gate and torch.profiler; then at T2V-1.3B
+   from phase 3's calibration, WanT2V.quant_ctx_schedule (W8A8 on step 1,
+   mixed W4A8 on steps 2-3: each step's launches exact) and
+   WanT2V.capture_attn_maps from the deployed W8A8 model (17 frames, pool
+   256: mass, shapes, select_temporal_windows, against a calib-mode capture).
 
 The third-to-last line is the kernels' JSON record, then the card's name
 and power limit, and the last line {"ok": true, "device": {...}}.
@@ -401,17 +424,8 @@ def write_vae_checkpoint(params, path) -> None:
 # ---------------------------------------------------------------------------
 
 
-def kernel_checks(torch, results):
-    from wanq_tpu_torch.models.attention import _flash_cuda, _sdpa_reference
-    from wanq_tpu_torch.models.rope import pad_tables, rope_tables_interleaved
-    from wanq_tpu_torch.ops.fused import ln_modulate_quant_cuda, ln_modulate_quant_plain
-    from wanq_tpu_torch.ops.qgemm import w8a8_linear_cuda, w8a8_linear_plain
-    from wanq_tpu_torch.ops.rmsnorm_rope import (
-        _k3_cuda, rms_rope_heads_plain, rms_split_heads_plain)
-
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(0)
-    b, s, valid, c, n, d = 2, 32768, 32760, 1536, 12, 128
+def recorder(results):
+    """The ``record`` function of the kernel checks, summing into ``results``."""
 
     def record(name, err, ms, plain_ms, detail, nbytes, ops, op_type, library_ms=None,
                summed=True):
@@ -438,6 +452,37 @@ def kernel_checks(torch, results):
             f"plain {plain_ms:.3f} ms{lib}  bound {max(bytes_ms, ops_ms):.3f} ms "
             f"({nbytes / 1e6:.1f} MB -> {bytes_ms:.3f} ms; {ops / 1e12:.3f} T {op_type} ops "
             f"-> {ops_ms:.3f} ms)")
+
+    return record
+
+
+def attn_err(got, want, what):
+    """K4's limits against its plain version: the outputs are small (std ~
+    sqrt(e / Sk)), so they scale with them: rel-L2 <= 1e-2 and max abs err
+    <= 4 bf16 ulps of max|want|. Returns (max abs err, rel-L2)."""
+    import torch
+
+    g, w = got.float(), want.float()
+    err = (g - w).abs().max().item()
+    rel = ((g - w).norm() / w.norm()).item()
+    ulp = 2.0 ** (math.floor(math.log2(w.abs().max().item())) - 7)
+    check(bool(torch.isfinite(g).all()) and rel <= 1e-2 and err <= 4 * ulp,
+          f"K4 {what}: max abs err {err:.3e} (limit {4 * ulp:.3e}), rel-L2 {rel:.3e}")
+    return err, rel
+
+
+def kernel_checks(torch, results):
+    from wanq_tpu_torch.models.attention import _flash_cuda, _sdpa_reference
+    from wanq_tpu_torch.models.rope import pad_tables, rope_tables_interleaved
+    from wanq_tpu_torch.ops.fused import ln_modulate_quant_cuda, ln_modulate_quant_plain
+    from wanq_tpu_torch.ops.qgemm import w8a8_linear_cuda, w8a8_linear_plain
+    from wanq_tpu_torch.ops.rmsnorm_rope import (
+        _k3_cuda, rms_rope_heads_plain, rms_split_heads_plain)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    b, s, valid, c, n, d = 2, 32768, 32760, 1536, 12, 128
+    record = recorder(results)
 
     # K1 -- LN + modulate + int8 quant, x [2, 32768, C] bf16, C = 1536 and the
     # T2V-14B width 5120
@@ -541,19 +586,9 @@ def kernel_checks(torch, results):
     del ca, sb, caq, sbq
     torch.cuda.empty_cache()
 
-    # K4 -- attention: cross (Sk = 512) and self (32768, valid 32760). The
-    # outputs are small (std ~ sqrt(e / Sk)), so the limits scale with them:
-    # rel-L2 <= 1e-2 and max abs err <= 4 bf16 ulps of max|want|. Dropping
-    # one 128-key tile of the self call moves rel-L2 by ~6e-2.
-    def attn_err(got, want, what):
-        g, w = got.float(), want.float()
-        err = (g - w).abs().max().item()
-        rel = ((g - w).norm() / w.norm()).item()
-        ulp = 2.0 ** (math.floor(math.log2(w.abs().max().item())) - 7)
-        check(bool(torch.isfinite(g).all()) and rel <= 1e-2 and err <= 4 * ulp,
-              f"K4 {what}: max abs err {err:.3e} (limit {4 * ulp:.3e}), rel-L2 {rel:.3e}")
-        return err, rel
-
+    # K4 -- attention: cross (Sk = 512) and self (32768, valid 32760), at
+    # attn_err's limits. Dropping one 128-key tile of the self call moves
+    # rel-L2 by ~6e-2.
     q = torch.randn((b, n, s, d), device=dev, generator=g).bfloat16()
     ctx_k = torch.randn((b, 512, n, d), device=dev, generator=g).bfloat16()
     ctx_v = torch.randn((b, 512, n, d), device=dev, generator=g).bfloat16()
@@ -2268,6 +2303,563 @@ def calib_maps_check(torch, small, p_cpu):
     return failures
 
 
+# ---------------------------------------------------------------------------
+# phase 6: image to video
+# ---------------------------------------------------------------------------
+
+TASK_I2V = "i2v-14B"
+I2V_YAML = "quant_configs/wan_w4a8_mixed.yaml"
+I2V_STEPS = 3
+# I2V-14B under wan_w4a8_mixed.yaml (cross-attention FP), per block: K1 for
+# q/k/v and ffn.0; K2 for q/k/v/o; K7 for the o input and the ffn.2 GELU; K8
+# for ffn.0/2; K3 for q and k rope and the cross-q split; K4 three times:
+# self-attention, then the one cross q against the text and against the 257
+# CLIP tokens
+I2V_PER_BLOCK = {"ln_modulate_quant": 2, "w8a8_linear": 4, "quant_sum": 2, "w4a8_linear": 2,
+                 "rms_rope_heads": 3, "attention": 3}
+CKPT_I2V = OUT / f"ckpt_{TASK_I2V}"
+CLIP_TOKENS = 257
+# the quant_ctx_schedule check at 1.3B: the two paths whose ctxs it switches
+SCHEDULE = ("w8a8", "w4a8_mixed")
+# the capture check at 1.3B: 17 frames (5 latent frames of 1560 tokens, seq
+# 8192 with 7800 valid), pool 256 -> [12, 32, 32] maps
+CAPTURE_FRAMES, CAPTURE_POOL = 17, 256
+
+
+def i2v_image(torch):
+    """The seeded [3, 480, 832] image in [-1, 1] the I2V path starts from."""
+    return torch.rand((3, 480, 832), generator=torch.Generator().manual_seed(42)) * 2 - 1
+
+
+def i2v_kernel_checks(torch, record, grid_path):
+    """Every kernel the I2V path runs, at its shapes, against its plain
+    version at the limits of phase 2, printed, not summed into the kernels
+    line: the path's latent grid ``grid_path`` (I2V pads no token: every
+    sequence kernel ends on a partial tile, and K4's kv_valid is S) and the
+    grid of S = 32760 (60 x 104 latents, which the 480p area cannot give: see
+    the log), B =
+    2 (batched CFG), dim 5120, ffn 13824, 40 heads x 128. K1 and K3 (rope and
+    the cross-q split) on [2, S, 5120]; K7 on the o input [2S, 5120] and the
+    ffn.2 GELU input [2S, 13824]; K2 (5120 -> 5120, bf16 and f32 out: q/k/v
+    and o) and K8 (5120 -> 13824 bf16, 13824 -> 5120 f32) at M = 2S, exact;
+    K4 self-attention over all S keys (the last kv tile partial), and cross
+    from the same q against the 512 text tokens and the 257 CLIP tokens
+    (three kv tiles, the last with one valid key), each beside
+    scaled_dot_product_attention."""
+    from wanq_tpu_torch.models.attention import _flash_cuda, _sdpa_reference
+    from wanq_tpu_torch.models.rope import pad_tables, rope_tables_interleaved
+    from wanq_tpu_torch.ops.fused import (
+        ln_modulate_quant_cuda, ln_modulate_quant_plain, quant_sum_cuda, quant_sum_plain)
+    from wanq_tpu_torch.ops.qgemm import (
+        w4a8_linear_cuda, w4a8_linear_plain, w8a8_linear_cuda, w8a8_linear_plain)
+    from wanq_tpu_torch.ops.rmsnorm_rope import (
+        _k3_cuda, rms_rope_heads_plain, rms_split_heads_plain)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(14)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, c, f, n, d = 2, 5120, 13824, 40, 128
+    qs = d ** -0.5
+    for grid in (grid_path, (21, 30, 52)):
+        s = grid[0] * grid[1] * grid[2]
+        m = b * s
+        tag = f"I2V-14B S {s} = {s // 128}*128 + {s % 128}"
+        # K1
+        x = (torch.randn((b, s, c), device=dev, generator=g) * 2 + 0.3).bfloat16()
+        shift = torch.randn((b, c), device=dev, generator=g) * 0.5
+        scale = torch.randn((b, c), device=dev, generator=g) * 0.5
+        got = ln_modulate_quant_cuda(x, shift, scale)
+        want = ln_modulate_quant_plain(x, shift, scale)
+        diff = (got[0].int() - want[0].int()).abs()
+        frac = (diff > 0).float().mean().item()
+        check(diff.max().item() <= 1 and frac <= 1e-3, f"K1 {tag}: codes differ {frac}")
+        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
+        err = (got[0].float() * got[1][..., None] - want[0].float() * want[1][..., None])
+        record("ln_modulate_quant", err.abs().max().item(),
+               cuda_ms(lambda: ln_modulate_quant_cuda(x, shift, scale)),
+               cuda_ms(lambda: ln_modulate_quant_plain(x, shift, scale), reps=3),
+               f"[2,{s},5120] bf16 ({tag}; codes differing: {frac:.2e})",
+               b * s * c * 3 + b * s * 8 + 2 * b * c * 4, 10 * b * s * c, "f32", summed=False)
+        del got, want, diff, err
+        # K3: rope (q-scaled tables, identity past nothing: S is all valid) and split
+        ca, sb = rope_tables_interleaved(grid, d)
+        ca, sb = pad_tables(torch.from_numpy(ca.copy()).to(dev),
+                            torch.from_numpy(sb.copy()).to(dev), s, s)
+        caq, sbq = ca * qs, sb * qs
+        wn = torch.rand((c,), device=dev, generator=g) + 0.5
+        for detail, kern, plain in (
+                ("rope", lambda: _k3_cuda(x, wn, caq, sbq, n, 1e-6, torch.bfloat16),
+                 lambda: rms_rope_heads_plain(x, wn, caq, sbq, n)),
+                ("split only (cross q)", lambda: _k3_cuda(x, wn, None, None, n, 1e-6,
+                                                          torch.bfloat16),
+                 lambda: rms_split_heads_plain(x, wn, n))):
+            frac, err = bf16_ulp_check(torch, kern().float(), plain().float())
+            check(frac <= 1e-4, f"K3 {tag} {detail}: {frac:.2e} beyond one ulp")
+            nbytes = b * s * c * 4 + c * 4 + (2 * s * d * 4 if detail == "rope" else 0)
+            record("rms_rope_heads", err, cuda_ms(kern, reps=5), cuda_ms(plain, reps=3),
+                   f"[2,{s},5120]->[2,40,{s},128] {detail} ({tag}; beyond 1 ulp: {frac:.2e})",
+                   nbytes, 8 * b * s * c, "f32", summed=False)
+        del x, ca, sb, caq, sbq
+        # K7: the o input without GELU, the ffn.2 input with it
+        for cw, gelu in ((c, False), (f, True)):
+            xr = (torch.randn((m, cw), device=dev, generator=g) * 2 + 0.2).bfloat16()
+            got, want = quant_sum_cuda(xr, gelu), quant_sum_plain(xr, gelu)
+            diff = (got[0].int() - want[0].int()).abs()
+            frac = (diff > 0).float().mean().item()
+            s_rel = ((got[1] - want[1]).abs() / want[1]).max().item()
+            check(diff.max().item() <= 1 and frac <= 1e-3 and s_rel <= 1e-6,
+                  f"K7 {tag} C={cw}: codes {frac:.2e}, scale rel {s_rel:.2e}")
+            err = (got[0].float() * got[1][..., None] - want[0].float() * want[1][..., None])
+            record("quant_sum", err.abs().max().item(), cuda_ms(lambda: quant_sum_cuda(xr, gelu)),
+                   cuda_ms(lambda: quant_sum_plain(xr, gelu), reps=3),
+                   f"[{m},{cw}] bf16 gelu={gelu} ({tag}; codes differing: {frac:.2e})",
+                   xr.numel() * 3 + m * 8, (20 if gelu else 6) * xr.numel(), "f32", summed=False)
+            del xr, got, want, diff, err
+        torch.cuda.empty_cache()
+        # K2 and K8 at M = 2S
+        for name, k, nn, outs in (("w8a8_linear", c, c, ("bfloat16", "float32")),
+                                  ("w4a8_linear", c, f, ("bfloat16",)),
+                                  ("w4a8_linear", f, c, ("float32",))):
+            a = torch.randint(-128, 128, (m, k), device=dev, generator=g, dtype=torch.int8)
+            w = torch.randint(-128, 128, (nn, k // 2 if name == "w4a8_linear" else k),
+                              device=dev, generator=g, dtype=torch.int8)
+            s_a = torch.rand((m,), device=dev, generator=g) * 0.02 + 1e-3
+            s_w = torch.rand((nn,), device=dev, generator=g) * 0.1 / k ** 0.5 + 1e-5
+            sum_a = s_a * a.float().sum(-1)
+            zp = torch.randint(0, 16, (nn,), device=dev, generator=g).float()
+            bias = torch.randn((nn,), device=dev, generator=g)
+            kern_fn, plain_fn = ((w8a8_linear_cuda, w8a8_linear_plain) if name == "w8a8_linear"
+                                 else (w4a8_linear_cuda, w4a8_linear_plain))
+            for out in outs:
+                args = (a, w, s_a, s_w, sum_a, zp, bias, getattr(torch, out))
+                got, want = kern_fn(*args), plain_fn(*args)
+                err = (got.float() - want.float()).abs().max().item()
+                check(torch.equal(got, want), f"{name} {tag} ({k},{nn}) {out}: max err {err}")
+                del got, want
+                ms = cuda_ms(lambda: kern_fn(*args))
+                record(name, err, ms, cuda_ms(lambda: plain_fn(*args), warmup=0, reps=1),
+                       f"M={m} K={k} N={nn} {out} out, exact ({tag}; "
+                       f"{2 * m * k * nn / ms / 1e9:.0f} TOP/s)",
+                       m * k + w.numel() + m * nn * (2 if out == "bfloat16" else 4) + 8 * m
+                       + 12 * nn, 2 * m * k * nn, "int8", summed=False)
+            del a, w
+            torch.cuda.empty_cache()
+        # K4 self over all S keys (q heads-major with the scale folded in, k
+        # heads-major, v the strided view over [2, S, 5120]); the plain
+        # version is one timed call
+        q = (torch.randn((b, n, s, d), device=dev, generator=g) * qs).bfloat16()
+        k = torch.randn((b, n, s, d), device=dev, generator=g).bfloat16()
+        vh = torch.randn((b, s, n * d), device=dev, generator=g).bfloat16().view(
+            b, s, n, d).transpose(1, 2)
+        kern = lambda: _flash_cuda(q, k, vh, 1.0, s)
+        got = kern()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = _sdpa_reference(q.transpose(1, 2), k.transpose(1, 2), vh.transpose(1, 2), 1.0,
+                               None, q_chunk=512)
+        end.record()
+        end.synchronize()
+        err, rel = attn_err(got, want, f"self {tag}")
+        tail_err, tail_rel = attn_err(got[:, -(s % 128 or 128):], want[:, -(s % 128 or 128):],
+                                      f"self {tag} last q tile")
+        del got, want
+        torch.cuda.empty_cache()
+        ms, flops = cuda_ms(kern, warmup=1, reps=3), 4 * b * n * s * s * d
+        record("attention", err, ms, start.elapsed_time(end),
+               f"self [2,40,{s},128], every key valid ({tag}; rel-L2 {rel:.2e}; the last, "
+               f"partial q tile err {tail_err:.3e}, rel-L2 {tail_rel:.2e}; "
+               f"{flops / ms / 1e9:.0f} TFLOP/s; plain: one call; library = "
+               f"scaled_dot_product_attention)", 2 * 4 * b * n * s * d, flops, "bf16",
+               library_ms=cuda_ms(lambda: sdpa(q, k, vh, scale=1.0), warmup=1, reps=3),
+               summed=False)
+        del k, vh
+        q = (q.float() / qs).bfloat16()  # cross-attention takes its scale in K4
+        for sk, what in ((512, "text"),
+                         (CLIP_TOKENS, "image: 3 kv tiles, 1 valid key in the last")):
+            ck = torch.randn((b, sk, n, d), device=dev, generator=g).bfloat16()
+            cv = torch.randn((b, sk, n, d), device=dev, generator=g).bfloat16()
+            kh, vh = ck.transpose(1, 2), cv.transpose(1, 2)
+            kern = lambda: _flash_cuda(q, kh, vh, qs, sk)
+            plain = lambda: _sdpa_reference(q.transpose(1, 2), ck, cv, qs, None, q_chunk=8192)
+            err, rel = attn_err(kern(), plain(), f"cross Sk {sk} {tag}")
+            record("attention", err, cuda_ms(kern), cuda_ms(plain, reps=3),
+                   f"cross q [2,40,{s},128] heads-major, k/v [2,{sk},40,128] seq-major ({what}; "
+                   f"{tag}; rel-L2 {rel:.2e}; library = scaled_dot_product_attention)",
+                   2 * (2 * b * n * s * d + 2 * b * n * sk * d), 4 * b * n * s * sk * d, "bf16",
+                   library_ms=cuda_ms(lambda: sdpa(q, kh, vh, scale=qs)), summed=False)
+            del ck, cv, kh, vh
+        del q
+        torch.cuda.empty_cache()
+
+
+def write_i2v_checkpoint(torch, np, cfg):
+    """The I2V checkpoint dir without the DiT (--random_init draws it): the
+    full-width random VAE, seed 0, and CLIP's visual tower at ViT-H/14's
+    width drawn on the card from seed 42, in bf16 (the loader reads any
+    float dtype into f32; the visual keys are all CLIPModel.visual reads, so
+    the 250002-token text tower is left out); and the seeded random text
+    states of the run (no umT5 files exist). Returns the context file."""
+    from wanq_tpu_torch.models import clip as clipm
+    from wanq_tpu_torch.models import vae as vaem
+
+    t0 = time.perf_counter()
+    CKPT_I2V.mkdir(parents=True, exist_ok=True)
+    write_vae_checkpoint(vaem.init_vae_params(vaem.WAN_VAE_CFG, seed=0, device="cpu"),
+                         str(CKPT_I2V / cfg.vae_checkpoint))
+    params = clipm.init_clip_params_on_device(clipm.CLIP_XLM_ROBERTA_VIT_H_14, seed=42,
+                                              device="cuda")
+    visual = {k: v.bfloat16().cpu() for k, v in params.items() if k.startswith("visual.")}
+    n_all = sum(v.numel() for v in params.values())
+    del params
+    torch.cuda.empty_cache()
+    torch.save(visual, CKPT_I2V / cfg.clip_checkpoint)
+    rng = np.random.default_rng(42)
+    ctx_file = str(OUT / "i2v_context.npz")
+    np.savez(ctx_file, **{k: rng.normal(size=(1, cfg.text_len, cfg.text_dim)).astype(np.float32)
+                          for k in ("context", "context_null")})
+    n_visual = sum(v.numel() for v in visual.values())
+    log(f"  {CKPT_I2V.name}: {cfg.vae_checkpoint} "
+        f"({os.path.getsize(CKPT_I2V / cfg.vae_checkpoint) / 2**30:.2f} GiB), "
+        f"{cfg.clip_checkpoint}: the visual tower, {n_visual / 1e6:.0f} M of the model's "
+        f"{n_all / 1e6:.0f} M params, bf16 "
+        f"({os.path.getsize(CKPT_I2V / cfg.clip_checkpoint) / 2**30:.2f} GiB): "
+        f"{time.perf_counter() - t0:.1f} s")
+    return ctx_file
+
+
+def i2v_generate(torch, np, cfg, img, ctx_file, launches):
+    """cli.ptq --task i2v-14B --random_init (RTN under wan_w4a8_mixed.yaml,
+    the int8 targets), then cli.generate from --random_init --ckpt_dir (the
+    dir's VAE and CLIP) with the artifact, --hardware, DPM++, 3 steps and
+    the bf16 VAE, on the seeded image. Times CLIP, the VAE encode and decode
+    and each step; the launches of every step equal I2V_PER_BLOCK x 40; the
+    video is finite, in [-1, 1] and not constant. Returns the artifact."""
+    from wanq_tpu_torch.cli import generate, ptq
+    from wanq_tpu_torch.models import clip as clipm
+    from wanq_tpu_torch.models import vae as vaem
+    from wanq_tpu_torch.ops import _lib
+    from wanq_tpu_torch.pipelines.image2video import i2v_latent_size
+
+    common = ["--task", TASK_I2V, "--size", SIZE, "--frame_num", str(FRAMES), "--random_init",
+              "--quant_config", I2V_YAML, "--device", "cuda"]
+    art = str(OUT / "quant_params_i2v.npz")
+    _lib.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ptq.generate(ptq.parse_args(common + ["--targets", "int8", "--save_path", art]))
+    torch.cuda.synchronize()
+    log(f"  cli.ptq {TASK_I2V} {I2V_YAML} --targets int8 (incl. random init and the npz write): "
+        f"{time.perf_counter() - t0:.1f} s, {os.path.getsize(art) / 2**30:.2f} GiB; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(not _lib.launch_counts(), f"i2v PTQ launched {_lib.launch_counts()}")
+
+    save = str(OUT / "generate_i2v.npz")
+    args = generate.parse_args(common + [
+        "--ckpt_dir", str(CKPT_I2V), "--context_file", ctx_file, "--quant_params", art,
+        "--hardware", "--sample_solver", "dpm++", "--sample_steps", str(I2V_STEPS),
+        "--vae_dtype", "bfloat16", "--save_file", save])
+    clip_s, enc_s, dec_s, load_s = [], [], [], []
+    timed = [(owner, name, _timed(torch, owner, name, store)) for owner, name, store in (
+        (clipm.CLIPModel, "visual", clip_s), (vaem.WanVAE, "encode", enc_s),
+        (vaem.WanVAE, "decode", dec_s), (generate, "_maybe_quant_ctx", load_s))]
+    marks, per_step = [], []
+
+    def on_step(i, t, latents):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        per_step.append(_lib.launch_counts())
+        _lib.reset_launch_counts()
+
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        generate.generate(args, on_step=on_step, image=img)
+        total_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        check(not _lib.launch_counts(), f"launches after the last step: {_lib.launch_counts()}")
+    finally:
+        for owner, name, orig in timed:
+            setattr(owner, name, orig)
+    steps_s = [marks[i + 1] - marks[i] for i in range(len(marks) - 1)]
+    want = {k: v * cfg.num_layers for k, v in I2V_PER_BLOCK.items()}
+    log(f"  [generate i2v] cli.generate --random_init --ckpt_dir --quant_params --hardware "
+        f"--sample_solver dpm++ ({I2V_STEPS} steps, bf16 VAE): {total_s:.1f} s; quant state "
+        f"load {load_s[0]:.2f} s; CLIP {clip_s[0]:.3f} s; VAE encode {enc_s[0]:.2f} s; denoise "
+        f"step s (steps 2-{I2V_STEPS}) {', '.join(f'{x:.3f}' for x in steps_s)}; VAE decode "
+        f"{dec_s[0]:.2f} s; peak {peak / 2**30:.2f} GiB")
+    log(f"  [generate i2v] launches per step: {per_step} (want {want} each)")
+    check(len(per_step) == I2V_STEPS, f"{len(per_step)} steps ran, want {I2V_STEPS}")
+    for i, counts in enumerate(per_step):
+        check(counts == want, f"i2v step {i + 1}: launches {counts}, want {want}")
+        for name, cnt in counts.items():
+            launches[name] = launches.get(name, 0) + cnt
+    lat_h, lat_w = i2v_latent_size(cfg, (480, 832), 832 * 480)
+    video = np.load(save)["video"]
+    shape = (1, 3, FRAMES, lat_h * 8, lat_w * 8)
+    check(video.shape == shape, f"i2v video shape {video.shape}, want {shape}")
+    check(bool(np.isfinite(video).all()), "non-finite i2v video")
+    check(float(np.abs(video).max()) <= 1.0 and float(video.std()) > 0,
+          "i2v video outside [-1, 1] or constant")
+    log(f"  [generate i2v] video {video.shape} finite in [{video.min():.3f}, {video.max():.3f}], "
+        f"std {video.std():.4f}")
+    return art
+
+
+def i2v_fidelity(torch, np, cfg, img, art, ctx_file):
+    """With I2V-14B's bf16 weights (the CLI's seed-42 draw) and the
+    artifact's int8 state resident: CLIP on the card against the CPU (f32,
+    rel-L2 <= 1e-4); the VAE encode of the path's video in bf16 and f32
+    (time, the peak beyond what is held, bf16 vs f32), the f32 encode of a
+    5-frame 120 x 208 crop against the CPU's (rel-L2 <= 1e-4); then one CFG
+    forward at t=999 of the quantized and of the bf16 model with the same
+    clip_fea and y (the bf16 encode's), under profile_steps: the 4-bit gate
+    (cosine >= 0.9 conditional, >= 0.5 with CFG 5), PSNR, the wall ratio and
+    the kernels by device time."""
+    from wanq_tpu_torch.cli import generate
+    from wanq_tpu_torch.cli.common import load_params
+    from wanq_tpu_torch.cli.quant_generate import quantize_or_load
+    from wanq_tpu_torch.models import clip as clipm
+    from wanq_tpu_torch.models import vae as vaem
+    from wanq_tpu_torch.models.clip import resize_cubic
+    from wanq_tpu_torch.pipelines.image2video import WanI2V, first_frame_mask, i2v_latent_size
+    from wanq_tpu_torch.quant import QuantConfig
+    from wanq_tpu_torch.quant.qlinear import QuantCtx
+
+    args = generate.parse_args(["--task", TASK_I2V, "--random_init", "--quant_params", art,
+                                "--device", "cuda"])
+    params = load_params(args, cfg)
+    pol, st, rot = quantize_or_load(args, params, cfg, QuantConfig.from_yaml(I2V_YAML), "int8")
+    ctx = QuantCtx(mode="int8", policies=pol, state=st, rotations=rot)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    log(f"  {TASK_I2V} bf16 weights and the int8 state resident: {held / 2**30:.2f} GiB")
+
+    clip_pth = str(CKPT_I2V / cfg.clip_checkpoint)
+    clip = clipm.CLIPModel(checkpoint_path=clip_pth, device="cuda")
+    frame = img[None, :, None]
+    clip_fea = clip.visual(frame.cuda())
+    t0 = time.perf_counter()
+    host = clipm.CLIPModel(checkpoint_path=clip_pth, device="cpu").visual(frame)
+    rel = _rel(torch, host, clip_fea)
+    log(f"  CLIP visual {tuple(frame.shape)} -> {tuple(clip_fea.shape)}, f32: card vs CPU rel-L2 "
+        f"{rel:.3e} (the CPU's {time.perf_counter() - t0:.1f} s with the load)")
+    check(rel <= 1e-4, f"CLIP card vs CPU rel-L2 {rel:.3e} > 1e-4")
+    del clip, host
+
+    lat_h, lat_w = i2v_latent_size(cfg, (480, 832), 832 * 480)
+    h, w, lat_f = lat_h * 8, lat_w * 8, (FRAMES - 1) // 4 + 1
+    vid = torch.cat([resize_cubic(img[None].cuda(), (h, w))[:, :, None],
+                     torch.zeros((1, 3, FRAMES - 1, h, w), device="cuda")], dim=2)
+    vae_pth = str(CKPT_I2V / cfg.vae_checkpoint)
+    z = {}
+    for label, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        vae = vaem.WanVAE(vae_pth=vae_pth, compute_dtype=dtype, device="cuda")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        z[label] = vae.encode(vid)
+        torch.cuda.synchronize()
+        log(f"  VAE encode {label} {tuple(vid.shape)} -> {tuple(z[label].shape)} with the 14B "
+            f"state resident: {time.perf_counter() - t0:.2f} s, peak beyond the "
+            f"{base / 2**30:.2f} GiB held {(torch.cuda.max_memory_allocated() - base) / 2**30:.2f}"
+            f" GiB")
+        del vae
+        torch.cuda.empty_cache()
+    log(f"  VAE encode bf16 vs f32 (the path's latents): rel-L2 "
+        f"{_rel(torch, z['f32'], z['bf16'].float()):.3e}")
+    crop = vid[:, :, :5, :120, :208].contiguous()
+    vae_params = vaem.load_vae_checkpoint(vae_pth, device="cpu")
+    card = vaem.WanVAE(params=vae_params, device="cuda").encode(crop)
+    t0 = time.perf_counter()
+    host = vaem.WanVAE(params=vae_params, device="cpu").encode(crop.cpu())
+    rel = _rel(torch, host, card)
+    log(f"  VAE encode {tuple(crop.shape)} f32: card vs CPU rel-L2 {rel:.3e} (the CPU's "
+        f"{time.perf_counter() - t0:.1f} s)")
+    check(rel <= 1e-4, f"VAE encode f32 card vs CPU rel-L2 {rel:.3e} > 1e-4")
+    y = torch.cat([first_frame_mask(FRAMES, lat_h, lat_w, 4, device="cuda"),
+                   z["bf16"][0].float()], dim=0)
+    del vid, crop, card, host, z, vae_params
+    torch.cuda.empty_cache()
+
+    with np.load(ctx_file) as data:
+        context, context_null = (torch.from_numpy(data[k]).cuda()
+                                 for k in ("context", "context_null"))
+    extra = {"y": y[None], "clip_fea": clip_fea}
+    seq_len = lat_f * lat_h * lat_w // 4
+    lat = torch.randn((1, 16, lat_f, lat_h, lat_w), generator=torch.Generator(
+        device="cuda").manual_seed(1), device="cuda")
+    pipe = WanI2V(cfg, params, device="cuda")
+    preds = {}
+
+    def step(label, c):
+        with torch.no_grad():
+            preds[label] = pipe._split(lat, 999.0, context, context_null, c, seq_len,
+                                       extra=extra)
+
+    profile_steps(torch, {"i2v_w4a8_mixed": lambda: step("quant", ctx),
+                          "bf16_i2v": lambda: step("bf16", None)}, ref="bf16_i2v")
+    got = {}
+    for label, (c, u) in preds.items():
+        got[label] = {5.0: (u + 5.0 * (c - u)).cpu().numpy().astype(np.float64),
+                      1.0: c.cpu().numpy().astype(np.float64)}
+    (psnr, cos), (psnr1, cos1) = (psnr_cos(got["bf16"][gs], got["quant"][gs]) for gs in (5.0, 1.0))
+    log(f"  i2v_w4a8_mixed vs bf16 FP noise prediction ({TASK_I2V} {SIZE}x{FRAMES}, seq "
+        f"{seq_len}, t=999): CFG 5.0 PSNR {psnr:.2f} dB, cosine {cos:.6f}; conditional PSNR "
+        f"{psnr1:.2f} dB, cosine {cos1:.6f}")
+    check(all(np.isfinite(v).all() for g in got.values() for v in g.values()),
+          "non-finite i2v noise prediction")
+    check(cos1 >= 0.9 and cos >= 0.5,
+          f"i2v_w4a8_mixed cosine {cos1:.4f} (conditional) < 0.9 or {cos:.4f} (CFG) < 0.5")
+    del params, ctx, pipe, preds, extra
+    torch.cuda.empty_cache()
+
+
+def schedule_and_capture(torch, np, calib_path, launches):
+    """Two checks at T2V-1.3B from phase 3's calibration (no new one):
+    ``quant_ctx_schedule`` over 3 UniPC steps at 832x480x81 with W8A8 for t
+    at or above the midpoint of the first two timesteps and mixed W4A8
+    below: step 1 launches W8A8's kernels, steps 2-3 mixed W4A8's (per
+    block x 30, exact); ``capture_attn_maps`` from the deployed W8A8 model
+    at 17 frames (seq 8192, 7800 valid), pool 256: 30 maps [12, 32, 32],
+    every row of mass 1/pool (within 1e-3), the radii of
+    select_temporal_windows, and the maps against a calib-mode capture of
+    the same forward: the FP model's deployed capture equal bit for bit, the
+    W8A8 one within rel-L2 5e-2 (its quantization error), stated before the
+    first run."""
+    from wanq_tpu_torch.cli.common import load_contexts, load_params
+    from wanq_tpu_torch.configs import SIZE_CONFIGS, WAN_CONFIGS
+    from wanq_tpu_torch.models.dit import dit_forward, linear_layer_names
+    from wanq_tpu_torch.ops import _lib
+    from wanq_tpu_torch.pipelines.text2video import (
+        WanT2V, compute_seq_len, compute_target_shape)
+    from wanq_tpu_torch.quant import QuantConfig
+    from wanq_tpu_torch.quant.attn import select_temporal_windows
+    from wanq_tpu_torch.quant.ptq import prepare_quant_state
+    from wanq_tpu_torch.quant.qlinear import QuantCtx
+
+    cfg = WAN_CONFIGS[TASK]
+    args = argparse.Namespace(base_seed=42, device="cuda", random_init=True, ckpt_dir=None,
+                              context_file=None)
+    params = load_params(args, cfg)
+    context, context_null = (torch.from_numpy(a).cuda() for a in load_contexts(args, cfg))
+    calib = dict(np.load(calib_path))
+    ctxs = {}
+    for label in SCHEDULE:
+        pol, st, rot = prepare_quant_state(params, linear_layer_names(cfg),
+                                           QuantConfig.from_yaml(PATHS[label][0]),
+                                           calib=calib, targets="int8")
+        ctxs[label] = QuantCtx(mode="int8", policies=pol, state=st, rotations=rot)
+    pipe = WanT2V(cfg, params, device="cuda")
+    ts = pipe._make_scheduler("unipc", STEPS, 5.0).timesteps
+    t1 = (float(ts[0]) + float(ts[1])) / 2
+    pipe = WanT2V(cfg, params, device="cuda",
+                  quant_ctx_schedule=[(t1, ctxs[SCHEDULE[0]]), (0.0, ctxs[SCHEDULE[1]])])
+    per_step, marks = [], []
+
+    def on_step(i, t, latents):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        per_step.append(_lib.launch_counts())
+        _lib.reset_launch_counts()
+
+    torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    marks.append(time.perf_counter())
+    pipe.generate(context, context_null, size=SIZE_CONFIGS[SIZE], frame_num=FRAMES,
+                  sampling_steps=STEPS, seed=42, on_step=on_step)
+    log(f"  quant_ctx_schedule [(t >= {t1:.1f}: {SCHEDULE[0]}), (0: {SCHEDULE[1]})] over the "
+        f"timesteps {[int(t) for t in ts]}: step s "
+        f"{', '.join(f'{marks[i + 1] - marks[i]:.3f}' for i in range(STEPS))}; launches per step "
+        f"{per_step}")
+    for i, counts in enumerate(per_step):
+        label = SCHEDULE[0] if float(ts[i]) >= t1 else SCHEDULE[1]
+        want = {k: v * cfg.num_layers for k, v in PATHS[label][1].items()}
+        check(counts == want, f"schedule step {i + 1} ({label}): launches {counts}, want {want}")
+        for name, cnt in counts.items():
+            name = MODES.get(name, name)
+            launches[name] = launches.get(name, 0) + cnt
+    check([float(t) >= t1 for t in ts] == [True] + [False] * (STEPS - 1),
+          f"the schedule's threshold {t1} does not split the timesteps {list(ts)} after step 1")
+
+    shape = compute_target_shape(cfg, SIZE_CONFIGS[SIZE], CAPTURE_FRAMES)
+    seq_len = compute_seq_len(cfg, shape)
+    valid = shape[1] * shape[2] * shape[3] // 4
+    tpf = shape[2] * shape[3] // 4
+    lat = torch.randn((1, *shape), generator=torch.Generator(device="cuda").manual_seed(3),
+                      device="cuda")
+    kw = dict(size=SIZE_CONFIGS[SIZE], frame_num=CAPTURE_FRAMES, pool=CAPTURE_POOL,
+              reduce="mean", latents=lat)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    maps = WanT2V(cfg, params, quant_ctx=ctxs["w8a8"], device="cuda").capture_attn_maps(
+        context, **kw)
+    cap_s = time.perf_counter() - t0
+    fp_maps = WanT2V(cfg, params, device="cuda").capture_attn_maps(context, **kw)
+    cctx = QuantCtx(mode="calib", attn_map_pool=CAPTURE_POOL, attn_map_reduce="mean")
+    with torch.no_grad():
+        dit_forward(params, cfg, lat, torch.full((1,), 500.0, device="cuda"), context, seq_len,
+                    ctx=cctx)
+    calib_maps = {k[: -len(".attn_map")]: v.float().cpu().numpy()
+                  for k, v in cctx.collect.items() if k.endswith(".attn_map")}
+    sp = seq_len // CAPTURE_POOL
+    check(sorted(maps) == sorted(calib_maps) == sorted(f"blocks.{i}.self_attn"
+                                                       for i in range(cfg.num_layers)),
+          f"captured {sorted(maps)[:3]}...")
+    mass = max(float(np.abs(m.sum(-1) * CAPTURE_POOL - 1).max()) for m in maps.values())
+    rels = [float(np.linalg.norm(maps[k] - calib_maps[k]) / np.linalg.norm(calib_maps[k]))
+            for k in maps]
+    fp_equal = all(np.array_equal(fp_maps[k], calib_maps[k]) for k in maps)
+    radii = select_temporal_windows(maps, tokens_per_frame=tpf, pool=CAPTURE_POOL,
+                                    threshold=0.9, valid_len=valid)
+    log(f"  capture_attn_maps from the deployed w8a8 model ({TASK} {SIZE}x{CAPTURE_FRAMES}, seq "
+        f"{seq_len} with {valid} valid, pool {CAPTURE_POOL}): {len(maps)} maps "
+        f"{maps['blocks.0.self_attn'].shape} in {cap_s:.2f} s; row mass x pool off 1 by at most "
+        f"{mass:.2e}; against the calib-mode capture of the same forward: w8a8 rel-L2 max "
+        f"{max(rels):.3e}, the FP model's deployed capture equal bits: {fp_equal}; "
+        f"select_temporal_windows (0.9 of the mass): radii "
+        f"{sorted({int(r) for v in radii.values() for r in v})}")
+    check(all(m.shape == (cfg.num_heads, sp, sp) for m in maps.values()),
+          f"capture shape {maps['blocks.0.self_attn'].shape}")
+    check(mass <= 1e-3, f"captured rows' mass off 1/pool by {mass:.2e} x pool")
+    check(fp_equal, "the FP model's deployed capture differs from the calib-mode capture")
+    check(max(rels) <= 5e-2, f"w8a8 capture vs calib-mode capture rel-L2 {max(rels):.3e} > 5e-2")
+    check(all(r.shape == (cfg.num_heads,) for r in radii.values()), "select_temporal_windows")
+    del params, ctxs, pipe
+    torch.cuda.empty_cache()
+
+
+def image_to_video(torch, results, launches, calib_path):
+    """Phase 6: the I2V-14B path at 832*480x81 (kernels at its shapes, the
+    checkpoint dir, cli.ptq, cli.generate to the video, CLIP and the VAE
+    encoder on the card, fidelity against bf16), then the 1.3B schedule and
+    capture checks."""
+    import numpy as np
+
+    from wanq_tpu_torch.configs import WAN_CONFIGS
+    from wanq_tpu_torch.pipelines.image2video import i2v_latent_size
+
+    cfg = WAN_CONFIGS[TASK_I2V]
+    img = i2v_image(torch)
+    lat_h, lat_w = i2v_latent_size(cfg, tuple(img.shape[1:]), 832 * 480)
+    lat_f = (FRAMES - 1) // 4 + 1
+    s_path = lat_f * lat_h * lat_w // 4
+    log(f"  the [3, 480, 832] image at {SIZE}: latents {lat_f} x {lat_h} x {lat_w} (the area's "
+        f"sqrt(832 * 480 * 480 / 832) is 479.99999999999994 in float64, so 58 rows, not 60, as "
+        f"in wanq_tpu), video {lat_h * 8} x {lat_w * 8}, seq {s_path} = {s_path // 128} * 128 + "
+        f"{s_path % 128} (i2v rounds to no multiple of 512)")
+    t0 = time.perf_counter()
+    i2v_kernel_checks(torch, recorder(results), (lat_f, lat_h // 2, lat_w // 2))
+    torch.cuda.empty_cache()
+    log(f"  phase 6 kernels: {time.perf_counter() - t0:.1f} s")
+    ctx_file = write_i2v_checkpoint(torch, np, cfg)
+    art = i2v_generate(torch, np, cfg, img, ctx_file, launches)
+    torch.cuda.empty_cache()
+    i2v_fidelity(torch, np, cfg, img, art, ctx_file)
+    schedule_and_capture(torch, np, calib_path, launches)
+
+
 # kernels whose build must show no spill: the wgmma kernels (a spill there
 # means ptxas gave up on the setmaxnreg budgets), K1, K3 and K7, which hold a
 # row in registers, and K10a's two, which hold half a tile (q/k) or a
@@ -2413,16 +3005,15 @@ def main() -> int:
     hopper_evidence(_lib, nvcc)
 
     log(f"  phases 0-1: {time.time() - t_all:.1f} s")
+    results, launches = {}, {}
     log("[2] kernels vs plain versions at the paths' shapes (warm median, CUDA events)")
     t0 = time.time()
-    results = {}
     kernel_checks(torch, results)
     torch.cuda.empty_cache()
     log(f"  phase 2: {time.time() - t0:.1f} s")
 
     log(f"[3] the {len(PATHS)} paths through the CLIs (1.3B {SIZE}x{FRAMES}, seq 32768; "
         f"{TASK_14B} at 480p and 720p)")
-    launches = {}
     t0 = time.time()
     calib = {TASK: calibrate(torch)}
     step_s, first = {}, {}
@@ -2458,6 +3049,13 @@ def main() -> int:
     t0 = time.time()
     whole_generate(torch, calib[TASK], launches)
     log(f"  phase 5: {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    log(f"[6] image to video ({TASK_I2V} {SIZE}x{FRAMES}: CLIP, the VAE encoder, DPM++), the "
+        f"{TASK} timestep schedule and the map capture")
+    t0 = time.time()
+    image_to_video(torch, results, launches, calib[TASK])
+    log(f"  phase 6: {time.time() - t0:.1f} s")
     log(f"total {time.time() - t_all:.1f} s")
 
     record = {"kernels": [

@@ -1645,3 +1645,199 @@ def test_load_wan_checkpoint_reads_straight_onto_the_card(dev, tmp_path, monkeyp
     assert sorted(want) == sorted(back)
     for k in want:
         assert back[k].is_cuda and torch.equal(back[k].cpu(), want[k]), k
+
+
+# ---------------------------------------------------------------------------
+# image to video: the new shapes of the kernels, CLIP, the VAE encoder, the
+# i2v tree and forward
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("sq,sk", [(3060, 3060), (1000, 257), (700, 512)],
+                         ids=["self_ragged", "cross_image_257", "cross_text_ragged_q"])
+def test_k4_at_the_i2v_shapes_matches_plain(dev, gen, sq, sk):
+    """K4 with 40 heads where I2V runs it: self-attention over a sequence
+    that is no multiple of the 128-row tile, every key valid (I2V pads no
+    token: the q and kv tiles at the end are partial, read through tensor
+    maps whose outer dimension ends there), and cross-attention against the
+    257 CLIP tokens (three kv tiles, the last with one valid key) and the
+    512 text tokens at a ragged q length; q heads-major, k/v seq-major for
+    cross. K4's limits."""
+    from wanq_tpu_torch.models.attention import _flash_cuda, _sdpa_reference
+
+    b, n, d = 2, 40, 128
+    q = torch.randn((b, n, sq, d), device=dev, generator=gen).bfloat16()
+    if sq == sk:
+        q = (q.float() * d ** -0.5).bfloat16()
+        k = torch.randn((b, n, sk, d), device=dev, generator=gen).bfloat16()
+        vh = torch.randn((b, sk, n * d), device=dev, generator=gen).bfloat16().view(
+            b, sk, n, d).transpose(1, 2)
+        got = _flash_cuda(q, k, vh, 1.0, sk)
+        want = _sdpa_reference(q.transpose(1, 2), k.transpose(1, 2), vh.transpose(1, 2), 1.0,
+                               None, q_chunk=512)
+    else:
+        ck = torch.randn((b, sk, n, d), device=dev, generator=gen).bfloat16()
+        cv = torch.randn((b, sk, n, d), device=dev, generator=gen).bfloat16()
+        got = _flash_cuda(q, ck.transpose(1, 2), cv.transpose(1, 2), d ** -0.5, sk)
+        want = _sdpa_reference(q.transpose(1, 2), ck, cv, d ** -0.5, None)
+    _finish_within(60, f"K4 at Sq {sq}, Sk {sk}")
+    assert got.shape == (b, sq, n, d)
+    _k4_close(got, want)
+
+
+def test_k1_k3_k7_at_the_i2v_rows_match_plain(dev, gen):
+    """K1, K3 (rope and the cross-q split) and K7 (no GELU at 5120, GELU at
+    13824) over 2 x 1587 rows (a 3 x 23 x 23 latent grid: no multiple of any
+    block's rows; I2V-14B's 480p path has 2 x 31668), at their stated
+    limits."""
+    from wanq_tpu_torch.models.rope import pad_tables, rope_tables_interleaved
+    from wanq_tpu_torch.ops.fused import (
+        ln_modulate_quant_cuda, ln_modulate_quant_plain, quant_sum_cuda, quant_sum_plain)
+    from wanq_tpu_torch.ops.rmsnorm_rope import (
+        _k3_cuda, rms_rope_heads_plain, rms_split_heads_plain)
+
+    grid = (3, 23, 23)
+    b, s, c = 2, grid[0] * grid[1] * grid[2], 5120
+    x = (torch.randn((b, s, c), device=dev, generator=gen) * 2 + 0.3).bfloat16()
+    shift = torch.randn((b, c), device=dev, generator=gen) * 0.5
+    scale = torch.randn((b, c), device=dev, generator=gen) * 0.5
+    got, want = ln_modulate_quant_cuda(x, shift, scale), ln_modulate_quant_plain(x, shift, scale)
+    diff = (got[0].int() - want[0].int()).abs()
+    assert diff.max().item() <= 1 and (diff > 0).float().mean().item() <= 1e-3
+    ca, sb = rope_tables_interleaved(grid, 128)
+    ca, sb = pad_tables(torch.from_numpy(ca.copy()).to(dev), torch.from_numpy(sb.copy()).to(dev),
+                        s, s)
+    wn = torch.rand((c,), device=dev, generator=gen) + 0.5
+    for got, want in ((_k3_cuda(x, wn, ca, sb, 40, 1e-6, torch.bfloat16),
+                       rms_rope_heads_plain(x, wn, ca, sb, 40)),
+                      (_k3_cuda(x, wn, None, None, 40, 1e-6, torch.bfloat16),
+                       rms_split_heads_plain(x, wn, 40))):
+        g, w = got.float(), want.float()
+        ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30))) - 7)
+        assert ((g - w).abs() > ulp).float().mean().item() <= 1e-4
+    for cw, gelu in ((5120, False), (13824, True)):
+        xr = (torch.randn((b * s, cw), device=dev, generator=gen) * 2 + 0.2).bfloat16()
+        got, want = quant_sum_cuda(xr, gelu), quant_sum_plain(xr, gelu)
+        _finish_within(60, f"K7 C={cw}")
+        d7 = (got[0].int() - want[0].int()).abs()
+        assert d7.max().item() <= 1 and (d7 > 0).float().mean().item() <= 1e-3
+        torch.testing.assert_close(got[1], want[1], rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K9"])
+def test_k2_k9_at_the_image_context_rows_match_plain(dev, gen, kernel):
+    """The image k/v projections of an I2V-14B config that quantizes them
+    (wan_w4a4.yaml: K9; a W8A8 config: K7 -> K2): M = 2 x 257 = 514 rows
+    (ragged), K = N = 5120, f32 out with bias. Both exact."""
+    from wanq_tpu_torch.ops.qgemm import (
+        w4a4_linear_cuda, w4a4_linear_plain, w8a8_linear_cuda, w8a8_linear_plain)
+
+    m, k, n = 514, 5120, 5120
+    bias = torch.randn((n,), device=dev, generator=gen)
+    if kernel == "K9":
+        a = torch.randint(-8, 8, (m, k), device=dev, generator=gen, dtype=torch.int8)
+        wp = torch.randint(-128, 128, (n, k // 2), device=dev, generator=gen, dtype=torch.int8)
+        s_a = torch.rand((m, k // 128), device=dev, generator=gen) * 0.02 + 1e-3
+        s_w = torch.rand((k // 128, n), device=dev, generator=gen) * 0.02 + 1e-3
+        args = (a, wp, s_a, s_w, bias)
+        got, want = w4a4_linear_cuda(*args), w4a4_linear_plain(*args)
+    else:
+        a = torch.randint(-128, 128, (m, k), device=dev, generator=gen, dtype=torch.int8)
+        w = torch.randint(-128, 128, (n, k), device=dev, generator=gen, dtype=torch.int8)
+        s_a = torch.rand((m,), device=dev, generator=gen) * 0.02 + 1e-3
+        s_w = torch.rand((n,), device=dev, generator=gen) * 0.02 / k ** 0.5 + 1e-5
+        sum_a = s_a * a.float().sum(-1)
+        zp = torch.randint(-20, 20, (n,), device=dev, generator=gen).float()
+        args = (a, w, s_a, s_w, sum_a, zp, bias, torch.float32)
+        got, want = w8a8_linear_cuda(*args), w8a8_linear_plain(*args)
+    assert got.shape == (m, n) and torch.equal(got, want)
+
+
+def test_clip_visual_and_resize_card_vs_cpu(dev):
+    """CLIP's vision tower at ViT-H/14's width (1280, 16 heads, 224 x 224,
+    257 tokens) with 3 blocks, f32 with TF32 off: the card's visual() of a
+    480 x 832 frame (the cubic resize to 224 x 224 included) against the
+    CPU's, rel-L2 <= 1e-4; the resize alone <= 1e-6."""
+    import dataclasses
+
+    from wanq_tpu_torch.models import clip as clipm
+
+    cfg = dataclasses.replace(clipm.CLIP_XLM_ROBERTA_VIT_H_14, vision_layers=3)
+    params = clipm.init_clip_params_on_device(cfg, seed=5, device=dev)
+    vis = {k: v for k, v in params.items() if k.startswith("visual.")}
+    video = torch.rand((1, 3, 1, 480, 832), generator=torch.Generator().manual_seed(6)) * 2 - 1
+    card = clipm.CLIPModel(cfg, params=vis, device=dev).visual(video.to(dev))
+    host = clipm.CLIPModel(cfg, params=_tree_to(vis, "cpu"), device="cpu").visual(video)
+    assert card.shape == (1, 257, 1280) and bool(torch.isfinite(card).all())
+    assert _rel(host, card) <= 1e-4
+    r_card = clipm.resize_cubic(video[:, :, 0].to(dev), (224, 224))
+    assert _rel(clipm.resize_cubic(video[:, :, 0], (224, 224)), r_card) <= 1e-6
+
+
+def test_vae_encode_card_vs_cpu_f32_and_bf16(dev):
+    """The full-width VAE (WAN_VAE_CFG) encodes a 5-frame 64 x 96 video on
+    the card as on the CPU: f32 (cuDNN, TF32 off) rel-L2 <= 1e-4, bf16 rel-L2
+    <= 2e-2 against the CPU's f32 (the latents are normalized, O(1))."""
+    from wanq_tpu_torch.models import vae as vaem
+
+    params = vaem.init_vae_params(vaem.WAN_VAE_CFG, seed=1, device="cpu")
+    video = torch.rand((1, 3, 5, 64, 96), generator=torch.Generator().manual_seed(2)) * 2 - 1
+    host = vaem.WanVAE(params=params, device="cpu").encode(video)
+    card = vaem.WanVAE(params=params, device=dev).encode(video.to(dev))
+    card16 = vaem.WanVAE(params=params, device=dev, compute_dtype=torch.bfloat16).encode(
+        video.to(dev))
+    assert card.shape == card16.shape == host.shape == (1, 16, 2, 8, 12)
+    assert _rel(host, card) <= 1e-4
+    assert _rel(host, card16.float()) <= 2e-2
+
+
+def test_init_params_on_device_i2v_on_the_card(dev):
+    """I2V-14B's tree at 2 of its 40 layers drawn on the card: the i2v
+    leaves (img_emb, k_img, v_img, norm_k_img) with the host draw's shapes
+    and dtypes, equal bits per seed, k_img's xavier bound and spread."""
+    import dataclasses
+
+    from wanq_tpu_torch.configs import WAN_CONFIGS
+    from wanq_tpu_torch.models.dit import init_params, init_params_on_device
+
+    cfg = dataclasses.replace(WAN_CONFIGS["i2v-14B"], num_layers=2)
+    a = init_params_on_device(cfg, 42, device=dev)
+    b = init_params_on_device(cfg, 42, device=dev)
+    small = dataclasses.replace(cfg, dim=256, num_heads=2, ffn_dim=512)
+    host = init_params(small, 0, device="cpu")
+    assert sorted(a["img_emb"]["proj"]) == sorted(host["img_emb"]["proj"]) == ["0", "1", "3", "4"]
+    assert sorted(a["blocks"][1]["cross_attn"]) == sorted(host["blocks"][1]["cross_attn"])
+    w = a["blocks"][1]["cross_attn"]["k_img"]["w"]
+    assert w.shape == (5120, 5120) and w.dtype == torch.bfloat16 and w.is_cuda
+    assert torch.equal(w, b["blocks"][1]["cross_attn"]["k_img"]["w"])
+    bound = math.sqrt(6.0 / (2 * 5120))
+    assert float(w.float().abs().max()) <= bound * 1.001
+    assert abs(float(w.float().std()) / (bound / math.sqrt(3)) - 1) < 0.01
+    assert a["img_emb"]["proj"]["1"]["w"].shape == (1280, 1280)
+    assert a["img_emb"]["proj"]["3"]["w"].shape == (1280, 5120)
+    assert torch.equal(a["blocks"][0]["cross_attn"]["norm_k_img"], torch.ones(5120, device=dev))
+
+
+def test_i2v_forward_row_equals_a_lone_forward_on_the_card(dev):
+    """An i2v forward (head dim 128: the fused routes, the two K4 cross
+    launches, bf16 residual): the conditional row of a batched CFG pair
+    equals a lone B = 1 forward bit for bit, the img_emb MLP included."""
+    from wanq_tpu_torch.configs import tiny_config
+    from wanq_tpu_torch.models.dit import dit_forward, init_params_on_device
+
+    cfg = tiny_config(dim=256, num_heads=2, num_layers=2, ffn_dim=512, text_len=32,
+                      text_dim=64, freq_dim=64, param_dtype="bfloat16",
+                      residual_dtype="bfloat16", model_type="i2v", in_dim=36, clip_dim=64)
+    params = init_params_on_device(cfg, 3, device=dev)
+    params["head"]["head"]["w"] = (torch.randn((256, 64), device=dev) * 0.02).bfloat16()
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn((1, 16, 3, 8, 10), device=dev, generator=g)
+    y = torch.randn((1, 20, 3, 8, 10), device=dev, generator=g)
+    cf = torch.randn((1, 257, 64), device=dev, generator=g)
+    c = torch.randn((2, 32, 64), device=dev, generator=g)
+    t = torch.full((2,), 999.0, device=dev)
+    with torch.no_grad():
+        pair = dit_forward(params, cfg, torch.cat([x, x]), t, c, 60, clip_fea=torch.cat([cf, cf]),
+                           y=torch.cat([y, y]))
+        lone = dit_forward(params, cfg, x, t[:1], c[:1], 60, clip_fea=cf, y=y)
+    assert bool(torch.isfinite(lone).all()) and torch.equal(pair[:1], lone)

@@ -36,6 +36,7 @@ from wanq_tpu.models import dit as jdit
 from wanq_tpu.models import params as jparams
 from wanq_tpu.utils import video as jvideo
 from wanq_tpu_torch.cli import common, fp_generate, generate, get_calib_data, ptq
+from wanq_tpu_torch import configs as tconfigs
 from wanq_tpu_torch.configs import tiny_config
 from wanq_tpu_torch.models import dit as tdit
 from wanq_tpu_torch.models import params as tparams
@@ -311,15 +312,39 @@ def test_vae_dtype_t5_cpu_and_offload_flags(ckpt, monkeypatch):
 
 @pytest.mark.parametrize("cli", [generate, fp_generate], ids=["generate", "fp_generate"])
 @pytest.mark.parametrize("flags,item", [
-    (["--task", "i2v-14B", "--size", "832*480", "--random_init"], "item 9"),
-    (["--sample_solver", "dpm++"], "item 9"),
+    (["--task", "i2v-14B"], None),
+    (["--sample_solver", "dpm++"], None),
     (["--t5_fsdp"], "item 10"),
     (["--use_prompt_extend"], "item 11"),
 ], ids=["i2v", "dpm++", "t5_fsdp", "prompt_extend"])
-def test_unported_options_raise_naming_their_item(cli, flags, item):
-    base = ["--task", "tiny", "--size", "64*64", "--random_init", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-        cli.generate(cli.parse_args(base + flags))
+def test_unported_options_raise_naming_their_item(cli, flags, item, tmp_path, monkeypatch):
+    """What is not ported raises naming its ROADMAP item. i2v and DPM++
+    (item 9) are ported: generate runs an i2v task (``tiny`` with
+    model_type i2v standing in for i2v-14B, an image file written here,
+    seeded random conditioning) and fp_generate refuses it, as wanq_tpu's
+    text-to-video fp_generate cannot run it, naming cli.generate; both CLIs
+    run DPM++."""
+    import imageio
+
+    base = ["--task", "tiny", "--size", "64*64", "--random_init", "--device", "cpu",
+            "--frame_num", "5", "--sample_steps", "2", "--save_file", str(tmp_path / "o.npz")]
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
+            cli.generate(cli.parse_args(base + flags))
+        return
+    if flags[0] == "--task":
+        cfg = tiny_config(name="i2v-14B", model_type="i2v", in_dim=36, clip_dim=32)
+        monkeypatch.setitem(tconfigs.WAN_CONFIGS, "i2v-14B", cfg)
+        monkeypatch.setitem(tconfigs.SUPPORTED_SIZES, "i2v-14B", ("64*64",))
+        monkeypatch.setitem(tconfigs.MAX_AREA_CONFIGS, "64*64", 64 * 64)
+        if cli is fp_generate:
+            with pytest.raises(SystemExit, match="cli.generate --image"):
+                cli.generate(cli.parse_args(base + flags))
+            return
+        imageio.imwrite(tmp_path / "in.png", np.full((64, 64, 3), 200, np.uint8))
+        flags = flags + ["--image", str(tmp_path / "in.png")]
+    latents = np.load(cli.generate(cli.parse_args(base + flags)))["latents"]
+    assert latents.shape == (1, 16, 2, 8, 8) and np.isfinite(latents).all()
 
 
 def test_without_imageio_the_npz_keeps_the_video(ckpt, monkeypatch, capsys):

@@ -208,9 +208,11 @@ def test_converters_keep_params_and_transpose_int8(rng):
 def test_unported_quant_branches_raise():
     # the window is ported: the ctx keeps it for dit_forward to resolve
     assert QuantCtx(mode="int8", attn_window=1).attn_window == 1
-    # map capture from a deployed model is not (item 6)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        QuantCtx(mode="int8", attn_map_pool=8)
+    # so is map capture from a deployed model: an int8 ctx takes the pool
+    cap = QuantCtx(mode="int8", attn_map_pool=8, attn_map_reduce="mean")
+    assert (cap.attn_map_pool, cap.attn_map_reduce) == (8, "mean")
+    with pytest.raises(ValueError, match="attn_map_reduce"):
+        QuantCtx(mode="int8", attn_map_pool=8, attn_map_reduce="sum")
     # GPTQ and SVDQuant low-rank are ported: with an empty calibration their
     # YAMLs stop at its checks, not at a refusal
     params = tdit.init_params(tiny_config(), 0, device="cpu")

@@ -259,10 +259,10 @@ def _poly_step_fns(pipe, power):
     """Replace the forwards by a prediction that is (t / 1000) ** power, as
     wanq_tpu's test does: order >= power then forecasts skipped steps
     exactly."""
-    def cond(latents, t, context, ctx, seq_len):
+    def cond(latents, t, context, ctx, seq_len, extra=None):
         return torch.ones_like(latents) * (t / 1000.0) ** power
 
-    def split(latents, t, context, context_null, ctx, seq_len, sequential=False):
+    def split(latents, t, context, context_null, ctx, seq_len, sequential=False, extra=None):
         p = cond(latents, t, context, ctx, seq_len)
         return p, p
 

@@ -321,7 +321,8 @@ def test_window_with_int8_gemms_matches_jax(rng):
 def test_window_guards(tiny):
     """A window does not compose with attention-map quantization (sim or
     int8); a window that resolves to dense does; a per-head tuple must have
-    one entry per head; map capture outside calibration waits."""
+    one entry per head; a map capture on a deployed ctx runs dense whatever
+    its window (the forward and the maps are the window-free ones)."""
     cfg_j, pj, cfg_t, pt, inputs = tiny
     section = tqattn.AttnQuantCfg.from_dict(
         {"qk": {"n_bits": 8, "sym": True}, "v": {"n_bits": 8, "sym": True}})
@@ -331,8 +332,13 @@ def test_window_guards(tiny):
     _port_fwd(cfg_t, pt, inputs, 96, QuantCtx(mode="sim", attn=section, attn_window=-1))
     with pytest.raises(ValueError, match="window radii for 4 heads"):
         _port_fwd(cfg_t, pt, inputs, 96, QuantCtx(mode="fp", attn_window=(1, 2)))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        QuantCtx(mode="int8", attn_map_pool=4)
+    maps = []
+    for win in (None, 1):
+        cap = QuantCtx(mode="fp", attn_window=win, attn_map_pool=4, attn_map_reduce="mean")
+        out = _port_fwd(cfg_t, pt, inputs, 96, cap)
+        maps.append(cap.collect["blocks.0.self_attn.attn_map"])
+    np.testing.assert_array_equal(out, _port_fwd(cfg_t, pt, inputs, 96, None))
+    assert maps[0].shape == (cfg_t.num_heads, 24, 24) and torch.equal(maps[0], maps[1])
     with pytest.raises(ValueError, match="attn_map_reduce"):
         QuantCtx(mode="calib", attn_map_reduce="sum")
 

@@ -53,8 +53,7 @@ def add_common_args(p: argparse.ArgumentParser, default_steps: int = 50):
                    help="npz with precomputed 'context'/'context_null' "
                         "text-encoder states (skips T5)")
     p.add_argument("--base_seed", type=int, default=42)
-    p.add_argument("--sample_solver", type=str, default="unipc", choices=["unipc", "dpm++"],
-                   help="dpm++ is not ported yet")
+    p.add_argument("--sample_solver", type=str, default="unipc", choices=["unipc", "dpm++"])
     p.add_argument("--sample_steps", type=int, default=default_steps)
     p.add_argument("--sample_shift", type=float, default=5.0)
     p.add_argument("--sample_guide_scale", type=float, default=5.0)
@@ -207,11 +206,6 @@ def validate_args(args):
     if args.use_prompt_extend:
         raise NotImplementedError(
             "prompt extension (--use_prompt_extend) is not ported yet (ROADMAP Queue 1 item 11)")
-    if WAN_CONFIGS[args.task].model_type == "i2v":
-        raise NotImplementedError("i2v is not ported yet (ROADMAP Queue 1 item 9)")
-    if args.sample_solver != "unipc":
-        raise NotImplementedError(
-            f"solver {args.sample_solver!r} is not ported yet (ROADMAP Queue 1 item 9)")
     if args.ckpt_dir is None and not args.random_init and args.context_file is None:
         raise SystemExit("need --ckpt_dir, or --random_init (+ optional --context_file) "
                          "for checkpoint-free runs")
@@ -221,6 +215,14 @@ def validate_args(args):
         # f32 matmuls stay full f32 (no TF32), as in the JAX reference
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+
+
+def require_t2v(args, cli: str) -> None:
+    """fp_generate, quant_generate and get_calib_data drive the text-to-video
+    pipeline, as wanq_tpu's do: an i2v task runs through cli.generate."""
+    if WAN_CONFIGS[args.task].model_type == "i2v":
+        raise SystemExit(f"{cli} serves t2v / t2i tasks; run {args.task} through "
+                         "cli.generate --image")
 
 
 def setup_logging():

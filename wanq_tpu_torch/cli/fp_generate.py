@@ -25,6 +25,7 @@ from wanq_tpu_torch.cli.common import (
     load_params,
     load_vae,
     parse_attn_window,
+    require_t2v,
     save_outputs,
     setup_logging,
     synced_time,
@@ -46,6 +47,7 @@ def generate(args, on_step=None):
     the npz path. ``on_step(i, t, latents)`` runs after each solver step."""
     setup_logging()
     validate_args(args)
+    require_t2v(args, "fp_generate")
     cfg = WAN_CONFIGS[args.task]
     logging.info("loading params (%s)", "random" if args.random_init else args.ckpt_dir)
     t0 = synced_time(args.device)

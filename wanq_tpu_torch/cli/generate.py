@@ -1,13 +1,21 @@
-"""Unified generation CLI (counterpart of wanq_tpu/cli/generate.py): t2v and
-t2i (a one-frame t2v), FP or quantized (``--quant_config`` with the
+"""Unified generation CLI (counterpart of wanq_tpu/cli/generate.py): t2v, t2i
+(a one-frame t2v) and i2v, FP or quantized (``--quant_config`` with the
 ``--quant_params`` artifact of ptq, simulated or ``--hardware``), then the
-VAE decode of the latents in --vae_dtype when --ckpt_dir holds a VAE. i2v is
-not ported yet.
+VAE decode of the latents in --vae_dtype when --ckpt_dir holds a VAE.
 
     python -m wanq_tpu_torch.cli.generate --task t2v-1.3B --size 832*480 \
         --ckpt_dir Wan2.1-T2V-1.3B --prompt "..." \
         --quant_config quant_configs/wan_w8a8_speed.yaml \
         --quant_params quant_params.npz --hardware --save_file gen.npz
+
+    python -m wanq_tpu_torch.cli.generate --task i2v-14B --size 832*480 \
+        --ckpt_dir Wan2.1-I2V-14B-480P --image input.jpg --prompt "..." \
+        --sample_solver dpm++ --vae_dtype bfloat16
+
+i2v: ``--image`` is read with imageio; the dir's CLIP encodes it and its VAE
+encodes it as the first frame (``--vae_dtype``, which the decode uses too),
+and ``--size`` sets the pixel area the image's aspect is fitted into. Without
+--ckpt_dir the CLIP features and the VAE latents are seeded random draws.
 
 ``--prompt_file`` serves one prompt per line from one process: the DiT and
 its quant state load once, one T5 encoder encodes every prompt and is freed
@@ -18,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import logging
+import os
 import time
 
 import numpy as np
@@ -37,7 +46,9 @@ from wanq_tpu_torch.cli.common import (
     synced_time,
     validate_args,
 )
-from wanq_tpu_torch.configs import SIZE_CONFIGS, WAN_CONFIGS
+from wanq_tpu_torch.configs import MAX_AREA_CONFIGS, SIZE_CONFIGS, WAN_CONFIGS
+from wanq_tpu_torch.models.dit import CLIP_TOKENS
+from wanq_tpu_torch.pipelines.image2video import WanI2V, i2v_latent_size
 from wanq_tpu_torch.pipelines.text2video import WanT2V
 from wanq_tpu_torch.quant.qlinear import QuantCtx
 
@@ -45,7 +56,7 @@ from wanq_tpu_torch.quant.qlinear import QuantCtx
 def parse_args(argv=None):
     p = argparse.ArgumentParser("wanq_tpu_torch generate")
     add_common_args(p)
-    p.add_argument("--image", type=str, default=None, help="input image (i2v: not ported yet)")
+    p.add_argument("--image", type=str, default=None, help="input image (i2v)")
     p.add_argument("--quant_config", type=str, default=None)
     p.add_argument("--quant_params", type=str, default=None,
                    help="quant-state npz from the ptq stage (either package's), or a "
@@ -58,6 +69,17 @@ def parse_args(argv=None):
                         "freed before the denoise; without --ckpt_dir or "
                         "--context_file each line gets seeded random states")
     return p.parse_args(argv)
+
+
+def _load_image(path: str) -> np.ndarray:
+    """An image file -> float32 [3, H, W] in [-1, 1] (gray is repeated to
+    three channels, an alpha channel dropped)."""
+    import imageio
+
+    img = np.asarray(imageio.imread(path), dtype=np.float32) / 127.5 - 1.0
+    if img.ndim == 2:
+        img = np.stack([img] * 3, axis=-1)
+    return np.ascontiguousarray(img[..., :3].transpose(2, 0, 1))
 
 
 def _quant_config(args):
@@ -127,14 +149,52 @@ def _serving_loop(args, cfg, pipe, common, vae, on_step):
     return saved
 
 
-def generate(args, on_step=None):
+def _i2v_latents(args, cfg, params, qctx, image, context, context_null, common, on_step):
+    """(latents, the VAE) of an i2v run: CLIP and the VAE from --ckpt_dir, or
+    seeded random conditioning without it (the VAE then None)."""
+    img = torch.as_tensor(image if image is not None else _load_image(args.image),
+                          dtype=torch.float32)
+    vae = clip = None
+    kw = {}
+    if args.ckpt_dir:
+        from wanq_tpu_torch.models.clip import CLIPModel
+
+        t0 = synced_time(args.device)
+        vae = load_vae(args, cfg)
+        clip = CLIPModel(checkpoint_path=os.path.join(args.ckpt_dir, cfg.clip_checkpoint),
+                         device=args.device)
+        logging.info("VAE and CLIP in %.2fs", synced_time(args.device) - t0)
+    else:
+        lat_h, lat_w = i2v_latent_size(cfg, tuple(img.shape[1:]), MAX_AREA_CONFIGS[args.size])
+        lat_f = (args.frame_num - 1) // cfg.vae_stride[0] + 1
+        rng = np.random.default_rng(args.base_seed)
+        kw["clip_fea"] = torch.from_numpy(
+            rng.normal(size=(1, CLIP_TOKENS, cfg.clip_dim)).astype(np.float32))
+        kw["y"] = torch.from_numpy(rng.normal(
+            size=(cfg.in_dim - cfg.z_dim, lat_f, lat_h, lat_w)).astype(np.float32))
+    pipe = WanI2V(cfg, params, quant_ctx=qctx, device=args.device, vae=vae, clip=clip)
+    latents = pipe.generate(img, torch.from_numpy(context), torch.from_numpy(context_null),
+                            max_area=MAX_AREA_CONFIGS[args.size], on_step=on_step, **common,
+                            **kw)
+    return latents, vae
+
+
+def generate(args, on_step=None, image=None):
     """Returns the npz path (a list of them with --prompt_file).
-    ``on_step(i, t, latents)`` runs after each solver step."""
+    ``on_step(i, t, latents)`` runs after each solver step. ``image``: an
+    i2v task's [3, H, W] image in [-1, 1] (an array or tensor) in place of
+    reading --image."""
     setup_logging()
     validate_args(args)
     cfg = WAN_CONFIGS[args.task]
+    i2v = cfg.model_type == "i2v"
     if args.task.startswith("t2i"):
         args.frame_num = 1
+    if i2v and args.prompt_file:
+        raise SystemExit("--prompt_file serves t2v / t2i (i2v needs an --image per prompt; "
+                         "run one process per pair)")
+    if i2v and image is None and not args.image:
+        raise SystemExit(f"--task {args.task} needs --image")
     t0 = synced_time(args.device)
     params = load_params(args, cfg)
     logging.info("params (%s) in %.2fs", "random" if args.random_init else args.ckpt_dir,
@@ -148,17 +208,25 @@ def generate(args, on_step=None):
     # step-cache fallback) serve every prompt
     qcfg = _quant_config(args)
     qctx = _maybe_quant_ctx(args, cfg, params, qcfg)
-    pipe = WanT2V(cfg, params, quant_ctx=qctx, device=args.device)
-    vae = load_vae(args, cfg) if args.ckpt_dir else None
     common = dict(frame_num=args.frame_num, shift=args.sample_shift,
                   sample_solver=args.sample_solver, sampling_steps=args.sample_steps,
                   guide_scale=args.sample_guide_scale, seed=args.base_seed,
                   cfg_mode=args.cfg_mode, cache_policy=cache_policy_from_args(args, qcfg))
-    if args.prompt_file:
-        return _serving_loop(args, cfg, pipe, common, vae, on_step)
-    t0 = synced_time(args.device)
-    latents = pipe.generate(torch.from_numpy(context), torch.from_numpy(context_null),
-                            size=SIZE_CONFIGS[args.size], on_step=on_step, **common)
+    if i2v:
+        # the pipeline (and CLIP) are freed on return, so the decode below
+        # gets their memory
+        t0 = synced_time(args.device)
+        latents, vae = _i2v_latents(args, cfg, params, qctx, image, context, context_null,
+                                    common, on_step)
+        pipe = None
+    else:
+        pipe = WanT2V(cfg, params, quant_ctx=qctx, device=args.device)
+        vae = load_vae(args, cfg) if args.ckpt_dir else None
+        if args.prompt_file:
+            return _serving_loop(args, cfg, pipe, common, vae, on_step)
+        t0 = synced_time(args.device)
+        latents = pipe.generate(torch.from_numpy(context), torch.from_numpy(context_null),
+                                size=SIZE_CONFIGS[args.size], on_step=on_step, **common)
     logging.info("denoise (%s) done in %.2fs, latents %s", qctx.mode if qctx else "fp",
                  synced_time(args.device) - t0, tuple(latents.shape))
     out = {"latents": latents.cpu().numpy()}

@@ -36,6 +36,7 @@ from wanq_tpu_torch.cli.common import (
     add_common_args,
     load_contexts,
     load_params,
+    require_t2v,
     setup_logging,
     validate_args,
 )
@@ -73,6 +74,7 @@ def generate(args):
     """Run the sweep and write the npz; returns its path."""
     setup_logging()
     validate_args(args)
+    require_t2v(args, "get_calib_data")
     cfg = WAN_CONFIGS[args.task]
     size = SIZE_CONFIGS[args.size]
 
@@ -96,7 +98,8 @@ def generate(args):
         one = pipe.collect_calibration(
             torch.from_numpy(context), torch.from_numpy(context_null),
             size=size, frame_num=args.frame_num, shift=args.sample_shift,
-            sampling_steps=args.sample_steps, guide_scale=args.sample_guide_scale,
+            sample_solver=args.sample_solver, sampling_steps=args.sample_steps,
+            guide_scale=args.sample_guide_scale,
             seed=args.base_seed + rnd,
         )
         for k, v in one.items():

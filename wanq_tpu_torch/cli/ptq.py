@@ -8,7 +8,8 @@ weights, saved as the quant-state artifact that ``quant_generate
         --calib_data quant_data/calib_data_wanx1.npz --save_path quant_params.npz
 
 The weights are made on ``--device`` (the card by default) and the PTQ runs
-there, the rotations' f64 transforms included.
+there, the rotations' f64 transforms included. ``--targets int8`` leaves the
+f32 fake-quant weights that only sim mode reads out of the artifact.
 """
 
 from __future__ import annotations
@@ -40,6 +41,11 @@ def parse_args(argv=None):
                         "calib_data.save_path with .pth read as .npz")
     p.add_argument("--save_path", type=str, default="quant_params.npz")
     p.add_argument("--rotation_seed", type=int, default=0)
+    p.add_argument("--targets", type=str, default="both", choices=["both", "int8", "sim"],
+                   help="the deployed weights the artifact holds: both (wanq_tpu's artifact: "
+                        "the f32 fake-quant w_q that sim mode reads beside the int codes), "
+                        "int8 (the codes only, for --hardware: at 14B the f32 w_q would be "
+                        "~40 GB) or sim")
     p.add_argument("--suggest_window", type=float, default=0.0, metavar="THRESHOLD",
                    help="derive sliding temporal-window radii from the calibration attention "
                         "maps (get_calib_data --attn_map_pool N --attn_map_reduce mean): per "
@@ -74,7 +80,8 @@ def generate(args):
 
     t0 = time.time()
     policies, state, _ = prepare_quant_state(params, linear_layer_names(cfg), qcfg,
-                                             calib=calib, seed=args.rotation_seed)
+                                             calib=calib, seed=args.rotation_seed,
+                                             targets=args.targets)
     n_q = sum(p.is_quantized for p in policies.values())
     logging.info("PTQ done in %.2fs: %d/%d layers quantized", time.time() - t0, n_q,
                  len(policies))

@@ -49,6 +49,7 @@ from wanq_tpu_torch.cli.common import (
     load_contexts,
     load_params,
     parse_attn_window,
+    require_t2v,
     setup_logging,
     validate_args,
 )
@@ -122,6 +123,7 @@ def generate(args, on_step=None):
     ``on_step(i, t, latents)`` runs after each solver step."""
     setup_logging()
     validate_args(args)
+    require_t2v(args, "quant_generate")
     mode = "int8" if args.hardware else "sim"
     cfg = WAN_CONFIGS[args.task]
     size = SIZE_CONFIGS[args.size]
@@ -145,7 +147,7 @@ def generate(args, on_step=None):
     t0 = time.time()
     latents = pipe.generate(
         torch.from_numpy(context), torch.from_numpy(context_null), size=size,
-        frame_num=args.frame_num, shift=args.sample_shift,
+        frame_num=args.frame_num, shift=args.sample_shift, sample_solver=args.sample_solver,
         sampling_steps=args.sample_steps, guide_scale=args.sample_guide_scale,
         seed=args.base_seed, cache_policy=cache_policy, cfg_mode=args.cfg_mode,
         on_step=on_step,

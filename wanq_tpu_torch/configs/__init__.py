@@ -103,6 +103,15 @@ SIZE_CONFIGS: Dict[str, Tuple[int, int]] = {
 }
 
 
+# the pixel area an i2v run keeps, by --size (the image's aspect sets the shape)
+MAX_AREA_CONFIGS: Dict[str, int] = {
+    "720*1280": 720 * 1280,
+    "1280*720": 1280 * 720,
+    "480*832": 480 * 832,
+    "832*480": 832 * 480,
+}
+
+
 def tiny_config(**overrides) -> WanConfig:
     """A CPU-testable miniature of the Wan architecture (task 'tiny')."""
     base = dict(

@@ -25,6 +25,15 @@ JAX's unfused chain):
 Sites whose policy is not fusable (W4A4: 4-bit activations; every site in
 sim mode) take the unfused chain through ``qlinear`` (K9 for W4A4).
 
+I2V (``model_type == "i2v"``): ``dit_forward`` takes ``y`` (concatenated to
+the latents on channels) and ``clip_fea`` (an FP MLP puts its 257 tokens in
+front of the text context); cross-attention's one q attends the text and the
+image tokens with their own k/v, two K4 launches whose bf16 outputs add.
+
+Map capture (``QuantCtx.attn_map_pool``: calibration, or
+``WanT2V.capture_attn_maps`` on a deployed ctx) runs self-attention's plain
+chain and collects the pooled post-softmax map of the unscaled q.
+
 Temporal window (``QuantCtx.attn_window``): ``dit_forward`` resolves it
 against the latent grid; the plain self-attention paths then run K4's band
 mode (``models/attention.py``). Calibration runs dense, and a window does not
@@ -141,8 +150,6 @@ def _param_tree(cfg: WanConfig, lin, modulation, device) -> Params:
     def ones():
         return torch.ones((d,), device=device)
 
-    if cfg.model_type != "t2v":
-        raise NotImplementedError("i2v is not ported yet (ROADMAP Queue 1 item 9)")
     params: Params = {
         "patch_embedding": lin(int(np.prod(cfg.patch_size)) * cfg.in_dim, d),
         "text_embedding": {"0": lin(cfg.text_dim, d, "normal02"),
@@ -156,8 +163,17 @@ def _param_tree(cfg: WanConfig, lin, modulation, device) -> Params:
         },
         "blocks": [],
     }
+    if cfg.model_type == "i2v":
+        # the CLIP-feature MLP: LN -> Linear -> GELU -> Linear -> LN
+        c = cfg.clip_dim
+        params["img_emb"] = {"proj": {
+            "0": {"w": torch.ones((c,), device=device), "b": torch.zeros((c,), device=device)},
+            "1": lin(c, c),
+            "3": lin(c, d),
+            "4": {"w": ones(), "b": torch.zeros((d,), device=device)},
+        }}
     for _ in range(cfg.num_layers):
-        params["blocks"].append({
+        block = {
             "self_attn": {"q": lin(d, d), "k": lin(d, d), "v": lin(d, d), "o": lin(d, d),
                           "norm_q": ones(), "norm_k": ones()},
             "cross_attn": {"q": lin(d, d), "k": lin(d, d), "v": lin(d, d), "o": lin(d, d),
@@ -166,7 +182,11 @@ def _param_tree(cfg: WanConfig, lin, modulation, device) -> Params:
                       if cfg.cross_attn_norm else None),
             "ffn": {"0": lin(d, cfg.ffn_dim), "2": lin(cfg.ffn_dim, d)},
             "modulation": modulation(6),
-        })
+        }
+        if cfg.model_type == "i2v":
+            # drawn after the block's other weights, as wanq_tpu draws them
+            block["cross_attn"].update(k_img=lin(d, d), v_img=lin(d, d), norm_k_img=ones())
+        params["blocks"].append(block)
     return params
 
 
@@ -243,6 +263,8 @@ def linear_layer_names(cfg: WanConfig) -> List[str]:
         for mod in ("self_attn", "cross_attn"):
             for leaf in ("q", "k", "v", "o"):
                 names.append(f"blocks.{i}.{mod}.{leaf}")
+        if cfg.model_type == "i2v":
+            names += [f"blocks.{i}.cross_attn.k_img", f"blocks.{i}.cross_attn.v_img"]
         names.append(f"blocks.{i}.ffn.0")
         names.append(f"blocks.{i}.ffn.2")
     return names
@@ -323,17 +345,20 @@ def _self_attention(p: Params, name: str, ctx: Optional[QuantCtx],
         k = qlinear(ctx, f"{name}.k", p["k"], x, dtype).to(dtype)
         v = qlinear(ctx, f"{name}.v", p["v"], x, dtype).to(dtype)
     calib = ctx is not None and ctx.mode == "calib"
+    # the pooled-map capture (calibration, or WanT2V.capture_attn_maps on a
+    # deployed ctx) reads q and k unscaled on the plain chain
+    capture = ctx is not None and bool(ctx.attn_map_pool)
     attn_quant = ctx is not None and ctx.attn is not None and ctx.mode in ("int8", "sim")
     # on the plain-attention path the softmax scale folds into q's tables;
-    # the quant and calib paths apply their own
-    plain_attn = not (attn_quant or calib)
+    # the quant, calib and capture paths apply their own
+    plain_attn = not (attn_quant or calib or capture)
     q_scale = 1.0 / math.sqrt(hd) if plain_attn else 1.0
     # the temporal window, resolved by dit_forward (None = dense); calibration
     # runs dense and attention quant refuses it there
     window = ctx.attn_window if ctx is not None and plain_attn else None
 
     int8_attn = attn_quant and ctx.mode == "int8"
-    if cfg.qk_norm and hd == 128 and (plain_attn or int8_attn):
+    if cfg.qk_norm and hd == 128 and not capture and (plain_attn or int8_attn):
         if tables is None:
             tables = self_attn_tables(cos, sin, valid_len, s, hd)
         if int8_attn:
@@ -372,10 +397,11 @@ def _self_attention(p: Params, name: str, ctx: Optional[QuantCtx],
         # per-(head, dim) absmax of the attention inputs
         for tag, tensor in (("q", q), ("k", k), ("v", v)):
             ctx.collect[f"{name}.attn_{tag}"] = tensor.float().abs().amax(dim=(0, 1))
-        if ctx.attn_map_pool:
-            # pooled post-softmax map: reorder tables, window radii
-            ctx.collect[f"{name}.attn_map"] = pooled_attn_map(
-                q, k, ctx.attn_map_pool, k_valid_len=valid_len, reduce=ctx.attn_map_reduce)
+    if capture:
+        # pooled post-softmax map (reorder tables, window radii) of the
+        # unscaled q: pooled_attn_map applies the softmax scale once
+        ctx.collect[f"{name}.attn_map"] = pooled_attn_map(
+            q, k, ctx.attn_map_pool, k_valid_len=valid_len, reduce=ctx.attn_map_reduce)
     if int8_attn:
         # K10a + K10 (q/k per 512-token block, v per channel, 127-level
         # probs) behind the plain chain: no qk_norm, or a head dim K3 lacks
@@ -389,12 +415,23 @@ def _self_attention(p: Params, name: str, ctx: Optional[QuantCtx],
     return qlinear(ctx, f"{name}.o", p["o"], y.reshape(b, s, n * hd), dtype)
 
 
+# the CLIP tokens in front of an i2v model's text context
+CLIP_TOKENS = 257
+
+
 def _cross_attention(p: Params, name: str, ctx: Optional[QuantCtx],
                      x: Optional[torch.Tensor], context: torch.Tensor, cfg: WanConfig,
                      dtype, prequant=None) -> torch.Tensor:
-    """Cross-attention sublayer (t2v). ``prequant``: (q8, scale, sum) of
-    the norm3 output from the fused producer, feeding the int8 q GEMM."""
+    """Cross-attention sublayer. ``prequant``: (q8, scale, sum) of the
+    norm3 output from the fused producer, feeding the int8 q GEMM. For i2v
+    the context is [the 257 CLIP tokens; the text tokens]: one q attends
+    each part with its own k/v (``k_img`` / ``v_img`` for the image, its k
+    through ``norm_k_img`` whether or not ``qk_norm`` is set), and the two
+    bf16 outputs add before the o projection."""
     n, hd = cfg.num_heads, cfg.head_dim
+    i2v = cfg.model_type == "i2v"
+    if i2v:
+        context_img, context = context[:, :CLIP_TOKENS], context[:, CLIP_TOKENS:]
     if prequant is not None:
         q8, s_a, ssum = prequant
         b = q8.shape[0]
@@ -408,6 +445,12 @@ def _cross_attention(p: Params, name: str, ctx: Optional[QuantCtx],
         k = rms_norm(k, p["norm_k"], cfg.eps)
     k = k.reshape(b, -1, n, hd).to(dtype)
     v = v.reshape(b, -1, n, hd).to(dtype)
+    if i2v:
+        # the norm takes the f32 projection, as wanq_tpu's does
+        k_img = rms_norm(qlinear(ctx, f"{name}.k_img", p["k_img"], context_img, dtype),
+                         p["norm_k_img"], cfg.eps).reshape(b, -1, n, hd).to(dtype)
+        v_img = qlinear(ctx, f"{name}.v_img", p["v_img"], context_img,
+                        dtype).reshape(b, -1, n, hd).to(dtype)
     # a cross_attn section runs the simulated quantizers in int8 mode too:
     # the int8 kernel is for the long self-attention
     quant_attn = (ctx is not None and ctx.cross_attn is not None
@@ -417,6 +460,10 @@ def _cross_attention(p: Params, name: str, ctx: Optional[QuantCtx],
         qh = (rms_split_heads(q, p["norm_q"], n, eps=cfg.eps, out_dtype=dtype)
               if cfg.qk_norm else split_heads(q.to(dtype), n))
         y = cross_attention_heads_major(qh, k, v)
+        if i2v:
+            # one K3 q, two K4 launches; both outputs seq-major, so the sum
+            # is too and the o projection reads it as a view
+            y = y + cross_attention_heads_major(qh, k_img, v_img)
         if resolves_fp(ctx, f"{name}.o"):
             return _o_proj_heads_major(p["o"], y, dtype)
         return qlinear(ctx, f"{name}.o", p["o"], merge_heads(y), dtype)
@@ -425,6 +472,8 @@ def _cross_attention(p: Params, name: str, ctx: Optional[QuantCtx],
         q = rms_norm(q, p["norm_q"], cfg.eps)
     q = q.reshape(b, -1, n, hd).to(dtype)
     y = quantized_attention(q, k, v, ctx.cross_attn) if quant_attn else attention(q, k, v)
+    if i2v:
+        y = y + attention(q, k_img, v_img)
     return qlinear(ctx, f"{name}.o", p["o"], y.reshape(b, -1, n * hd), dtype)
 
 
@@ -559,13 +608,31 @@ def time_embedding(params: Params, cfg: WanConfig, t: torch.Tensor,
     return e, e0.reshape(t.shape[0], 6, cfg.dim)
 
 
+def img_embedding(params: Params, clip_fea: torch.Tensor, dtype) -> torch.Tensor:
+    """The i2v CLIP-feature MLP [B, 257, clip_dim] -> [B, 257, dim]: LN ->
+    Linear -> exact GELU -> Linear -> LN, always FP."""
+    ip = params["img_emb"]["proj"]
+    ci = layer_norm(clip_fea, 1e-5, ip["0"]["w"], ip["0"]["b"]).to(dtype)
+    ci = qlinear(None, "img_emb.proj.1", ip["1"], ci, dtype)
+    ci = F.gelu(ci).to(dtype)
+    ci = qlinear(None, "img_emb.proj.3", ip["3"], ci, dtype)
+    return layer_norm(ci, 1e-5, ip["4"]["w"], ip["4"]["b"]).to(dtype)
+
+
 def dit_forward(params: Params, cfg: WanConfig, x: torch.Tensor, t: torch.Tensor,
-                context: torch.Tensor, seq_len: int,
-                ctx: Optional[QuantCtx] = None) -> torch.Tensor:
+                context: torch.Tensor, seq_len: int, ctx: Optional[QuantCtx] = None,
+                clip_fea: Optional[torch.Tensor] = None,
+                y: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Denoising forward. x [B, C_in, F, H, W]; t [B]; context [B, text_len,
-    text_dim]. Returns [B, C_out, F, H, W] float32."""
-    if cfg.model_type != "t2v":
-        raise NotImplementedError("i2v is not ported yet (ROADMAP Queue 1 item 9)")
+    text_dim]. An i2v model also takes ``y`` [B, C_y, F, H, W] (the
+    first-frame mask and its VAE latents, concatenated to x on channels) and
+    ``clip_fea`` [B, 257, clip_dim] (CLIP features, embedded in front of the
+    text context). Returns [B, C_out, F, H, W] float32."""
+    if (cfg.model_type == "i2v") != (clip_fea is not None):
+        raise ValueError(f"clip_fea is for i2v models only and needed there "
+                         f"(model_type {cfg.model_type!r})")
+    if y is not None:
+        x = torch.cat([x, y.to(x.dtype)], dim=1)
     dtype = cfg.dtype
     grid = (x.shape[2] // cfg.patch_size[0], x.shape[3] // cfg.patch_size[1],
             x.shape[4] // cfg.patch_size[2])
@@ -594,6 +661,8 @@ def dit_forward(params: Params, cfg: WanConfig, x: torch.Tensor, t: torch.Tensor
     c = qlinear(ctx, "text_embedding.0", params["text_embedding"]["0"], context.to(dtype), dtype)
     c = gelu_tanh(c).to(dtype)
     c = qlinear(ctx, "text_embedding.2", params["text_embedding"]["2"], c, dtype).to(dtype)
+    if clip_fea is not None:
+        c = torch.cat([img_embedding(params, clip_fea, dtype), c], dim=1)
 
     cos, sin = _rope_tables_on(grid, cfg.head_dim, x.device)
     tables = self_attn_tables(cos, sin, valid_len, seq_len, cfg.head_dim)

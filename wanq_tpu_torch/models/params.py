@@ -74,10 +74,10 @@ def quant_state_from_numpy(state: Mapping[str, Mapping[str, Any]],
     for name, st in state.items():
         layer = {}
         for key, val in st.items():
-            arr = np.asarray(val)
-            if key in INT_WEIGHTS:
-                arr = np.ascontiguousarray(arr.T)
-            layer[key] = _tensor(arr, device)
+            t = _tensor(val, device)
+            # the transpose runs on the device (a host int8 transpose of a 14B
+            # state takes seconds)
+            layer[key] = t.t().contiguous() if key in INT_WEIGHTS else t
         out[name] = layer
     return out
 

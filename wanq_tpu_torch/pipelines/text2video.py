@@ -11,7 +11,10 @@ schedule, :class:`AdaptiveCachePolicy` from the input drift) skip whole
 forwards or the uncond branch; the per-step actions are ``full``, ``cond``
 (one B-sized forward against the cached uncond) and ``reuse`` (no forward:
 the last prediction, or a Lagrange forecast through the last executed
-ones). The DPM++ solver and timestep schedules are not ported yet.
+ones). ``sample_solver`` is UniPC or DPM++. ``quant_ctx_schedule`` switches
+the QuantCtx by timestep (e.g. W8A8 at high noise, W4A8 below), and
+:meth:`WanT2V.capture_attn_maps` captures pooled self-attention maps from
+the deployed model.
 """
 
 from __future__ import annotations
@@ -26,6 +29,11 @@ import torch
 from wanq_tpu_torch.configs import WanConfig
 from wanq_tpu_torch.models.dit import dit_forward
 from wanq_tpu_torch.quant.qlinear import QuantCtx
+from wanq_tpu_torch.solvers.dpm import (
+    FlowDPMSolverMultistepScheduler,
+    get_sampling_sigmas,
+    retrieve_timesteps,
+)
 from wanq_tpu_torch.solvers.unipc import FlowUniPCMultistepScheduler
 
 
@@ -213,39 +221,104 @@ class WanT2V:
     run, ``last_cache_stats`` counts its actions and, under an adaptive
     policy, ``last_adaptive_trace`` holds one entry per decided step: the
     drift ``d``, the accumulator ``acc``, the action ``act`` and, where the
-    model ran again, the realized output change ``o``."""
+    model ran again, the realized output change ``o``.
+
+    ``quant_ctx_schedule``: timestep-aware mixed precision, a descending
+    list ``[(t_threshold, ctx), ...]``; a step runs the ctx of the first
+    entry with ``t >= t_threshold`` (an fp-mode ctx or None: the plain
+    forward), ``quant_ctx`` when none matches. Calibration ignores it."""
 
     config: WanConfig
     params: Dict[str, Any]
     quant_ctx: Optional[QuantCtx] = None
     device: Any = "cuda"
+    quant_ctx_schedule: Optional[List[Tuple[float, Optional[QuantCtx]]]] = None
     last_cache_stats: Optional[Dict[str, int]] = dataclasses.field(default=None, init=False)
     last_adaptive_trace: Optional[List[Dict[str, Any]]] = dataclasses.field(
         default=None, init=False)
 
-    def _cond(self, latents, t: float, context, ctx: Optional[QuantCtx], seq_len: int):
-        """One B-sized forward."""
+    def __post_init__(self):
+        if self.quant_ctx_schedule:
+            threshs = [t for t, _ in self.quant_ctx_schedule]
+            if threshs != sorted(threshs, reverse=True):
+                raise ValueError("quant_ctx_schedule thresholds must be descending "
+                                 f"(the first match wins); got {threshs}")
+
+    def _ctx_at(self, t: float, ctx: Optional[QuantCtx]) -> Optional[QuantCtx]:
+        """The ctx a step at timestep ``t`` runs: the schedule's (as a plain
+        forward unless it is a sim or int8 ctx), else ``ctx``."""
+        if not self.quant_ctx_schedule:
+            return ctx
+        sched = self.quant_ctx
+        for thresh, c in self.quant_ctx_schedule:
+            if t >= thresh:
+                sched = c
+                break
+        return sched if sched is not None and sched.mode in ("sim", "int8") else None
+
+    def _cond(self, latents, t: float, context, ctx: Optional[QuantCtx], seq_len: int,
+              extra: Optional[Dict[str, torch.Tensor]] = None):
+        """One B-sized forward. ``extra``: more dit_forward inputs of the
+        batch (the i2v conditioning ``y`` and ``clip_fea``)."""
         tt = torch.full((latents.shape[0],), float(t), dtype=torch.float32,
                         device=latents.device)
-        return dit_forward(self.params, self.config, latents, tt, context, seq_len, ctx=ctx)
+        return dit_forward(self.params, self.config, latents, tt, context, seq_len, ctx=ctx,
+                           **(extra or {}))
 
     def _split(self, latents, t: float, context, context_null, ctx: Optional[QuantCtx],
-               seq_len: int, sequential: bool = False):
+               seq_len: int, sequential: bool = False,
+               extra: Optional[Dict[str, torch.Tensor]] = None):
         """(cond, uncond): one [2B] forward, or two B-sized ones when
         ``sequential``."""
         if sequential:
-            return (self._cond(latents, t, context, ctx, seq_len),
-                    self._cond(latents, t, context_null, ctx, seq_len))
+            return (self._cond(latents, t, context, ctx, seq_len, extra),
+                    self._cond(latents, t, context_null, ctx, seq_len, extra))
         b = latents.shape[0]
+        extra2 = {k: torch.cat([v, v], dim=0) for k, v in (extra or {}).items()}
         out = self._cond(torch.cat([latents, latents], dim=0), t,
-                         torch.cat([context, context_null], dim=0), ctx, seq_len)
+                         torch.cat([context, context_null], dim=0), ctx, seq_len, extra2)
         return out[:b], out[b:]
 
     def _step(self, latents, t: float, context, context_null, guide_scale: float,
-              ctx: Optional[QuantCtx], seq_len: int, sequential: bool = False):
+              ctx: Optional[QuantCtx], seq_len: int, sequential: bool = False,
+              extra: Optional[Dict[str, torch.Tensor]] = None):
         """One CFG step's noise prediction."""
-        cond, uncond = self._split(latents, t, context, context_null, ctx, seq_len, sequential)
+        cond, uncond = self._split(latents, t, context, context_null, ctx, seq_len, sequential,
+                                   extra)
         return uncond + guide_scale * (cond - uncond)
+
+    def _make_scheduler(self, sample_solver: str, sampling_steps: int, shift: float):
+        """The solver, its timesteps set: ``unipc`` or ``dpm++``."""
+        n_train = self.config.num_train_timesteps
+        if sample_solver == "unipc":
+            sch = FlowUniPCMultistepScheduler(num_train_timesteps=n_train, shift=1.0)
+            sch.set_timesteps(sampling_steps, shift=shift)
+        elif sample_solver == "dpm++":
+            sch = FlowDPMSolverMultistepScheduler(num_train_timesteps=n_train, shift=1.0)
+            retrieve_timesteps(sch, sigmas=get_sampling_sigmas(sampling_steps, shift))
+        else:
+            raise ValueError(f"unknown sample_solver {sample_solver!r}")
+        return sch
+
+    def _deployed_ctx(self) -> Optional[QuantCtx]:
+        """The ctx the denoise loop runs: a sim or int8 one, or an fp-mode one
+        that carries the temporal window; else None."""
+        q = self.quant_ctx
+        if q is not None and (q.mode in ("sim", "int8") or q.attn_window is not None):
+            return q
+        return None
+
+    def _initial_latents(self, shape, seed: int, noise: Optional[torch.Tensor]):
+        """``noise`` on the device, or a torch.Generator draw from ``seed``
+        (a random seed when negative)."""
+        dev = torch.device(self.device)
+        if noise is None:
+            seed = seed if seed >= 0 else int(np.random.randint(0, 2**31))
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+        if tuple(noise.shape) != tuple(shape):
+            raise ValueError(f"noise {tuple(noise.shape)} != {tuple(shape)}")
+        return noise.to(device=dev, dtype=torch.float32)
 
     def generate(
         self,
@@ -268,16 +341,13 @@ class WanT2V:
         Returns latents [B, C, F, h, w] (and the calibration stats
         {layer: [T, C]} when ``collect_calib``). ``noise`` replaces the
         initial draw (a torch.Generator seeded with ``seed``), e.g. with
-        another implementation's draw. ``cache_policy`` (a
-        :class:`StepCachePolicy` or :class:`AdaptiveCachePolicy`) caches
-        steps when active; ``cfg_mode`` is ``"batched"`` (one [2B] forward a
-        step) or ``"sequential"`` (two B-sized forwards). Calibration takes
-        neither a cache nor sequential CFG: it observes every site of the
-        batched pair every step. ``on_step(i, t, latents)`` runs after each
-        solver step."""
-        if sample_solver != "unipc":
-            raise NotImplementedError(
-                f"solver {sample_solver!r} is not ported yet (ROADMAP Queue 1 item 9)")
+        another implementation's draw. ``sample_solver``: ``unipc`` or
+        ``dpm++``. ``cache_policy`` (a :class:`StepCachePolicy` or
+        :class:`AdaptiveCachePolicy`) caches steps when active; ``cfg_mode``
+        is ``"batched"`` (one [2B] forward a step) or ``"sequential"`` (two
+        B-sized forwards). Calibration takes neither a cache nor sequential
+        CFG: it observes every site of the batched pair every step.
+        ``on_step(i, t, latents)`` runs after each solver step."""
         if cfg_mode not in ("batched", "sequential"):
             raise ValueError(f"unknown cfg_mode {cfg_mode!r}")
         sequential = cfg_mode == "sequential"
@@ -292,32 +362,17 @@ class WanT2V:
         dev = torch.device(self.device)
         target_shape = compute_target_shape(cfg, size, frame_num)
         seq_len = compute_seq_len(cfg, target_shape)
-        b = context.shape[0]
-        if noise is None:
-            seed = seed if seed >= 0 else int(np.random.randint(0, 2**31))
-            gen = torch.Generator(device=dev).manual_seed(seed)
-            latents = torch.randn((b, *target_shape), generator=gen, device=dev,
-                                  dtype=torch.float32)
-        else:
-            if tuple(noise.shape) != (b, *target_shape):
-                raise ValueError(f"noise {tuple(noise.shape)} != {(b, *target_shape)}")
-            latents = noise.to(device=dev, dtype=torch.float32)
+        latents = self._initial_latents((context.shape[0], *target_shape), seed, noise)
         context = context.to(dev)
         context_null = context_null.to(dev)
 
-        sch = FlowUniPCMultistepScheduler(num_train_timesteps=cfg.num_train_timesteps,
-                                          shift=1.0)
-        sch.set_timesteps(sampling_steps, shift=shift)
+        sch = self._make_scheduler(sample_solver, sampling_steps, shift)
         if collect_calib:
             if self.quant_ctx is None or self.quant_ctx.mode != "calib":
                 raise ValueError("collect_calib needs a calib-mode quant_ctx")
             ctx = self.quant_ctx
-        elif self.quant_ctx is not None and (self.quant_ctx.mode in ("sim", "int8")
-                                             or self.quant_ctx.attn_window is not None):
-            # an fp-mode ctx matters when it carries the temporal window
-            ctx = self.quant_ctx
         else:
-            ctx = None
+            ctx = self._deployed_ctx()
 
         with torch.no_grad():
             if cached:
@@ -329,8 +384,9 @@ class WanT2V:
             # on the device ([C, C] f64 each: no per-step host copy)
             hess: Dict[str, torch.Tensor] = {}
             for i, t in enumerate(sch.timesteps):
-                noise_pred = self._step(latents, float(t), context, context_null,
-                                        guide_scale, ctx, seq_len, sequential)
+                step_ctx = ctx if collect_calib else self._ctx_at(float(t), ctx)
+                noise_pred = self._step(latents, float(t), context, context_null, guide_scale,
+                                        step_ctx, seq_len, sequential)
                 if collect_calib:
                     for k, v in ctx.collect.items():
                         if k.endswith(".hess"):
@@ -346,12 +402,14 @@ class WanT2V:
         return latents
 
     def _generate_cached(self, policy, sch, latents, ctx, context, context_null,
-                         guide_scale: float, seq_len: int, sequential: bool, on_step):
+                         guide_scale: float, seq_len: int, sequential: bool, on_step,
+                         extra: Optional[Dict[str, torch.Tensor]] = None):
         """The denoise loop under a step cache. A static policy plans its
         actions up front; an adaptive one decides each step from the input
         drift, one scalar read a step. A ``full`` step runs the pair (as
         ``cfg_mode`` says), a ``cond`` step one B-sized forward against the
-        last uncond, a ``reuse`` step no forward."""
+        last uncond, a ``reuse`` step no forward. ``extra``: the i2v
+        conditioning of every forward."""
         timesteps = sch.timesteps
         n_steps = len(timesteps)
         adaptive = isinstance(policy, AdaptiveCachePolicy)
@@ -365,6 +423,7 @@ class WanT2V:
         exec_hist: List[Tuple[float, torch.Tensor]] = []
         for i, t in enumerate(timesteps):
             t = float(t)
+            step_ctx = self._ctx_at(t, ctx)
             if not adaptive:
                 act = actions[i]
             elif i < policy.warmup or i >= n_steps - policy.tail or x_prev is None:
@@ -388,12 +447,12 @@ class WanT2V:
                 else:
                     noise_pred = last_pred
             elif act == "cond" and last_uncond is not None:
-                cond = self._cond(latents, t, context, ctx, seq_len)
+                cond = self._cond(latents, t, context, step_ctx, seq_len, extra)
                 noise_pred = last_uncond + guide_scale * (cond - last_uncond)
             else:
                 act = "full"
-                cond, last_uncond = self._split(latents, t, context, context_null, ctx,
-                                                seq_len, sequential)
+                cond, last_uncond = self._split(latents, t, context, context_null, step_ctx,
+                                                seq_len, sequential, extra)
                 noise_pred = last_uncond + guide_scale * (cond - last_uncond)
             if adaptive and act != "reuse":
                 # the realized output change between consecutive executed
@@ -415,6 +474,35 @@ class WanT2V:
         self.last_cache_stats = stats
         self.last_adaptive_trace = trace if adaptive else None
         return latents
+
+    def capture_attn_maps(self, context: torch.Tensor, size: Tuple[int, int] = (832, 480),
+                          frame_num: int = 81, pool: int = 256, reduce: str = "mean",
+                          t: float = 500.0, seed: int = 0,
+                          latents: Optional[torch.Tensor] = None) -> Dict[str, np.ndarray]:
+        """One forward through the deployed model (fp, sim or int8
+        ``quant_ctx``) returning {block.self_attn: [H, S/pool, S/pool]}
+        pooled post-softmax self-attention maps: the input of
+        ``quant.attn.select_temporal_windows`` where no FP copy of the model
+        runs a calibration sweep. The forward runs dense whatever the ctx's
+        window, and the maps come from the unscaled q, as calibration's do
+        (wanq_tpu's deployed capture scales q twice). ``latents`` replaces
+        the draw from ``seed``."""
+        cfg = self.config
+        target_shape = compute_target_shape(cfg, size, frame_num)
+        seq_len = compute_seq_len(cfg, target_shape)
+        context = context.to(torch.device(self.device))
+        latents = self._initial_latents((context.shape[0], *target_shape), seed, latents)
+        base = self.quant_ctx if self.quant_ctx is not None else QuantCtx(mode="fp")
+        cctx = dataclasses.replace(base, collect={}, attn_map_pool=pool,
+                                   attn_map_reduce=reduce, attn_window=None)
+        with torch.no_grad():
+            self._cond(latents, t, context, cctx, seq_len)
+        maps = {k[: -len(".attn_map")]: v.float().cpu().numpy()
+                for k, v in cctx.collect.items() if k.endswith(".attn_map")}
+        if not maps:
+            raise RuntimeError("no attention maps captured: the forward never reached the "
+                               "pooled-map hook (models/dit.py _self_attention)")
+        return maps
 
     def collect_calibration(self, context, context_null, sampling_steps: int = 30,
                             **kw) -> Dict[str, np.ndarray]:

@@ -88,9 +88,10 @@ class QuantCtx:
     collect_minmax: bool = False
     # calib: the sites (re.search) whose input Hessian is collected for GPTQ
     hessian_regex: Optional[str] = None
-    # calib extras: pool factor of the post-softmax attention-map capture (0 =
-    # off) and its reduce: "max" feeds reorder tables, "mean" (mass-preserving)
-    # feeds select_temporal_windows
+    # pool factor of the post-softmax self-attention map capture (0 = off) and
+    # its reduce: "max" feeds reorder tables, "mean" (mass-preserving) feeds
+    # select_temporal_windows. Set in calibration, or on a copy of a deployed
+    # ctx by WanT2V.capture_attn_maps
     attn_map_pool: int = 0
     attn_map_reduce: str = "max"
     # sliding temporal-window self-attention (K4's band mode): an int radius
@@ -105,10 +106,6 @@ class QuantCtx:
         if self.attn_map_reduce not in ("max", "mean"):
             raise ValueError(f"attn_map_reduce must be 'max' or 'mean', "
                              f"got {self.attn_map_reduce!r}")
-        if self.attn_map_pool and self.mode != "calib":
-            raise NotImplementedError(
-                "attention-map capture from a deployed model (WanT2V.capture_attn_maps) "
-                "is not ported yet (ROADMAP Queue 1 item 6); capture in calib mode")
 
     def policy(self, name: str) -> LayerPolicy:
         return self.policies.get(name, FP_POLICY)
