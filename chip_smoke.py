@@ -144,7 +144,27 @@ non-zero:
    from phase 3's calibration, WanT2V.quant_ctx_schedule (W8A8 on step 1,
    mixed W4A8 on steps 2-3: each step's launches exact) and
    WanT2V.capture_attn_maps from the deployed W8A8 model (17 frames, pool
-   256: mass, shapes, select_temporal_windows, against a calib-mode capture).
+   256: mass, shapes, select_temporal_windows, against a calib-mode capture);
+7. training: K4's residual mode (the output and each row's log-sum-exp), K12
+   (dq) and K11 (dk, dv) against their plain versions (_sdpa_lse_reference,
+   attention_bwd_reference) at self-attention [1, 12, 32768, 128] with 32760
+   valid keys (pad k/v planted), cross-attention against 512 keys and self
+   with 40 heads (printed, not summed): the output at K4's limits, the LSE abs
+   <= 1e-3, each gradient rel-L2 <= 1e-2, dk = dv = 0 past the valid keys,
+   each beside its bound and scaled_dot_product_attention's forward or
+   backward (on k/v[:valid]); QLoRA at T2V-1.3B full depth, 832x480x81 (seq
+   32760, B = 1) over wan_w4a8_mixed.yaml's int8 base (the FP copies stripped,
+   rank-16 adapters, remat, lr 1e-4, guidance 3, one batch): a warm-up and 3
+   steps with their loss, gradient norm, seconds, peak and launches (exactly
+   QLORA_STEP x 30 each), finite, the last loss below the first, and one
+   more forward and backward split by the host clock; the adapters' gradients
+   on the first 2 blocks against the plain-attention route (rel-L2 <= 1e-2);
+   save_lora_checkpoint, then quant_generate --lora <dir> --hardware (1 step
+   at 81 frames, launches exactly QLORA_DEPLOY x 30) and its recorded DiT
+   forward against dit_forward(training=True) of the same adapted model (PSNR
+   >= 35 dB); make_distill_step and make_lora_distill_step at full depth,
+   832x480x9, 2 steps each (finite). Their launches count into the kernels
+   line.
 
 The third-to-last line is the kernels' JSON record, then the card's name
 and power limit, and the last line {"ok": true, "device": {...}}.
@@ -288,6 +308,14 @@ SOURCES = {
                           "wanq_tpu/ops/attn_int8.py:52"),
     "attention_int8": ("wanq_tpu_torch/csrc/attention_int8.cu",
                        "wanq_tpu/ops/attn_int8.py:181"),
+    # training: the TPU flash attention's forward with residuals and its two
+    # backward kernels, in the installed JAX
+    "attention_lse": ("wanq_tpu_torch/csrc/flash_attention.cu",
+                      "jax/experimental/pallas/ops/tpu/flash_attention.py:758"),
+    "attention_bwd_dkv": ("wanq_tpu_torch/csrc/flash_attention_bwd.cu",
+                          "jax/experimental/pallas/ops/tpu/flash_attention.py:1121"),
+    "attention_bwd_dq": ("wanq_tpu_torch/csrc/flash_attention_bwd.cu",
+                         "jax/experimental/pallas/ops/tpu/flash_attention.py:1456"),
 }
 # launch counters of a kernel's further modes -> the kernel they belong to
 MODES = {"w8a8_linear_gelu_quant": "w8a8_linear", "w4a8_linear_gelu_quant": "w4a8_linear",
@@ -1501,7 +1529,8 @@ KERNEL_NAMES = {"ln_mod_quant_kernel": "K1", "w8a8_gemm_kernel": "K2",
                 "rms_rope_heads_kernel": "K3", "flash_fwd_kernel": "K4",
                 "quant_sum_kernel": "K7", "w4a8_gemm_kernel": "K8", "w4a4_gemm_kernel": "K9",
                 "attn_int8_kernel": "K10", "qkv_absmax_quant_kernel": "K10a",
-                "v_quant_kernel": "K10a"}
+                "v_quant_kernel": "K10a", "flash_bwd_dkv_kernel": "K11",
+                "flash_bwd_dq_kernel": "K12"}
 
 
 def profile_steps(torch, steps, ref="bf16"):
@@ -2860,6 +2889,409 @@ def image_to_video(torch, results, launches, calib_path):
     schedule_and_capture(torch, np, calib_path, launches)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: training
+# ---------------------------------------------------------------------------
+
+
+def once_ms(fn):
+    """(fn(), its time in ms by CUDA events): one call, for plain versions
+    too slow to repeat."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def training_kernel_checks(torch, record):
+    """K4's residual mode (the output and each row's LSE), K12 (dq) and K11
+    (dk, dv) against their plain versions (_sdpa_lse_reference,
+    attention_bwd_reference on the kernel's own o and LSE) at the training
+    shapes: self-attention [1, 12, 32768, 128] with 32760 valid keys (the pad
+    rows of k/v planted), cross-attention against 512 keys, and self with 40
+    heads (T2V-14B, printed with summed=False). Limits: the output at K4's,
+    the LSE abs <= 1e-3, each gradient rel-L2 <= 1e-2, dk = dv = 0 past the
+    valid keys. Beside the kernels: scaled_dot_product_attention's forward and
+    its backward (one autograd.grad for dq, dk and dv, on the valid keys)."""
+    from wanq_tpu_torch.models.attention import (
+        _flash_cuda, _sdpa_lse_reference, attention_bwd_reference, flash_attention_bwd)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, d, qs = 1, 128, 1.0 / math.sqrt(128)
+    for label, n, sq, sk, valid, chunk, summed in (
+            ("self", 12, 32768, 32768, 32760, 1024, True),
+            ("cross", 12, 32768, 512, 512, 8192, True),
+            ("self 40 heads", 40, 32768, 32768, 32760, 256, False)):
+        shape = f"{label} q [1,{sq},{n},128], k/v [1,{sk},{n},128] valid {valid}"
+        # [B, S, N, D] views of the projections' [B, S, N*D] rows, as the model
+        # hands them over
+        q = torch.randn((b, sq, n * d), device=dev, generator=g).bfloat16().view(b, sq, n, d)
+        k = torch.randn((b, sk, n * d), device=dev, generator=g).bfloat16().view(b, sk, n, d)
+        v = torch.randn((b, sk, n * d), device=dev, generator=g).bfloat16().view(b, sk, n, d)
+        k[:, valid:] = 0.0
+        v[:, valid:] = 100.0
+        do = torch.randn((b, sq, n, d), device=dev, generator=g).bfloat16()
+
+        fwd = lambda: _flash_cuda(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), qs,
+                                  valid, lse=True)
+        out, lse = fwd()
+        (want_o, want_lse), plain_ms = once_ms(
+            lambda: _sdpa_lse_reference(q, k, v, qs, valid, q_chunk=chunk))
+        err, rel = attn_err(out, want_o, f"residual mode {label}")
+        lse_err = (lse - want_lse).abs().max().item()
+        check(lse.shape == (b, n, sq) and lse_err <= 1e-3,
+              f"residual mode {label}: LSE abs err {lse_err:.3e} (limit 1e-3)")
+        del want_o, want_lse
+        ql, kl, vl = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k[:, :valid], v[:, :valid]))
+        lib_fwd = cuda_ms(lambda: sdpa(ql, kl, vl, scale=qs), warmup=1, reps=3)
+        qkv_bytes = 2 * b * n * d * (2 * sq + 2 * sk)
+        flops = 2 * b * n * sq * valid * d  # one S-sized product
+        ms = cuda_ms(fwd, warmup=1, reps=3)
+        record("attention_lse", max(err, lse_err), ms, plain_ms,
+               f"{shape} (out rel-L2 {rel:.2e}, LSE abs err {lse_err:.2e}; "
+               f"{2 * flops / ms / 1e9:.0f} TFLOP/s; library = scaled_dot_product_attention "
+               f"forward on k/v[:valid])", qkv_bytes + 4 * b * n * sq, 2 * flops, "bf16",
+               library_ms=lib_fwd, summed=summed)
+
+        got = flash_attention_bwd(q, k, v, out, lse, do, qs, valid)
+        want, plain_ms = once_ms(lambda: attention_bwd_reference(q, k, v, out, lse, do, qs, valid,
+                                                                 q_chunk=chunk))
+        check(all(bool(torch.isfinite(a).all()) for a in got), f"K11/K12 {label}: not finite")
+        # on the card: at 40 heads a host copy of each gradient in f64 is 1.3 GB
+        rels = [((a.float() - w.float()).norm() / w.float().norm()).item()
+                for a, w in zip(got, want)]
+        errs = [(a.float() - w.float()).abs().max().item() for a, w in zip(got, want)]
+        check(max(rels) <= 1e-2, f"K11/K12 {label}: rel-L2 dq, dk, dv {rels} (limit 1e-2)")
+        check(not got[1][:, valid:].any() and not got[2][:, valid:].any(),
+              f"K11 {label}: dk/dv not zero past the valid keys")
+        del got, want
+        o_l = sdpa(ql, kl, vl, scale=qs)
+        lib_bwd = cuda_ms(lambda: torch.autograd.grad(o_l, (ql, kl, vl), do.transpose(1, 2),
+                                                      retain_graph=True), warmup=1, reps=3)
+        del o_l
+        in_bytes = qkv_bytes + 2 * b * n * sq * d + 2 * 4 * b * n * sq  # + dO, lse, di
+        note = (f"; the plain and the library time are the whole backward (dq, dk, dv: "
+                f"attention_bwd_reference; scaled_dot_product_attention's backward on k/v[:valid])")
+        ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do, qs, valid, dkv=False),
+                     warmup=1, reps=3)
+        record("attention_bwd_dq", errs[0], ms, plain_ms,
+               f"{shape} (dq rel-L2 {rels[0]:.2e}; {3 * flops / ms / 1e9:.0f} TFLOP/s{note})",
+               in_bytes + 2 * b * n * sq * d, 3 * flops, "bf16", library_ms=lib_bwd,
+               summed=summed)
+        ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do, qs, valid, dq=False),
+                     warmup=1, reps=3)
+        record("attention_bwd_dkv", max(errs[1:]), ms, plain_ms,
+               f"{shape} (dk rel-L2 {rels[1]:.2e}, dv {rels[2]:.2e}; "
+               f"{4 * flops / ms / 1e9:.0f} TFLOP/s{note})",
+               in_bytes + 2 * 2 * b * n * sk * d, 4 * flops, "bf16", library_ms=lib_bwd,
+               summed=summed)
+        del q, k, v, do, out, lse, ql, kl, vl
+        torch.cuda.empty_cache()
+
+
+QLORA_YAML = "quant_configs/wan_w4a8_mixed.yaml"
+# the launches of one QLoRA step a block (remat): the student's forward and its
+# recompute in the backward run K4's residual mode at self- and cross-attention;
+# the backward runs K12 at both and K11 at self-attention only (the cross k/v
+# come from the frozen FP cross-attention, so they need no gradient); the
+# teacher's two no-grad forwards run the plain K4 launch at both
+QLORA_STEP = {"attention_lse": 4, "attention_bwd_dq": 2, "attention_bwd_dkv": 1,
+              "attention": 4}
+# the deployed adapted model (quant_generate --lora --hardware, one batched
+# forward a block): each adapted site (self q/k/v/o, ffn.0/2) leaves the fused
+# producers for qlinear's int route, K7 then K2 (W8) or K8 (W4); the ffn.2
+# input's GELU is PyTorch's; K3 and K4 as in bf16; cross-attention is FP
+QLORA_DEPLOY = {"quant_sum": 6, "w8a8_linear": 4, "w4a8_linear": 2, "rms_rope_heads": 3,
+                "attention": 2}
+QLORA_SEQ = 32760  # 21 x 30 x 52 latent tokens of 832x480x81, unpadded
+
+
+def qlora_base(torch, cfg):
+    """quant_generate --random_init's seed-42 weights, wan_w4a8_mixed.yaml's
+    int8 state (W8 self-attention, W4 ffn, dynamic activations) with the FP
+    copies of the quantized weights stripped, and rank-16 adapters on the
+    default targets (init_lora_from_cfg)."""
+    from wanq_tpu_torch.cli.common import load_params
+    from wanq_tpu_torch.models.dit import linear_layer_names
+    from wanq_tpu_torch.quant import QuantConfig
+    from wanq_tpu_torch.quant.ptq import prepare_quant_state, strip_quantized_weights
+    from wanq_tpu_torch.quant.qlinear import QuantCtx
+    from wanq_tpu_torch.training.lora import init_lora_from_cfg
+
+    params = load_params(argparse.Namespace(base_seed=42, device="cuda", random_init=True,
+                                            ckpt_dir=None), cfg)
+    pol, state, rot = prepare_quant_state(params, linear_layer_names(cfg),
+                                          QuantConfig.from_yaml(QLORA_YAML), targets="int8")
+    params = strip_quantized_weights(params, pol)
+    return (params, QuantCtx(mode="int8", policies=pol, state=state, rotations=rot),
+            init_lora_from_cfg(cfg, rank=16, seed=3, device="cuda"))
+
+
+def distill_batch(torch, cfg, frames, seed=11):
+    """One training batch at 832x480: x0 and noise [1, 16, F, 60, 104], t =
+    500, two text states, drawn on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lat = (1, cfg.in_dim, (frames - 1) // 4 + 1, 60, 104)
+    text = (1, cfg.text_len, cfg.text_dim)
+    return (torch.randn(lat, device="cuda", generator=g),
+            torch.randn(lat, device="cuda", generator=g),
+            torch.tensor([500.0], device="cuda"),
+            torch.randn(text, device="cuda", generator=g),
+            torch.randn(text, device="cuda", generator=g))
+
+
+def qlora_steps(torch, cfg, params, qctx, lora, batch, launches):
+    """(b) and (d): 1 warm-up + 3 QLoRA steps at full depth (lr 1e-4, remat,
+    the same batch, guidance 3): loss, gnorm, seconds and peak memory of each,
+    the launches of every step equal to QLORA_STEP x the layers, finite
+    losses, the last of the three below the first. Then one more forward and
+    backward, split by the host clock: the teacher's two forwards, the
+    student's forward, its backward (the blocks' recompute included)."""
+    import dataclasses
+
+    from wanq_tpu_torch.models.dit import dit_forward
+    from wanq_tpu_torch.ops import _lib
+    from wanq_tpu_torch.training import (
+        DistillConfig, init_train_state, make_qlora_distill_step)
+    from wanq_tpu_torch.training.lora import merge_lora_into_quant_state
+
+    dcfg = DistillConfig(learning_rate=1e-4, seq_len=QLORA_SEQ, remat=True)
+    state, tx = init_train_state(lora, dcfg)
+    step = make_qlora_distill_step(cfg, dcfg, tx)
+    want = {k: v * cfg.num_layers for k, v in QLORA_STEP.items()}
+    losses = []
+    for i in range(4):
+        torch.cuda.reset_peak_memory_stats()
+        _lib.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, _, loss, gnorm = step(state.params, state.ema_params, tx, params, qctx, *batch,
+                                    3.0)
+        loss, gnorm = float(loss), float(gnorm)
+        secs = time.perf_counter() - t0
+        counts = _lib.launch_counts()
+        log(f"  QLoRA step {i}{' (warm-up)' if i == 0 else ''}: loss {loss:.6f}  gnorm "
+            f"{gnorm:.4e}  {secs:.3f} s  peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+            f"GiB  launches {counts}")
+        check(math.isfinite(loss) and math.isfinite(gnorm), f"QLoRA step {i}: not finite")
+        check(counts == want, f"QLoRA step {i}: launches {counts}, want {want}")
+        if i:
+            losses.append(loss)
+            for name, cnt in counts.items():
+                launches[name] = launches.get(name, 0) + cnt
+    check(losses[-1] < losses[0], f"QLoRA: the loss did not fall over 3 steps: {losses}")
+
+    # the step's loss, piece by piece (training/distill.py's make_qlora_distill_step)
+    x0, noise, t, c, cn = batch
+    sigma = (t / dcfg.num_train_timesteps)[:, None, None, None, None]
+    xt = (1.0 - sigma) * x0 + sigma * noise
+    split, marks = {}, []
+
+    def mark():
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    mark()
+    with torch.no_grad():
+        tc, tu = (dit_forward(params, cfg, xt, t, ctx_, QLORA_SEQ, ctx=qctx, training=True)
+                  for ctx_ in (c, cn))
+        v_teacher = tu + 3.0 * (tc - tu)
+    mark()
+    student = dataclasses.replace(qctx, state=merge_lora_into_quant_state(qctx.state,
+                                                                          state.params))
+    v = dit_forward(params, cfg, xt, t, c, QLORA_SEQ, ctx=student, training=True, remat=True)
+    loss = torch.mean(torch.square(v - v_teacher))
+    mark()
+    loss.backward()
+    mark()
+    tx.zero_grad(set_to_none=True)
+    split = {"teacher forwards (2, no grad)": marks[1] - marks[0],
+             "student forward (remat)": marks[2] - marks[1],
+             "backward (the blocks' recompute included)": marks[3] - marks[2]}
+    log("  QLoRA step split (host clock, synchronized): "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in split.items()))
+    return state, tx, dcfg
+
+
+def qlora_grad_check(torch, cfg, params, qctx, lora, batch, dcfg):
+    """(c) The adapters' gradients of the distillation loss on the first 2
+    blocks, full width and sequence: the kernel route (K4's residual mode,
+    K12, K11) against the plain-attention route (attention(force_reference=
+    True): the chunked plain forward with its LSE and attention_bwd_reference),
+    rel-L2 <= 1e-2 over all adapters."""
+    import dataclasses
+    import functools
+
+    import wanq_tpu_torch.models.dit as dit
+    from wanq_tpu_torch.models.attention import attention
+    from wanq_tpu_torch.training import make_qlora_distill_step
+
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    params2 = {**params, "blocks": params["blocks"][:2]}
+    lora2 = {k: v for k, v in lora.items() if not k.startswith("blocks.")
+             or k.startswith(("blocks.0.", "blocks.1."))}
+    leaves = [t for k, ab in lora2.items() if k != "__scale__" for t in ab.values()]
+    loss_fn = make_qlora_distill_step(cfg2, dcfg, None).loss_fn
+
+    def grads():
+        for t in leaves:
+            t.grad = None
+        loss_fn(lora2, params2, qctx, *batch, 3.0).backward()
+        return [t.grad.clone() for t in leaves]
+
+    t0 = time.perf_counter()
+    kern = grads()
+    t_kern = time.perf_counter() - t0
+    dit.attention = functools.partial(attention, force_reference=True)
+    try:
+        t0 = time.perf_counter()
+        plain = grads()
+        t_plain = time.perf_counter() - t0
+    finally:
+        dit.attention = attention
+    for t in leaves:
+        t.grad = None
+    num = sum(float((a.float() - b.float()).square().sum()) for a, b in zip(kern, plain))
+    den = sum(float(b.float().square().sum()) for b in plain)
+    rel = math.sqrt(num / den)
+    worst = max(_rel(torch, b, a) for a, b in zip(kern, plain) if float(b.norm()) > 0)
+    log(f"  QLoRA gradients, 2 blocks at seq {QLORA_SEQ}: kernel route vs plain attention "
+        f"rel-L2 {rel:.3e} over {len(leaves)} adapter tensors (worst tensor {worst:.3e}); "
+        f"forward + backward {t_kern:.2f} s (kernels) / {t_plain:.2f} s (plain)")
+    check(math.isfinite(rel) and rel <= 1e-2, f"QLoRA gradients: rel-L2 {rel:.3e} > 1e-2")
+
+
+def qlora_deploy(torch, cfg, params, qctx, state, tx, launches):
+    """(e) save_lora_checkpoint, then quant_generate --lora <dir> --hardware
+    (wan_w4a8_mixed.yaml, --random_init seed 42, 1 step at 81 frames): its
+    launches exactly QLORA_DEPLOY x the layers (one batched forward), finite
+    latents, and its DiT forward (recorded) against dit_forward(training=
+    True) of the same adapted model on the same inputs: PSNR >= 35 dB."""
+    import dataclasses
+
+    import numpy as np
+
+    import wanq_tpu_torch.pipelines.text2video as t2v
+    from wanq_tpu_torch.cli import quant_generate
+    from wanq_tpu_torch.models.dit import dit_forward
+    from wanq_tpu_torch.ops import _lib
+    from wanq_tpu_torch.training.lora import (
+        merge_lora_into_quant_state, resume_lora_checkpoint, save_lora_checkpoint)
+
+    ckpt = save_lora_checkpoint(str(OUT / "qlora"), 4, state.params, opt_state=tx)
+    lora, opt, step, _ = resume_lora_checkpoint(ckpt)
+    check(step == 4 and opt is not None and sorted(lora) == sorted(state.params),
+          "save / resume_lora_checkpoint")
+    recorded = []
+    orig = t2v.dit_forward
+
+    def record(*a, **kw):
+        out = orig(*a, **kw)
+        recorded.append((a, kw, out))
+        return out
+
+    lat_path = str(OUT / "latents_qlora_deploy.npz")
+    args = quant_generate.parse_args(cli_args(QLORA_YAML, [
+        "--hardware", "--sample_steps", "1", "--base_seed", "42", "--lora", ckpt,
+        "--save_file", lat_path]))
+    t2v.dit_forward = record
+    try:
+        _lib.reset_launch_counts()
+        t0 = time.time()
+        quant_generate.generate(args)
+        counts = _lib.launch_counts()
+    finally:
+        t2v.dit_forward = orig
+    want = {k: v * cfg.num_layers for k, v in QLORA_DEPLOY.items()}
+    log(f"  quant_generate --lora {os.path.relpath(ckpt, ROOT)} --hardware ({QLORA_YAML}, "
+        f"1 step, incl. random init and PTQ): {time.time() - t0:.1f} s; launches {counts}")
+    check(counts == want, f"deploy: launches {counts}, want {want}")
+    for name, cnt in counts.items():
+        launches[name] = launches.get(name, 0) + cnt
+    lat = np.load(lat_path)["latents"]
+    check(bool(np.isfinite(lat).all()), "deploy: non-finite latents")
+    check(len(recorded) == 1, f"deploy: {len(recorded)} forwards recorded, want 1 (batched)")
+    (p_cli, _, x, t, context, seq_len), kw, got = recorded[0]
+    ctx = dataclasses.replace(qctx, state=merge_lora_into_quant_state(qctx.state, lora))
+    with torch.no_grad():
+        ref = dit_forward(params, cfg, x, t, context, seq_len, ctx=ctx, training=True)
+    psnr, cos = psnr_cos(ref.double().cpu().numpy(), got.double().cpu().numpy())
+    log(f"  deployed forward (K7, K2, K8, K3, K4) vs the trainable route of the same "
+        f"adapted model, batched CFG pair at t={float(t[0]):.0f}: PSNR {psnr:.2f} dB, "
+        f"cosine {cos:.6f}")
+    check(psnr >= 35.0, f"deploy: PSNR {psnr:.2f} dB < 35")
+
+
+def other_builders(torch, cfg):
+    """(f) make_distill_step (every parameter, the seed-42 weights as the
+    teacher) and make_lora_distill_step (FP LoRA, rank 16) at full depth,
+    832x480x9 (seq 4680), 2 steps each: finite losses, seconds, peak."""
+    import argparse as _argparse
+
+    from wanq_tpu_torch.cli.common import load_params
+    from wanq_tpu_torch.models.dit import linear_layer_names
+    from wanq_tpu_torch.training import (
+        DistillConfig, distill_step, init_train_state, make_distill_step,
+        make_lora_distill_step)
+    from wanq_tpu_torch.training.lora import init_lora
+
+    params = load_params(_argparse.Namespace(base_seed=42, device="cuda", random_init=True,
+                                             ckpt_dir=None), cfg)
+    x0, noise, t, c, cn = distill_batch(torch, cfg, 9, seed=12)
+    batch = {"x0": x0, "noise": noise, "t": t, "context": c, "null_context": cn}
+    dcfg = DistillConfig(learning_rate=1e-5, seq_len=3 * 30 * 52, remat=True)
+    for label, trained, make in (
+            ("make_distill_step (every parameter)", params, make_distill_step),
+            ("make_lora_distill_step (FP LoRA, rank 16)",
+             init_lora(params, linear_layer_names(cfg), rank=16, seed=3),
+             make_lora_distill_step)):
+        state, tx = init_train_state(trained, dcfg)
+        step = make(cfg, dcfg, tx)
+        for i in range(2):
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, info = distill_step(state, step, params, batch, dcfg)
+            secs = time.perf_counter() - t0
+            log(f"  {label} step {i}: loss {info['loss']:.6f} gnorm {info['grad_norm']:.4e} "
+                f"guidance {info['guidance']:.0f}  {secs:.3f} s  peak "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            check(math.isfinite(info["loss"]) and math.isfinite(info["grad_norm"]),
+                  f"{label}: not finite")
+        del state, tx, step
+        torch.cuda.empty_cache()
+
+
+def training(torch, results, launches):
+    """Phase 7: the kernels of the training path against their plain
+    versions, QLoRA at T2V-1.3B full depth, its gradients against the plain
+    route, the deployment of its adapters, and the other two step builders."""
+    from wanq_tpu_torch.configs import WAN_CONFIGS
+
+    t0 = time.time()
+    training_kernel_checks(torch, recorder(results))
+    log(f"  phase 7 kernels: {time.time() - t0:.1f} s")
+    cfg = WAN_CONFIGS[TASK]
+    t0 = time.time()
+    params, qctx, lora = qlora_base(torch, cfg)
+    log(f"  QLoRA base ({QLORA_YAML}, FP copies stripped) and rank-16 adapters: "
+        f"{time.time() - t0:.1f} s, held {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    batch = distill_batch(torch, cfg, FRAMES)
+    state, tx, dcfg = qlora_steps(torch, cfg, params, qctx, lora, batch, launches)
+    qlora_grad_check(torch, cfg, params, qctx, state.params, batch, dcfg)
+    qlora_deploy(torch, cfg, params, qctx, state, tx, launches)
+    del params, qctx, lora, state, tx, batch
+    torch.cuda.empty_cache()
+    other_builders(torch, cfg)
+
+
 # kernels whose build must show no spill: the wgmma kernels (a spill there
 # means ptxas gave up on the setmaxnreg budgets), K1, K3 and K7, which hold a
 # row in registers, and K10a's two, which hold half a tile (q/k) or a
@@ -2934,6 +3366,13 @@ def hopper_evidence(_lib, nvcc: str) -> None:
             check(not serialised, f"{kernel}: serialised wgmma: {serialised[:1]}")
     check(not re.search(r"\bIMMA\b", res.stdout),
           "an mma.sync int GEMM (IMMA) is left in the library")
+    # K11 and K12, the first simple design of the backward: bf16 mma.sync (HMMA)
+    for kernel in ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"):
+        sass = [f for f in functions if kernel in f.split("\n", 1)[0]]
+        hmma, ldsm = (sum(len(re.findall(rf"\b{op}\b", f)) for f in sass)
+                      for op in ("HMMA", "LDSM"))
+        log(f"  SASS {kernel}: HMMA {hmma} (mma.sync bf16), LDSM {ldsm}")
+        check(len(sass) == 1 and hmma > 0, f"{kernel}: {len(sass)} functions, HMMA {hmma}")
     # K3, K7 and K10a stream rows or tiles into shared memory by TMA (bulk
     # copies UBLKCP, tensor-map loads UTMALDG): their instantiations' static
     # instruction and copy counts, and the SASS itself for reading. K10a's
@@ -3056,6 +3495,13 @@ def main() -> int:
     t0 = time.time()
     image_to_video(torch, results, launches, calib[TASK])
     log(f"  phase 6: {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    log(f"[7] training: K4's residual mode, K12 and K11; QLoRA at {TASK} {SIZE}x{FRAMES}, "
+        f"its deployment, the other step builders")
+    t0 = time.time()
+    training(torch, results, launches)
+    log(f"  phase 7: {time.time() - t0:.1f} s")
     log(f"total {time.time() - t_all:.1f} s")
 
     record = {"kernels": [

@@ -43,7 +43,12 @@ K2, K3, K4 (self and cross) and K7 give a row of a batch of 2 the bits
 they give it alone. Whole generate: the full-width VAE decodes on the card
 as on the CPU (f32 rel-L2 <= 1e-4, bf16 PSNR >= 35 dB), umT5's widths at 2
 layers encode on the card as on the CPU (rel-L2 <= 4e-3), and
-``load_wan_checkpoint`` reads every tensor straight onto the card.
+``load_wan_checkpoint`` reads every tensor straight onto the card. Training:
+K4's residual mode at K4's limits with its LSE within 1e-3 (abs), K12 and K11
+within rel-L2 1e-2 of ``attention_bwd_reference`` on the kernel's own output
+and LSE (bf16 P and dS in their products; a floor of 1e-5 a element where a
+single valid key makes dq and dk zero), dk = dv = 0 past kv_valid, and
+``attention(trainable=True)``'s launches under autograd and without it.
 """
 
 import math
@@ -1841,3 +1846,101 @@ def test_i2v_forward_row_equals_a_lone_forward_on_the_card(dev):
                            y=torch.cat([y, y]))
         lone = dit_forward(params, cfg, x, t[:1], c[:1], 60, clip_fea=cf, y=y)
     assert bool(torch.isfinite(lone).all()) and torch.equal(pair[:1], lone)
+
+
+def _bwd_inputs(dev, gen, b, n, sq, sk, valid):
+    """q, k, v (v a strided view over [B, Sk, N*D]) and dO, bf16, with the pad
+    tail of k/v planted (k = 0, v = 100): a missed mask in the forward, in P
+    or in dP moves every gradient by far more than the limits."""
+    d = 128
+    q = torch.randn((b, sq, n, d), device=dev, generator=gen).bfloat16()
+    k = torch.randn((b, sk, n, d), device=dev, generator=gen).bfloat16()
+    v = torch.randn((b, sk, n * d), device=dev, generator=gen).bfloat16()
+    k[:, valid:] = 0.0
+    v[:, valid:] = 100.0
+    do = torch.randn((b, sq, n, d), device=dev, generator=gen).bfloat16()
+    return q, k, v.view(b, sk, n, d), do
+
+
+def _grad_rel(got, want):
+    """rel-L2, with a floor of 1e-5 a element under the norm: with a single
+    valid key P = 1, so dS and with it dq and dk are 0 up to rounding."""
+    g, w = got.float(), want.float()
+    assert torch.isfinite(g).all()
+    return ((g - w).norm() / max(w.norm().item(), 1e-3 * math.sqrt(w.numel()))).item()
+
+
+# the shapes of K4's tests: ragged Sq and Sk, a single valid key, more tiles
+# than the rings hold, a partial last kv tile
+@pytest.mark.parametrize("sq,sk,valid", [(300, 300, 290), (257, 77, 77), (130, 200, 1),
+                                         (129, 777, 700), (256, 512, 512)])
+def test_k4_residual_mode_k11_k12_match_plain(dev, gen, sq, sk, valid):
+    """K4's residual mode against the plain forward with its LSE (output at
+    K4's limits, LSE abs <= 1e-3), then K12 and K11 against
+    attention_bwd_reference on the same o and LSE: rel-L2 <= 1e-2 (bf16 P and
+    dS in the products), dk = dv = 0 exactly at the keys past kv_valid."""
+    from wanq_tpu_torch.models.attention import (
+        _flash_cuda, _sdpa_lse_reference, attention_bwd_reference, flash_attention_bwd)
+
+    q, k, vh, do = _bwd_inputs(dev, gen, 2, 3, sq, sk, valid)
+    _lib.reset_launch_counts()
+    out, lse = _flash_cuda(q.transpose(1, 2), k.transpose(1, 2), vh.transpose(1, 2), 0.0884,
+                           valid, lse=True)
+    want_o, want_lse = _sdpa_lse_reference(q, k, vh, 0.0884, valid)
+    _k4_close(out, want_o)
+    assert lse.shape == (2, 3, sq) and (lse - want_lse).abs().max().item() <= 1e-3
+    dq, dk, dv = flash_attention_bwd(q, k, vh, out, lse, do, 0.0884, valid)
+    torch.cuda.synchronize()
+    rq, rk, rv = attention_bwd_reference(q, k, vh, out, lse, do, 0.0884, valid)
+    for got, want in ((dq, rq), (dk, rk), (dv, rv)):
+        assert got.shape == want.shape and _grad_rel(got, want) <= 1e-2
+    assert not dk[:, valid:].any() and not dv[:, valid:].any()
+    assert _lib.launch_counts() == {"attention_lse": 1, "attention_bwd_dq": 1,
+                                    "attention_bwd_dkv": 1}
+
+
+def test_trainable_attention_runs_the_kernels_under_autograd(dev, gen):
+    """attention(trainable=True) on the card: the residual mode forward, K12
+    and K11 backward, gradients within rel-L2 1e-2 of the plain route
+    (force_reference); k and v that need no gradient skip K11; without
+    autograd (a no-grad teacher) the plain K4 launch runs."""
+    from wanq_tpu_torch.models.attention import attention
+
+    q, k, vh, do = _bwd_inputs(dev, gen, 1, 2, 384, 300, 290)
+    grads = []
+    for ref in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (q, k, vh)]
+        _lib.reset_launch_counts()
+        out = attention(*leaves, scale=0.0884, k_valid_len=290, trainable=True,
+                        force_reference=ref)
+        out.backward(do)
+        grads.append([t.grad for t in leaves])
+        if not ref:
+            assert _lib.launch_counts() == {"attention_lse": 1, "attention_bwd_dq": 1,
+                                            "attention_bwd_dkv": 1}
+    for got, want in zip(*grads):
+        assert _grad_rel(got, want) <= 1e-2
+    ql = q.clone().requires_grad_()
+    _lib.reset_launch_counts()
+    attention(ql, k, vh, scale=0.0884, k_valid_len=290, trainable=True).backward(do)
+    assert _lib.launch_counts() == {"attention_lse": 1, "attention_bwd_dq": 1}
+    _lib.reset_launch_counts()
+    with torch.no_grad():
+        attention(ql, k, vh, scale=0.0884, k_valid_len=290, trainable=True)
+    assert _lib.launch_counts() == {"attention": 1}
+
+
+def test_k11_k12_at_40_heads_and_cross_shape(dev, gen):
+    """The T2V-14B head count and a cross-attention shape (Sk 512, every key
+    valid) at small Sq, at the limits above."""
+    from wanq_tpu_torch.models.attention import (
+        _flash_cuda, attention_bwd_reference, flash_attention_bwd)
+
+    for n, sq, sk, valid in ((40, 200, 200, 190), (4, 333, 512, 512)):
+        q, k, vh, do = _bwd_inputs(dev, gen, 1, n, sq, sk, valid)
+        out, lse = _flash_cuda(q.transpose(1, 2), k.transpose(1, 2), vh.transpose(1, 2), 0.0884,
+                               valid, lse=True)
+        got = flash_attention_bwd(q, k, vh, out, lse, do, 0.0884, valid)
+        want = attention_bwd_reference(q, k, vh, out, lse, do, 0.0884, valid)
+        for g_, w_ in zip(got, want):
+            assert _grad_rel(g_, w_) <= 1e-2

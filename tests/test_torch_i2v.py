@@ -142,7 +142,7 @@ def _both_forwards(cfg_j, pj, cfg_t, pt, inputs, seq, jctx=None, tctx=None, eage
 
 @pytest.mark.parametrize("frame_num,lat_h,lat_w", [(81, 4, 6), (5, 2, 2), (17, 3, 5)])
 def test_first_frame_mask_matches_jax_and_the_reference(frame_num, lat_h, lat_w):
-    got = ti2v.first_frame_mask(frame_num, lat_h, lat_w).numpy()
+    got = ti2v.first_frame_mask(frame_num, lat_h, lat_w, device="cpu").numpy()
     np.testing.assert_array_equal(got, np.asarray(ji2v.first_frame_mask(frame_num, lat_h, lat_w)))
     # the reference's construction (wan/image2video.py)
     msk = torch.ones(1, frame_num, lat_h, lat_w)

@@ -227,8 +227,8 @@ def test_dit_forward_builds_the_rope_tables_once_and_is_unchanged(rng, monkeypat
     hoisted = tdit.dit_forward(p, cfg, x, t, c, 64, ctx=ctx)
     assert len(pads) == 1
 
-    def block_own_tables(*a, tables=None):
-        return real_block(*a)
+    def block_own_tables(*a, tables=None, **kw):
+        return real_block(*a, **kw)
 
     monkeypatch.setattr(tdit, "block_forward", block_own_tables)
     per_block = tdit.dit_forward(p, cfg, x, t, c, 64, ctx=ctx)

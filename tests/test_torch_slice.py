@@ -340,7 +340,8 @@ def test_port_imports_neither_jax_nor_wanq_tpu():
             " wanq_tpu_torch.models.params, wanq_tpu_torch.models.t5,"
             " wanq_tpu_torch.models.vae, wanq_tpu_torch.models.tokenizers,"
             " wanq_tpu_torch.utils.video, wanq_tpu_torch.ops.attn_int8,"
-            " wanq_tpu_torch.quant.attn; "
+            " wanq_tpu_torch.quant.attn, wanq_tpu_torch.training, wanq_tpu_torch.training.data,"
+            " wanq_tpu_torch.utils.checkpoint; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'wanq_tpu')))")
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

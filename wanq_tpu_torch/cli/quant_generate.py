@@ -31,6 +31,11 @@ ptq; the rotations are rebuilt from its seed), or a reference
     python -m wanq_tpu_torch.cli.quant_generate --task t2v-1.3B --random_init \
         --quant_config quant_configs/config.yaml --quant_params quant_params.npz \
         --hardware --strip_fp
+
+``--lora`` deploys QLoRA adapters (the npz of ``training/lora.py::save_lora``,
+either package's, or a ``lora-checkpoint-N`` dir): they are merged into the
+quant state before the denoise loop, and the adapted sites take ``qlinear``'s
+int routes with the adapter added (the fused producers refuse them).
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import time
 
 import numpy as np
@@ -66,6 +72,7 @@ from wanq_tpu_torch.quant.ptq import (
     strip_quantized_weights,
 )
 from wanq_tpu_torch.quant.qlinear import QuantCtx
+from wanq_tpu_torch.training.lora import load_lora, merge_lora_into_quant_state
 
 
 def parse_args(argv=None):
@@ -84,6 +91,9 @@ def parse_args(argv=None):
                    help="free the FP copies of the quantized weights (the sim and int "
                         "paths read the quant state only); logs the device memory held "
                         "before and after")
+    p.add_argument("--lora", type=str, default=None,
+                   help="QLoRA adapters (a save_lora npz or a lora-checkpoint-N dir) merged "
+                        "into the quant state")
     return p.parse_args(argv)
 
 
@@ -138,6 +148,12 @@ def generate(args, on_step=None):
         logging.info("stripped the FP copies of the quantized weights; device memory held "
                      "%s -> %s GiB (peak so far %s GiB)", held, _held_gib(args.device),
                      _held_gib(args.device, peak=True))
+    if args.lora:
+        path = args.lora
+        if os.path.isdir(path):
+            path = os.path.join(path, "lora_weights.npz")
+        state = merge_lora_into_quant_state(state, load_lora(path, device=args.device))
+        logging.info("merged QLoRA adapters from %s", args.lora)
     ctx = QuantCtx(mode=mode, policies=policies, state=state, rotations=rotations,
                    attn=qcfg.attn_cfg, cross_attn=qcfg.cross_attn_cfg,
                    attn_window=parse_attn_window(args))

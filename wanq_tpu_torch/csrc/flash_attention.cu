@@ -56,6 +56,15 @@
 // integer compares an element. A row may see nothing of a visited tile (the
 // tile serves the block's other rows): the -inf guard above keeps it finite,
 // and every valid row sees its own frame, so l > 0 at the end.
+//
+// Residual mode (training, models/attention.py's autograd function): the same
+// launch also writes each row's log-sum-exp of the scaled scores, f32 [B, H,
+// Sq], lse = m * scale + ln(l) with m the raw row max and l the row sum of the
+// online softmax. It replaces the l and m residuals of the TPU flash forward
+// (jax/experimental/pallas/ops/tpu/flash_attention.py:758, save_residuals),
+// which K11 and K12 (flash_attention_bwd.cu) read to recompute P. A row that
+// sees no key (l = 0) gets +inf, so the backward's P is 0 there. Only the
+// epilogue differs; the plain launch passes no lse pointer.
 #include "sm90.cuh"
 
 namespace {
@@ -81,6 +90,8 @@ struct Params {
   float scale_log2;
   int tpf;                                // band mode: tokens per latent frame
   int radius[kMaxHeads];                  // band mode: each head's radius, in frames
+  float* lse;                             // residual mode: [B, H, Sq] f32, or null
+  int sq;
 };
 
 // The kv columns [lo, hi) that query row q sees in band mode.
@@ -350,6 +361,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(const __grid_con
       l += __shfl_xor_sync(wanq::kFull, l, 1);
       l += __shfl_xor_sync(wanq::kFull, l, 2);
       inv[r] = l > 0.f ? 1.0f / l : 0.f;
+      if (p.lse != nullptr && tig == 0) {
+        const int row = q0 + cw * 64 + warp * 16 + g + r * 8;
+        if (row < p.sq)
+          p.lse[((long long)b * gridDim.y + h) * p.sq + row] =
+              l > 0.f ? (m_run[r] * p.scale_log2 + log2f(l)) * 0.6931471805599453f : INFINITY;
+      }
     }
     uint8_t* sO = sQ + cw * 64 * 128;
 #pragma unroll
@@ -391,13 +408,14 @@ bool make_map(CUtensorMap* map, const void* base, long long seq, int heads, long
 // holds the byte strides of (seq, head, batch) for q, k, v and o in turn,
 // multiples of 16. 1 <= kv_valid <= Sk; scale > 0. tpf = 0: dense mode; tpf
 // >= 1: band mode with radii[h] >= 0 (a host array of H <= 64 ints) frames.
+// lse: null, or f32 [B, H, Sq] contiguous for the residual mode's log-sum-exp.
 WANQ_API int wanq_flash_attention(const void* q, const void* k, const void* v, void* o,
                                   long long B, int H, int Sq, int Sk, long long q_ss,
                                   long long q_sh, long long q_sb, long long k_ss,
                                   long long k_sh, long long k_sb, long long v_ss,
                                   long long v_sh, long long v_sb, long long o_ss,
                                   long long o_sh, long long o_sb, int kv_valid, float scale,
-                                  int tpf, const int* radii, void* stream) {
+                                  int tpf, const int* radii, float* lse, void* stream) {
   if (B == 0 || Sq == 0) return 0;
   if (kv_valid < 1 || kv_valid > Sk || !(scale > 0.f) || B > 65535 || H > 65535 || tpf < 0)
     return (int)cudaErrorInvalidValue;
@@ -409,6 +427,8 @@ WANQ_API int wanq_flash_attention(const void* q, const void* k, const void* v, v
       !make_map(&p.v, v, kv_valid, H, B, vs, BKV) || !make_map(&p.o, o, Sq, H, B, os, 64))
     return (int)cudaErrorInvalidValue;
   p.kv_valid = kv_valid;
+  p.lse = lse;
+  p.sq = Sq;
   p.scale_log2 = scale * 1.4426950408889634f;
   p.tpf = 0;
   if (tpf > 0) {

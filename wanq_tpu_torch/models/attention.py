@@ -23,6 +23,17 @@ radius, so per-head radii need neither ``wanq_tpu``'s head groups nor its
 head permutes. K4 takes bf16 with head dim 128 (every Wan config); other
 inputs raise on CUDA tensors (the ``tiny`` test config, head dim 24, runs on
 the CPU).
+
+Training (``attention(..., trainable=True)`` while autograd records): on
+CUDA tensors a :class:`torch.autograd.Function` whose forward is K4's
+residual mode (the output and each row's log-sum-exp) and whose backward is
+K12 (dq) and K11 (dk, dv; skipped when k and v need no gradient) of
+``csrc/flash_attention_bwd.cu``, with ``di = sum(o * do)`` one torch
+reduction. Their plain versions are :func:`_sdpa_lse_reference` and
+:func:`attention_bwd_reference`, which work in query chunks from the LSE
+(``force_reference`` runs them under the same autograd wiring on the card).
+On CPU tensors autograd runs through the plain forward. The band mode has no
+backward: a window under training raises.
 """
 
 from __future__ import annotations
@@ -168,6 +179,55 @@ def _sdpa_reference(q, k, v, scale: float, k_valid_len: Optional[int],
     return outs[0].contiguous() if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
+def _sdpa_lse_reference(q, k, v, scale: float, k_valid_len: Optional[int],
+                        q_chunk: Optional[int] = None):
+    """The plain version of K4's residual mode: :func:`_sdpa_reference`'s
+    output (dense mask) and each row's log-sum-exp of the scaled, masked
+    scores, f32 [B, N, Sq]."""
+    sq, sk = q.shape[1], k.shape[1]
+    kf = k.float()
+    valid = _valid(k_valid_len, sk)
+    outs, lses = [], []
+    step = q_chunk or sq
+    for i in range(0, sq, step):
+        scores = torch.einsum("bsnd,btnd->bnst", q[:, i:i + step].float(), kf) * scale
+        if valid < sk:
+            scores[..., valid:] = _DEF_MASK_VALUE
+        lses.append(torch.logsumexp(scores, dim=-1))
+        probs = torch.softmax(scores, dim=-1)
+        outs.append(torch.einsum("bnst,btnd->bsnd", probs.to(v.dtype), v))
+    return torch.cat(outs, dim=1), torch.cat(lses, dim=2)
+
+
+def attention_bwd_reference(q, k, v, o, lse, do, scale: float, k_valid_len: Optional[int],
+                            q_chunk: Optional[int] = None):
+    """The plain version of K11 and K12: (dq, dk, dv) of attention in the
+    dtypes of q, k, v, from the forward's output ``o`` and log-sum-exp
+    ``lse`` [B, N, Sq]; q, k, v, o, do [B, S, N, D]. In f32, a query chunk of
+    ``q_chunk`` rows at a time: P = exp(scale q k^T - lse) (0 past the valid
+    keys), dv = P^T do, dS = P (do v^T - di) with di = sum(o do), dq = scale
+    dS k, dk = scale dS^T q."""
+    sq, sk = q.shape[1], k.shape[1]
+    kf, vf = k.float(), v.float()
+    valid = _valid(k_valid_len, sk)
+    di = (o.float() * do.float()).sum(-1).transpose(1, 2)  # [B, N, Sq]
+    dk = torch.zeros(kf.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    dqs = []
+    step = q_chunk or sq
+    for i in range(0, sq, step):
+        qc, doc = q[:, i:i + step].float(), do[:, i:i + step].float()
+        p = torch.exp(torch.einsum("bsnd,btnd->bnst", qc, kf) * scale
+                      - lse[:, :, i:i + step, None])
+        if valid < sk:
+            p[..., valid:] = 0.0
+        dv += torch.einsum("bnst,bsnd->btnd", p, doc)
+        ds = p * (torch.einsum("bsnd,btnd->bnst", doc, vf) - di[:, :, i:i + step, None])
+        dqs.append(torch.einsum("bnst,btnd->bsnd", ds, kf) * scale)
+        dk += torch.einsum("bnst,bsnd->btnd", ds, qc) * scale
+    return torch.cat(dqs, dim=1).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def tensor_map_layout(t: torch.Tensor, name: str = "operand"):
     """What the 4-D tensor maps (TMA) of K4 and K10a need of a logical
     [B, N, S, D] view: ``(dims, byte_strides)`` with dims ``(D, S, N, B)``,
@@ -195,11 +255,13 @@ def tensor_map_layout(t: torch.Tensor, name: str = "operand"):
 
 
 def _flash_cuda(q, k, v, scale: float, kv_valid: int, tokens_per_frame: int = 0,
-                radii: Optional[Sequence[int]] = None) -> torch.Tensor:
+                radii: Optional[Sequence[int]] = None, lse: bool = False):
     """K4 launch on logical [B, N, S, D] views; returns [B, Sq, N, D]. With
     ``radii`` (one per head, >= 0) it runs the band mode over frames of
     ``tokens_per_frame`` tokens (counter ``attention_band``), else the dense
-    mode (counter ``attention``)."""
+    mode (counter ``attention``). ``lse``: the residual mode (counter
+    ``attention_lse``), which also returns each row's log-sum-exp, f32 [B, N,
+    Sq]."""
     layouts = []
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         _lib.require_cuda(t, torch.bfloat16, name)
@@ -221,6 +283,12 @@ def _flash_cuda(q, k, v, scale: float, kv_valid: int, tokens_per_frame: int = 0,
                              f"heads and tokens_per_frame >= 1, got {n} heads, radii {radii}, "
                              f"tokens_per_frame {tokens_per_frame}")
         counter, table = "attention_band", (ctypes.c_int * n)(*radii)
+    row_lse = None
+    if lse:
+        if table is not None:
+            raise ValueError("the residual mode is dense: the band mode has no backward")
+        counter = "attention_lse"
+        row_lse = torch.empty((b, n, sq), dtype=torch.float32, device=q.device)
     out = torch.empty((b, sq, n, d), dtype=torch.bfloat16, device=q.device)
     layouts.append(tensor_map_layout(out.transpose(1, 2), "out"))
     _lib.launch(
@@ -228,8 +296,93 @@ def _flash_cuda(q, k, v, scale: float, kv_valid: int, tokens_per_frame: int = 0,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n, sq, sk,
         *(st for _, strides in layouts for st in strides),
         int(kv_valid), float(scale), int(tokens_per_frame) if table else 0, table,
+        _lib.ptr(row_lse),
     )
-    return out
+    return (out, row_lse) if lse else out
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, scale: float, kv_valid: int, dq: bool = True,
+                        dkv: bool = True):
+    """K12 (dq, counter ``attention_bwd_dq``) and K11 (dk and dv, counter
+    ``attention_bwd_dkv``) on [B, S, N, D] bf16 views with a contiguous head
+    dim 128; ``lse`` f32 [B, N, Sq] from K4's residual mode. Returns (dq, dk,
+    dv), each contiguous [B, S, N, D] bf16, or None where not asked for."""
+    strides = []
+    for t, name in ((q, "q"), (k, "k"), (v, "v"), (do, "do")):
+        _lib.require_cuda(t, torch.bfloat16, name)
+        strides += [st // t.element_size()
+                    for st in tensor_map_layout(t.transpose(1, 2), name)[1]]
+    b, sq, n, d = q.shape
+    sk = k.shape[1]
+    if k.shape != (b, sk, n, d) or v.shape != k.shape or do.shape != q.shape or \
+            o.shape != q.shape:
+        raise ValueError(f"shape mismatch: q{tuple(q.shape)} k{tuple(k.shape)} "
+                         f"v{tuple(v.shape)} o{tuple(o.shape)} do{tuple(do.shape)}")
+    _lib.require_cuda(lse, torch.float32, "lse")
+    if lse.shape != (b, n, sq) or not lse.is_contiguous():
+        raise ValueError(f"lse must be contiguous [{b}, {n}, {sq}], got {tuple(lse.shape)}")
+    if not 1 <= kv_valid <= sk:
+        raise ValueError(f"kv_valid {kv_valid} outside [1, {sk}]")
+    # di = sum_d o * do: one plain reduction, as the TPU version leaves it to XLA
+    di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    table = (ctypes.c_longlong * 12)(*strides)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            di.data_ptr())
+    tail = (b, n, sq, sk, table, int(kv_valid), float(scale))
+    grad_q = grad_k = grad_v = None
+    if dq:
+        grad_q = torch.empty((b, sq, n, d), dtype=torch.bfloat16, device=q.device)
+        _lib.launch("attention_bwd_dq", "wanq_flash_bwd_dq", *args, grad_q.data_ptr(), *tail)
+    if dkv:
+        grad_k = torch.empty((b, sk, n, d), dtype=torch.bfloat16, device=q.device)
+        grad_v = torch.empty_like(grad_k)
+        _lib.launch("attention_bwd_dkv", "wanq_flash_bwd_dkv", *args, grad_k.data_ptr(),
+                    grad_v.data_ptr(), *tail)
+    return grad_q, grad_k, grad_v
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Attention under autograd on the card: K4's residual mode forward, K12
+    and K11 backward. q, k, v [B, S, N, D] views."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, kv_valid):
+        out, lse = _flash_cuda(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale,
+                               kv_valid, lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale, ctx.kv_valid = scale, kv_valid
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(), ctx.scale,
+                                         ctx.kv_valid, dq=need[0], dkv=need[1] or need[2])
+        return dq, dk, dv, None, None
+
+
+# the query rows a chunk of the plain versions takes on the card
+_PLAIN_Q_CHUNK = 1024
+
+
+class _PlainAttention(torch.autograd.Function):
+    """The kernels' plain versions under the same wiring (``force_reference``
+    on the card): the chunked forward with its LSE, and
+    :func:`attention_bwd_reference`, so a full-length sequence fits."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, kv_valid):
+        out, lse = _sdpa_lse_reference(q, k, v, scale, kv_valid, q_chunk=_PLAIN_Q_CHUNK)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale, ctx.kv_valid = scale, kv_valid
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*attention_bwd_reference(q, k, v, out, lse, dout, ctx.scale, ctx.kv_valid,
+                                         q_chunk=_PLAIN_Q_CHUNK), None, None)
 
 
 def _valid(k_valid_len: Optional[int], sk: int) -> int:
@@ -247,16 +400,29 @@ def _band_args(window: Optional[TemporalWindow], n_heads: int, valid: int):
 
 
 def attention(q, k, v, scale: Optional[float] = None, k_valid_len: Optional[int] = None,
-              window: Optional[TemporalWindow] = None) -> torch.Tensor:
-    """Scaled dot-product attention. q [B, Sq, N, D]; k, v [B, Sk, N, D]."""
+              window: Optional[TemporalWindow] = None, trainable: bool = False,
+              force_reference: bool = False) -> torch.Tensor:
+    """Scaled dot-product attention. q [B, Sq, N, D]; k, v [B, Sk, N, D].
+    ``trainable``: while autograd records and an operand needs a gradient, the
+    card runs K4's residual mode here and K12 / K11 in the backward;
+    ``force_reference`` runs the plain versions instead (on the card: in query
+    chunks, with the plain backward from the LSE), as the kernels' oracle."""
     _check_window(window)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.is_cuda:
-        valid = _valid(k_valid_len, k.shape[1])
+    valid = _valid(k_valid_len, k.shape[1])
+    if q.is_cuda and trainable and torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad):
+        if _band_args(window, q.shape[2], valid):
+            raise NotImplementedError("the band mode has no backward: train dense, deploy "
+                                      "windowed")
+        fn = _PlainAttention if force_reference else _FlashAttention
+        return fn.apply(q, k, v, scale, valid)
+    if q.is_cuda and not force_reference:
         return _flash_cuda(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                            scale, valid, **_band_args(window, q.shape[2], valid))
-    return _sdpa_reference(q, k, v, scale, k_valid_len, window=window)
+    return _sdpa_reference(q, k, v, scale, k_valid_len, window=window,
+                           q_chunk=_PLAIN_Q_CHUNK if q.is_cuda else None)
 
 
 def attention_heads_major(q, k, v, k_valid_len: Optional[int] = None,

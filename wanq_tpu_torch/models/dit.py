@@ -52,6 +52,16 @@ calibration (it collects [B, S, N, D] absmaxes and pooled maps). Under
 The rope tables, padded to the sequence with the identity and, for K4's q,
 scaled by the softmax scale, are built once per ``dit_forward``
 (:func:`self_attn_tables`) and shared by every block.
+
+Training (``dit_forward(training=True)``, as ``wanq_tpu``'s): an int8 ctx
+becomes ``trainable`` (the differentiable dequant route of ``qlinear``); the
+fused producers (K1, K3, the GELU + quant modes) stay off, so every site takes
+``qlinear`` and the q/k chain is plain PyTorch; self- and cross-attention run
+``attention(..., trainable=True)``: K4's residual mode with K12 / K11 in the
+backward on the card (a no-grad forward, such as a distillation teacher's,
+stays on the plain K4 launch). A temporal window or an int8 ``attn:`` section
+has no backward and raises. ``remat`` recomputes each block in the backward
+(``torch.utils.checkpoint``, as ``jax.checkpoint``).
 """
 
 from __future__ import annotations
@@ -64,6 +74,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from wanq_tpu_torch.configs import WanConfig
 from wanq_tpu_torch.models.attention import (
@@ -328,10 +339,12 @@ def _o_proj_heads_major(po: Params, y: torch.Tensor, dtype) -> torch.Tensor:
 def _self_attention(p: Params, name: str, ctx: Optional[QuantCtx],
                     x: Optional[torch.Tensor], cfg: WanConfig, cos: torch.Tensor,
                     sin: torch.Tensor, valid_len: int, dtype,
-                    prequant=None, tables: Optional[SelfAttnTables] = None) -> torch.Tensor:
+                    prequant=None, tables: Optional[SelfAttnTables] = None,
+                    training: bool = False) -> torch.Tensor:
     """Self-attention sublayer. ``prequant``: (q8, scale, sum) from the
     fused LN+modulate+quant producer, shared by the q/k/v GEMMs; ``tables``:
-    K3's tables for this sequence (built here when not given)."""
+    K3's tables for this sequence (built here when not given); ``training``:
+    the plain q/k chain into the differentiable attention."""
     n, hd = cfg.num_heads, cfg.head_dim
     if prequant is not None:
         q8, s_a, ssum = prequant
@@ -358,7 +371,11 @@ def _self_attention(p: Params, name: str, ctx: Optional[QuantCtx],
     window = ctx.attn_window if ctx is not None and plain_attn else None
 
     int8_attn = attn_quant and ctx.mode == "int8"
-    if cfg.qk_norm and hd == 128 and not capture and (plain_attn or int8_attn):
+    if training and int8_attn:
+        raise NotImplementedError("the int8 attention (an attn: section in int8 mode) has no "
+                                  "backward; train without it or in sim mode")
+    if (cfg.qk_norm and hd == 128 and not capture and not training
+            and (plain_attn or int8_attn)):
         if tables is None:
             tables = self_attn_tables(cos, sin, valid_len, s, hd)
         if int8_attn:
@@ -411,7 +428,7 @@ def _self_attention(p: Params, name: str, ctx: Optional[QuantCtx],
                                 perm=ctx.attn_perms.get(name))
     else:
         y = attention(q, k, v, scale=1.0 if plain_attn else None, k_valid_len=valid_len,
-                      window=window)
+                      window=window, trainable=training)
     return qlinear(ctx, f"{name}.o", p["o"], y.reshape(b, s, n * hd), dtype)
 
 
@@ -421,7 +438,7 @@ CLIP_TOKENS = 257
 
 def _cross_attention(p: Params, name: str, ctx: Optional[QuantCtx],
                      x: Optional[torch.Tensor], context: torch.Tensor, cfg: WanConfig,
-                     dtype, prequant=None) -> torch.Tensor:
+                     dtype, prequant=None, training: bool = False) -> torch.Tensor:
     """Cross-attention sublayer. ``prequant``: (q8, scale, sum) of the
     norm3 output from the fused producer, feeding the int8 q GEMM. For i2v
     the context is [the 257 CLIP tokens; the text tokens]: one q attends
@@ -456,7 +473,7 @@ def _cross_attention(p: Params, name: str, ctx: Optional[QuantCtx],
     quant_attn = (ctx is not None and ctx.cross_attn is not None
                   and ctx.mode in ("sim", "int8"))
 
-    if hd == 128 and not quant_attn:
+    if hd == 128 and not quant_attn and not training:
         qh = (rms_split_heads(q, p["norm_q"], n, eps=cfg.eps, out_dtype=dtype)
               if cfg.qk_norm else split_heads(q.to(dtype), n))
         y = cross_attention_heads_major(qh, k, v)
@@ -471,26 +488,32 @@ def _cross_attention(p: Params, name: str, ctx: Optional[QuantCtx],
     if cfg.qk_norm:
         q = rms_norm(q, p["norm_q"], cfg.eps)
     q = q.reshape(b, -1, n, hd).to(dtype)
-    y = quantized_attention(q, k, v, ctx.cross_attn) if quant_attn else attention(q, k, v)
+    y = (quantized_attention(q, k, v, ctx.cross_attn) if quant_attn
+         else attention(q, k, v, trainable=training))
     if i2v:
-        y = y + attention(q, k_img, v_img)
+        y = y + attention(q, k_img, v_img, trainable=training)
     return qlinear(ctx, f"{name}.o", p["o"], y.reshape(b, -1, n * hd), dtype)
 
 
 def block_forward(p: Params, name: str, ctx: Optional[QuantCtx], x: torch.Tensor,
                   e: torch.Tensor, context: torch.Tensor, cfg: WanConfig,
                   cos: torch.Tensor, sin: torch.Tensor, valid_len: int,
-                  tables: Optional[SelfAttnTables] = None) -> torch.Tensor:
+                  tables: Optional[SelfAttnTables] = None, training: bool = False
+                  ) -> torch.Tensor:
     """One transformer block. x [B, L, C] in the residual dtype; ``tables``:
-    the forward's K3 tables (built by the self-attention when not given)."""
+    the forward's K3 tables (built by the self-attention when not given);
+    ``training``: no fused producer, the differentiable attention."""
     dtype = cfg.dtype
     ee = p["modulation"].float() + e.float()
     e0, e1, e2, e3, e4, e5 = [ee[:, i] for i in range(6)]
 
     qkv_sites = [f"{name}.self_attn.{leaf}" for leaf in ("q", "k", "v")]
     cq_site = f"{name}.cross_attn.q"
-    static_qkv = all(int8_static_fusable(ctx, st) for st in qkv_sites)
-    cq_static = cfg.cross_attn_norm and int8_static_fusable(ctx, cq_site)
+    ffn_sites = [f"{name}.ffn.0", f"{name}.ffn.2"]
+    # the fused producers have no backward: training takes qlinear at every site
+    fused = None if training else ctx
+    static_qkv = all(int8_static_fusable(fused, st) for st in qkv_sites)
+    cq_static = cfg.cross_attn_norm and int8_static_fusable(fused, cq_site)
     if static_qkv:
         # static-scale producer: plain PyTorch (its kernel is not ported;
         # the W8A8 speed config keeps q/k/v dynamic)
@@ -498,17 +521,17 @@ def block_forward(p: Params, name: str, ctx: Optional[QuantCtx], x: torch.Tensor
             x, e0, e1, ctx.state[qkv_sites[0]]["delta_a"], eps=cfg.eps)
         y = _self_attention(p["self_attn"], f"{name}.self_attn", ctx, None, cfg,
                             cos, sin, valid_len, dtype, prequant=prequant, tables=tables)
-    elif int8_fusable(ctx, qkv_sites):
+    elif int8_fusable(fused, qkv_sites):
         prequant = ln_modulate_quant(x, e0, e1, eps=cfg.eps)
         y = _self_attention(p["self_attn"], f"{name}.self_attn", ctx, None, cfg,
                             cos, sin, valid_len, dtype, prequant=prequant, tables=tables)
     else:
         xn1 = layer_norm(x, cfg.eps) * (1.0 + e1[:, None, :]) + e0[:, None, :]
         y = _self_attention(p["self_attn"], f"{name}.self_attn", ctx, xn1.to(dtype), cfg,
-                            cos, sin, valid_len, dtype, tables=tables)
+                            cos, sin, valid_len, dtype, tables=tables, training=training)
     x = (x.float() + y.float() * e2[:, None, :]).to(x.dtype)
 
-    if cq_static or (cfg.cross_attn_norm and int8_fusable(ctx, [cq_site])):
+    if cq_static or (cfg.cross_attn_norm and int8_fusable(fused, [cq_site])):
         # the affine norm3 maps onto the modulate producer: scale = w - 1, shift = b
         w3 = p["norm3"]["w"].float()
         b3 = p["norm3"]["b"].float()
@@ -526,13 +549,12 @@ def block_forward(p: Params, name: str, ctx: Optional[QuantCtx], x: torch.Tensor
         xn3 = (layer_norm(x, cfg.eps, p["norm3"]["w"], p["norm3"]["b"])
                if cfg.cross_attn_norm else x)
         y = _cross_attention(p["cross_attn"], f"{name}.cross_attn", ctx, xn3.to(dtype),
-                             context, cfg, dtype)
+                             context, cfg, dtype, training=training)
     x = (x.float() + y.float()).to(x.dtype)
 
-    ffn_sites = [f"{name}.ffn.0", f"{name}.ffn.2"]
-    if int8_fusable(ctx, [ffn_sites[0]], allow_mask=True) and (
-            int8_static_fusable(ctx, ffn_sites[1])
-            or int8_fusable(ctx, [ffn_sites[1]], allow_mask=True)):
+    if int8_fusable(fused, [ffn_sites[0]], allow_mask=True) and (
+            int8_static_fusable(fused, ffn_sites[1])
+            or int8_fusable(fused, [ffn_sites[1]], allow_mask=True)):
         h8, s_a, ssum = ln_modulate_quant(
             x, e3, e4, eps=cfg.eps, channel_scale=ctx.state[ffn_sites[0]].get("channel_mask"))
         h8b, s2, sm2 = ffn0_gelu_quant_from_prequant(
@@ -622,15 +644,21 @@ def img_embedding(params: Params, clip_fea: torch.Tensor, dtype) -> torch.Tensor
 def dit_forward(params: Params, cfg: WanConfig, x: torch.Tensor, t: torch.Tensor,
                 context: torch.Tensor, seq_len: int, ctx: Optional[QuantCtx] = None,
                 clip_fea: Optional[torch.Tensor] = None,
-                y: Optional[torch.Tensor] = None) -> torch.Tensor:
+                y: Optional[torch.Tensor] = None, remat: bool = False,
+                training: bool = False) -> torch.Tensor:
     """Denoising forward. x [B, C_in, F, H, W]; t [B]; context [B, text_len,
     text_dim]. An i2v model also takes ``y`` [B, C_y, F, H, W] (the
     first-frame mask and its VAE latents, concatenated to x on channels) and
     ``clip_fea`` [B, 257, clip_dim] (CLIP features, embedded in front of the
-    text context). Returns [B, C_out, F, H, W] float32."""
+    text context). Returns [B, C_out, F, H, W] float32. ``training``: the
+    differentiable routes (an int8 ctx trains as ``trainable``); ``remat``:
+    each block is recomputed in the backward instead of keeping its
+    activations."""
     if (cfg.model_type == "i2v") != (clip_fea is not None):
         raise ValueError(f"clip_fea is for i2v models only and needed there "
                          f"(model_type {cfg.model_type!r})")
+    if training and ctx is not None and ctx.mode == "int8" and not ctx.trainable:
+        ctx = dataclasses.replace(ctx, trainable=True)
     if y is not None:
         x = torch.cat([x, y.to(x.dtype)], dim=1)
     dtype = cfg.dtype
@@ -638,6 +666,9 @@ def dit_forward(params: Params, cfg: WanConfig, x: torch.Tensor, t: torch.Tensor
             x.shape[4] // cfg.patch_size[2])
     if ctx is not None and ctx.attn_window is not None:
         win = resolve_window(ctx.attn_window, grid, cfg.num_heads)
+        if win is not None and training:
+            raise NotImplementedError("attn_window is inference-only: K4's band mode has no "
+                                      "backward (train dense, deploy windowed)")
         if win is not None and ctx.attn is not None and ctx.mode in ("sim", "int8"):
             raise NotImplementedError(
                 "attn_window does not compose with attention-map quantization: the "
@@ -669,7 +700,13 @@ def dit_forward(params: Params, cfg: WanConfig, x: torch.Tensor, t: torch.Tensor
 
     xf = xq.to(cfg.res_dtype)
     for i in range(cfg.num_layers):
-        xf = block_forward(params["blocks"][i], f"blocks.{i}", ctx, xf, e0, c, cfg,
-                           cos, sin, valid_len, tables=tables)
+        args = (params["blocks"][i], f"blocks.{i}", ctx, xf, e0, c, cfg, cos, sin, valid_len)
+        kw = {"tables": tables, "training": training}
+        if remat:
+            # no random draw in a block, so no RNG state to keep for the recompute
+            xf = torch.utils.checkpoint.checkpoint(block_forward, *args, use_reentrant=False,
+                                                   preserve_rng_state=False, **kw)
+        else:
+            xf = block_forward(*args, **kw)
     out = head_forward(params, xf, e, cfg, ctx)
     return unpatchify(out.float(), grid, cfg.patch_size, cfg.out_dim)

@@ -33,10 +33,11 @@ def i2v_latent_size(cfg: WanConfig, img_hw: Tuple[int, int], max_area: int) -> T
 
 
 def first_frame_mask(frame_num: int, lat_h: int, lat_w: int, t_stride: int = 4,
-                     device="cpu") -> torch.Tensor:
-    """[t_stride, F_lat, lat_h, lat_w] float32 mask: 1 on the first frame
-    (repeated t_stride times), 0 elsewhere; the reference hard-codes Wan's
-    temporal stride 4."""
+                     device="cuda") -> torch.Tensor:
+    """[t_stride, F_lat, lat_h, lat_w] float32 mask on ``device`` (the card
+    unless the caller asks for the CPU): 1 on the first frame (repeated
+    t_stride times), 0 elsewhere; the reference hard-codes Wan's temporal
+    stride 4."""
     msk = torch.zeros((1, frame_num, lat_h, lat_w), device=device)
     msk[:, 0] = 1.0
     msk = torch.cat([msk[:, 0:1].repeat_interleave(t_stride, dim=1), msk[:, 1:]], dim=1)

@@ -17,6 +17,12 @@ policies and an explicit quant state:
          GELU + quant mode, K2's or K8's)
          W4A4  per-(token, 128-group) int4 activations x per-group int4
                weights (Atom, K9)
+         with ``QuantCtx.trainable`` (set by ``dit_forward(training=True)``)
+         the W8A8 / W4A8 state trains instead: the codes are dequantized
+         for the moment of the product, ``(codes + zp) * scale``, the
+         activation is fake-quantized with the straight-through round, and
+         one differentiable bf16 product with an f32 result replaces the
+         int kernels (W4A4 has no such route and raises)
 
 Layer state entries (``quant/ptq.py``): ``w_q`` [C_in, C_out] (sim);
 ``w_int8`` [C_out, C_in] (K-major;
@@ -37,6 +43,12 @@ multiplies (bf16 operands, f32 products); the fused producers refuse such
 sites. Calibration with ``QuantCtx.hessian_regex`` also collects each
 matching site's input Hessian ``<name>.hess`` = x^T x [C_in, C_in] over
 every token, summed in f64.
+
+A QLoRA adapter in a layer's state (``lora_a`` [C_in, r], ``lora_b`` [r,
+C_out], alpha/r folded into ``lora_b`` by ``training/lora.py``) adds ``(x @
+lora_a) @ lora_b`` in f32 on the raw layer input after every quantized route
+(sim, int8, trainable); the fused producers refuse adapted sites, so they
+take these routes.
 """
 
 from __future__ import annotations
@@ -58,8 +70,10 @@ from wanq_tpu_torch.ops.qgemm import (
 from wanq_tpu_torch.quant.config import FP_POLICY, LayerPolicy
 from wanq_tpu_torch.quant.quantizers import (
     act_group_int4_quant,
+    compute_quant_params,
     dynamic_fake_quant,
     fake_quant,
+    unpack_int4,
 )
 
 Params = Dict[str, Any]
@@ -99,6 +113,10 @@ class QuantCtx:
     # head), or a models.attention.TemporalWindow; dit_forward resolves the
     # first two against the latent grid. None = dense.
     attn_window: Any = None
+    # the QLoRA / QAT route of int8 mode: int-at-rest weights dequantized for a
+    # differentiable bf16 product, the activations fake-quantized with the
+    # straight-through round. dit_forward(training=True) sets it
+    trainable: bool = False
 
     def __post_init__(self):
         if self.mode not in MODES:
@@ -109,6 +127,29 @@ class QuantCtx:
 
     def policy(self, name: str) -> LayerPolicy:
         return self.policies.get(name, FP_POLICY)
+
+
+class _MmF32(torch.autograd.Function):
+    """a [M, K] @ w [K, N] of 16-bit operands into an f32 result on the card
+    (``torch.mm(..., out_dtype=float32)``), differentiable: each operand's
+    gradient is the product of the other with the cotangent rounded to the
+    operands' dtype, summed in f32 and rounded to the operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.save_for_backward(a, w)
+        return torch.mm(a, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        g16 = g.to(a.dtype)
+        ga = gw = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.mm(g16, w.t(), out_dtype=torch.float32).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gw = torch.mm(a.t(), g16, out_dtype=torch.float32).to(w.dtype)
+        return ga, gw
 
 
 def fp_linear(params: Params, x: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
@@ -122,7 +163,7 @@ def fp_linear(params: Params, x: torch.Tensor, compute_dtype=torch.bfloat16) -> 
     a, w = x.to(compute_dtype), params["w"].to(compute_dtype)
     a2 = a.reshape(-1, a.shape[-1])
     if a.is_cuda and compute_dtype != torch.float32:
-        y = torch.mm(a2, w, out_dtype=torch.float32)
+        y = _MmF32.apply(a2, w)
     else:
         y = torch.mm(a2.float(), w.float())
     y = y.reshape(*a.shape[:-1], w.shape[-1])
@@ -187,14 +228,21 @@ def qlinear(ctx: Optional[QuantCtx], name: str, params: Params, x: torch.Tensor,
     bias = params.get("b")
     if ctx.mode == "sim":
         xt = _transformed(ctx, policy, st, x)
-        return _maybe_lowrank(st, xt, _sim_linear(policy, st, bias, xt, compute_dtype))
+        return _maybe_lora(st, x, _maybe_lowrank(st, xt, _sim_linear(policy, st, bias, xt,
+                                                                     compute_dtype)))
     _check_int8_policy(policy, name)
     if policy.is_w4a4:
+        if ctx.trainable:
+            raise NotImplementedError(f"{name}: W4A4 has no trainable dequant route; QLoRA "
+                                      "trains over W4A8 / W8A8 bases")
         # x [B, N, C] -> [B*N, C] is a view; the act quant runs inside
         xt = _transformed(ctx, policy, st, x)
         y = w4a4_linear(xt.reshape(b * n, c), st["w_int4g"], st["scale_wg"],
                         None if bias is None else bias.float(), group=policy.group)
-        return _maybe_lowrank(st, xt, y.reshape(b, n, -1))
+        return _maybe_lora(st, x, _maybe_lowrank(st, xt, y.reshape(b, n, -1)))
+    if ctx.trainable:
+        xt = _transformed(ctx, policy, st, x)
+        return _maybe_lora(st, x, _maybe_lowrank(st, xt, _trainable_linear(policy, st, bias, xt)))
     if not policy.act.dynamic:
         # the transformed input, as sim mode quantizes it (the weight was
         # divided by the mask and rotated)
@@ -211,7 +259,34 @@ def qlinear(ctx: Optional[QuantCtx], name: str, params: Params, x: torch.Tensor,
         # channel_scale, so x * mask is made only for a low-rank branch
         xt = _transformed(ctx, policy, st, x) if "lowrank_a" in st else None
         q, s_a, sum_a = quant_sum(x, channel_scale=st.get("channel_mask"))
-    return _maybe_lowrank(st, xt, _int_linear(st, q, s_a, sum_a, bias, torch.float32))
+    return _maybe_lora(st, x, _maybe_lowrank(st, xt, _int_linear(st, q, s_a, sum_a, bias,
+                                                                 torch.float32)))
+
+
+def _trainable_linear(policy: LayerPolicy, st, bias, x: torch.Tensor) -> torch.Tensor:
+    """The int kernels' function, differentiable: the (transformed)
+    activation fake-quantized to 8 bits (static ``delta_a``, or per token with
+    the gradient through its absmax) times the codes dequantized for the
+    moment, ``(codes + zp) * scale``, as one bf16 product with f32 sums and
+    bias (``wanq_tpu`` computes it as a plain dot, outside its kernels)."""
+    b, n, c = x.shape
+    xf = x.float()
+    if not policy.act.dynamic:
+        xq = fake_quant(xf, st["delta_a"], st["zp_a"], 8, True)
+    else:
+        d_a, zp_a = compute_quant_params(xf.reshape(b * n, c), 8, True)
+        xq = fake_quant(xf.reshape(b * n, c), d_a, zp_a, 8, True).reshape(b, n, c)
+    codes = unpack_int4(st["w_int4"]) if "w_int4" in st else st["w_int8"]  # [C_out, C_in]
+    w_deq = (codes.float() + st["zp_w_int"][:, None]) * st["scale_w"][:, None]
+    return fp_linear({"w": w_deq.t(), "b": bias}, xq)
+
+
+def _maybe_lora(st, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """y + (x @ lora_a) @ lora_b in f32 on the raw layer input ``x`` where
+    the layer carries a QLoRA adapter (alpha/r already in ``lora_b``)."""
+    if "lora_a" not in st:
+        return y
+    return y + (x.float() @ st["lora_a"].float()) @ st["lora_b"].float()
 
 
 def _maybe_lowrank(st, xt: Optional[torch.Tensor], y: torch.Tensor) -> torch.Tensor:

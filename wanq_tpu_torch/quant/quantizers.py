@@ -68,8 +68,9 @@ def compute_quant_params(x: torch.Tensor, n_bits: int, sym: bool):
         delta = torch.where(delta < _EPS_SYM, torch.full_like(delta, _EPS_SYM), delta)
         zp = torch.zeros_like(delta)
     else:
-        x_max = torch.clamp_min(xf.amax(dim=1), 0.0)
-        x_min = torch.clamp_max(xf.amin(dim=1), 0.0)
+        zero = xf.new_zeros(())  # jnp.maximum / minimum: a tie splits the gradient
+        x_max = torch.maximum(xf.amax(dim=1), zero)
+        x_min = torch.minimum(xf.amin(dim=1), zero)
         delta = true_div(x_max - x_min, nl - 1)
         delta = torch.where(delta < _EPS_ASYM, torch.full_like(delta, _EPS_ASYM), delta)
         zp = torch.round(x_min / delta) + (nl / 2)
@@ -92,18 +93,21 @@ def params_from_minmax(x_max: torch.Tensor, x_min: torch.Tensor, cfg: QuantizerC
 
 
 def round_ste(x: torch.Tensor) -> torch.Tensor:
-    """Round half to even. The JAX package's version is a straight-through
-    estimator; the port computes forward values only, so it is a plain
-    round until training is ported."""
-    return torch.round(x)
+    """Straight-through round: round half to even in the forward, the
+    identity in the backward (QLoRA and QAT train through the quantizers)."""
+    return x + (torch.round(x) - x).detach()
 
 
 def quantize(x: torch.Tensor, delta: torch.Tensor, zp: torch.Tensor, n_bits: int,
              sym: bool) -> torch.Tensor:
-    """q = clamp(round(x / delta) - zp, -nl - 1, nl), in f32."""
+    """q = clamp(round(x / delta) - zp, -nl - 1, nl), in f32. The clamp is
+    jnp.clip's maximum-then-minimum, whose gradient splits evenly at a bound
+    (torch.clamp would pass all of it); the gradient also flows through a
+    dynamic ``delta``, as in ``wanq_tpu``."""
     nl = n_levels_for(n_bits, sym)
     q = round_ste(x.float() / delta) - zp
-    return torch.clamp(q, -nl - 1, nl)
+    lo = torch.full((), -nl - 1, dtype=q.dtype, device=q.device)
+    return torch.minimum(torch.maximum(q, lo), lo.new_full((), nl))
 
 
 def dequantize(q: torch.Tensor, delta: torch.Tensor, zp: torch.Tensor) -> torch.Tensor:
