@@ -11,11 +11,13 @@ non-zero:
 1. build: nvcc compiles wanq_tpu_torch/csrc/*.cu for sm_90a (one process
    per source, in parallel) into wanq_tpu_torch/_build/; cuobjdump then
    counts the wgmma (HGMMA, IGMMA) and TMA (UTMALDG, UTMASTG) instructions
-   of the two attention kernels and the three wgmma int GEMMs (K2, K8, K9) in
-   the library, and the build log gives every kernel's registers and spills
-   (no spill allowed in the wgmma kernels, K1, K3, K7 and K10a's two); the
-   SASS instruction counts and TMA copy counts (UBLKCP, UTMALDG) of K3's,
-   K7's and K10a's kernels are printed (K10a must have tensor-map loads);
+   of the attention kernels (K4, K10, and K11 and K12 of the backward) and
+   the three wgmma int GEMMs (K2, K8, K9) in the library, which must hold no
+   mma.sync product (IMMA, HMMA), and the build log gives every kernel's
+   registers and spills (no spill allowed in the wgmma kernels, K1, K3, K7
+   and K10a's two); the SASS instruction counts and TMA copy counts (UBLKCP,
+   UTMALDG) of K3's, K7's and K10a's kernels are printed (K10a must have
+   tensor-map loads);
 2. each kernel against its plain PyTorch version on the card at the main
    paths' shapes (T2V-1.3B, 832x480x81, batched CFG: B=2, seq 32768 with
    32760 valid tokens, M = 65536 token rows), with the warm median of
@@ -151,18 +153,26 @@ non-zero:
    valid keys (pad k/v planted), cross-attention against 512 keys and self
    with 40 heads (printed, not summed): the output at K4's limits, the LSE abs
    <= 1e-3, each gradient rel-L2 <= 1e-2, dk = dv = 0 past the valid keys,
-   each beside its bound and scaled_dot_product_attention's forward or
-   backward (on k/v[:valid]); QLoRA at T2V-1.3B full depth, 832x480x81 (seq
-   32760, B = 1) over wan_w4a8_mixed.yaml's int8 base (the FP copies stripped,
-   rank-16 adapters, remat, lr 1e-4, guidance 3, one batch): a warm-up and 3
-   steps with their loss, gradient norm, seconds, peak and launches (exactly
+   two calls of K12 and K11 equal bit for bit, each beside its bound and
+   scaled_dot_product_attention's forward or backward (on k/v[:valid]); K12
+   and K11 are timed through flash_attention_bwd (the plain reduction of di
+   into the row table included, and timed alone beside them), and the whole
+   backward (dq, dk, dv) against scaled_dot_product_attention's; QLoRA at
+   T2V-1.3B full depth, 832x480x81 (seq 32760, B = 1) over
+   wan_w4a8_mixed.yaml's int8 base (the FP copies stripped, rank-16
+   adapters, remat, lr 1e-4, guidance 3, one batch): a warm-up and 3 steps
+   with their loss, gradient norm, seconds, peak and launches (exactly
    QLORA_STEP x 30 each), finite, the last loss below the first, and one
-   more forward and backward split by the host clock; the adapters' gradients
-   on the first 2 blocks against the plain-attention route (rel-L2 <= 1e-2);
+   more forward and backward split by the host clock; the adapters'
+   gradients on the first 2 blocks against the plain-attention route
+   (rel-L2 <= 1e-2);
    save_lora_checkpoint, then quant_generate --lora <dir> --hardware (1 step
    at 81 frames, launches exactly QLORA_DEPLOY x 30) and its recorded DiT
    forward against dit_forward(training=True) of the same adapted model (PSNR
-   >= 35 dB); make_distill_step and make_lora_distill_step at full depth,
+   >= 35 dB); then one more QLoRA step under torch.profiler, its device time
+   by kernel group (K4's residual mode, K12, K11, the plain K4 of the
+   teacher, cuBLAS, the rest: elementwise glue and copies) with each group's
+   share; make_distill_step and make_lora_distill_step at full depth,
    832x480x9, 2 steps each (finite). Their launches count into the kernels
    line.
 
@@ -2927,10 +2937,16 @@ def training_kernel_checks(torch, record):
     rows of k/v planted), cross-attention against 512 keys, and self with 40
     heads (T2V-14B, printed with summed=False). Limits: the output at K4's,
     the LSE abs <= 1e-3, each gradient rel-L2 <= 1e-2, dk = dv = 0 past the
-    valid keys. Beside the kernels: scaled_dot_product_attention's forward and
-    its backward (one autograd.grad for dq, dk and dv, on the valid keys)."""
+    valid keys, and a second call of K12 and K11 equal to the first bit for
+    bit. K12 and K11 are timed through flash_attention_bwd, each with the
+    plain reduction that fills the row table (flash_bwd_rows: di = sum(o do),
+    lse log2e) inside its time; that reduction alone and the whole backward
+    (dq, dk and dv in one call, the row table once) are printed beside.
+    Beside the kernels: scaled_dot_product_attention's forward and its
+    backward (one autograd.grad for dq, dk and dv, on the valid keys)."""
     from wanq_tpu_torch.models.attention import (
-        _flash_cuda, _sdpa_lse_reference, attention_bwd_reference, flash_attention_bwd)
+        _flash_cuda, _sdpa_lse_reference, attention_bwd_reference, flash_attention_bwd,
+        flash_bwd_rows)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(7)
@@ -2973,6 +2989,10 @@ def training_kernel_checks(torch, record):
                library_ms=lib_fwd, summed=summed)
 
         got = flash_attention_bwd(q, k, v, out, lse, do, qs, valid)
+        again = flash_attention_bwd(q, k, v, out, lse, do, qs, valid)
+        check(all(torch.equal(a, z) for a, z in zip(got, again)),
+              f"K11/K12 {label}: two calls differ")
+        del again
         want, plain_ms = once_ms(lambda: attention_bwd_reference(q, k, v, out, lse, do, qs, valid,
                                                                  q_chunk=chunk))
         check(all(bool(torch.isfinite(a).all()) for a in got), f"K11/K12 {label}: not finite")
@@ -2988,9 +3008,17 @@ def training_kernel_checks(torch, record):
         lib_bwd = cuda_ms(lambda: torch.autograd.grad(o_l, (ql, kl, vl), do.transpose(1, 2),
                                                       retain_graph=True), warmup=1, reps=3)
         del o_l
-        in_bytes = qkv_bytes + 2 * b * n * sq * d + 2 * 4 * b * n * sq  # + dO, lse, di
-        note = (f"; the plain and the library time are the whole backward (dq, dk, dv: "
-                f"attention_bwd_reference; scaled_dot_product_attention's backward on k/v[:valid])")
+        in_bytes = qkv_bytes + 2 * 2 * b * n * sq * d + 4 * b * n * sq  # + dO, o, lse
+        note = (f"; flash_attention_bwd, the row table included; the plain and the library "
+                f"time are the whole backward (dq, dk, dv: attention_bwd_reference; "
+                f"scaled_dot_product_attention's backward on k/v[:valid])")
+        rows_ms = cuda_ms(lambda: flash_bwd_rows(lse, out, do), warmup=1, reps=3)
+        whole_ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do, qs, valid),
+                           warmup=1, reps=3)
+        log(f"  backward {label}: flash_attention_bwd whole (dq, dk, dv) {whole_ms:.3f} ms = "
+            f"{whole_ms / lib_bwd:.3f}x scaled_dot_product_attention's backward "
+            f"({lib_bwd:.3f} ms); its row table alone (di = sum(o do), lse log2e; "
+            f"flash_bwd_rows) {rows_ms:.3f} ms")
         ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do, qs, valid, dkv=False),
                      warmup=1, reps=3)
         record("attention_bwd_dq", errs[0], ms, plain_ms,
@@ -3065,7 +3093,9 @@ def qlora_steps(torch, cfg, params, qctx, lora, batch, launches):
     the launches of every step equal to QLORA_STEP x the layers, finite
     losses, the last of the three below the first. Then one more forward and
     backward, split by the host clock: the teacher's two forwards, the
-    student's forward, its backward (the blocks' recompute included)."""
+    student's forward, its backward (the blocks' recompute included).
+    Returns the train state, the optimizer, the config and one more step
+    (a callable) for qlora_step_profile."""
     import dataclasses
 
     from wanq_tpu_torch.models.dit import dit_forward
@@ -3129,7 +3159,100 @@ def qlora_steps(torch, cfg, params, qctx, lora, batch, launches):
              "backward (the blocks' recompute included)": marks[3] - marks[2]}
     log("  QLoRA step split (host clock, synchronized): "
         + ", ".join(f"{k} {v:.3f} s" for k, v in split.items()))
-    return state, tx, dcfg
+    return state, tx, dcfg, lambda: step(state.params, state.ema_params, tx, params, qctx,
+                                         *batch, 3.0)
+
+
+def qlora_step_profile(torch, run, want):
+    """One more QLoRA step under torch.profiler (its launches = ``want``),
+    run after every check that reads the adapters, since it updates them:
+    the wall time of the profiled step, the device time, the idle share (1 -
+    the union of device-activity intervals / the wall time) and the device
+    ms, share and count of each kernel group: K4's residual mode, K12, K11,
+    the plain K4 of the teacher's two no-grad forwards, cuBLAS (gemm / nvjet
+    / cutlass kernels), and the rest (elementwise glue, reductions, copies,
+    the optimizer). Both K4 modes are one kernel (flash_fwd_kernel) on one
+    stream: the i-th of its launches in device order is the i-th K4 launch
+    the wrapper made, whose counter (attention or attention_lse) the step
+    logs. The whole table goes to _smoke_out/profile_qlora_step.txt."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from wanq_tpu_torch.ops import _lib
+
+    k4_modes, launch = [], _lib.launch
+
+    def logged(counter, *args):
+        launch(counter, *args)
+        if counter in ("attention", "attention_lse"):
+            k4_modes.append(counter)
+
+    torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    _lib.launch = logged
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        _lib.launch = launch
+    counts = _lib.launch_counts()
+    check(counts == want, f"QLoRA profiled step: launches {counts}, want {want}")
+    kern = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+    if not kern:
+        log(f"  QLoRA step profile: wall {wall:.1f} ms; the profiler saw no device activity, "
+            "so the kernel split is not measured")
+        return
+    n_fwd = sum("flash_fwd_kernel" in e.name for e in kern)
+    if n_fwd != len(k4_modes):
+        log(f"  QLoRA step profile: {n_fwd} flash_fwd_kernel on the device, {len(k4_modes)} K4 "
+            "launches logged, so K4's two modes are not told apart")
+    seen_fwd = 0
+    groups, by_name = {}, {}
+    busy, end = 0.0, -math.inf
+    for e in kern:
+        a, z = e.time_range.start, e.time_range.end
+        if z > end:
+            busy += z - max(a, end)
+            end = z
+        t = (z - a) / 1e3
+        tot = by_name.setdefault(e.name, [0.0, 0])
+        tot[0] += t
+        tot[1] += 1
+        if "flash_fwd_kernel" in e.name:
+            g = ("K4, both modes" if n_fwd != len(k4_modes) else
+                 "K4 plain (teacher)" if k4_modes[seen_fwd] == "attention" else
+                 "K4 residual mode")
+            seen_fwd += 1
+        elif "flash_bwd_dq_kernel" in e.name:
+            g = "K12 (dq)"
+        elif "flash_bwd_dkv_kernel" in e.name:
+            g = "K11 (dk, dv)"
+        elif any(sub in e.name for sub in KERNEL_NAMES):
+            g = "other hand kernels"
+        elif re.search(r"gemm|gemv|nvjet|cutlass|xmma|cublas|splitk", e.name, re.I):
+            g = "cuBLAS"
+        else:
+            g = "elementwise glue, reductions, copies"
+        tot = groups.setdefault(g, [0.0, 0])
+        tot[0] += t
+        tot[1] += 1
+    dev_ms = sum(t for t, _ in by_name.values())
+    with open(OUT / "profile_qlora_step.txt", "w") as f:
+        for name, (t, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
+            f.write(f"{t:10.3f} ms  n={cnt:6d}  {name}\n")
+    log(f"  QLoRA step profile (torch.profiler, one step): wall {wall:.1f} ms, device time "
+        f"{dev_ms:.1f} ms, idle share {1 - busy / 1e3 / wall:.4f}; "
+        f"{sum(c for _, c in by_name.values())} kernels")
+    for g, (t, cnt) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        log(f"    {g}: {t:.1f} ms ({100 * t / dev_ms:.1f}%, n={cnt})")
+    for name, (t, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        log(f"    {t:9.2f} ms {100 * t / dev_ms:5.1f}%  n={cnt:5d}  {name[:90]}")
 
 
 def qlora_grad_check(torch, cfg, params, qctx, lora, batch, dcfg):
@@ -3296,10 +3419,12 @@ def training(torch, results, launches):
     log(f"  QLoRA base ({QLORA_YAML}, FP copies stripped) and rank-16 adapters: "
         f"{time.time() - t0:.1f} s, held {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     batch = distill_batch(torch, cfg, FRAMES)
-    state, tx, dcfg = qlora_steps(torch, cfg, params, qctx, lora, batch, launches)
+    state, tx, dcfg, one_step = qlora_steps(torch, cfg, params, qctx, lora, batch, launches)
     qlora_grad_check(torch, cfg, params, qctx, state.params, batch, dcfg)
     qlora_deploy(torch, cfg, params, qctx, state, tx, launches)
-    del params, qctx, lora, state, tx, batch
+    torch.cuda.empty_cache()
+    qlora_step_profile(torch, one_step, {k: v * cfg.num_layers for k, v in QLORA_STEP.items()})
+    del params, qctx, lora, state, tx, batch, one_step
     torch.cuda.empty_cache()
     other_builders(torch, cfg)
 
@@ -3309,8 +3434,9 @@ def training(torch, results, launches):
 # row in registers, and K10a's two, which hold half a tile (q/k) or a
 # channel-by-row block (v) in registers
 NO_SPILL = ("flash_fwd_kernel", "attn_int8_kernel", "w8a8_gemm_kernel", "w4a8_gemm_kernel",
-            "w4a4_gemm_kernel", "ln_mod_quant_kernel", "rms_rope_heads_kernel",
-            "quant_sum_kernel", "qkv_absmax_quant_kernel", "v_quant_kernel")
+            "w4a4_gemm_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+            "ln_mod_quant_kernel", "rms_rope_heads_kernel", "quant_sum_kernel",
+            "qkv_absmax_quant_kernel", "v_quant_kernel")
 
 
 def ptxas_records(log_text: str):
@@ -3329,13 +3455,13 @@ def hopper_evidence(_lib, nvcc: str) -> None:
     (ptxas, from the build log) and fails on a spill in any kernel of
     NO_SPILL; a spill elsewhere is printed, not hidden. Then shows that the
     attention kernels and the int GEMMs K2, K8 and K9 are built from Hopper's
-    own instructions: counts HGMMA (bf16 wgmma, K4), IGMMA (int8 wgmma: K10,
-    K2, K8, K9) and UTMALDG / UTMASTG (TMA loads / stores) in the library's
-    SASS, and reads any note that ptxas serialised their wgmma instructions.
-    K4 (dense and band mode), K2, K8 and K9 are templates: every instantiation
-    is held to the same.
+    own instructions: counts HGMMA (bf16 wgmma: K4, K11, K12), IGMMA (int8
+    wgmma: K10, K2, K8, K9) and UTMALDG / UTMASTG (TMA loads / stores) in the
+    library's SASS, and reads any note that ptxas serialised their wgmma
+    instructions. K4 (dense and band mode), K2, K8 and K9 are templates: every
+    instantiation is held to the same.
     Fails if such a kernel has no wgmma or no TMA load, or was serialised, or
-    if any kernel still holds an mma.sync int product (IMMA)."""
+    if any kernel still holds an mma.sync product (IMMA int, HMMA bf16)."""
     import re
 
     log_text = str(_lib.last_build.get("log", ""))
@@ -3358,7 +3484,8 @@ def hopper_evidence(_lib, nvcc: str) -> None:
     # kernel -> (its wgmma instruction, how many instantiations the library has)
     kernels = {"flash_fwd_kernel": ("HGMMA", 2), "attn_int8_kernel": ("IGMMA", 1),
                "w8a8_gemm_kernel": ("IGMMA", 6), "w4a8_gemm_kernel": ("IGMMA", 6),
-               "w4a4_gemm_kernel": ("IGMMA", 2)}
+               "w4a4_gemm_kernel": ("IGMMA", 2), "flash_bwd_dq_kernel": ("HGMMA", 1),
+               "flash_bwd_dkv_kernel": ("HGMMA", 1)}
     for kernel, (mma, n_inst) in kernels.items():
         sass = [f for f in functions if kernel in f.split("\n", 1)[0]]
         check(len(sass) == n_inst, f"{kernel}: {len(sass)} functions of that name in the SASS")
@@ -3376,15 +3503,10 @@ def hopper_evidence(_lib, nvcc: str) -> None:
             check(counts[mma] > 0 and counts["UTMALDG"] > 0,
                   f"{kernel}: {mma} {counts[mma]}, UTMALDG {counts['UTMALDG']} in the SASS")
             check(not serialised, f"{kernel}: serialised wgmma: {serialised[:1]}")
-    check(not re.search(r"\bIMMA\b", res.stdout),
-          "an mma.sync int GEMM (IMMA) is left in the library")
-    # K11 and K12, the first simple design of the backward: bf16 mma.sync (HMMA)
-    for kernel in ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"):
-        sass = [f for f in functions if kernel in f.split("\n", 1)[0]]
-        hmma, ldsm = (sum(len(re.findall(rf"\b{op}\b", f)) for f in sass)
-                      for op in ("HMMA", "LDSM"))
-        log(f"  SASS {kernel}: HMMA {hmma} (mma.sync bf16), LDSM {ldsm}")
-        check(len(sass) == 1 and hmma > 0, f"{kernel}: {len(sass)} functions, HMMA {hmma}")
+    for op, what in (("IMMA", "int"), ("HMMA", "bf16")):
+        check(not re.search(rf"\b{op}\b", res.stdout),
+              f"an mma.sync {what} product ({op}) is left in the library")
+    log("  SASS of the library: no IMMA, no HMMA (no mma.sync product left)")
     # K3, K7 and K10a stream rows or tiles into shared memory by TMA (bulk
     # copies UBLKCP, tensor-map loads UTMALDG): their instantiations' static
     # instruction and copy counts, and the SASS itself for reading. K10a's

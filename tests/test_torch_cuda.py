@@ -47,8 +47,10 @@ layers encode on the card as on the CPU (rel-L2 <= 4e-3), and
 K4's residual mode at K4's limits with its LSE within 1e-3 (abs), K12 and K11
 within rel-L2 1e-2 of ``attention_bwd_reference`` on the kernel's own output
 and LSE (bf16 P and dS in their products; a floor of 1e-5 a element where a
-single valid key makes dq and dk zero), dk = dv = 0 past kv_valid, and
-``attention(trainable=True)``'s launches under autograd and without it.
+single valid key makes dq and dk zero), dk = dv = 0 past kv_valid, two calls
+of K12 and K11 equal bit for bit (no atomics), and
+``attention(trainable=True)``'s launches under autograd and without it; the
+K11 / K12 tests wait for the card with the deadline of the band tests.
 """
 
 import math
@@ -1870,10 +1872,15 @@ def _grad_rel(got, want):
     return ((g - w).norm() / max(w.norm().item(), 1e-3 * math.sqrt(w.numel()))).item()
 
 
-# the shapes of K4's tests: ragged Sq and Sk, a single valid key, more tiles
-# than the rings hold, a partial last kv tile
+# the shapes of K4's tests and the backward's edges (K12: 128-row q tiles,
+# 128-key kv tiles in a 2-stage ring; K11: 128-key blocks, 64-row q steps in a
+# 3-stage ring): Sq not a multiple of 64 or 128, a single valid key, more tiles and
+# steps than the rings hold, kv_valid inside the last tile (290, 700, 513) and
+# at a tile and K11-block boundary (384, 256: the blocks past it store zeros),
+# Sk 257 (the I2V CLIP tokens)
 @pytest.mark.parametrize("sq,sk,valid", [(300, 300, 290), (257, 77, 77), (130, 200, 1),
-                                         (129, 777, 700), (256, 512, 512)])
+                                         (129, 777, 700), (256, 512, 512), (700, 640, 513),
+                                         (191, 512, 384), (333, 257, 257), (64, 300, 256)])
 def test_k4_residual_mode_k11_k12_match_plain(dev, gen, sq, sk, valid):
     """K4's residual mode against the plain forward with its LSE (output at
     K4's limits, LSE abs <= 1e-3), then K12 and K11 against
@@ -1890,7 +1897,7 @@ def test_k4_residual_mode_k11_k12_match_plain(dev, gen, sq, sk, valid):
     _k4_close(out, want_o)
     assert lse.shape == (2, 3, sq) and (lse - want_lse).abs().max().item() <= 1e-3
     dq, dk, dv = flash_attention_bwd(q, k, vh, out, lse, do, 0.0884, valid)
-    torch.cuda.synchronize()
+    _finish_within(60, f"K11/K12 sq {sq} sk {sk} valid {valid}")
     rq, rk, rv = attention_bwd_reference(q, k, vh, out, lse, do, 0.0884, valid)
     for got, want in ((dq, rq), (dk, rk), (dv, rv)):
         assert got.shape == want.shape and _grad_rel(got, want) <= 1e-2
@@ -1931,16 +1938,61 @@ def test_trainable_attention_runs_the_kernels_under_autograd(dev, gen):
 
 
 def test_k11_k12_at_40_heads_and_cross_shape(dev, gen):
-    """The T2V-14B head count and a cross-attention shape (Sk 512, every key
-    valid) at small Sq, at the limits above."""
+    """The T2V-14B head count and cross-attention shapes (Sk 512 and the 257
+    CLIP tokens, every key valid) at small Sq, and 40 heads with kv_valid one
+    key into the last tile and more steps than K11's ring holds, at the
+    limits above."""
     from wanq_tpu_torch.models.attention import (
         _flash_cuda, attention_bwd_reference, flash_attention_bwd)
 
-    for n, sq, sk, valid in ((40, 200, 200, 190), (4, 333, 512, 512)):
+    for n, sq, sk, valid in ((40, 200, 200, 190), (4, 333, 512, 512), (12, 300, 257, 257),
+                             (40, 321, 700, 513)):
         q, k, vh, do = _bwd_inputs(dev, gen, 1, n, sq, sk, valid)
         out, lse = _flash_cuda(q.transpose(1, 2), k.transpose(1, 2), vh.transpose(1, 2), 0.0884,
                                valid, lse=True)
         got = flash_attention_bwd(q, k, vh, out, lse, do, 0.0884, valid)
+        _finish_within(60, f"K11/K12 {n} heads sq {sq} sk {sk}")
         want = attention_bwd_reference(q, k, vh, out, lse, do, 0.0884, valid)
         for g_, w_ in zip(got, want):
             assert _grad_rel(g_, w_) <= 1e-2
+        assert not got[1][:, valid:].any() and not got[2][:, valid:].any()
+
+
+def _strided_bwd_inputs(dev, gen, b, n, s, valid):
+    """q, k, v as [B, S, N, D] views of one fused [B, S + 5, 3 N D] projection
+    (row stride 3 N D, batch stride (S + 5) 3 N D: neither is the contiguous
+    one) and dO a view of [B, S, 2 N D] rows; the pad keys planted as in
+    _bwd_inputs."""
+    d = 128
+    qkv = torch.randn((b, s + 5, 3 * n * d), device=dev, generator=gen).bfloat16()[:, :s]
+    q, k, v = (qkv[..., i * n * d:(i + 1) * n * d].view(b, s, n, d) for i in range(3))
+    k[:, valid:] = 0.0
+    v[:, valid:] = 100.0
+    do = torch.randn((b, s, 2 * n * d), device=dev, generator=gen).bfloat16()
+    return q, k, v, do[..., n * d:].view(b, s, n, d)
+
+
+def test_k11_k12_read_strided_views_and_give_equal_bits(dev, gen):
+    """B = 2, q / k / v / dO as strided views of wider rows (batch and row
+    strides not the contiguous ones): K12 and K11 against
+    attention_bwd_reference on contiguous copies at the limits above, and a
+    second call equal to the first bit for bit (no atomics: one order of
+    every sum)."""
+    from wanq_tpu_torch.models.attention import (
+        _flash_cuda, attention_bwd_reference, flash_attention_bwd)
+
+    sq, valid = 450, 391
+    q, k, v, do = _strided_bwd_inputs(dev, gen, 2, 3, sq, valid)
+    assert q.stride(1) == 3 * 3 * 128 and q.stride(0) == (sq + 5) * 3 * 3 * 128
+    out, lse = _flash_cuda(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), 0.0884,
+                           valid, lse=True)
+    got = flash_attention_bwd(q, k, v, out, lse, do, 0.0884, valid)
+    again = flash_attention_bwd(q, k, v, out, lse, do, 0.0884, valid)
+    _finish_within(60, "K11/K12 strided views")
+    want = attention_bwd_reference(*(t.contiguous() for t in (q, k, v)), out, lse,
+                                   do.contiguous(), 0.0884, valid)
+    for g_, a_, w_ in zip(got, again, want):
+        assert g_.is_contiguous() and g_.shape == w_.shape
+        assert _grad_rel(g_, w_) <= 1e-2
+        assert torch.equal(g_, a_)
+    assert not got[1][:, valid:].any() and not got[2][:, valid:].any()

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Times the port's two attention kernels on one NVIDIA card.
+"""Times the port's attention kernels on one NVIDIA card.
 
-    python3 tools/torch_attn_bench.py [--reps 5] [--only k10a]
+    python3 tools/torch_attn_bench.py [--reps 5] [--only k10a|bwd] [--tree DIR]
 
 K4 (bf16 flash attention, ``csrc/flash_attention.cu``) on the self-attention
 shape of T2V-1.3B at 832x480x81 with batched CFG ([2, 12, 32768, 128], 32760
@@ -12,7 +12,17 @@ K10a + K10 (int8 attention, ``csrc/quantize_qkv_int8.cu`` and
 times K10a alone at that shape and at T2V-14B 720p ([2, 40, 75776, 128]):
 code for code against its plain version, each of its two launches' device
 time (torch.profiler), the bytes it moves beside its bound's, and a plain
-copy of the same q, k and v bytes. Prints the card's
+copy of the same q, k and v bytes. ``--only bwd`` times the backward,
+K12 (dq) and K11 (dk, dv, ``csrc/flash_attention_bwd.cu``), at the training
+shapes: self-attention [1, 12, 32768, 128] with 32760 valid keys,
+cross-attention against 512 keys, and self-attention with 40 heads (T2V-14B);
+each against ``attention_bwd_reference`` (rel-L2), two calls for equal bits,
+and beside its bound and the whole backward of
+``scaled_dot_product_attention`` on the valid keys; each is timed through
+``flash_attention_bwd``, the plain reduction of di included, as
+``chip_smoke.py`` times them. ``--tree DIR`` imports
+``wanq_tpu_torch`` from another checkout (a parent commit unpacked with ``git
+archive``), so two versions are compared within one call. Prints the card's
 name and power limit, warm medians of CUDA-event times, and the rates they
 mean. Correctness is held by ``chip_smoke.py`` and
 ``tests/test_torch_cuda.py``; this script only checks the outputs against
@@ -27,7 +37,7 @@ import subprocess
 import sys
 from pathlib import Path
 
-sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+ROOT = Path(__file__).resolve().parent.parent
 
 
 def cuda_ms(torch, fn, reps):
@@ -47,8 +57,10 @@ def cuda_ms(torch, fn, reps):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--only", choices=["k10a"])
+    ap.add_argument("--only", choices=["k10a", "bwd"])
+    ap.add_argument("--tree", default=str(ROOT), help="the checkout to import the port from")
     args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.tree).resolve()))
     import torch
 
     if not torch.cuda.is_available():
@@ -64,6 +76,8 @@ def main() -> int:
     g = torch.Generator(device=dev).manual_seed(0)
     if args.only == "k10a":
         return k10a_bench(torch, g, args.reps)
+    if args.only == "bwd":
+        return bwd_bench(torch, g, args.reps)
     b, n, s, d, valid = 2, 12, 32768, 128, 32760
     qs = 1.0 / d ** 0.5
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -149,6 +163,66 @@ def k10a_bench(torch, g, reps):
         del q, k, v_flat, vh
         torch.cuda.empty_cache()
     return 0
+
+
+def bwd_bench(torch, g, reps):
+    """K12 and K11 at the training shapes; see the module docstring. The
+    bounds: three (K12) and four (K11) S-sized products of 2 Sq kv_valid D
+    flops a head at 989 TFLOP/s (bf16)."""
+    import math
+
+    from wanq_tpu_torch.models.attention import (
+        _flash_cuda, attention_bwd_reference, flash_attention_bwd)
+
+    dev = g.device
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, d, qs = 1, 128, 1.0 / math.sqrt(128)
+    failed = False
+    for label, n, sq, sk, valid, chunk in (("self", 12, 32768, 32768, 32760, 1024),
+                                           ("cross", 12, 32768, 512, 512, 8192),
+                                           ("self 40 heads", 40, 32768, 32768, 32760, 256)):
+        q = torch.randn((b, sq, n * d), device=dev, generator=g).bfloat16().view(b, sq, n, d)
+        k = torch.randn((b, sk, n * d), device=dev, generator=g).bfloat16().view(b, sk, n, d)
+        v = torch.randn((b, sk, n * d), device=dev, generator=g).bfloat16().view(b, sk, n, d)
+        k[:, valid:] = 0.0
+        v[:, valid:] = 100.0
+        do = torch.randn((b, sq, n, d), device=dev, generator=g).bfloat16()
+        out, lse = _flash_cuda(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), qs,
+                               valid, lse=True)
+        got = flash_attention_bwd(q, k, v, out, lse, do, qs, valid)
+        again = flash_attention_bwd(q, k, v, out, lse, do, qs, valid)
+        same = all(torch.equal(a, z) for a, z in zip(got, again))
+        del again
+        want = attention_bwd_reference(q, k, v, out, lse, do, qs, valid, q_chunk=chunk)
+        rels = [((a.float() - w.float()).norm() / w.float().norm()).item()
+                for a, w in zip(got, want)]
+        zeros = not got[1][:, valid:].any() and not got[2][:, valid:].any()
+        del got, want
+        torch.cuda.empty_cache()
+        ql, kl, vl = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k[:, :valid], v[:, :valid]))
+        o_l = sdpa(ql, kl, vl, scale=qs)
+        t_lib = cuda_ms(torch, lambda: torch.autograd.grad(o_l, (ql, kl, vl), do.transpose(1, 2),
+                                                           retain_graph=True), reps)
+        del o_l, ql, kl, vl
+        t_dq = cuda_ms(torch, lambda: flash_attention_bwd(q, k, v, out, lse, do, qs, valid,
+                                                          dkv=False), reps)
+        t_dkv = cuda_ms(torch, lambda: flash_attention_bwd(q, k, v, out, lse, do, qs, valid,
+                                                           dq=False), reps)
+        flops = 2 * b * n * sq * valid * d  # one S-sized product
+        bound = flops / 989e9  # ms
+        print(f"backward {label} q [1,{sq},{n},128] k/v [1,{sk},{n},128] valid {valid}: "
+              f"rel-L2 dq, dk, dv {', '.join(f'{r:.2e}' for r in rels)}; equal bits of two "
+              f"calls {same}; dk = dv = 0 past valid {zeros}; K12 {t_dq:.3f} ms "
+              f"({3 * flops / t_dq / 1e9:.0f} TFLOP/s, {t_dq / (3 * bound):.2f}x its bound "
+              f"{3 * bound:.3f}); K11 {t_dkv:.3f} ms ({4 * flops / t_dkv / 1e9:.0f} TFLOP/s, "
+              f"{t_dkv / (4 * bound):.2f}x its bound {4 * bound:.3f}); K12 + K11 "
+              f"{t_dq + t_dkv:.3f} ms; scaled_dot_product_attention's backward {t_lib:.3f} ms "
+              f"-> {(t_dq + t_dkv) / t_lib:.2f}x", flush=True)
+        failed |= not (max(rels) <= 1e-2 and same and zeros)
+        del q, k, v, do, out, lse
+        torch.cuda.empty_cache()
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":

@@ -9,343 +9,495 @@
 //   P  = exp(scale * Q K^T - lse)             (lse from K4's residual mode)
 //   dS = P * (dO V^T - di),  di = sum_d O * dO  (one torch reduction, as the
 //                                                TPU version takes it from XLA)
-//   K12: dQ = scale * dS K      one block per 64 query rows walks the kv tiles
+//   K12: dQ = scale * dS K      one block per 128 query rows walks the kv tiles
 //   K11: dV = P^T dO, dK = scale * dS^T Q
-//                               one block per 64 keys walks the query tiles
-// Keys at or past kv_valid are masked (P = 0), so their dK and dV are zero;
-// query rows past Sq load as zeros with lse = +inf. Sums are f32, the outputs
-// bf16, written contiguous [B, S, H, D].
+//                               one block per 128 keys walks the query steps
+// Sums are f32, P and dS enter their products as bf16, the outputs are bf16,
+// written contiguous [B, S, H, D]. Every output element is summed by one
+// thread in a fixed order, so two calls give equal bits.
 //
 // Bound on the H100: tensor-core throughput. K12 does three S-sized products
 // (S, dP, dQ) and K11 four (S, dP, dV, dK), 2 S_q S_k D flops each per head,
-// against O(S D) bytes. Design, the simple first one (a later PR makes it
-// fast): four warps, each owning 16 rows of the block's 64, run mma.sync
-// m16n8k16 bf16 with f32 accumulators; operand tiles [rows, 128] bf16 reach
-// shared memory by cp.async (16 bytes a thread, a two-stage ring for the tiles
-// the loop walks) in a layout whose 16-byte chunk c of row r lies at c ^ (r %
-// 8), so the ldmatrix reads of eight rows hit eight distinct bank groups. The
-// probabilities and dS go from the accumulators of one product straight into
-// the A fragments of the next (the m16n8 accumulator layout is the m16k16 A
-// layout), as in K4.
-#include "common.cuh"
+// against O(S D) bytes. Design (sm90.cuh has the parts; the pipeline is K4's,
+// flash_attention.cu): a block has three warpgroups. One thread of the
+// producer warpgroup issues every load by TMA into mbarrier rings (4-D tensor
+// maps over byte strides, a [rows, 128] bf16 tile as two 128-byte-swizzled
+// [rows, 64] sub-tiles); two consumer warpgroups own 64 rows each and run
+// every product on wgmma with the sums in registers (setmaxnreg: 240 / 232 a
+// consumer thread, 24 / 40 a producer thread in K12 / K11).
+//
+// K12 (flash_bwd_dq_kernel): Q and dO of the block's 128 query rows load once;
+// K and V tiles of 128 keys stream through two-stage rings, each with its own
+// full and empty barriers. Per tile a consumer runs S = Q K^T and dP = dO V^T
+// (m64n128k16, both operands from shared memory), forms P = exp2(S scale log2e
+// - lse log2e) and dS = P (dP - di) in registers, and runs dQ += dS K with dS
+// as the A fragments (the accumulator layout is the A fragment layout) and K
+// read as it lies, an MN-major B operand. V is released after dP's product, K
+// after dQ's. A consumer thread holds dQ, S and dP: 192 registers of sums.
+//
+// K11 (flash_bwd_dkv_kernel): K and V of the block's 128 keys stay resident
+// (64 KB); query steps of 64 rows stream through a three-stage ring, each
+// stage holding Q and dO (TMA) and the step's lse log2e and di rows (two bulk
+// copies of 256 bytes). Per step a consumer (64 keys) runs S^T = K Q^T and
+// dP^T = V dO^T (m64n64k16), forms P^T and dS^T in registers with the
+// per-column lse and di read from shared memory, and runs dV += P^T dO and
+// dK += dS^T Q with dO and Q read as MN-major B operands. A consumer thread
+// holds dK, dV, S^T and dP^T: 192 registers.
+//
+// In both, the two consumers take turns at issuing their products through a
+// pair of named barriers, two turns a tile or step (the score products, then
+// the gradient products), so one's exponentials run under the other's MMAs.
+//
+// Masks: the k/v maps end at kv_valid, so keys past it load as zeros; only
+// the last kv tile of K12 when it is partial, and a K11 block that straddles
+// kv_valid, mask P to 0 by key index, so dK = dV = 0 exactly there. A K11 block
+// wholly past kv_valid walks no step and stores zeros. Query rows past Sq load
+// as zeros, and the wrapper's row table (models/attention.py flash_bwd_rows)
+// pads lse log2e with +inf and di with 0 to a multiple of 128 rows, so P = 0
+// there and no read of the table needs a bound. The TMA stores clip the rows
+// past Sq and Sk.
+#include "sm90.cuh"
 
 namespace {
 
+using namespace wanq::sm90;
+
 constexpr int D = 128;
-constexpr int BM = 64;                   // rows a block owns: 4 warps x 16
-constexpr int kThreads = 128;
-constexpr int kRowBytes = D * 2;         // 256: one row of a tile
-constexpr int kBnDq = 64;                // K12: keys a loop step
-constexpr int kBnDkv = 32;               // K11: query rows a loop step
+constexpr int kRows = 128;                    // rows a block owns: 2 consumers x 64
+constexpr int BKV = 128;                      // K12: keys a tile
+constexpr int BQ = 64;                        // K11: query rows a step
+constexpr int kRowPad = 128;                  // the row table's padding of Sq
+constexpr int kThreads = 384;                 // producer warpgroup + 2 consumer warpgroups
+// setmaxnreg budgets (128 p + 256 c = 168 * 384, what the launch holds): K12's
+// producer is K4's; K11's also walks the row table, so it takes 40
+constexpr int kDqProducerRegs = 24, kDqConsumerRegs = 240;
+constexpr int kDkvProducerRegs = 40, kDkvConsumerRegs = 232;
+constexpr int kTile = kRows * D * 2;          // one [128, 128] bf16 tile: 32 KB
+constexpr int kHalf = kTile / 2;              // its [128, 64] sub-tile: 16 KB
+constexpr int kStep = BQ * D * 2;             // one [64, 128] bf16 tile: 16 KB
+constexpr int kStepHalf = kStep / 2;          // its [64, 64] sub-tile: 8 KB
+constexpr int kStatBytes = 2 * BQ * 4;        // a step's lse log2e and di rows
+constexpr int kBarBytes = 128;
+constexpr int kSchedBar = 1;                  // named barriers 1, 2: the consumers' turns
+constexpr int kEpiBar = 3;                    // named barriers 3, 4: one per consumer, epilogue
 constexpr float kLog2e = 1.4426950408889634f;
 
-struct Operand {
-  const __nv_bfloat16* ptr;
-  long long ss, sh, sb;                  // element strides of seq, head, batch
-};
+constexpr int kDqStages = 2;
+constexpr int kSmemDq = 1024 + kTile * (2 + 2 * kDqStages) + kBarBytes;            // 193 KB
+constexpr int kDkvStages = 3;
+constexpr int kSmemDkv = 1024 + 2 * kTile + kDkvStages * (2 * kStep + kStatBytes) + kBarBytes;
 
 struct Params {
-  Operand q, k, v, dout;
-  const float* lse;                      // [B, H, Sq], natural log
-  const float* di;                       // [B, H, Sq]
-  __nv_bfloat16* out_a;                  // K12: dq; K11: dk
-  __nv_bfloat16* out_b;                  // K11: dv
-  int H, Sq, Sk, kv_valid;
+  CUtensorMap q, k, v, dout;
+  CUtensorMap out_a, out_b;                   // K12: dq; K11: dk, dv
+  const float* rows;                          // [B, H, 2, sq_pad]: lse log2e, di
+  int sq_pad;
+  int kv_valid;
+  int n_iter;                                 // K12: kv tiles; K11: query steps
   float scale, scale_log2;
 };
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0));
-}
+struct DqBars {
+  uint64_t qdo_full;
+  uint64_t k_full[kDqStages], k_empty[kDqStages];
+  uint64_t v_full[kDqStages], v_empty[kDqStages];
+};
+static_assert(sizeof(DqBars) <= kBarBytes, "barrier block");
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Byte address of element (row, col) of a [rows, 128] tile, col a multiple of 8.
-__device__ __forceinline__ uint32_t tile_at(uint32_t base, int row, int col) {
-  return base + row * kRowBytes + ((((col >> 3) ^ row) & 7) | ((col >> 3) & 8)) * 16;
-}
-
-// Rows [row0, row0 + ROWS) of one (batch, head) of `op` into a tile; rows at
-// or past `limit` are zeros.
-template <int ROWS>
-__device__ __forceinline__ void load_tile(uint32_t base, const Operand& op, int b, int h, int row0,
-                                          int limit) {
-#pragma unroll
-  for (int j = 0; j < ROWS * 16 / kThreads; ++j) {
-    const int i = threadIdx.x + j * kThreads;
-    const int r = i >> 4, c = (i & 15) * 8;
-    const bool ok = row0 + r < limit;
-    const __nv_bfloat16* src =
-        op.ptr + (ok ? b * op.sb + (long long)(row0 + r) * op.ss + h * op.sh + c : 0);
-    cp_async16(tile_at(base, r, c), src, ok);
-  }
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+struct DkvBars {
+  uint64_t kv_full;
+  uint64_t full[kDkvStages], empty[kDkvStages];
+};
+static_assert(sizeof(DkvBars) <= kBarBytes, "barrier block");
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-__device__ __forceinline__ float ex2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// acc[16 x 8 NT] = A[a_row0 .. a_row0 + 16, :] . B[0 .. 8 NT, :]^T over the
-// 128 columns, A and B tiles in shared memory (the warp's slice of S = Q K^T,
-// dP = dO V^T and their transposes).
-template <int NT>
-__device__ __forceinline__ void rows_x_tile_t(float (&acc)[NT][4], uint32_t a_base, int a_row0,
-                                              uint32_t b_base) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int i = 0; i < NT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+// d = A[64 x 128] . B[N x 128]^T over the head dim (S = Q K^T, dP = dO V^T and
+// their transposes; not committed): A and B K-major tiles whose [rows, 64]
+// sub-tiles lie `a_half` and `b_half` bytes apart. N = 128 or 64 columns, 64
+// or 32 registers a thread.
+template <int N>
+__device__ __forceinline__ void score_product(float (&d)[N / 2], uint64_t a, uint32_t a_half,
+                                              uint64_t b, uint32_t b_half) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    ldsm_x4(a, tile_at(a_base, a_row0 + (lane & 15), kk * 16 + (lane >> 4) * 8));
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t bf[4];
-      ldsm_x4(bf, tile_at(b_base, np * 16 + (lane & 7) + ((lane >> 4) << 3),
-                          kk * 16 + ((lane >> 3) & 1) * 8));
-      mma_bf16(acc[2 * np], a, bf[0], bf[1]);
-      mma_bf16(acc[2 * np + 1], a, bf[2], bf[3]);
-    }
+    const uint64_t da = desc_advance(a, (kk >> 2) * a_half + (kk & 3) * 32);
+    const uint64_t db = desc_advance(b, (kk >> 2) * b_half + (kk & 3) * 32);
+    if constexpr (N == 128)
+      wgmma_bf16_ss(d, da, db, kk > 0);
+    else
+      wgmma_bf16_ss_n64(d, da, db, kk > 0);
   }
 }
 
-// acc[16 x 128] += P[16 x 8 NT] . B[0 .. 8 NT, :], P in accumulator registers
-// (rounded to bf16 here) and B a tile in shared memory whose rows are the
-// product's depth (dQ += dS K, dV += P^T dO, dK += dS^T Q).
-template <int NT>
-__device__ __forceinline__ void regs_x_tile(float (&acc)[16][4], const float (&p)[NT][4],
-                                            uint32_t b_base) {
-  const int lane = threadIdx.x & 31;
+// d[64 x 128] += A[64 x 16 KS] . B[16 KS x 128] (dQ += dS K, dV += P^T dO,
+// dK += dS^T Q; not committed): A packed in the A fragment layout, B an
+// MN-major tile in shared memory (its rows the product's depth).
+template <int KS>
+__device__ __forceinline__ void grad_product(float (&d)[64], const uint32_t (&a)[4 * KS],
+                                             uint64_t b) {
 #pragma unroll
-  for (int kk = 0; kk < NT / 2; ++kk) {
-    const uint32_t a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                           pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                           pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                           pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+  for (int kk = 0; kk < KS; ++kk)
+    wgmma_bf16_rs_mn(d, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3],
+                     desc_advance(b, kk * 2048), 1);
+}
+
+// An accumulator tile of N = 4 R columns (R registers) -> bf16 A fragments of
+// the next product: k step kk (16 columns) takes column tiles 2 kk, 2 kk + 1.
+template <int R>
+__device__ __forceinline__ void pack_frags(uint32_t (&f)[R / 2], const float (&s)[R]) {
 #pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-      uint32_t bf[4];
-      ldsm_x4_t(bf, tile_at(b_base, kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
-                            dp * 16 + (lane >> 4) * 8));
-      mma_bf16(acc[2 * dp], a, bf[0], bf[1]);
-      mma_bf16(acc[2 * dp + 1], a, bf[2], bf[3]);
-    }
+  for (int kk = 0; kk < R / 8; ++kk) {
+    f[4 * kk + 0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+    f[4 * kk + 1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    f[4 * kk + 2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    f[4 * kk + 3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
   }
 }
 
-// The warp's 16 rows of a [B, S, H, D] contiguous bf16 output, times `scale`;
-// rows at or past `limit` are not written.
-__device__ __forceinline__ void store_rows(__nv_bfloat16* out, const float (&acc)[16][4],
-                                           float scale, int b, int h, int H, int S, int row0,
-                                           int limit) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
+// acc * scale -> bf16 -> the warpgroup's 64 rows of a [128, 128] swizzled
+// tile (`rows64` its first row in sub-tile 0, sub-tile 1 kHalf further).
+__device__ __forceinline__ void stage_out(uint8_t* rows64, const float (&acc)[64], float scale,
+                                          int warp, int g, int tig) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = row0 + g + r * 8;
-    if (row >= limit) continue;
-    __nv_bfloat16* dst = out + (((long long)b * S + row) * H + h) * D + tig * 2;
+    const int row = warp * 16 + g + r * 8;  // row & 7 == g
 #pragma unroll
-    for (int nt = 0; nt < 16; ++nt)
-      *reinterpret_cast<uint32_t*>(dst + nt * 8) =
-          pack_bf16(acc[nt][2 * r] * scale, acc[nt][2 * r + 1] * scale);
+    for (int j = 0; j < 16; ++j) {
+      uint8_t* dst = rows64 + (j >> 3) * kHalf + row * 128 + (((j & 7) ^ g) << 4) + tig * 4;
+      *reinterpret_cast<uint32_t*>(dst) =
+          pack_bf16(acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
+    }
   }
 }
 
-constexpr int kTileDq = BM * kRowBytes;                       // 16 KB
-constexpr int kSmemDq = 2 * kTileDq + 2 * 2 * kBnDq * kRowBytes;  // Q, dO, 2 x (K, V): 96 KB
-
-// K12: dQ for the 64 query rows of block x, head y, batch z.
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const __grid_constant__ Params p) {
-  extern __shared__ __align__(128) uint8_t smem[];
-  const uint32_t s_q = wanq::smem_addr(smem), s_do = s_q + kTileDq;
-  const uint32_t s_kv = s_do + kTileDq;  // stage st: K at + st * 2 tiles, V one tile after
-  constexpr int kKv = kBnDq * kRowBytes;
-  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
-  const int n_tiles = (p.kv_valid + kBnDq - 1) / kBnDq;
-
-  load_tile<BM>(s_q, p.q, b, h, q0, p.Sq);
-  load_tile<BM>(s_do, p.dout, b, h, q0, p.Sq);
-  load_tile<kBnDq>(s_kv, p.k, b, h, 0, p.kv_valid);
-  load_tile<kBnDq>(s_kv + kKv, p.v, b, h, 0, p.kv_valid);
-  cp_async_commit();
-
-  float lse2[2], di[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + r * 8;
-    const long long at = ((long long)b * p.H + h) * p.Sq + row;
-    lse2[r] = row < p.Sq ? p.lse[at] * kLog2e : INFINITY;
-    di[r] = row < p.Sq ? p.di[at] : 0.f;
-  }
-  float dq[16][4];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const uint32_t s_k = s_kv + (j & 1) * 2 * kKv, s_v = s_k + kKv;
-    if (j + 1 < n_tiles) {
-      const uint32_t n_k = s_kv + ((j + 1) & 1) * 2 * kKv;
-      load_tile<kBnDq>(n_k, p.k, b, h, (j + 1) * kBnDq, p.kv_valid);
-      load_tile<kBnDq>(n_k + kKv, p.v, b, h, (j + 1) * kBnDq, p.kv_valid);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-    rows_x_tile_t<8>(s, s_q, warp * 16, s_k);
-    rows_x_tile_t<8>(dp, s_do, warp * 16, s_v);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * kBnDq + nt * 8 + tig * 2 + (e & 1);
-        const float pr = col < p.kv_valid ? ex2_approx(fmaf(s[nt][e], p.scale_log2, -lse2[e >> 1]))
-                                          : 0.f;
-        s[nt][e] = pr * (dp[nt][e] - di[e >> 1]);  // dS
-      }
-    }
-    regs_x_tile<8>(dq, s, s_k);
-    __syncthreads();
-  }
-  store_rows(p.out_a, dq, p.scale, b, h, p.H, p.Sq, q0 + warp * 16, p.Sq);
+// The warpgroup's staged 64 rows -> rows row0 .. row0 + 63 of `map`'s (h, b).
+__device__ __forceinline__ void store_rows(const CUtensorMap* map, const uint8_t* rows64,
+                                           int row0, int h, int b) {
+  tma_store_4d(map, rows64, 0, row0, h, b);
+  tma_store_4d(map, rows64 + kHalf, 64, row0, h, b);
 }
 
-constexpr int kTileDkv = BM * kRowBytes;                       // 16 KB: K or V
-constexpr int kStepDkv = kBnDkv * kRowBytes;                    // 8 KB: 32 rows of Q or dO
-constexpr int kSmemDkv = 2 * kTileDkv + 4 * kStepDkv + 2 * 2 * kBnDkv * 4;
+// K12: dQ for the 128 query rows of block x, head y, batch z.
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ Params p) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024u - (wanq::smem_addr(smem_raw) & 1023u)) & 1023u);
+  uint8_t* sQ = smem;
+  uint8_t* sDO = sQ + kTile;
+  uint8_t* sK = sDO + kTile;
+  uint8_t* sV = sK + kDqStages * kTile;
+  DqBars* bars = reinterpret_cast<DqBars*>(sV + kDqStages * kTile);
 
-// K11: dK and dV for the 64 keys of block x, head y, batch z.
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const __grid_constant__ Params p) {
-  extern __shared__ __align__(128) uint8_t smem[];
-  const uint32_t s_k = wanq::smem_addr(smem), s_v = s_k + kTileDkv;
-  const uint32_t s_qd = s_v + kTileDkv;  // stage st: Q at + st * 2 steps, dO one step after
-  // stage st: the 32 rows' lse (log2 units) and di
-  float* s_rows = reinterpret_cast<float*>(smem + 2 * kTileDkv + 4 * kStepDkv);
-  const int k0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
-  float dk[16][4], dv[16][4];
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int q0 = blockIdx.x * kRows;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int n_tiles = p.n_iter;
+
+  if (tid == 0) {
+    mbar_init(&bars->qdo_full, 1);
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    dk[i][0] = dk[i][1] = dk[i][2] = dk[i][3] = 0.f;
-    dv[i][0] = dv[i][1] = dv[i][2] = dv[i][3] = 0.f;
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(&bars->k_full[s], 1);
+      mbar_init(&bars->v_full[s], 1);
+      mbar_init(&bars->k_empty[s], 8);  // one arrival per consumer warp
+      mbar_init(&bars->v_empty[s], 8);
+    }
+    mbar_fence_init();
   }
-  if (k0 < p.kv_valid) {
-    const int n_steps = (p.Sq + kBnDkv - 1) / kBnDkv;
-    const long long rows_at = ((long long)b * p.H + h) * p.Sq;
-    auto stage_rows = [&](int st, int q0) {
-      if (threadIdx.x < kBnDkv) {
-        const int row = q0 + threadIdx.x;
-        s_rows[st * 2 * kBnDkv + threadIdx.x] =
-            row < p.Sq ? p.lse[rows_at + row] * kLog2e : INFINITY;
-        s_rows[st * 2 * kBnDkv + kBnDkv + threadIdx.x] = row < p.Sq ? p.di[rows_at + row] : 0.f;
-      }
-    };
-    load_tile<BM>(s_k, p.k, b, h, k0, p.kv_valid);
-    load_tile<BM>(s_v, p.v, b, h, k0, p.kv_valid);
-    load_tile<kBnDkv>(s_qd, p.q, b, h, 0, p.Sq);
-    load_tile<kBnDkv>(s_qd + kStepDkv, p.dout, b, h, 0, p.Sq);
-    cp_async_commit();
-    stage_rows(0, 0);
-    int key[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) key[r] = k0 + warp * 16 + g + r * 8;
+  __syncthreads();
 
-    for (int i = 0; i < n_steps; ++i) {
-      const int st = i & 1;
-      const uint32_t s_q = s_qd + st * 2 * kStepDkv, s_do = s_q + kStepDkv;
-      if (i + 1 < n_steps) {
-        const uint32_t n_q = s_qd + (st ^ 1) * 2 * kStepDkv;
-        load_tile<kBnDkv>(n_q, p.q, b, h, (i + 1) * kBnDkv, p.Sq);
-        load_tile<kBnDkv>(n_q + kStepDkv, p.dout, b, h, (i + 1) * kBnDkv, p.Sq);
-        stage_rows(st ^ 1, (i + 1) * kBnDkv);
+  if (wg == 0) {
+    // ---- producer ----
+    reg_dealloc<kDqProducerRegs>();
+    if (tid == 0) {
+      prefetch_tensormap(&p.q);
+      prefetch_tensormap(&p.dout);
+      prefetch_tensormap(&p.k);
+      prefetch_tensormap(&p.v);
+      mbar_expect_tx(&bars->qdo_full, 2 * kTile);
+      tma_load_4d(sQ, &p.q, &bars->qdo_full, 0, q0, h, b);
+      tma_load_4d(sQ + kHalf, &p.q, &bars->qdo_full, 64, q0, h, b);
+      tma_load_4d(sDO, &p.dout, &bars->qdo_full, 0, q0, h, b);
+      tma_load_4d(sDO + kHalf, &p.dout, &bars->qdo_full, 64, q0, h, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j & 1, col = j * BKV;
+        const uint32_t ph = (j >> 1) & 1;
+        mbar_wait(&bars->k_empty[st], ph ^ 1);
+        mbar_expect_tx(&bars->k_full[st], kTile);
+        tma_load_4d(sK + st * kTile, &p.k, &bars->k_full[st], 0, col, h, b);
+        tma_load_4d(sK + st * kTile + kHalf, &p.k, &bars->k_full[st], 64, col, h, b);
+        mbar_wait(&bars->v_empty[st], ph ^ 1);
+        mbar_expect_tx(&bars->v_full[st], kTile);
+        tma_load_4d(sV + st * kTile, &p.v, &bars->v_full[st], 0, col, h, b);
+        tma_load_4d(sV + st * kTile + kHalf, &p.v, &bars->v_full[st], 64, col, h, b);
       }
-      cp_async_commit();
-      cp_async_wait<1>();
-      __syncthreads();
+    }
+  } else {
+    // ---- consumers: 64 query rows each ----
+    reg_alloc<kDqConsumerRegs>();
+    const int cw = wg - 1;
+    const int lane = tid & 31, warp = (tid >> 5) & 3;
+    const int g = lane >> 2, tig = lane & 3;
+    const uint64_t q_desc = kmajor_desc(wanq::smem_addr(sQ) + cw * 64 * 128);
+    const uint64_t do_desc = kmajor_desc(wanq::smem_addr(sDO) + cw * 64 * 128);
+    const uint64_t k_desc0 = kmajor_desc(wanq::smem_addr(sK));
+    const uint64_t v_desc0 = kmajor_desc(wanq::smem_addr(sV));
+    const uint64_t kt_desc0 = mnmajor_desc(wanq::smem_addr(sK), kHalf);
+    const float scale_log2 = p.scale_log2;
+    // this thread's two rows: lse log2e and di (the table is padded past Sq)
+    const float* rows = p.rows + (long long)(b * gridDim.y + h) * 2 * p.sq_pad;
+    float lse2[2], di[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + cw * 64 + warp * 16 + g + r * 8;
+      lse2[r] = rows[row];
+      di[r] = rows[p.sq_pad + row];
+    }
+    // the valid keys of the last tile (1 .. BKV); only a partial one is masked
+    const int tail = p.kv_valid - (n_tiles - 1) * BKV;
 
-      const float* lse2 = s_rows + st * 2 * kBnDkv;
-      const float* di = lse2 + kBnDkv;
-      float pt[4][4], dst[4][4];
-      rows_x_tile_t<4>(pt, s_k, warp * 16, s_q);    // S^T = K Q^T
-      rows_x_tile_t<4>(dst, s_v, warp * 16, s_do);  // dP^T = V dO^T
+    float dq[64];
+    uint32_t ds[32];
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
+    for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+
+    mbar_wait(&bars->qdo_full, 0);
+    // The first consumer takes the first turn: it completes its own barrier.
+    if (cw == 0) bar_arrive(kSchedBar, 256);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j & 1;
+      const uint32_t ph = (j >> 1) & 1;
+      float s[64], dp[64];
+      mbar_wait(&bars->k_full[st], ph);
+      mbar_wait(&bars->v_full[st], ph);
+      bar_sync(kSchedBar + cw, 256);
+      wgmma_fence();
+      score_product<128>(s, q_desc, kHalf, desc_advance(k_desc0, st * kTile), kHalf);
+      score_product<128>(dp, do_desc, kHalf, desc_advance(v_desc0, st * kTile), kHalf);
+      wgmma_commit();
+      bar_arrive(kSchedBar + (cw ^ 1), 256);
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      if (lane == 0) mbar_arrive(&bars->v_empty[st]);
+      const bool masked = j == n_tiles - 1 && tail < BKV;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qc = nt * 8 + tig * 2 + (e & 1);
-          const float pr = key[e >> 1] < p.kv_valid
-                               ? ex2_approx(fmaf(pt[nt][e], p.scale_log2, -lse2[qc]))
-                               : 0.f;
-          pt[nt][e] = pr;                             // P^T
-          dst[nt][e] = pr * (dst[nt][e] - di[qc]);    // dS^T
+      for (int i = 0; i < 64; ++i) {
+        const int r = (i >> 1) & 1;
+        float pr = ex2_approx(fmaf(s[i], scale_log2, -lse2[r]));
+        if (masked && (i >> 2) * 8 + tig * 2 + (i & 1) >= tail) pr = 0.f;
+        s[i] = pr * (dp[i] - di[r]);  // dS
+      }
+      pack_frags(ds, s);
+      bar_sync(kSchedBar + cw, 256);
+      wgmma_fence();
+      grad_product<BKV / 16>(dq, ds, desc_advance(kt_desc0, st * kTile));
+      wgmma_commit();
+      bar_arrive(kSchedBar + (cw ^ 1), 256);
+      wgmma_wait<0>();
+      fence_regs(dq);
+      if (lane == 0) mbar_arrive(&bars->k_empty[st]);
+    }
+
+    // ---- epilogue: dQ scale -> bf16 -> shared (this consumer's Q rows) -> TMA store ----
+    uint8_t* sO = sQ + cw * 64 * 128;
+    stage_out(sO, dq, p.scale, warp, g, tig);
+    fence_proxy_async();
+    bar_sync(kEpiBar + cw, 128);
+    if ((tid & 127) == 0) {
+      store_rows(&p.out_a, sO, q0 + cw * 64, h, b);
+      tma_store_commit();
+      tma_store_wait_read();
+    }
+  }
+}
+
+// K11: dK and dV for the 128 keys of block x, head y, batch z.
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkv_kernel(const __grid_constant__ Params p) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024u - (wanq::smem_addr(smem_raw) & 1023u)) & 1023u);
+  uint8_t* sK = smem;
+  uint8_t* sV = sK + kTile;
+  uint8_t* sQ = sV + kTile;  // stage st: Q at + st * 2 kStep, dO kStep after
+  float* sStat = reinterpret_cast<float*>(sQ + kDkvStages * 2 * kStep);  // stage st: lse2, di
+  DkvBars* bars = reinterpret_cast<DkvBars*>(sStat + kDkvStages * 2 * BQ);
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int k0 = blockIdx.x * kRows;
+  const int h = blockIdx.y, b = blockIdx.z;
+  // a block wholly past kv_valid walks nothing and stores zeros
+  const int n_steps = k0 < p.kv_valid ? p.n_iter : 0;
+
+  if (tid == 0) {
+    mbar_init(&bars->kv_full, 1);
+#pragma unroll
+    for (int s = 0; s < kDkvStages; ++s) {
+      mbar_init(&bars->full[s], 1);
+      mbar_init(&bars->empty[s], 8);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer ----
+    reg_dealloc<kDkvProducerRegs>();
+    if (tid == 0 && n_steps > 0) {
+      prefetch_tensormap(&p.k);
+      prefetch_tensormap(&p.v);
+      prefetch_tensormap(&p.q);
+      prefetch_tensormap(&p.dout);
+      mbar_expect_tx(&bars->kv_full, 2 * kTile);
+      tma_load_4d(sK, &p.k, &bars->kv_full, 0, k0, h, b);
+      tma_load_4d(sK + kHalf, &p.k, &bars->kv_full, 64, k0, h, b);
+      tma_load_4d(sV, &p.v, &bars->kv_full, 0, k0, h, b);
+      tma_load_4d(sV + kHalf, &p.v, &bars->kv_full, 64, k0, h, b);
+      const float* rows = p.rows + (long long)(b * gridDim.y + h) * 2 * p.sq_pad;
+      Ring<kDkvStages> ring;
+      for (int i = 0; i < n_steps; ++i, ring.advance()) {
+        uint64_t* full = &bars->full[ring.stage];
+        uint8_t* sq = sQ + ring.stage * 2 * kStep;
+        float* stat = sStat + ring.stage * 2 * BQ;
+        const int row0 = i * BQ;
+        mbar_wait(&bars->empty[ring.stage], ring.phase ^ 1);
+        mbar_expect_tx(full, 2 * kStep + kStatBytes);
+        tma_load_4d(sq, &p.q, full, 0, row0, h, b);
+        tma_load_4d(sq + kStepHalf, &p.q, full, 64, row0, h, b);
+        tma_load_4d(sq + kStep, &p.dout, full, 0, row0, h, b);
+        tma_load_4d(sq + kStep + kStepHalf, &p.dout, full, 64, row0, h, b);
+        bulk_load_1d(stat, rows + row0, BQ * 4, full);
+        bulk_load_1d(stat + BQ, rows + p.sq_pad + row0, BQ * 4, full);
+      }
+    }
+  } else {
+    // ---- consumers: 64 keys each ----
+    reg_alloc<kDkvConsumerRegs>();
+    const int cw = wg - 1;
+    const int lane = tid & 31, warp = (tid >> 5) & 3;
+    const int g = lane >> 2, tig = lane & 3;
+    float dk[64], dv[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+
+    if (n_steps > 0) {
+      const uint64_t k_desc = kmajor_desc(wanq::smem_addr(sK) + cw * 64 * 128);
+      const uint64_t v_desc = kmajor_desc(wanq::smem_addr(sV) + cw * 64 * 128);
+      const uint64_t q_desc0 = kmajor_desc(wanq::smem_addr(sQ));
+      const uint64_t do_desc0 = kmajor_desc(wanq::smem_addr(sQ + kStep));
+      const uint64_t qt_desc0 = mnmajor_desc(wanq::smem_addr(sQ), kStepHalf);
+      const uint64_t dot_desc0 = mnmajor_desc(wanq::smem_addr(sQ + kStep), kStepHalf);
+      const float scale_log2 = p.scale_log2;
+      // the keys of this thread's two rows at or past kv_valid get P = 0; only
+      // a block that straddles kv_valid has any
+      const int key = k0 + cw * 64 + warp * 16 + g;
+      const bool dead0 = key >= p.kv_valid, dead1 = key + 8 >= p.kv_valid;
+      const bool straddles = k0 + kRows > p.kv_valid;
+
+      mbar_wait(&bars->kv_full, 0);
+      if (cw == 0) bar_arrive(kSchedBar, 256);
+      Ring<kDkvStages> ring;
+      for (int i = 0; i < n_steps; ++i, ring.advance()) {
+        const uint32_t off = ring.stage * 2 * kStep;
+        float s[32], dp[32];
+        uint32_t pf[16], dsf[16];
+        mbar_wait(&bars->full[ring.stage], ring.phase);
+        bar_sync(kSchedBar + cw, 256);
+        wgmma_fence();
+        score_product<64>(s, k_desc, kHalf, desc_advance(q_desc0, off), kStepHalf);
+        score_product<64>(dp, v_desc, kHalf, desc_advance(do_desc0, off), kStepHalf);
+        wgmma_commit();
+        bar_arrive(kSchedBar + (cw ^ 1), 256);
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+        // column (query row) 8 j + 2 tig + e % 2 of S^T: its lse log2e and di
+        const float* lse2 = sStat + ring.stage * 2 * BQ;
+        const float* di = lse2 + BQ;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 l = *reinterpret_cast<const float2*>(lse2 + 8 * j + 2 * tig);
+          const float2 d = *reinterpret_cast<const float2*>(di + 8 * j + 2 * tig);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i4 = 4 * j + e;
+            float pr = ex2_approx(fmaf(s[i4], scale_log2, -((e & 1) ? l.y : l.x)));
+            if (straddles && ((e >> 1) ? dead1 : dead0)) pr = 0.f;
+            s[i4] = pr;                                       // P^T
+            dp[i4] = pr * (dp[i4] - ((e & 1) ? d.y : d.x));   // dS^T
+          }
         }
+        pack_frags(pf, s);
+        pack_frags(dsf, dp);
+        bar_sync(kSchedBar + cw, 256);
+        wgmma_fence();
+        grad_product<BQ / 16>(dv, pf, desc_advance(dot_desc0, off));
+        grad_product<BQ / 16>(dk, dsf, desc_advance(qt_desc0, off));
+        wgmma_commit();
+        bar_arrive(kSchedBar + (cw ^ 1), 256);
+        wgmma_wait<0>();
+        fence_regs(dv);
+        fence_regs(dk);
+        if (lane == 0) mbar_arrive(&bars->empty[ring.stage]);
       }
-      regs_x_tile<4>(dv, pt, s_do);   // dV += P^T dO
-      regs_x_tile<4>(dk, dst, s_q);   // dK += dS^T Q
-      __syncthreads();
+    }
+
+    // ---- epilogue: dK scale and dV -> bf16 -> shared (this consumer's K and V
+    // rows) -> TMA stores ----
+    uint8_t* sOk = sK + cw * 64 * 128;
+    uint8_t* sOv = sV + cw * 64 * 128;
+    stage_out(sOk, dk, p.scale, warp, g, tig);
+    stage_out(sOv, dv, 1.f, warp, g, tig);
+    fence_proxy_async();
+    bar_sync(kEpiBar + cw, 128);
+    if ((tid & 127) == 0) {
+      store_rows(&p.out_a, sOk, k0 + cw * 64, h, b);
+      store_rows(&p.out_b, sOv, k0 + cw * 64, h, b);
+      tma_store_commit();
+      tma_store_wait_read();
     }
   }
-  store_rows(p.out_a, dk, p.scale, b, h, p.H, p.Sk, k0 + warp * 16, p.Sk);
-  store_rows(p.out_b, dv, 1.f, b, h, p.H, p.Sk, k0 + warp * 16, p.Sk);
 }
 
+// One operand's 4-D map: (d, seq, head, batch), byte strides of seq, head and
+// batch, a box of [box_rows, 64].
+bool make_map(CUtensorMap* map, const void* base, long long seq, int heads, long long batch,
+              const long long* strides, int box_rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)seq, (cuuint64_t)heads,
+                              (cuuint64_t)batch};
+  const cuuint64_t st[3] = {(cuuint64_t)strides[0], (cuuint64_t)strides[1],
+                            (cuuint64_t)strides[2]};
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, st, box);
+}
+
+// A contiguous [B, S, H, 128] bf16 output, stored 64 rows at a time.
+bool out_map(CUtensorMap* map, void* base, long long S, int H, long long B) {
+  const long long st[3] = {(long long)H * D * 2, (long long)D * 2, S * H * D * 2};
+  return make_map(map, base, S, H, B, st, 64);
+}
+
+// The operand maps (q and dout with boxes of `q_box` rows, k and v of 128 rows
+// ending at kv_valid) and the scalars; false on what the kernels do not take.
 bool fill_params(Params& p, const void* q, const void* k, const void* v, const void* dout,
-                 const float* lse, const float* di, const long long* st, int H, int Sq, int Sk,
-                 int kv_valid, float scale, long long B) {
-  if (B < 1 || B > 65535 || H < 1 || H > 65535 || kv_valid < 1 || kv_valid > Sk || Sq < 1 ||
-      !(scale > 0.f))
+                 const float* rows, const long long* st, long long B, int H, int Sq, int Sk,
+                 int kv_valid, float scale, int q_box) {
+  if (B < 1 || B > 65535 || H < 1 || H > 65535 || Sq < 1 || kv_valid < 1 || kv_valid > Sk ||
+      !(scale > 0.f) || reinterpret_cast<uintptr_t>(rows) % 16)
     return false;
-  const void* ptrs[4] = {q, k, v, dout};
-  Operand* ops[4] = {&p.q, &p.k, &p.v, &p.dout};
-  for (int i = 0; i < 4; ++i) {
-    // 16-byte cp.async reads: every row must start on 16 bytes
-    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 || st[3 * i] % 8 || st[3 * i + 1] % 8 ||
-        st[3 * i + 2] % 8)
-      return false;
-    *ops[i] = {static_cast<const __nv_bfloat16*>(ptrs[i]), st[3 * i], st[3 * i + 1],
-               st[3 * i + 2]};
-  }
-  p.lse = lse;
-  p.di = di;
-  p.H = H;
-  p.Sq = Sq;
-  p.Sk = Sk;
+  // the k/v maps end at kv_valid: the keys past it load as zeros
+  if (!make_map(&p.q, q, Sq, H, B, st, q_box) || !make_map(&p.k, k, kv_valid, H, B, st + 3, BKV) ||
+      !make_map(&p.v, v, kv_valid, H, B, st + 6, BKV) ||
+      !make_map(&p.dout, dout, Sq, H, B, st + 9, q_box))
+    return false;
+  p.rows = rows;
+  p.sq_pad = (Sq + kRowPad - 1) / kRowPad * kRowPad;
   p.kv_valid = kv_valid;
   p.scale = scale;
   p.scale_log2 = scale * kLog2e;
@@ -355,22 +507,25 @@ bool fill_params(Params& p, const void* q, const void* k, const void* v, const v
 }  // namespace
 
 // Operands q [B, Sq, H, 128], k/v [B, Sk, H, 128], dout [B, Sq, H, 128], bf16
-// through element strides (seq, head, batch) each (`strides`: q, k, v, dout
-// in turn), multiples of 8 with 16-byte aligned bases; lse and di f32 [B, H,
-// Sq] contiguous. dq: bf16 [B, Sq, H, 128] contiguous. 1 <= kv_valid <= Sk.
+// with a contiguous head dim, 16-byte aligned bases, and `strides` the byte
+// strides of (seq, head, batch) of q, k, v and dout in turn, multiples of 16;
+// rows: f32 [B, H, 2, Sq_pad] contiguous, Sq_pad = Sq rounded up to 128, lse
+// log2e (+inf past Sq) then di (0 past Sq). dq: bf16 [B, Sq, H, 128]
+// contiguous. 1 <= kv_valid <= Sk; scale > 0.
 WANQ_API int wanq_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                               const float* lse, const float* di, void* dq, long long B, int H,
-                               int Sq, int Sk, const long long* strides, int kv_valid,
-                               float scale, void* stream) {
+                               const float* rows, void* dq, long long B, int H, int Sq, int Sk,
+                               const long long* strides, int kv_valid, float scale,
+                               void* stream) {
   Params p;
-  if (!fill_params(p, q, k, v, dout, lse, di, strides, H, Sq, Sk, kv_valid, scale, B))
+  if (!fill_params(p, q, k, v, dout, rows, strides, B, H, Sq, Sk, kv_valid, scale, kRows) ||
+      !out_map(&p.out_a, dq, Sq, H, B))
     return (int)cudaErrorInvalidValue;
-  p.out_a = static_cast<__nv_bfloat16*>(dq);
-  p.out_b = nullptr;
+  p.out_b = p.out_a;
+  p.n_iter = (kv_valid + BKV - 1) / BKV;
   cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemDq);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((Sq + BM - 1) / BM, H, (unsigned)B);
+  dim3 grid((Sq + kRows - 1) / kRows, H, (unsigned)B);
   flash_bwd_dq_kernel<<<grid, kThreads, kSmemDq, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
@@ -378,18 +533,18 @@ WANQ_API int wanq_flash_bwd_dq(const void* q, const void* k, const void* v, cons
 // The same operands; dk, dv: bf16 [B, Sk, H, 128] contiguous, zero at keys >=
 // kv_valid.
 WANQ_API int wanq_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                                const float* lse, const float* di, void* dk, void* dv,
-                                long long B, int H, int Sq, int Sk, const long long* strides,
-                                int kv_valid, float scale, void* stream) {
+                                const float* rows, void* dk, void* dv, long long B, int H,
+                                int Sq, int Sk, const long long* strides, int kv_valid,
+                                float scale, void* stream) {
   Params p;
-  if (!fill_params(p, q, k, v, dout, lse, di, strides, H, Sq, Sk, kv_valid, scale, B))
+  if (!fill_params(p, q, k, v, dout, rows, strides, B, H, Sq, Sk, kv_valid, scale, BQ) ||
+      !out_map(&p.out_a, dk, Sk, H, B) || !out_map(&p.out_b, dv, Sk, H, B))
     return (int)cudaErrorInvalidValue;
-  p.out_a = static_cast<__nv_bfloat16*>(dk);
-  p.out_b = static_cast<__nv_bfloat16*>(dv);
+  p.n_iter = (Sq + BQ - 1) / BQ;
   cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemDkv);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((Sk + BM - 1) / BM, H, (unsigned)B);
+  dim3 grid((Sk + kRows - 1) / kRows, H, (unsigned)B);
   flash_bwd_dkv_kernel<<<grid, kThreads, kSmemDkv, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }

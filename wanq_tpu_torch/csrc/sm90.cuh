@@ -1,14 +1,15 @@
 // Hopper-only building blocks shared by the attention kernels (K4
-// flash_attention.cu, K10 attention_int8.cu) and the int GEMMs (K2
-// w8a8_gemm.cu, K8 w4a8_gemm.cu, K9 w4a4_gemm.cu): mbarriers, TMA tile loads and
+// flash_attention.cu, K10 attention_int8.cu, K11 / K12 flash_attention_bwd.cu)
+// and the int GEMMs (K2 w8a8_gemm.cu, K8 w4a8_gemm.cu, K9 w4a4_gemm.cu):
+// mbarriers, TMA tile loads and
 // stores, wgmma (warpgroup MMA) with its shared-memory descriptors, named
 // barriers, setmaxnreg, and the host-side tensor-map encoder.
 //
 // The kernels built from these share one skeleton: a block of three
 // warpgroups, one producer (a single thread of it starts TMA loads into a ring
 // of 128-byte-swizzled tiles, each stage guarded by a full and an empty
-// mbarrier) and two consumers of 64 query rows each, which run both products
-// on wgmma with the accumulators in registers.
+// mbarrier) and two consumers of 64 rows each, which run the products on
+// wgmma with the accumulators in registers.
 //
 // Shared-memory tiles are [rows][128 bytes] with the 128-byte swizzle (the
 // 16-byte chunk c of row r lies at chunk c ^ (r % 8)), as TMA writes them
@@ -260,6 +261,26 @@ __device__ __forceinline__ void wgmma_bf16_ss(float (&d)[64], uint64_t desc_a, u
       ", %64, %65, p, 1, 1, 0, 0;\n"
       "}\n"
       : WANQ_R64(WANQ_INOUT_F, d)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+#define WANQ_R32(m, a) WANQ_R8(m, a, 0), WANQ_R8(m, a, 8), WANQ_R8(m, a, 16), WANQ_R8(m, a, 24)
+#define WANQ_ACC32                                                                   \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "          \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// The same at half the width: d (+)= A[64 x 16] . B[64 x 16]^T into a 64 x 64
+// tile, 32 registers a thread, d[4 j + e] as above with j < 8.
+__device__ __forceinline__ void wgmma_bf16_ss_n64(float (&d)[32], uint64_t desc_a,
+                                                  uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WANQ_ACC32
+      ", %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : WANQ_R32(WANQ_INOUT_F, d)
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 

@@ -28,9 +28,11 @@ Training (``attention(..., trainable=True)`` while autograd records): on
 CUDA tensors a :class:`torch.autograd.Function` whose forward is K4's
 residual mode (the output and each row's log-sum-exp) and whose backward is
 K12 (dq) and K11 (dk, dv; skipped when k and v need no gradient) of
-``csrc/flash_attention_bwd.cu``, with ``di = sum(o * do)`` one torch
-reduction. Their plain versions are :func:`_sdpa_lse_reference` and
-:func:`attention_bwd_reference`, which work in query chunks from the LSE
+``csrc/flash_attention_bwd.cu`` (wgmma and TMA rings, as K4), with ``di =
+sum(o * do)`` one torch reduction into the row table both read
+(:func:`flash_bwd_rows`). Their plain versions are
+:func:`_sdpa_lse_reference` and :func:`attention_bwd_reference`, which
+work in query chunks from the LSE
 (``force_reference`` runs them under the same autograd wiring on the card).
 On CPU tensors autograd runs through the plain forward. The band mode has no
 backward: a window under training raises.
@@ -301,33 +303,60 @@ def _flash_cuda(q, k, v, scale: float, kv_valid: int, tokens_per_frame: int = 0,
     return (out, row_lse) if lse else out
 
 
+# the row table of K11 and K12 (csrc/flash_attention_bwd.cu) pads Sq to a
+# multiple of the 128 rows a block owns
+_BWD_ROW_PAD = 128
+_LOG2E = 1.4426950408889634
+
+
+def flash_bwd_rows(lse: torch.Tensor, o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """The row table K11 and K12 read: f32 [B, N, 2, Sq_pad], Sq_pad = Sq
+    rounded up to 128, holding lse * log2(e) (+inf past Sq, so P = 0 on the
+    pad rows) and di = sum_d o * do (0 past Sq), from ``lse`` [B, N, Sq] and
+    ``o``, ``do`` [B, Sq, N, D]. di is the one plain reduction of the
+    backward, as the TPU version leaves it to XLA: the products of two bf16
+    values are exact in f32, summed in f32. The padding lets K11 copy a
+    step's 64 rows of each in bulk and K12 read its rows with no bound."""
+    b, n, sq = lse.shape
+    pad = -(-sq // _BWD_ROW_PAD) * _BWD_ROW_PAD
+    rows = torch.empty((b, n, 2, pad), dtype=torch.float32, device=lse.device)
+    rows[:, :, 0, :sq] = lse * _LOG2E
+    rows[:, :, 0, sq:] = math.inf
+    rows[:, :, 1, :sq] = (o.float() * do).sum(-1).transpose(1, 2)
+    rows[:, :, 1, sq:] = 0.0
+    return rows
+
+
+def flash_bwd_strides(q, k, v, do) -> Tuple[int, ...]:
+    """The byte strides of (seq, head, batch) of q, k, v and do in turn, as
+    K11's and K12's tensor maps take them, from [B, S, N, D] views; raises on
+    a layout TMA cannot address (see :func:`tensor_map_layout`)."""
+    return tuple(st for t, name in ((q, "q"), (k, "k"), (v, "v"), (do, "do"))
+                 for st in tensor_map_layout(t.transpose(1, 2), name)[1])
+
+
 def flash_attention_bwd(q, k, v, o, lse, do, scale: float, kv_valid: int, dq: bool = True,
                         dkv: bool = True):
     """K12 (dq, counter ``attention_bwd_dq``) and K11 (dk and dv, counter
     ``attention_bwd_dkv``) on [B, S, N, D] bf16 views with a contiguous head
     dim 128; ``lse`` f32 [B, N, Sq] from K4's residual mode. Returns (dq, dk,
     dv), each contiguous [B, S, N, D] bf16, or None where not asked for."""
-    strides = []
     for t, name in ((q, "q"), (k, "k"), (v, "v"), (do, "do")):
         _lib.require_cuda(t, torch.bfloat16, name)
-        strides += [st // t.element_size()
-                    for st in tensor_map_layout(t.transpose(1, 2), name)[1]]
+    _lib.require_cuda(lse, torch.float32, "lse")
     b, sq, n, d = q.shape
     sk = k.shape[1]
-    if k.shape != (b, sk, n, d) or v.shape != k.shape or do.shape != q.shape or \
-            o.shape != q.shape:
+    if (k.shape != (b, sk, n, d) or v.shape != k.shape or do.shape != q.shape
+            or o.shape != q.shape):
         raise ValueError(f"shape mismatch: q{tuple(q.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)} o{tuple(o.shape)} do{tuple(do.shape)}")
-    _lib.require_cuda(lse, torch.float32, "lse")
     if lse.shape != (b, n, sq) or not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous [{b}, {n}, {sq}], got {tuple(lse.shape)}")
     if not 1 <= kv_valid <= sk:
         raise ValueError(f"kv_valid {kv_valid} outside [1, {sk}]")
-    # di = sum_d o * do: one plain reduction, as the TPU version leaves it to XLA
-    di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
-    table = (ctypes.c_longlong * 12)(*strides)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            di.data_ptr())
+    table = (ctypes.c_longlong * 12)(*flash_bwd_strides(q, k, v, do))
+    rows = flash_bwd_rows(lse, o, do)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), rows.data_ptr())
     tail = (b, n, sq, sk, table, int(kv_valid), float(scale))
     grad_q = grad_k = grad_v = None
     if dq:

@@ -7,9 +7,9 @@ shared library with a plain C interface, at first use, into
 sources and flags, so an edited source is rebuilt. The library is bound
 with ``ctypes``: every pointer and the CUDA stream pass as ``c_void_p``,
 and each entry point returns the launch's ``cudaError_t``, which
-:func:`launch` raises on. The attention kernels and the wgmma int GEMMs
-(K2, K8, K9) build their TMA tensor maps on the host per launch; they look
-``cuTensorMapEncodeTiled`` up in the
+:func:`launch` raises on. The attention kernels (K4, K10, and K11 / K12 of the
+backward) and the wgmma int GEMMs (K2, K8, K9) build their TMA tensor maps
+on the host per launch; they look ``cuTensorMapEncodeTiled`` up in the
 ``libcuda.so.1`` that PyTorch has already loaded (``csrc/sm90.cuh``), so the
 link line names no further library.
 
@@ -62,8 +62,8 @@ _SIGNATURES = {
     "wanq_rms_rope_heads": [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _F, _P],
     "wanq_flash_attention": [_P, _P, _P, _P, _LL, _I, _I, _I] + [_LL] * 12
     + [_I, _F, _I, _P, _P, _P],
-    "wanq_flash_bwd_dq": [_P] * 7 + [_LL, _I, _I, _I, _P, _I, _F, _P],
-    "wanq_flash_bwd_dkv": [_P] * 8 + [_LL, _I, _I, _I, _P, _I, _F, _P],
+    "wanq_flash_bwd_dq": [_P] * 6 + [_LL, _I, _I, _I, _P, _I, _F, _P],
+    "wanq_flash_bwd_dkv": [_P] * 7 + [_LL, _I, _I, _I, _P, _I, _F, _P],
     "wanq_quantize_qkv_int8": [_P] * 3 + [_LL] * 9 + [_P] * 7 + [_LL, _I, _I, _I, _P],
     "wanq_attention_int8": [_P] * 7 + [_LL, _I, _I, _I, _I, _F, _LL, _LL, _LL, _P],
 }
