@@ -126,7 +126,12 @@ non-zero:
    of bf16 at 720p.
 5. whole generate (T2V-1.3B): a checkpoint dir, umT5-XXL, fp_generate from
    --random_init and --ckpt_dir, cli.generate W8A8 to the decoded video, the
-   VAE and umT5 on the card against the CPU, bf16 decodes at 480p and 720p;
+   W8A8 video scored against fp_generate's by cli.evaluate --clip_metrics
+   --flow_score on the card (PSNR, FPFVD on the random feature net, the
+   full ViT-H CLIP metrics, the flow score; each part's seconds and the
+   peak; evaluate(fp, fp) ~ 0; the feature net, CLIP and the flow on the
+   card against the CPU), the VAE and umT5 on the card against the CPU,
+   bf16 decodes at 480p and 720p;
 6. image to video: I2V-14B at full width (dim 5120, clip_dim 1280; DEPTH_14B
    = 20 of its 40 blocks) from a seeded [3, 480, 832] image at 832*480x81
    (58 x 104 latents, seq 31668: no token is padded). Every kernel the path runs at its
@@ -2240,6 +2245,8 @@ def whole_generate(torch, calib_path, launches):
     del vae32
     torch.cuda.empty_cache()
 
+    score_videos(torch, np, fp_video, video, str(OUT / "fp_ckpt_dir.npz"), save)
+
     vae_checks(torch, np, vae_params)
 
     vae16 = vaem.WanVAE(params=vae_params, device="cuda", compute_dtype=torch.bfloat16)
@@ -2261,6 +2268,125 @@ def whole_generate(torch, calib_path, launches):
         log(f"  bf16 VAE decode of the {label} latents {z.shape} -> {tuple(v.shape)}: "
             f"{sec:.2f} s, peak {peak / 2**30:.2f} GiB{note}")
         del v
+
+
+def _evaluate(argv):
+    """cli.evaluate's main with its JSON line caught: (report, the line)."""
+    import io
+
+    from wanq_tpu_torch.cli import evaluate
+
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        rep = evaluate.main(argv)
+    return rep, buf.getvalue().strip().splitlines()[-1]
+
+
+def score_videos(torch, np, fp_video, video, fp_npz, gen_npz):
+    """Phase 5's evaluation: W8A8's decoded [1, 3, 81, 480, 832] video
+    against fp_generate's through cli.evaluate --clip_metrics --flow_score
+    --device cuda (the full ViT-H CLIP tower drawn on the card, seed 0), each
+    part timed on the host clock around synchronized calls, with its peak;
+    gates: every value finite; evaluate(fp, fp) reads fvd_random_feat <= 1e-6
+    x evaluate(fp, w8a8)'s and cosine 1 (to 1e-12); the feature net's [1, 256]
+    output on the card against the CPU's, rel-L2 <= 1e-4 (TF32 off inside the
+    net, XLA's padding); clip_frame_features on the first 4 frames of each
+    video on the card against the CPU, <= 1e-5 abs; flow_score on the card
+    against the CPU, <= 1e-4 relative. Then evaluate on the two npz files of
+    fp_generate and generate as they are: as in wanq_tpu it scores their
+    'latents' (printed, labelled so)."""
+    from wanq_tpu_torch.models import clip as clipm
+    from wanq_tpu_torch.utils import clip_metrics, flow, fvd
+
+    t_all = time.perf_counter()
+    paths, vids = {}, {}
+    for label, v in (("fp", fp_video), ("w8a8", video)):
+        vids[label] = np.ascontiguousarray(v.transpose(0, 2, 3, 4, 1))  # [N, T, H, W, 3]
+        paths[label] = str(OUT / f"videos_{label}.npz")
+        np.savez(paths[label], videos=vids[label])
+    write_s = time.perf_counter() - t_all
+    parts = {"feature net": [], "CLIP": [], "flow": []}
+    timed = [(owner, name, _timed(torch, owner, name, parts[key])) for owner, name, key in (
+        (fvd.I3DLikeFeatures, "__call__", "feature net"),
+        (clip_metrics, "clip_frame_features", "CLIP"), (flow, "flow_score", "flow"))]
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep, line = _evaluate(["--fp", paths["fp"], "--quant", paths["w8a8"], "--clip_metrics",
+                               "--flow_score", "--device", "cuda"])
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        for owner, name, orig in timed:
+            setattr(owner, name, orig)
+    frames = video.shape[0] * video.shape[2]
+    log(f"  [evaluate w8a8 vs fp video] cli.evaluate --clip_metrics --flow_score --device cuda "
+        f"on videos {vids['fp'].shape}: {line}")
+    log(f"  evaluate: {eval_s:.2f} s in all (npz load and elementwise metrics included); "
+        f"feature net {sum(parts['feature net']):.3f} s for 2 videos ({parts['feature net']}; "
+        f"f32, TF32 off inside the net), CLIP {sum(parts['CLIP']):.2f} s for {2 * frames} "
+        f"frames (ViT-H/14, 32 blocks, drawn on the card; "
+        f"{2 * frames / sum(parts['CLIP']):.1f} frames/s), flow {sum(parts['flow']):.3f} s "
+        f"({parts['flow']}); peak {peak / 2**30:.2f} GiB; writing the two videos npz "
+        f"{write_s:.1f} s")
+    log(f"  two PSNR definitions: evaluate's psnr_db {rep['psnr_db']:.3f} dB (range = the FP "
+        f"video's max - min, {float(fp_video.max() - fp_video.min()):.4f}), _psnr_video "
+        f"{_psnr_video(np, fp_video, video):.3f} dB (range 2, [-1, 1])")
+    check(all(math.isfinite(v) for v in rep.values()), f"non-finite evaluate values: {rep}")
+    for key in ("psnr_db", "rel_err", "cosine", "fvd_random_feat", "clip_temp_fp",
+                "clip_temp_quant", "flicker_fp", "flicker_quant", "clip_frame_cosine_fp_vs_quant",
+                "flow_score_fp", "flow_score_quant"):
+        check(key in rep, f"evaluate report lacks {key}")
+
+    same, _ = _evaluate(["--fp", paths["fp"], "--quant", paths["fp"], "--device", "cuda"])
+    log(f"  evaluate(fp, fp): fvd_random_feat {same['fvd_random_feat']:.3e} (fp vs w8a8 "
+        f"{rep['fvd_random_feat']:.6e}), cosine 1 - {1 - same['cosine']:.1e}, psnr_db "
+        f"{same['psnr_db']}")
+    check(abs(same["fvd_random_feat"]) <= 1e-6 * rep["fvd_random_feat"],
+          f"evaluate(fp, fp) fvd_random_feat {same['fvd_random_feat']:.3e} > 1e-6 x "
+          f"{rep['fvd_random_feat']:.3e}")
+    check(abs(same["cosine"] - 1.0) <= 1e-12, f"evaluate(fp, fp) cosine {same['cosine']!r}")
+
+    t0 = time.perf_counter()
+    card = fvd.I3DLikeFeatures(device="cuda")(vids["fp"])
+    host = fvd.I3DLikeFeatures(device="cpu")(vids["fp"])
+    rel = float(np.linalg.norm(card - host) / np.linalg.norm(host))
+    log(f"  feature net on the fp video, card vs CPU: rel-L2 {rel:.3e} ({card.shape}; "
+        f"{time.perf_counter() - t0:.1f} s with the CPU's)")
+    check(rel <= 1e-4, f"feature net card vs CPU rel-L2 {rel:.3e} > 1e-4")
+
+    t0 = time.perf_counter()
+    cfg = clipm.CLIP_XLM_ROBERTA_VIT_H_14
+    params = clipm.init_clip_params_on_device(cfg, seed=0, device="cuda")
+    vis = {k: v for k, v in params.items() if k.startswith("visual.")}
+    del params
+    first4 = np.concatenate([vids["fp"][:, :4], vids["w8a8"][:, :4]])
+    card = clip_metrics.clip_frame_features(vis, cfg, first4, device="cuda")
+    host = clip_metrics.clip_frame_features({k: v.cpu() for k, v in vis.items()}, cfg, first4,
+                                            device="cpu")
+    err = float(np.abs(card - host).max())
+    log(f"  clip_frame_features on the first 4 frames of each video, card vs CPU: max abs "
+        f"{err:.3e} ({time.perf_counter() - t0:.1f} s with the CPU's)")
+    check(err <= 1e-5, f"clip_frame_features card vs CPU {err:.3e} > 1e-5")
+    del vis
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    for label, key in (("fp", "flow_score_fp"), ("w8a8", "flow_score_quant")):
+        card_f = flow.flow_score(vids[label], device="cuda")
+        host_f = flow.flow_score(vids[label], device="cpu")
+        log(f"  flow_score {label}: card {card_f!r} (evaluate's {rep[key]!r}), CPU {host_f!r}")
+        check(abs(card_f - host_f) <= 1e-4 * abs(host_f),
+              f"flow_score {label} card {card_f} vs CPU {host_f}")
+        check(card_f == rep[key], f"flow_score {label} differs from evaluate's {rep[key]}")
+    log(f"  flow card vs CPU: {time.perf_counter() - t0:.1f} s")
+
+    _, line = _evaluate(["--fp", fp_npz, "--quant", gen_npz, "--device", "cuda"])
+    log(f"  evaluate on the fp_generate and generate npz files as they are (scores their "
+        f"'latents', not 'video', as wanq_tpu does): {line}")
+    log(f"  phase 5 evaluation: {time.perf_counter() - t_all:.1f} s")
 
 
 def int8_attention_plain_route(torch, np, step, ctx, preds, fps):

@@ -1996,3 +1996,100 @@ def test_k11_k12_read_strided_views_and_give_equal_bits(dev, gen):
         assert _grad_rel(g_, w_) <= 1e-2
         assert torch.equal(g_, a_)
     assert not got[1][:, valid:].any() and not got[2][:, valid:].any()
+
+
+# ---------------------------------------------------------------------------
+# evaluation (utils/fvd.py, image_metrics.py, clip_metrics.py, flow.py,
+# cli/evaluate.py) on the card against the CPU
+# ---------------------------------------------------------------------------
+
+
+def _eval_videos(shape, seed=0):
+    rng = np.random.default_rng(seed)
+    fp = rng.uniform(-1, 1, shape).astype(np.float32)
+    return fp, (fp + 0.1 * rng.standard_normal(shape)).astype(np.float32)
+
+
+@pytest.mark.parametrize("net", ["I3DLike", "InceptionLike"])
+def test_feature_nets_card_vs_cpu_ragged(dev, net):
+    """The random feature nets at odd and even sides (XLA's asymmetric SAME
+    pads) on the card against the CPU within rel-L2 1e-5, with TF32 turned on
+    by the caller: the nets turn it off inside and give the setting back."""
+    from wanq_tpu_torch.utils import fvd, image_metrics
+
+    fp, _ = _eval_videos((2, 9, 37, 50, 3))
+    cls = fvd.I3DLikeFeatures if net == "I3DLike" else image_metrics.InceptionLikeFeatures
+    x = fp if net == "I3DLike" else fp[:, 0]
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        card = cls(device=dev)(x)
+        assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    host = cls(device="cpu")(x)
+    assert card.shape == host.shape == (2, 256)
+    assert np.linalg.norm(card - host) / np.linalg.norm(host) <= 1e-5
+
+
+def test_clip_frame_features_card_vs_cpu(dev):
+    """The full 32-block ViT-H tower at 2 x 3 frames of 96 x 160 (chunk 4, a
+    ragged tail) on the card against the CPU within 1e-5 abs, and the text
+    tower at 4 layers."""
+    import dataclasses
+
+    from wanq_tpu_torch.models import clip as clipm
+    from wanq_tpu_torch.utils import clip_metrics as cm
+
+    cfg = dataclasses.replace(clipm.CLIP_XLM_ROBERTA_VIT_H_14, text_layers=4,
+                              vocab_size=1000)
+    params = clipm.init_clip_params_on_device(cfg, seed=1, device=dev)
+    fp, _ = _eval_videos((2, 3, 96, 160, 3))
+    card = cm.clip_frame_features(params, cfg, fp, frame_chunk=4, device=dev)
+    host_p = {k: v.cpu() for k, v in params.items()}
+    host = cm.clip_frame_features(host_p, cfg, fp, frame_chunk=4, device="cpu")
+    assert card.shape == host.shape == (2, 3, 1024)
+    assert np.abs(card - host).max() <= 1e-5
+    ids = np.random.default_rng(2).integers(2, 1000, (2, 9))
+    t_card = cm.text_features(params, cfg, ids, device=dev)
+    t_host = cm.text_features(host_p, cfg, ids, device="cpu")
+    assert np.abs(t_card - t_host).max() <= 1e-5
+
+
+def test_flow_score_card_vs_cpu(dev):
+    """Two 9-frame 200 x 300 videos (one halving to <= 128 px, a moving
+    pattern and noise) on the card against the CPU within 1e-4 relative."""
+    from wanq_tpu_torch.utils.flow import flow_score
+
+    yy, xx = np.mgrid[0:200, 0:300] / 100.0
+    base = 0.5 + 0.3 * np.sin(3 * xx) * np.cos(2 * yy)
+    moving = np.stack([np.stack([np.roll(base, 2 * i, axis=1)] * 3, -1) for i in range(9)])
+    noisy = _eval_videos((1, 9, 200, 300, 3))[0]
+    v = np.concatenate([moving[None], noisy]).astype(np.float32)
+    card, host = flow_score(v, device=dev), flow_score(v, device="cpu")
+    assert host > 0 and abs(card - host) <= 1e-4 * host
+
+
+def test_evaluate_on_the_card_end_to_end(dev, tmp_path, monkeypatch):
+    """cli.evaluate --device cuda with --clip_metrics --flow_score on a small
+    pair (a 2-layer CLIP tower standing in for ViT-H): every value finite,
+    the same keys as --device cpu, and the entries that do not read the CLIP
+    tower (whose random draw differs by device) within 1e-4 of the CPU's."""
+    import dataclasses
+
+    from wanq_tpu_torch.cli import evaluate
+    from wanq_tpu_torch.models import clip as clipm
+
+    small = dataclasses.replace(clipm.CLIP_XLM_ROBERTA_VIT_H_14, vision_layers=2, text_layers=2,
+                                vocab_size=1000)
+    monkeypatch.setattr(clipm, "CLIP_XLM_ROBERTA_VIT_H_14", small)
+    fp, q = _eval_videos((2, 5, 48, 64, 3), seed=3)
+    np.savez(tmp_path / "fp.npz", videos=fp)
+    np.savez(tmp_path / "q.npz", videos=q)
+    flags = ["--fp", str(tmp_path / "fp.npz"), "--quant", str(tmp_path / "q.npz"),
+             "--clip_metrics", "--flow_score"]
+    card = evaluate.main(flags + ["--device", "cuda"])
+    host = evaluate.main(flags + ["--device", "cpu"])
+    assert set(card) == set(host) and all(np.isfinite(v) for v in card.values())
+    for k, want in host.items():
+        if not k.startswith("clip_"):
+            assert abs(card[k] - want) <= 1e-4 * max(abs(want), 1e-12), k

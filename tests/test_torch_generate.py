@@ -315,7 +315,7 @@ def test_vae_dtype_t5_cpu_and_offload_flags(ckpt, monkeypatch):
     (["--task", "i2v-14B"], None),
     (["--sample_solver", "dpm++"], None),
     (["--t5_fsdp"], "item 10"),
-    (["--use_prompt_extend"], "item 11"),
+    (["--use_prompt_extend", "--prompt", "a cat"], None),
 ], ids=["i2v", "dpm++", "t5_fsdp", "prompt_extend"])
 def test_unported_options_raise_naming_their_item(cli, flags, item, tmp_path, monkeypatch):
     """What is not ported raises naming its ROADMAP item. i2v and DPM++
@@ -323,8 +323,22 @@ def test_unported_options_raise_naming_their_item(cli, flags, item, tmp_path, mo
     model_type i2v standing in for i2v-14B, an image file written here,
     seeded random conditioning) and fp_generate refuses it, as wanq_tpu's
     text-to-video fp_generate cannot run it, naming cli.generate; both CLIs
-    run DPM++."""
+    run DPM++. Prompt extension (item 11) is ported: both CLIs hand
+    --prompt to the local expander (a stub here: no LM ships) on --device
+    before the text states are made."""
     import imageio
+
+    from wanq_tpu_torch.utils import prompt_extend as tpe
+
+    extended = []
+
+    class Stub(tpe.PromptExpander):
+        def extend(self, prompt, system_prompt, seed=-1, **kw):
+            extended.append((prompt, seed))
+            return tpe.PromptOutput(True, prompt + ", cinematic", seed, system_prompt)
+
+    monkeypatch.setattr(tpe, "LocalPromptExpander",
+                        lambda model_name=None, device="cuda": Stub())
 
     base = ["--task", "tiny", "--size", "64*64", "--random_init", "--device", "cpu",
             "--frame_num", "5", "--sample_steps", "2", "--save_file", str(tmp_path / "o.npz")]
@@ -343,8 +357,11 @@ def test_unported_options_raise_naming_their_item(cli, flags, item, tmp_path, mo
             return
         imageio.imwrite(tmp_path / "in.png", np.full((64, 64, 3), 200, np.uint8))
         flags = flags + ["--image", str(tmp_path / "in.png")]
-    latents = np.load(cli.generate(cli.parse_args(base + flags)))["latents"]
+    args = cli.parse_args(base + flags)
+    latents = np.load(cli.generate(args))["latents"]
     assert latents.shape == (1, 16, 2, 8, 8) and np.isfinite(latents).all()
+    if "--use_prompt_extend" in flags:
+        assert extended == [("a cat", 42)] and args.prompt == "a cat, cinematic"
 
 
 def test_without_imageio_the_npz_keeps_the_video(ckpt, monkeypatch, capsys):

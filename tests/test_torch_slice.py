@@ -341,7 +341,12 @@ def test_port_imports_neither_jax_nor_wanq_tpu():
             " wanq_tpu_torch.models.vae, wanq_tpu_torch.models.tokenizers,"
             " wanq_tpu_torch.utils.video, wanq_tpu_torch.ops.attn_int8,"
             " wanq_tpu_torch.quant.attn, wanq_tpu_torch.training, wanq_tpu_torch.training.data,"
-            " wanq_tpu_torch.utils.checkpoint; "
+            " wanq_tpu_torch.utils.checkpoint, wanq_tpu_torch.cli.evaluate,"
+            " wanq_tpu_torch.cli.gradio_demo, wanq_tpu_torch.utils.metrics,"
+            " wanq_tpu_torch.utils.fvd, wanq_tpu_torch.utils.image_metrics,"
+            " wanq_tpu_torch.utils.clip_metrics, wanq_tpu_torch.utils.flow,"
+            " wanq_tpu_torch.utils.vbench, wanq_tpu_torch.utils.imagereward,"
+            " wanq_tpu_torch.utils.vision, wanq_tpu_torch.utils.prompt_extend; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'wanq_tpu')))")
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

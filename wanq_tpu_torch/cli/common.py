@@ -6,9 +6,10 @@ with both flags the DiT is random and the VAE and T5 come from the dir).
 The text states come from ``--context_file``, else from the dir's umT5
 encoder run on ``--prompt`` / ``--neg_prompt``, else from a seed. The
 step-cache flags and a quant YAML's ``cache:`` section become a policy
-through :func:`cache_policy_from_args`. The multi-device flags, T5 FSDP and
-prompt extension are accepted for command-line parity and raise when set:
-they are not ported yet.
+through :func:`cache_policy_from_args`. ``--use_prompt_extend`` rewrites
+``--prompt`` before it is encoded (:func:`maybe_extend_prompt`). The
+multi-device flags and T5 FSDP are accepted for command-line parity and
+raise when set: they are not ported yet.
 """
 
 from __future__ import annotations
@@ -75,7 +76,9 @@ def add_common_args(p: argparse.ArgumentParser, default_steps: int = 50):
     p.add_argument("--vae_dtype", type=str, default="float32", choices=["float32", "bfloat16"],
                    help="VAE compute dtype (the reference's WanVAE(dtype=...)): bfloat16 "
                         "halves the weights' and activations' bytes; the video stays float32")
-    p.add_argument("--use_prompt_extend", action="store_true", help="not ported yet")
+    p.add_argument("--use_prompt_extend", action="store_true",
+                   help="rewrite --prompt by an LM before it is encoded (utils/prompt_extend.py; "
+                        "a failed extension keeps the prompt, with a warning)")
     p.add_argument("--prompt_extend_method", type=str, default="local_qwen",
                    choices=["dashscope", "local_qwen"])
     p.add_argument("--prompt_extend_model", type=str, default=None)
@@ -192,6 +195,31 @@ def parse_attn_window(args):
     return r if r >= 0 else None
 
 
+def maybe_extend_prompt(args, logger=None) -> str:
+    """Under --use_prompt_extend, replace args.prompt by the expander's
+    rewrite (--prompt_extend_method: the DashScope API, or a local LM on
+    --device) and return it. A failed extension keeps the original prompt
+    and logs a warning, as the reference does."""
+    if not getattr(args, "use_prompt_extend", False):
+        return args.prompt
+    from wanq_tpu_torch.utils import prompt_extend as pe
+
+    if args.prompt_extend_method == "dashscope":
+        expander = pe.DashScopePromptExpander(model_name=args.prompt_extend_model or "qwen-plus")
+    else:
+        expander = pe.LocalPromptExpander(
+            model_name=args.prompt_extend_model or "Qwen/Qwen2.5-3B-Instruct",
+            device=args.device)
+    out = expander(args.prompt, tar_lang=args.prompt_extend_target_lang, seed=args.base_seed)
+    if out.status and out.prompt:
+        if logger is not None:
+            logger.info("extended prompt: %s", out.prompt)
+        args.prompt = out.prompt
+    elif logger is not None:
+        logger.warning("prompt extension failed: %s; using the original", out.message)
+    return args.prompt
+
+
 def validate_args(args):
     if args.frame_num % 4 != 1:
         raise SystemExit("frame_num must be 4n+1")
@@ -203,16 +231,19 @@ def validate_args(args):
         raise NotImplementedError(
             "multi-GPU runs (--dit_fsdp, --t5_fsdp, the mesh sizes) are not ported yet "
             "(ROADMAP Queue 1 item 10)")
-    if args.use_prompt_extend:
-        raise NotImplementedError(
-            "prompt extension (--use_prompt_extend) is not ported yet (ROADMAP Queue 1 item 11)")
     if args.ckpt_dir is None and not args.random_init and args.context_file is None:
         raise SystemExit("need --ckpt_dir, or --random_init (+ optional --context_file) "
                          "for checkpoint-free runs")
-    if args.device.startswith("cuda"):
+    check_device(args.device)
+
+
+def check_device(device: str) -> None:
+    """A CUDA ``device`` without a card raises (nothing falls back to the
+    CPU); with one, f32 matmuls and convolutions stay full f32 (TF32 off),
+    as in the JAX reference."""
+    if device.startswith("cuda"):
         if not torch.cuda.is_available():
             raise SystemExit("--device cuda but torch sees no CUDA device")
-        # f32 matmuls stay full f32 (no TF32), as in the JAX reference
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
 
@@ -236,11 +267,14 @@ def setup_logging():
 
 def load_contexts(args, cfg) -> Tuple[np.ndarray, np.ndarray]:
     """Text-encoder states: from --context_file, else the checkpoint's T5 on
-    --prompt / --neg_prompt (on the host with --t5_cpu), else random from
-    --base_seed (the same draw as wanq_tpu's load_contexts)."""
+    --prompt (extended first under --use_prompt_extend) / --neg_prompt (on
+    the host with --t5_cpu), else random from --base_seed (the same draw as
+    wanq_tpu's load_contexts)."""
     if args.context_file:
         data = np.load(args.context_file)
         return data["context"], data["context_null"]
+    if getattr(args, "use_prompt_extend", False):
+        maybe_extend_prompt(args, logging.getLogger())
     if getattr(args, "ckpt_dir", None):
         from wanq_tpu_torch.models.t5 import encode_prompts
 
