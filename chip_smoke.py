@@ -179,7 +179,25 @@ non-zero:
    teacher, cuBLAS, the rest: elementwise glue and copies) with each group's
    share; make_distill_step and make_lora_distill_step at full depth,
    832x480x9, 2 steps each (finite). Their launches count into the kernels
-   line.
+   line;
+8. multi-GPU on one card (one card cannot run two NCCL ranks, so no run on
+   more than one card is made here): (a) K4's partial mode (one ring hop,
+   counter attention_partial) against ring.partial_attention_plain at K4's
+   limits on shards of [2, 12, 32768, 128] (32760 valid, n = 4), dense and
+   band r = 1 (1560 tokens a frame), offsets off a tile and a frame, a shard
+   of pad q rows, rows the band misses (0 and -inf), a shard without a valid
+   key refused; a hop timed beside its bound and
+   aten._scaled_dot_product_flash_attention (output and LSE, on k/v[:valid]);
+   (b) the ring's hop schedule over virtual ranks in one process through the
+   functions ring_attention calls, at 1.3B 480p (n = 2, 4, 8) and T2V-14B
+   720p ([1, 40, 75776, 128], 75600 valid, n = 8), dense and r = 1: each
+   folded output against one K4 launch over the whole sequence at K4's
+   limits, the hops run against the predicate's count, the hop time against
+   the launch; (c) one W8A8 CFG forward at 1.3B full width through
+   dit_forward(plan=) on a one-rank NCCL group from init_distributed against
+   the forward without a plan (equal bits, else rel-L2 <= 1e-3 with the
+   reason), its launches W8A8's per-block counts x 30; (d) printed: K4 on
+   one rank's 5 heads of Ulysses 8 at 14B 720p against the 40-head launch.
 
 The third-to-last line is the kernels' JSON record, then the card's name
 and power limit, and the last line {"ok": true, "device": {...}}.
@@ -338,7 +356,7 @@ SOURCES = {
 }
 # launch counters of a kernel's further modes -> the kernel they belong to
 MODES = {"w8a8_linear_gelu_quant": "w8a8_linear", "w4a8_linear_gelu_quant": "w4a8_linear",
-         "attention_band": "attention"}
+         "attention_band": "attention", "attention_partial": "attention"}
 # (K, N, out type) of the int GEMM sites: 1.3B q/k/v, ffn.0, ffn.2; T2V-14B
 # the square sites, ffn.0, ffn.2
 GEMM_SHAPES = ((1536, 1536, "bfloat16"), (1536, 8960, "bfloat16"), (8960, 1536, "float32"),
@@ -3555,6 +3573,351 @@ def training(torch, results, launches):
     other_builders(torch, cfg)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: multi-GPU on one card
+# ---------------------------------------------------------------------------
+
+# the ring shapes: (tag, B, heads, S, valid, tokens a frame, the ring sizes)
+RING_SHAPES = (("1.3B 480p", 2, 12, 32768, 32760, 1560, (2, 4, 8)),
+               ("T2V-14B 720p", 1, 40, 75776, 75600, 3600, (8,)))
+
+
+def _ring_operands(torch, g, b, n, s, valid):
+    """q (softmax scale folded in), k, v heads-major [B, N, S, 128] bf16, the
+    pad rows of k/v planted (k 0, v 100)."""
+    dev = torch.device("cuda")
+    q = (torch.randn((b, n, s, 128), device=dev, generator=g) * 128 ** -0.5).bfloat16()
+    k = torch.randn((b, n, s, 128), device=dev, generator=g).bfloat16()
+    v = torch.randn((b, n, s, 128), device=dev, generator=g).bfloat16()
+    k[:, :, valid:] = 0.0
+    v[:, :, valid:] = 100.0
+    return q, k, v
+
+
+def partial_checks(torch, record, attn_err):
+    """(a) K4's partial mode, one ring hop, against ring.partial_attention_plain
+    (ring._partial_attn's fold) on the card at K4's limits: shards of
+    [2, 12, 32768, 128] with 32760 valid at n = 4, dense and band r = 1 (1560
+    tokens a frame); offsets off a tile and a frame, a shard of pad q rows,
+    rows the band misses (0 and -inf exactly), and a shard without a valid key
+    (refused by the wrapper; the ring's predicate skips it). A hop's time
+    beside its bound and the library call that returns the same output and
+    LSE, torch.ops.aten._scaled_dot_product_flash_attention on k/v[:valid]."""
+    from wanq_tpu_torch.models.attention import TemporalWindow, flash_partial
+    from wanq_tpu_torch.parallel.ring import hop_visits, partial_attention_plain
+
+    g = torch.Generator(device="cuda").manual_seed(80)
+    b, n, s, valid, tpf = 2, 12, 32768, 32760, 1560
+    q, k, v = _ring_operands(torch, g, b, n, s, valid)
+    s_loc = s // 4
+    # (what, q rows, kv rows, window)
+    cases = [("dense hop 1 -> 2", (8192, 16384), (16384, 24576), None),
+             ("dense hop 3 -> 3 (pad rows, 8184 valid keys)", (24576, 32768), (24576, 32768),
+              None),
+             ("band r=1 hop 1 -> 2 (rows in band of the shard's first frames)", (8192, 16384),
+              (16384, 24576), 1),
+             ("band r=1 hop 0 -> 3 (band misses: every row empty)", (0, 8192), (24576, 32768), 1),
+             ("band r=1 offsets off a tile and a frame", (5000, 9096), (9001, 17193), 1),
+             ("band r=1 pad q rows only", (32760, 32768), (8192, 16384), 1)]
+    for what, (q0, q1), (k0, k1), r in cases:
+        win = None if r is None else TemporalWindow(tpf, r)
+        qs, ks, vs = q[:, :, q0:q1], k[:, :, k0:k1], v[:, :, k0:k1]
+        o, lse = flash_partial(qs, ks, vs, 1.0, q0, k0, valid, window=win)
+        o_w, lse_w = partial_attention_plain(qs.transpose(1, 2), ks.transpose(1, 2),
+                                             vs.transpose(1, 2), 1.0, q0, k0, valid, win,
+                                             q_chunk=1024)
+        torch.cuda.synchronize()
+        empty = torch.isneginf(lse_w)
+        check(torch.equal(torch.isneginf(lse), empty) and not bool(torch.isnan(lse).any()),
+              f"K4 partial {what}: empty rows differ")
+        check(bool((o.float().transpose(1, 2)[empty] == 0).all()),
+              f"K4 partial {what}: an empty row is not 0")
+        err = rel = lse_err = 0.0
+        if bool((~empty).any()):
+            seen = ~empty
+            err, rel = attn_err(o.transpose(1, 2)[seen], o_w.transpose(1, 2)[seen],
+                                f"partial {what}")
+            lse_err = (lse[seen] - lse_w[seen]).abs().max().item()
+            check(lse_err <= 1e-3, f"K4 partial {what}: lse err {lse_err}")
+        log(f"  K4 partial {what}: q [{q0}, {q1}) kv [{k0}, {k1}): max abs err {err:.3e}, "
+            f"rel-L2 {rel:.2e}, lse max err {lse_err:.2e}, empty rows "
+            f"{empty.float().mean().item():.3f}")
+    check(not hop_visits(0, 256, 32768, 256, valid) and not hop_visits(0, s_loc, 32760, 8, valid),
+          "the predicate visits a shard without a valid key")
+    try:
+        flash_partial(q[:, :, :256], k[:, :, 32760:], v[:, :, 32760:], 1.0, 0, 32760, valid)
+        check(False, "K4 partial accepted a shard without a valid key")
+    except ValueError:
+        pass
+    # a hop's time: dense hop 1 -> 2 and band r = 1 hop 1 -> 2, beside the bound
+    # and the library: the flash forward with LSE on the same q and k/v[:valid]
+    # (dense), the memory-efficient forward with LSE and the band as an
+    # additive bias (band)
+    qs, ks, vs = q[:, :, s_loc:2 * s_loc], k[:, :, 2 * s_loc:3 * s_loc], v[:, :, 2 * s_loc:3 * s_loc]
+    for r in (None, 1):
+        win = None if r is None else TemporalWindow(tpf, r)
+        kern = lambda: flash_partial(qs, ks, vs, 1.0, s_loc, 2 * s_loc, valid, window=win)
+        plain = lambda: partial_attention_plain(qs.transpose(1, 2), ks.transpose(1, 2),
+                                                vs.transpose(1, 2), 1.0, s_loc, 2 * s_loc,
+                                                valid, win, q_chunk=1024)
+        ms, plain_ms = cuda_ms(kern), cuda_ms(plain, warmup=1, reps=1)
+        pairs, q_rows, kv_rows = _hop_extent(s_loc, 2 * s_loc, s_loc, valid, tpf, r)
+        library_ms, lib = _hop_library_ms(torch, qs, ks, vs, s_loc, 2 * s_loc, valid, tpf, r)
+        o, _ = kern()
+        err, rel = attn_err(o, plain()[0].bfloat16(), f"partial timed r={r}")
+        # bytes: the q rows that see a key of the shard and the keys some row
+        # sees, read once; o (bf16) and the LSE (f32) written in full
+        record("attention", err, ms, plain_ms,
+               f"partial hop {'dense' if r is None else 'band r=1'} q [2,12,8192,128] rows "
+               f"8192.. against k/v rows 16384.. (n = 4 of [2,12,32768,128], valid 32760; "
+               f"rel-L2 {rel:.2e}; {pairs / s_loc / s_loc:.3f} of the pairs; {q_rows} q rows "
+               f"and {kv_rows} k/v rows needed; library = {lib})",
+               2 * b * n * 128 * (q_rows + 2 * kv_rows) + 2 * b * n * s_loc * 128
+               + 4 * b * n * s_loc, 4 * b * n * pairs * 128, "bf16", library_ms=library_ms,
+               summed=False)
+    del q, k, v, qs, ks, vs
+    torch.cuda.empty_cache()
+
+
+def _hop_library_ms(torch, qs, ks, vs, q0, k0, valid, tpf, r):
+    """(ms, what) of the library call that returns a hop's output and LSE:
+    aten._scaled_dot_product_flash_attention on k/v[:valid] for a dense hop
+    (this shard is all valid), aten._scaled_dot_product_efficient_attention
+    with compute_log_sumexp and the band of global positions as an additive
+    bf16 bias (-inf outside; broadcast over B and heads, else materialized)
+    for a band hop. (None, the reason) where no such call runs; the port
+    never makes it."""
+    if r is None:
+        return (cuda_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+            qs, ks, vs, scale=1.0)), "aten._scaled_dot_product_flash_attention, output and LSE")
+    from wanq_tpu_torch.models.attention import _band_rows
+
+    sq, sk = qs.shape[2], ks.shape[2]
+    rows = torch.arange(q0, q0 + sq, device=qs.device)
+    seen = _band_rows(rows, k0 + sk, tpf, r, valid)[:, k0:]  # [Sq, Sk]: global columns k0..
+    bias = torch.zeros((sq, sk), dtype=qs.dtype, device=qs.device)
+    bias.masked_fill_(~seen, float("-inf"))
+    eff = torch.ops.aten._scaled_dot_product_efficient_attention
+    what = ("aten._scaled_dot_product_efficient_attention, output and LSE, the band as an "
+            "additive bias")
+    full = bias.expand(qs.shape[0], qs.shape[1], sq, sk)
+    for b_in, how in ((full, "broadcast"), (None, "materialized")):
+        try:
+            b_in = full.contiguous() if b_in is None else b_in
+            return cuda_ms(lambda: eff(qs, ks, vs, b_in, True, scale=1.0), warmup=1,
+                           reps=3), f"{what} ({how})"
+        except RuntimeError as e:
+            reason = str(e).splitlines()[0][:160]
+    return None, f"none runs ({reason})"
+
+
+def _hop_extent(q0, k0, n, valid, tpf, r):
+    """(pairs, q rows, k/v rows) of a hop, rows q0..q0+n against keys
+    k0..k0+n, in the band of radius r (None: dense): the (query, key) pairs
+    it computes, the q rows that see a key of the shard and the keys that
+    some row sees (a pad row sees every valid key)."""
+    kv_end = min(k0 + n, valid)
+    pad_rows = max(0, q0 + n - max(q0, valid))
+    spans = [(pad_rows, k0, kv_end)]  # (rows, their first key, their key end)
+    if r is None:
+        spans.append((n - pad_rows, k0, kv_end))
+    else:
+        for row_f in range(q0 // tpf, (q0 + n - 1) // tpf + 1):
+            rows = min((row_f + 1) * tpf, q0 + n, valid) - max(row_f * tpf, q0)
+            spans.append((rows, max(k0, (row_f - r) * tpf), min(kv_end, (row_f + r + 1) * tpf)))
+    pairs = q_rows = 0
+    lo_all, hi_all = kv_end, k0
+    for rows, lo, hi in spans:
+        if rows > 0 and hi > lo:
+            pairs, q_rows = pairs + rows * (hi - lo), q_rows + rows
+            lo_all, hi_all = min(lo_all, lo), max(hi_all, hi)
+    return pairs, q_rows, hi_all - lo_all if pairs else 0
+
+
+def ring_schedule_checks(torch, attn_err):
+    """(b) The ring's hop schedule over virtual ranks in one process, through
+    the functions ring_attention calls (hop_visits, partial_attention: one K4
+    partial launch a hop, fold_partial), at 1.3B 480p (n = 2, 4, 8) and T2V-14B
+    720p (n = 8), dense and r = 1: every rank's folded output against one K4
+    launch over the whole sequence at K4's limits. Prints the hops run
+    against the predicate's count and the total hop time against the single
+    launch."""
+    from wanq_tpu_torch.models.attention import TemporalWindow, _flash_cuda
+    from wanq_tpu_torch.parallel import ring
+
+    g = torch.Generator(device="cuda").manual_seed(81)
+    for tag, b, n_heads, s, valid, tpf, sizes in RING_SHAPES:
+        q, k, v = _ring_operands(torch, g, b, n_heads, s, valid)
+        qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+        for r in (None, 1):
+            win = None if r is None else TemporalWindow(tpf, r)
+            band = None if r is None else (tpf, r)
+            kw = {} if r is None else {"tokens_per_frame": tpf, "radii": (r,) * n_heads}
+            whole = lambda: _flash_cuda(q, k, v, 1.0, valid, **kw)
+            want = whole()
+            one_ms = cuda_ms(whole, warmup=1, reps=3)
+            for n in sizes:
+                s_loc = s // n
+                predicted = sum(ring.hop_visits(i * s_loc, s_loc, j * s_loc, s_loc, valid, band)
+                                for i in range(n) for j in range(n))
+
+                def schedule():
+                    outs, hops = [], 0
+                    for idx in range(n):
+                        acc = None
+                        for i in range(n):
+                            src = (idx - i) % n
+                            if ring.hop_visits(idx * s_loc, s_loc, src * s_loc, s_loc, valid,
+                                               band):
+                                hops += 1
+                                sl = slice(src * s_loc, (src + 1) * s_loc)
+                                acc = ring.fold_partial(acc, *ring.partial_attention(
+                                    qs[:, idx * s_loc:(idx + 1) * s_loc], ks[:, sl], vs[:, sl],
+                                    1.0, idx * s_loc, src * s_loc, valid, win))
+                        outs.append(acc[0].to(torch.bfloat16))
+                    return outs, hops
+
+                outs, hops = schedule()
+                got = torch.cat(outs, dim=1)
+                err, rel = attn_err(got, want, f"ring {tag} n={n} r={r}")
+                del outs, got
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                schedule()
+                torch.cuda.synchronize()
+                ring_ms = (time.perf_counter() - t0) * 1e3
+                check(hops == predicted, f"ring {tag} n={n}: {hops} hops, predicate {predicted}")
+                log(f"  ring {tag} n={n} {'dense' if r is None else f'band r={r}'}: {hops} of "
+                    f"{n * n} hops run (predicate {predicted}), folded output against one K4 "
+                    f"launch: max abs err {err:.3e}, rel-L2 {rel:.2e}; all hops of all ranks "
+                    f"with the folds {ring_ms:.2f} ms (host clock) against the launch "
+                    f"{one_ms:.2f} ms; per rank {ring_ms / n:.2f} ms")
+            del want
+        del q, k, v, qs, ks, vs
+        torch.cuda.empty_cache()
+
+
+def planned_forward_check(torch, calib_path, launches):
+    """(c) One W8A8 CFG forward at 1.3B full width through dit_forward(plan=)
+    on a one-rank NCCL group made by init_distributed: the storage cut and
+    packed (fsdp 1: every split leaf still gathers through NCCL), the
+    Ulysses all-to-alls and the token and batch gathers over one-rank groups,
+    against the forward without a plan (equal bits expected). Its launches
+    are W8A8's per-block counts x 30 blocks."""
+    import socket
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from wanq_tpu_torch.cli.common import load_params
+    from wanq_tpu_torch.configs import WAN_CONFIGS
+    from wanq_tpu_torch.models.dit import dit_forward, linear_layer_names
+    from wanq_tpu_torch.ops import _lib
+    from wanq_tpu_torch.parallel import ShardingPlan, init_distributed, make_mesh, shard_params
+    from wanq_tpu_torch.pipelines.text2video import compute_seq_len, compute_target_shape
+    from wanq_tpu_torch.quant import QuantConfig
+    from wanq_tpu_torch.quant.ptq import prepare_quant_state, shard_quant_state
+    from wanq_tpu_torch.quant.qlinear import QuantCtx
+
+    cfg = WAN_CONFIGS[TASK]
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    world = init_distributed("cuda", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    check(world == 1 and dist.get_backend() == "nccl", f"init_distributed: {world}, "
+          f"{dist.get_backend()}")
+    try:
+        args = argparse.Namespace(base_seed=42, device="cuda", ckpt_dir=None, random_init=True)
+        params = load_params(args, cfg)
+        policies, state, rotations = prepare_quant_state(
+            params, linear_layer_names(cfg), QuantConfig.from_yaml(YAML),
+            calib=dict(np.load(calib_path)), targets="int8")
+        ctx = QuantCtx(mode="int8", policies=policies, state=state, rotations=rotations)
+        plan = ShardingPlan(make_mesh())
+        shape = compute_target_shape(cfg, (832, 480), FRAMES)
+        seq_len = compute_seq_len(cfg, shape, plan.sp_size)
+        g = torch.Generator(device="cuda").manual_seed(82)
+        x = torch.randn((2, *shape), generator=g, device="cuda")
+        t = torch.full((2,), 999.0, device="cuda")
+        c = torch.randn((2, cfg.text_len, cfg.text_dim), generator=g, device="cuda")
+        with torch.no_grad():
+            want = dit_forward(params, cfg, x, t, c, seq_len, ctx=ctx)
+            t0 = time.perf_counter()
+            sp_params = shard_params(params, plan)
+            sp_ctx = QuantCtx(mode="int8", policies=policies,
+                              state=shard_quant_state(state, plan), rotations=rotations)
+            torch.cuda.synchronize()
+            shard_s = time.perf_counter() - t0
+            _lib.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = dit_forward(sp_params, cfg, x, t, c, seq_len, ctx=sp_ctx, plan=plan)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            counts = _lib.launch_counts()
+            # warm: the first call also made each group's NCCL communicator
+            times = {}
+            for label in ("plan", "base", "base", "plan"):
+                t0 = time.perf_counter()
+                if label == "plan":
+                    dit_forward(sp_params, cfg, x, t, c, seq_len, ctx=sp_ctx, plan=plan)
+                else:
+                    dit_forward(params, cfg, x, t, c, seq_len, ctx=ctx)
+                torch.cuda.synchronize()
+                times.setdefault(label, []).append(time.perf_counter() - t0)
+            plan_s, base_s = (sum(times[k]) / 2 for k in ("plan", "base"))
+        for name in (*SOURCES, *MODES):
+            want_n = PATHS["w8a8"][1].get(name, 0) * cfg.num_layers
+            check(counts.get(name, 0) == want_n,
+                  f"planned forward: {name} {counts.get(name, 0)} launches, want {want_n}")
+        for name, cnt in counts.items():
+            launches[MODES.get(name, name)] = launches.get(MODES.get(name, name), 0) + cnt
+        equal = torch.equal(got, want)
+        rel = ((got - want).norm() / want.norm()).item()
+        check(equal or rel <= 1e-3, f"planned forward rel-L2 {rel:.2e} from the planless one")
+        log(f"  W8A8 CFG forward at {TASK} full width (seq {seq_len}) through dit_forward(plan=) "
+            f"on a one-rank NCCL group: {'equal bits' if equal else f'rel-L2 {rel:.2e}'} to the "
+            f"forward without a plan{'' if equal else ' (not equal bits: an ulp of a reduction order)'}"
+            f"; warm {plan_s * 1e3:.1f} ms against {base_s * 1e3:.1f} ms without the plan "
+            f"(rounds plan, base, base, plan; the one-rank collectives copy the weights, the "
+            f"state, q/k/v and the tokens), the first call {first_s * 1e3:.1f} ms (it makes the "
+            f"groups' NCCL communicators); storage cut and packed in {shard_s:.2f} s; launches "
+            f"{counts}")
+    finally:
+        dist.destroy_process_group()
+
+
+def ulysses_14b_note(torch):
+    """(d) Printed only: the per-rank K4 launch of Ulysses 8 at T2V-14B 720p (5
+    of its 40 heads over the whole sequence) against the 40-head launch."""
+    from wanq_tpu_torch.models.attention import _flash_cuda
+
+    g = torch.Generator(device="cuda").manual_seed(83)
+    q, k, v = _ring_operands(torch, g, 1, 40, 75776, 75600)
+    ms40 = cuda_ms(lambda: _flash_cuda(q, k, v, 1.0, 75600), warmup=1, reps=3)
+    q5, k5, v5 = (t[:, :5].contiguous() for t in (q, k, v))
+    ms5 = cuda_ms(lambda: _flash_cuda(q5, k5, v5, 1.0, 75600), warmup=1, reps=3)
+    log(f"  Ulysses 8 at T2V-14B 720p: K4 on one rank's 5 heads [1,5,75776,128] {ms5:.2f} ms, "
+        f"the 40-head launch {ms40:.2f} ms ({ms40 / ms5:.2f}x; 8 would be linear)")
+    del q, k, v, q5, k5, v5
+    torch.cuda.empty_cache()
+
+
+def multi_gpu(torch, results, launches, calib_path):
+    """Phase 8: what one card can show of multi-GPU serving (a run on more
+    than one card is not made here)."""
+    t0 = time.time()
+    partial_checks(torch, recorder(results), attn_err)
+    log(f"  phase 8 (a): {time.time() - t0:.1f} s")
+    t0 = time.time()
+    ring_schedule_checks(torch, attn_err)
+    log(f"  phase 8 (b): {time.time() - t0:.1f} s")
+    t0 = time.time()
+    planned_forward_check(torch, calib_path, launches)
+    log(f"  phase 8 (c): {time.time() - t0:.1f} s")
+    ulysses_14b_note(torch)
+
+
 # kernels whose build must show no spill: the wgmma kernels (a spill there
 # means ptxas gave up on the setmaxnreg budgets), K1, K3 and K7, which hold a
 # row in registers, and K10a's two, which hold half a tile (q/k) or a
@@ -3765,6 +4128,13 @@ def main() -> int:
     t0 = time.time()
     training(torch, results, launches)
     log(f"  phase 7: {time.time() - t0:.1f} s")
+
+    log(f"[8] multi-GPU on one card: K4's partial mode (a ring hop), the ring's hop schedule "
+        f"over virtual ranks, dit_forward(plan=) on a one-rank NCCL group; no multi-card run "
+        f"(card: {nvidia_smi()})")
+    t0 = time.time()
+    multi_gpu(torch, results, launches, calib[TASK])
+    log(f"  phase 8: {time.time() - t0:.1f} s")
     log(f"total {time.time() - t_all:.1f} s")
 
     record = {"kernels": [

@@ -385,6 +385,96 @@ def test_k4_band_through_the_wrappers(dev, gen):
             fn()
 
 
+def _check_partial(got, want):
+    """K4's partial mode against ``ring.partial_attention_plain``: rows that
+    see a key at K4's limits with their LSE within 1e-3; rows that see none
+    exactly 0 and -inf."""
+    (o, lse), (o_w, lse_w) = got, want
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    empty = torch.isneginf(lse_w)
+    assert torch.equal(torch.isneginf(lse), empty) and not torch.isnan(lse).any()
+    assert (o.float().transpose(1, 2)[empty] == 0).all()
+    seen = ~empty
+    if seen.any():
+        _k4_close(o.transpose(1, 2)[seen], o_w.transpose(1, 2)[seen])
+        assert (lse[seen] - lse_w[seen]).abs().max().item() <= 1e-3
+
+
+# (Sq, Sk, q_offset, kv_offset, kv_len, tpf, radius): offsets inside a tile and
+# a frame, dense and banded; a shard of pad q rows only; radius 0; a shard the
+# band meets in one frame (most rows empty); a shard it misses (every q tile
+# visits no tile)
+@pytest.mark.parametrize("case", [
+    (300, 400, 1000, 77, 1300, 0, None), (300, 400, 1033, 905, 2000, 100, 1),
+    (256, 384, 2000, 1800, 1990, 100, 1), (640, 640, 640, 0, 1280, 128, 0),
+    (512, 512, 0, 600, 1200, 100, 1), (256, 256, 0, 1000, 1256, 100, 1),
+    (129, 777, 4000, 3500, 4100, 1560, 1)],
+    ids=["dense_mid_tile", "band_mid_frame", "pad_q_shard", "radius0", "band_meets_one_frame",
+         "band_misses_shard", "tpf1560"])
+def test_k4_partial_mode_matches_plain(dev, gen, case):
+    """One ring hop (K4's partial mode, counter attention_partial) against
+    ring._partial_attn's fold from the empty state, on the main path's
+    layouts (q heads-major, k/v heads-major views of the rotating shards);
+    pad k/v rows (past kv_len) planted."""
+    from wanq_tpu_torch.models.attention import TemporalWindow, flash_partial
+    from wanq_tpu_torch.parallel.ring import partial_attention_plain
+
+    sq, sk, q_off, kv_off, kv_len, tpf, radius = case
+    b, n = 2, 3
+    q = (torch.randn((b, n, sq, 128), device=dev, generator=gen) * 0.0884).bfloat16()
+    k = torch.randn((b, n, sk, 128), device=dev, generator=gen).bfloat16()
+    v = torch.randn((b, n, sk, 128), device=dev, generator=gen).bfloat16()
+    valid = min(sk, kv_len - kv_off)
+    k[:, :, valid:] = 0.0
+    v[:, :, valid:] = 100.0
+    win = None if radius is None else TemporalWindow(tpf, radius)
+    _lib.reset_launch_counts()
+    got = flash_partial(q, k, v, 1.0, q_off, kv_off, kv_len, window=win)
+    _finish_within(60, f"K4 partial {case}")
+    assert _lib.launch_counts() == {"attention_partial": 1}
+    want = partial_attention_plain(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), 1.0,
+                                   q_off, kv_off, kv_len, win, q_chunk=256)
+    _check_partial(got, want)
+
+
+@pytest.mark.parametrize("radius", [None, 0, 1], ids=["dense", "r0", "r1"])
+def test_ring_hops_fold_to_one_k4_launch(dev, gen, radius):
+    """Four virtual ranks of a 1024-token sequence (1000 valid, frames of 100):
+    every rank's hops, skipped where hop_visits says so (band-distant shards,
+    the last rank's pad rows see every valid shard), folded by LSE, equal one
+    dense or banded K4 launch over the whole sequence; empty rows weigh zero
+    (no NaN), and a shard without a valid key is refused by the kernel's
+    wrapper and never launched."""
+    from wanq_tpu_torch.models.attention import TemporalWindow, _flash_cuda, flash_partial
+    from wanq_tpu_torch.parallel import ring
+
+    s, valid, n = 1024, 1000, 4
+    q, k, vh = _band_inputs(dev, gen, 1, 2, s, valid)
+    win = None if radius is None else TemporalWindow(100, radius)
+    band = None if win is None else (100, radius)
+    whole = _flash_cuda(q, k, vh, 1.0, valid,
+                        **({} if win is None else {"tokens_per_frame": 100, "radii": (radius,) * 2}))
+    s_loc = s // n
+    qs, ks, vs = (t.transpose(1, 2) for t in (q, k, vh))
+    out, hops = [], 0
+    for idx in range(n):
+        acc = None
+        for src in range(n):
+            if not ring.hop_visits(idx * s_loc, s_loc, src * s_loc, s_loc, valid, band):
+                continue
+            hops += 1
+            sl = slice(src * s_loc, (src + 1) * s_loc)
+            acc = ring.fold_partial(acc, *ring.partial_attention(
+                qs[:, idx * s_loc:(idx + 1) * s_loc], ks[:, sl], vs[:, sl], 1.0, idx * s_loc,
+                src * s_loc, valid, win))
+        out.append(acc[0])
+    _finish_within(60, f"ring hops radius {radius}")
+    _k4_close(torch.cat(out, dim=1).bfloat16(), whole)
+    assert hops < n * n if radius == 0 else hops <= n * n
+    with pytest.raises(ValueError):
+        flash_partial(q[:, :, :256], k[:, :, 768:], vh[:, :, 768:], 1.0, 0, 1000, 1000)
+
+
 def test_fp_linear_on_card_keeps_the_f32_accumulator(dev, gen):
     from wanq_tpu_torch.quant.qlinear import fp_linear
 

@@ -314,7 +314,7 @@ def test_vae_dtype_t5_cpu_and_offload_flags(ckpt, monkeypatch):
 @pytest.mark.parametrize("flags,item", [
     (["--task", "i2v-14B"], None),
     (["--sample_solver", "dpm++"], None),
-    (["--t5_fsdp"], "item 10"),
+    (["--t5_fsdp"], None),
     (["--use_prompt_extend", "--prompt", "a cat"], None),
 ], ids=["i2v", "dpm++", "t5_fsdp", "prompt_extend"])
 def test_unported_options_raise_naming_their_item(cli, flags, item, tmp_path, monkeypatch):
@@ -325,7 +325,8 @@ def test_unported_options_raise_naming_their_item(cli, flags, item, tmp_path, mo
     text-to-video fp_generate cannot run it, naming cli.generate; both CLIs
     run DPM++. Prompt extension (item 11) is ported: both CLIs hand
     --prompt to the local expander (a stub here: no LM ships) on --device
-    before the text states are made."""
+    before the text states are made. --t5_fsdp (item 10) is ported: at world
+    1 there is no mesh, and the latents equal the run without it."""
     import imageio
 
     from wanq_tpu_torch.utils import prompt_extend as tpe
@@ -360,6 +361,9 @@ def test_unported_options_raise_naming_their_item(cli, flags, item, tmp_path, mo
     args = cli.parse_args(base + flags)
     latents = np.load(cli.generate(args))["latents"]
     assert latents.shape == (1, 16, 2, 8, 8) and np.isfinite(latents).all()
+    if "--t5_fsdp" in flags:
+        plain = np.load(cli.generate(cli.parse_args(base)))["latents"]
+        assert np.array_equal(latents, plain)
     if "--use_prompt_extend" in flags:
         assert extended == [("a cat", 42)] and args.prompt == "a cat, cinematic"
 

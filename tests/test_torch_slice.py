@@ -346,7 +346,8 @@ def test_port_imports_neither_jax_nor_wanq_tpu():
             " wanq_tpu_torch.utils.fvd, wanq_tpu_torch.utils.image_metrics,"
             " wanq_tpu_torch.utils.clip_metrics, wanq_tpu_torch.utils.flow,"
             " wanq_tpu_torch.utils.vbench, wanq_tpu_torch.utils.imagereward,"
-            " wanq_tpu_torch.utils.vision, wanq_tpu_torch.utils.prompt_extend; "
+            " wanq_tpu_torch.utils.vision, wanq_tpu_torch.utils.prompt_extend,"
+            " wanq_tpu_torch.parallel, wanq_tpu_torch.parallel.ring; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'wanq_tpu')))")
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

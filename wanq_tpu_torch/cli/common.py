@@ -7,9 +7,14 @@ The text states come from ``--context_file``, else from the dir's umT5
 encoder run on ``--prompt`` / ``--neg_prompt``, else from a seed. The
 step-cache flags and a quant YAML's ``cache:`` section become a policy
 through :func:`cache_policy_from_args`. ``--use_prompt_extend`` rewrites
-``--prompt`` before it is encoded (:func:`maybe_extend_prompt`). The
-multi-device flags and T5 FSDP are accepted for command-line parity and
-raise when set: they are not ported yet.
+``--prompt`` before it is encoded (:func:`maybe_extend_prompt`).
+
+Multi-GPU serving: under torchrun the mesh flags (``--ulysses_size``,
+``--ring_size``, ``--dp_size``, ``--fsdp_size`` or ``--dit_fsdp``,
+``--full_shard``) make a ShardingPlan (:func:`build_mesh_and_plan`) over the
+process group, and ``--t5_fsdp`` stores the umT5 encoder over ``fsdp``; only
+rank 0 writes files and logs at INFO. Calibration and PTQ refuse the mesh
+flags (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -62,11 +67,23 @@ def add_common_args(p: argparse.ArgumentParser, default_steps: int = 50):
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cuda' runs the hand-written kernels, "
                         "'cpu' their plain PyTorch versions (tests, tiny runs)")
-    for flag in _MULTI_DEVICE_FLAGS:
-        p.add_argument(f"--{flag}", type=int, default=1,
-                       help="multi-GPU (not ported yet; must stay 1)")
-    p.add_argument("--dit_fsdp", action="store_true", help="multi-GPU (not ported yet)")
-    p.add_argument("--t5_fsdp", action="store_true", help="multi-GPU (not ported yet)")
+    p.add_argument("--ulysses_size", type=int, default=1,
+                   help="Ulysses sequence parallelism: heads over this many ranks in "
+                        "self-attention, tokens elsewhere")
+    p.add_argument("--ring_size", type=int, default=1,
+                   help="ring context parallelism: k/v shards rotate over this many ranks")
+    p.add_argument("--dp_size", type=int, default=1,
+                   help="data parallelism: the CFG pair's rows over this many ranks")
+    p.add_argument("--fsdp_size", type=int, default=1,
+                   help="FSDP: the DiT's linear weights stored over this many ranks")
+    p.add_argument("--dit_fsdp", action="store_true",
+                   help="FSDP over the ranks the other mesh sizes leave (world // (ulysses x "
+                        "ring x dp)) unless --fsdp_size is given")
+    p.add_argument("--full_shard", action="store_true",
+                   help="store the DiT's weights over every non-dp mesh axis (the reference's "
+                        "--dit_fsdp with --ulysses_size on the same ranks)")
+    p.add_argument("--t5_fsdp", action="store_true",
+                   help="store the umT5 encoder's weights over the fsdp ranks")
     p.add_argument("--t5_cpu", action="store_true",
                    help="run the T5 encoder on the host CPU (the card's memory stays free "
                         "for the DiT)")
@@ -220,17 +237,21 @@ def maybe_extend_prompt(args, logger=None) -> str:
     return args.prompt
 
 
-def validate_args(args):
+def validate_args(args, mesh: bool = True):
+    """``mesh``: whether the CLI serves under a mesh; one that does not
+    (calibration, PTQ) refuses the mesh flags."""
     if args.frame_num % 4 != 1:
         raise SystemExit("frame_num must be 4n+1")
     if args.size not in SUPPORTED_SIZES[args.task]:
         raise SystemExit(f"size {args.size} unsupported for {args.task}: "
                          f"{SUPPORTED_SIZES[args.task]}")
-    if (any(getattr(args, f) != 1 for f in _MULTI_DEVICE_FLAGS) or args.dit_fsdp
-            or args.t5_fsdp):
+    if any(getattr(args, f) < 1 for f in _MULTI_DEVICE_FLAGS):
+        raise SystemExit("the mesh sizes must be >= 1")
+    if not mesh and (any(getattr(args, f) != 1 for f in _MULTI_DEVICE_FLAGS)
+                     or args.dit_fsdp or args.t5_fsdp or args.full_shard):
         raise NotImplementedError(
-            "multi-GPU runs (--dit_fsdp, --t5_fsdp, the mesh sizes) are not ported yet "
-            "(ROADMAP Queue 1 item 10)")
+            "calibration and PTQ under a mesh (the mesh flags, --dit_fsdp, --t5_fsdp) are "
+            "not ported yet (ROADMAP Queue 1 item 10)")
     if args.ckpt_dir is None and not args.random_init and args.context_file is None:
         raise SystemExit("need --ckpt_dir, or --random_init (+ optional --context_file) "
                          "for checkpoint-free runs")
@@ -257,19 +278,23 @@ def require_t2v(args, cli: str) -> None:
 
 
 def setup_logging():
+    """INFO on rank 0 (and without a process group), warnings only elsewhere."""
+    from wanq_tpu_torch.parallel.launch import is_main_rank
+
     logging.basicConfig(
-        level=logging.INFO,
+        level=logging.INFO if is_main_rank() else logging.WARNING,
         format="[%(asctime)s] %(levelname)s: %(message)s",
         handlers=[logging.StreamHandler(stream=sys.stdout)],
         force=True,
     )
 
 
-def load_contexts(args, cfg) -> Tuple[np.ndarray, np.ndarray]:
+def load_contexts(args, cfg, plan=None) -> Tuple[np.ndarray, np.ndarray]:
     """Text-encoder states: from --context_file, else the checkpoint's T5 on
     --prompt (extended first under --use_prompt_extend) / --neg_prompt (on
-    the host with --t5_cpu), else random from --base_seed (the same draw as
-    wanq_tpu's load_contexts)."""
+    the host with --t5_cpu; stored over the plan's fsdp ranks with
+    --t5_fsdp), else random from --base_seed (the same draw as wanq_tpu's
+    load_contexts)."""
     if args.context_file:
         data = np.load(args.context_file)
         return data["context"], data["context_null"]
@@ -279,14 +304,48 @@ def load_contexts(args, cfg) -> Tuple[np.ndarray, np.ndarray]:
         from wanq_tpu_torch.models.t5 import encode_prompts
 
         return encode_prompts(args.ckpt_dir, cfg, [args.prompt], [args.neg_prompt],
-                              on_cpu=args.t5_cpu, device=args.device)
+                              on_cpu=args.t5_cpu, device=args.device, **t5_plan(args, plan))
     rng = np.random.default_rng(args.base_seed)
     shape = (1, cfg.text_len, cfg.text_dim)
     return (rng.normal(size=shape).astype(np.float32),
             rng.normal(size=shape).astype(np.float32))
 
 
-def load_params(args, cfg):
+def t5_plan(args, plan):
+    """{"plan": plan} where the umT5 encoder is stored over the mesh
+    (--t5_fsdp on a mesh, the encoder on the card), else {}."""
+    if plan is None or not args.t5_fsdp:
+        return {}
+    if args.t5_cpu:
+        logging.warning("--t5_cpu keeps the whole encoder on the host: --t5_fsdp ignored")
+        return {}
+    return {"plan": plan}
+
+
+def build_mesh_and_plan(args):
+    """The ShardingPlan of the mesh flags over the process group that
+    :func:`init_distributed` joins (torchrun's environment), or None on one
+    process without mesh flags. The world must equal dp x fsdp x
+    ulysses x ring; --dit_fsdp without --fsdp_size takes fsdp = world //
+    (ulysses x ring x dp), as ``wanq_tpu`` does over its devices."""
+    from wanq_tpu_torch.parallel import ShardingPlan, init_distributed, make_mesh
+
+    world = init_distributed(args.device)
+    sp, ring, dp = args.ulysses_size, args.ring_size, args.dp_size
+    fsdp = args.fsdp_size if args.fsdp_size > 1 else (
+        max(1, world // (sp * ring * dp)) if args.dit_fsdp else 1)
+    if dp * fsdp * sp * ring != world:
+        raise SystemExit(f"the mesh dp {dp} x fsdp {fsdp} x ulysses {sp} x ring {ring} does "
+                         f"not fill the world of {world} processes")
+    if world == 1:
+        return None
+    mesh = make_mesh(dp, fsdp, sp, ring)
+    logging.info("mesh: %s over %d ranks%s", mesh.shape, world,
+                 " (weights stored over every non-dp axis)" if args.full_shard else "")
+    return ShardingPlan(mesh, full_shard=args.full_shard)
+
+
+def load_params(args, cfg, plan=None):
     """The DiT's weights on ``args.device``: the checkpoint's with
     --ckpt_dir and no --random_init, else drawn on the card by
     ``init_params_on_device`` for a CUDA device (no host copy: T2V-14B is
@@ -296,11 +355,13 @@ def load_params(args, cfg):
     the output identically zero, so it is redrawn: normal * 0.02 from seed
     base_seed + 1, by a torch.Generator on the card or numpy on the host
     (wanq_tpu draws it with jax.random, so that one tensor differs between
-    the packages)."""
+    the packages). ``plan``: this rank's storage of them under the plan (the
+    checkpoint's tensors cut as they are read)."""
     if getattr(args, "ckpt_dir", None) and not args.random_init:
         from wanq_tpu_torch.models.params import load_wan_checkpoint
 
-        return load_wan_checkpoint(args.ckpt_dir, dtype=cfg.dtype, device=args.device)
+        return load_wan_checkpoint(args.ckpt_dir, dtype=cfg.dtype, device=args.device,
+                                   plan=plan)
     from wanq_tpu_torch.models.dit import init_params, init_params_on_device
 
     hw_shape = (cfg.dim, int(np.prod(cfg.patch_size)) * cfg.out_dim)
@@ -313,6 +374,10 @@ def load_params(args, cfg):
         rng = np.random.default_rng(args.base_seed + 1)
         head = torch.from_numpy((0.02 * rng.standard_normal(hw_shape)).astype(np.float32))
     params["head"]["head"]["w"] = head.to(device=args.device, dtype=cfg.dtype)
+    if plan is not None:
+        from wanq_tpu_torch.parallel.sharding import shard_params
+
+        params = shard_params(params, plan)
     return params
 
 

@@ -20,6 +20,10 @@ and ``--size`` sets the pixel area the image's aspect is fitted into. Without
 ``--prompt_file`` serves one prompt per line from one process: the DiT and
 its quant state load once, one T5 encoder encodes every prompt and is freed
 before the first denoise, and each prompt gets its own npz (and video file).
+
+Under torchrun the mesh flags shard the DiT (t2v and i2v alike; an FP
+checkpoint is cut as it is read, a quantized run quantizes the whole model
+and then keeps its storage slice); only rank 0 decodes and writes.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import torch
 
 from wanq_tpu_torch.cli.common import (
     add_common_args,
+    build_mesh_and_plan,
     cache_policy_from_args,
     decode_video,
     free_device_memory,
@@ -44,12 +49,16 @@ from wanq_tpu_torch.cli.common import (
     save_outputs,
     setup_logging,
     synced_time,
+    t5_plan,
     validate_args,
 )
 from wanq_tpu_torch.configs import MAX_AREA_CONFIGS, SIZE_CONFIGS, WAN_CONFIGS
 from wanq_tpu_torch.models.dit import CLIP_TOKENS
+from wanq_tpu_torch.parallel.launch import is_main_rank
+from wanq_tpu_torch.parallel.sharding import shard_params
 from wanq_tpu_torch.pipelines.image2video import WanI2V, i2v_latent_size
 from wanq_tpu_torch.pipelines.text2video import WanT2V
+from wanq_tpu_torch.quant.ptq import shard_quant_state
 from wanq_tpu_torch.quant.qlinear import QuantCtx
 
 
@@ -104,7 +113,7 @@ def _maybe_quant_ctx(args, cfg, params, qcfg):
                     attn=qcfg.attn_cfg, cross_attn=qcfg.cross_attn_cfg, attn_window=win)
 
 
-def _prompt_contexts(args, cfg, prompts):
+def _prompt_contexts(args, cfg, prompts, plan=None):
     """[n, text_len, text_dim] states for the prompts: the first n rows of
     --context_file, else the checkpoint's T5 (one encoder for all), else seeded
     random."""
@@ -119,20 +128,20 @@ def _prompt_contexts(args, cfg, prompts):
         from wanq_tpu_torch.models.t5 import encode_prompts
 
         return encode_prompts(args.ckpt_dir, cfg, prompts, [args.neg_prompt] * n,
-                              on_cpu=args.t5_cpu, device=args.device)
+                              on_cpu=args.t5_cpu, device=args.device, **t5_plan(args, plan))
     rng = np.random.default_rng(args.base_seed)
     shape = (n, cfg.text_len, cfg.text_dim)
     return (rng.normal(size=shape).astype(np.float32),
             rng.normal(size=shape).astype(np.float32))
 
 
-def _serving_loop(args, cfg, pipe, common, vae, on_step):
+def _serving_loop(args, cfg, pipe, common, vae, on_step, plan=None):
     """One npz (and video file) per line of --prompt_file, from one process."""
     with open(args.prompt_file) as f:
         prompts = [ln.strip() for ln in f if ln.strip()]
     if not prompts:
         raise SystemExit(f"no prompts in {args.prompt_file}")
-    ctx_all, ctxn_all = _prompt_contexts(args, cfg, prompts)
+    ctx_all, ctxn_all = _prompt_contexts(args, cfg, prompts, plan)
     base = args.save_file or f"gen_{args.task}_{args.size.replace('*', 'x')}.npz"
     saved = []
     for i, prompt in enumerate(prompts):
@@ -140,6 +149,8 @@ def _serving_loop(args, cfg, pipe, common, vae, on_step):
         latents = pipe.generate(
             torch.from_numpy(ctx_all[i:i + 1]), torch.from_numpy(ctxn_all[i:i + 1]),
             size=SIZE_CONFIGS[args.size], on_step=on_step, **common)
+        if not is_main_rank():
+            continue
         out = {"latents": latents.cpu().numpy(), "prompt": np.asarray(prompt)}
         if vae is not None:
             out["video"] = decode_video(vae, latents, args.device)
@@ -149,7 +160,8 @@ def _serving_loop(args, cfg, pipe, common, vae, on_step):
     return saved
 
 
-def _i2v_latents(args, cfg, params, qctx, image, context, context_null, common, on_step):
+def _i2v_latents(args, cfg, params, qctx, image, context, context_null, common, on_step,
+                 plan):
     """(latents, the VAE) of an i2v run: CLIP and the VAE from --ckpt_dir, or
     seeded random conditioning without it (the VAE then None)."""
     img = torch.as_tensor(image if image is not None else _load_image(args.image),
@@ -172,7 +184,8 @@ def _i2v_latents(args, cfg, params, qctx, image, context, context_null, common, 
             rng.normal(size=(1, CLIP_TOKENS, cfg.clip_dim)).astype(np.float32))
         kw["y"] = torch.from_numpy(rng.normal(
             size=(cfg.in_dim - cfg.z_dim, lat_f, lat_h, lat_w)).astype(np.float32))
-    pipe = WanI2V(cfg, params, quant_ctx=qctx, device=args.device, vae=vae, clip=clip)
+    pipe = WanI2V(cfg, params, quant_ctx=qctx, device=args.device, vae=vae, clip=clip,
+                  shardings=plan)
     latents = pipe.generate(img, torch.from_numpy(context), torch.from_numpy(context_null),
                             max_area=MAX_AREA_CONFIGS[args.size], on_step=on_step, **common,
                             **kw)
@@ -183,9 +196,10 @@ def generate(args, on_step=None, image=None):
     """Returns the npz path (a list of them with --prompt_file).
     ``on_step(i, t, latents)`` runs after each solver step. ``image``: an
     i2v task's [3, H, W] image in [-1, 1] (an array or tensor) in place of
-    reading --image."""
-    setup_logging()
+    reading --image. None on a rank other than 0, which writes nothing."""
     validate_args(args)
+    plan = build_mesh_and_plan(args)
+    setup_logging()
     cfg = WAN_CONFIGS[args.task]
     i2v = cfg.model_type == "i2v"
     if args.task.startswith("t2i"):
@@ -195,19 +209,24 @@ def generate(args, on_step=None, image=None):
                          "run one process per pair)")
     if i2v and image is None and not args.image:
         raise SystemExit(f"--task {args.task} needs --image")
+    # the YAML is read once: its quant state and its cache: section (the
+    # step-cache fallback) serve every prompt
+    qcfg = _quant_config(args)
     t0 = synced_time(args.device)
-    params = load_params(args, cfg)
+    # an FP run cuts the checkpoint as it is read; a quantized one takes the
+    # whole weights into its quant state first
+    params = load_params(args, cfg, plan if qcfg is None else None)
     logging.info("params (%s) in %.2fs", "random" if args.random_init else args.ckpt_dir,
                  synced_time(args.device) - t0)
     context = context_null = None
     if not args.prompt_file:  # the serving loop encodes its own batch
         t0 = synced_time(args.device)
-        context, context_null = load_contexts(args, cfg)
+        context, context_null = load_contexts(args, cfg, plan)
         logging.info("text states in %.2fs", synced_time(args.device) - t0)
-    # the YAML is read once: its quant state and its cache: section (the
-    # step-cache fallback) serve every prompt
-    qcfg = _quant_config(args)
     qctx = _maybe_quant_ctx(args, cfg, params, qcfg)
+    if plan is not None and qcfg is not None:
+        params = shard_params(params, plan)
+        qctx.state = shard_quant_state(qctx.state, plan)
     common = dict(frame_num=args.frame_num, shift=args.sample_shift,
                   sample_solver=args.sample_solver, sampling_steps=args.sample_steps,
                   guide_scale=args.sample_guide_scale, seed=args.base_seed,
@@ -217,18 +236,20 @@ def generate(args, on_step=None, image=None):
         # gets their memory
         t0 = synced_time(args.device)
         latents, vae = _i2v_latents(args, cfg, params, qctx, image, context, context_null,
-                                    common, on_step)
+                                    common, on_step, plan)
         pipe = None
     else:
-        pipe = WanT2V(cfg, params, quant_ctx=qctx, device=args.device)
-        vae = load_vae(args, cfg) if args.ckpt_dir else None
+        pipe = WanT2V(cfg, params, quant_ctx=qctx, device=args.device, shardings=plan)
+        vae = load_vae(args, cfg) if args.ckpt_dir and is_main_rank() else None
         if args.prompt_file:
-            return _serving_loop(args, cfg, pipe, common, vae, on_step)
+            return _serving_loop(args, cfg, pipe, common, vae, on_step, plan)
         t0 = synced_time(args.device)
         latents = pipe.generate(torch.from_numpy(context), torch.from_numpy(context_null),
                                 size=SIZE_CONFIGS[args.size], on_step=on_step, **common)
     logging.info("denoise (%s) done in %.2fs, latents %s", qctx.mode if qctx else "fp",
                  synced_time(args.device) - t0, tuple(latents.shape))
+    if not is_main_rank():
+        return None
     out = {"latents": latents.cpu().numpy()}
     if vae is not None:
         del pipe, qctx, params  # the decode gets the DiT's memory (T2V-14B at 720p)

@@ -73,7 +73,7 @@ def parse_args(argv=None):
 def generate(args):
     """Run the sweep and write the npz; returns its path."""
     setup_logging()
-    validate_args(args)
+    validate_args(args, mesh=False)
     require_t2v(args, "get_calib_data")
     cfg = WAN_CONFIGS[args.task]
     size = SIZE_CONFIGS[args.size]

@@ -64,7 +64,7 @@ def generate(args):
     """Run PTQ and write the artifact; returns its path, or (path, radius)
     with --suggest_window."""
     setup_logging()
-    validate_args(args)
+    validate_args(args, mesh=False)
     cfg = WAN_CONFIGS[args.task]
     qcfg = QuantConfig.from_yaml(args.quant_config)
     params = load_params(args, cfg)

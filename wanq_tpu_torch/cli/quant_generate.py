@@ -32,6 +32,14 @@ ptq; the rotations are rebuilt from its seed), or a reference
         --quant_config quant_configs/config.yaml --quant_params quant_params.npz \
         --hardware --strip_fp
 
+Under torchrun the mesh flags shard the run (every rank quantizes the whole
+model from the same seed, then keeps its storage slice of the weights and of
+the quant state; only rank 0 writes the latents):
+
+    torchrun --nproc_per_node 8 -m wanq_tpu_torch.cli.quant_generate \
+        --task t2v-14B --random_init --quant_config quant_configs/wan_w4a8_14b.yaml \
+        --calib_data calib_14b.npz --hardware --ulysses_size 8 --dit_fsdp
+
 ``--lora`` deploys QLoRA adapters (the npz of ``training/lora.py::save_lora``,
 either package's, or a ``lora-checkpoint-N`` dir): they are merged into the
 quant state before the denoise loop, and the adapted sites take ``qlinear``'s
@@ -51,6 +59,7 @@ import torch
 
 from wanq_tpu_torch.cli.common import (
     add_common_args,
+    build_mesh_and_plan,
     cache_policy_from_args,
     load_contexts,
     load_params,
@@ -61,6 +70,8 @@ from wanq_tpu_torch.cli.common import (
 )
 from wanq_tpu_torch.configs import SIZE_CONFIGS, WAN_CONFIGS
 from wanq_tpu_torch.models.dit import linear_layer_names
+from wanq_tpu_torch.parallel.launch import is_main_rank
+from wanq_tpu_torch.parallel.sharding import shard_params
 from wanq_tpu_torch.pipelines.text2video import WanT2V
 from wanq_tpu_torch.quant import QuantConfig
 from wanq_tpu_torch.quant.ptq import (
@@ -68,6 +79,7 @@ from wanq_tpu_torch.quant.ptq import (
     load_reference_quant_params,
     prepare_quant_state,
     rebuild_rotations,
+    shard_quant_state,
     state_from_reference_params,
     strip_quantized_weights,
 )
@@ -129,11 +141,12 @@ def quantize_or_load(args, params, cfg, qcfg, mode: str):
 def generate(args, on_step=None):
     """Quantize the weights (or load a saved quant state), run the
     simulated or int denoise loop and save the latents; returns the npz
-    path.
+    path (None on a rank other than 0, which writes nothing).
     ``on_step(i, t, latents)`` runs after each solver step."""
-    setup_logging()
     validate_args(args)
     require_t2v(args, "quant_generate")
+    plan = build_mesh_and_plan(args)
+    setup_logging()
     mode = "int8" if args.hardware else "sim"
     cfg = WAN_CONFIGS[args.task]
     size = SIZE_CONFIGS[args.size]
@@ -154,12 +167,15 @@ def generate(args, on_step=None):
             path = os.path.join(path, "lora_weights.npz")
         state = merge_lora_into_quant_state(state, load_lora(path, device=args.device))
         logging.info("merged QLoRA adapters from %s", args.lora)
+    if plan is not None:
+        # quantized from the whole weights, then this rank's storage of both
+        params, state = shard_params(params, plan), shard_quant_state(state, plan)
     ctx = QuantCtx(mode=mode, policies=policies, state=state, rotations=rotations,
                    attn=qcfg.attn_cfg, cross_attn=qcfg.cross_attn_cfg,
                    attn_window=parse_attn_window(args))
 
-    context, context_null = load_contexts(args, cfg)
-    pipe = WanT2V(cfg, params, quant_ctx=ctx, device=args.device)
+    context, context_null = load_contexts(args, cfg, plan)
+    pipe = WanT2V(cfg, params, quant_ctx=ctx, device=args.device, shardings=plan)
     t0 = time.time()
     latents = pipe.generate(
         torch.from_numpy(context), torch.from_numpy(context_null), size=size,
@@ -172,6 +188,8 @@ def generate(args, on_step=None):
         torch.cuda.synchronize()
     logging.info("quant (%s) denoise done in %.2fs (%s CFG; peak device memory %s GiB)", mode,
                  time.time() - t0, args.cfg_mode, _held_gib(args.device, peak=True))
+    if not is_main_rank():
+        return None
     record = {}
     if pipe.last_cache_stats is not None:
         logging.info("step cache actions: %s", pipe.last_cache_stats)

@@ -65,6 +65,25 @@
 // which K11 and K12 (flash_attention_bwd.cu) read to recompute P. A row that
 // sees no key (l = 0) gets +inf, so the backward's P is 0 there. Only the
 // epilogue differs; the plain launch passes no lse pointer.
+//
+// Partial mode (one hop of ring attention, wanq_tpu_torch/parallel/ring.py):
+// the launch sees one shard of the sequence. Its q rows start at the global
+// position q_offset and its k/v rows at kv_offset; kv_len is the global valid
+// length. It is the mask of ring._partial_attn, which replaces the fold of
+// wanq_tpu/parallel/ring.py:30 (an XLA fold there, no TPU kernel of its own):
+// column j is valid iff kv_offset + j < kv_len (so the k/v maps end at
+// kv_valid = min(Sk, kv_len - kv_offset)); row i is a pad row iff q_offset + i
+// >= kv_len and sees every valid column; any other row sees the columns within
+// +-r frames of its own, frames counted on global positions. band_tiles and
+// row_band work on global positions and map the window onto the shard's
+// tiles. A q tile whose band misses the shard visits no tile (the producer
+// loads nothing, not even Q) and writes zeros. The launch writes each row's
+// LSE like the residual mode, but a row that sees no key of the shard gets
+// -inf, so it weighs zero when the hops fold (o = sum_i exp(lse_i - lse) o_i).
+// The dense and band modes are the partial mode with zero offsets and kv_len =
+// kv_valid: the offsets change only integer work a block, no instantiation.
+#include <algorithm>
+
 #include "sm90.cuh"
 
 namespace {
@@ -86,39 +105,43 @@ constexpr int kMaxHeads = 64;             // band mode: radii in the launch para
 
 struct Params {
   CUtensorMap q, k, v, o;
-  int kv_valid;
+  int kv_valid;                           // the shard's valid k/v rows: min(Sk, kv_len - kv_offset)
   float scale_log2;
   int tpf;                                // band mode: tokens per latent frame
   int radius[kMaxHeads];                  // band mode: each head's radius, in frames
-  float* lse;                             // residual mode: [B, H, Sq] f32, or null
+  float* lse;                             // residual / partial mode: [B, H, Sq] f32, or null
+  float lse_empty;                        // the LSE of a row that sees no key: +inf or -inf
   int sq;
+  int q_offset, kv_offset, kv_len;        // partial mode: global positions (0, 0, kv_valid else)
 };
 
-// The kv columns [lo, hi) that query row q sees in band mode.
-__device__ __forceinline__ void row_band(int q, int tpf, int r, int valid, int& lo, int& hi) {
-  if (q >= valid) {
-    lo = 0;
-    hi = valid;
-  } else {
-    const int f = q / tpf;
-    lo = max(0, (f - r) * tpf);
-    hi = min(valid, (f + r + 1) * tpf);
+// The shard's kv columns [lo, hi) that query row q (a global position) sees in
+// band mode; lo >= hi when its band misses the shard.
+__device__ __forceinline__ void row_band(int q, const Params& p, int r, int& lo, int& hi) {
+  int glo = 0, ghi = p.kv_len;
+  if (q < p.kv_len) {
+    const int f = q / p.tpf;
+    glo = max(0, (f - r) * p.tpf);
+    ghi = min(p.kv_len, (f + r + 1) * p.tpf);
   }
+  lo = max(0, glo - p.kv_offset);
+  hi = min(p.kv_valid, ghi - p.kv_offset);
 }
 
-// The kv tiles [j_lo, j_hi) that the q tile [q0, q0 + BQ) visits in band mode:
-// from the first column of its first row's band to the last of its last row's,
-// or the whole valid prefix if it holds a pad row. Mirrored on the host by
+// The kv tiles [j_lo, j_hi) of the shard that the q tile [q0, q0 + BQ) (global
+// positions) visits in band mode: from the first column of its first row's band
+// to the last of its last row's, or the whole valid shard if it holds a pad row;
+// none (j_hi = j_lo) if the band misses the shard. Mirrored on the host by
 // models/attention.py::band_kv_tiles.
-__device__ __forceinline__ void band_tiles(int q0, int tpf, int r, int valid, int& j_lo,
+__device__ __forceinline__ void band_tiles(int q0, const Params& p, int r, int& j_lo,
                                            int& j_hi) {
-  if (q0 + BQ > valid) {
-    j_lo = 0;
-    j_hi = (valid + BKV - 1) / BKV;
-  } else {
-    j_lo = max(0, q0 / tpf - r) * tpf / BKV;
-    j_hi = (min(((q0 + BQ - 1) / tpf + r + 1) * tpf, valid) + BKV - 1) / BKV;
+  int lo = 0, hi = p.kv_valid;
+  if (q0 + BQ <= p.kv_len) {
+    lo = max(0, max(0, q0 / p.tpf - r) * p.tpf - p.kv_offset);
+    hi = min(p.kv_valid, min(((q0 + BQ - 1) / p.tpf + r + 1) * p.tpf, p.kv_len) - p.kv_offset);
   }
+  j_lo = lo / BKV;
+  j_hi = hi > lo ? (hi + BKV - 1) / BKV : j_lo;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -226,7 +249,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(const __grid_con
   int j_lo = 0, n_tiles = (p.kv_valid + BKV - 1) / BKV;
   if constexpr (kBand) {
     int j_hi;
-    band_tiles(q0, p.tpf, p.radius[h], p.kv_valid, j_lo, j_hi);
+    band_tiles(p.q_offset + q0, p, p.radius[h], j_lo, j_hi);
     n_tiles = j_hi - j_lo;
   }
 
@@ -246,7 +269,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(const __grid_con
   if (wg == 0) {
     // ---- producer ----
     reg_dealloc<kProducerRegs>();
-    if (tid == 0) {
+    if (tid == 0 && n_tiles > 0) {
       prefetch_tensormap(&p.q);
       prefetch_tensormap(&p.k);
       prefetch_tensormap(&p.v);
@@ -282,8 +305,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(const __grid_con
     if constexpr (kBand) {
 #pragma unroll
       for (int r = 0; r < 2; ++r)
-        row_band(q0 + cw * 64 + warp * 16 + g + r * 8, p.tpf, p.radius[h], p.kv_valid, lo[r],
-                 hi[r]);
+        row_band(p.q_offset + q0 + cw * 64 + warp * 16 + g + r * 8, p, p.radius[h], lo[r], hi[r]);
     }
     // whether tile i needs the mask
     auto masked = [&](int i) {
@@ -303,58 +325,62 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(const __grid_con
     float l_run[2] = {0.f, 0.f};
     float alpha[2];
 
-    mbar_wait(&bars->q_full, 0);
-    // The first consumer takes the first turn: it completes its own barrier.
-    if (cw == 0) bar_arrive(kSchedBar, 256);
-    mbar_wait(&bars->k_full[0], 0);
-    bar_sync(kSchedBar + cw, 256);
-    wgmma_fence();
-    start_qk(s, q_desc, k_desc0);
-    wgmma_commit();
-    bar_arrive(kSchedBar + (cw ^ 1), 256);
-    wgmma_wait<0>();
-    fence_regs(s);
-    if (lane == 0) mbar_arrive(&bars->k_empty[0]);
-    softmax_tile<kBand>(s, m_run, l_run, alpha, scale_log2, masked(0), j_lo * BKV + tig * 2,
-                        lo, hi);
-    pack_probs(pfrag, s);
-    // unrolled by the ring's depth, so each stage and phase is a constant:
-    // without it the band build ran measurably slower than the dense build
-    // over the same tiles (chip_smoke.py times the two side by side)
-#pragma unroll 2
-    for (int i = 1; i < n_tiles; ++i) {
-      const int st = i % kStages, sv = (i - 1) % kStages;
-      const uint32_t ph = (i / kStages) & 1, ph_v = ((i - 1) / kStages) & 1;
-      mbar_wait(&bars->k_full[st], ph);
+    // a q tile whose band misses the shard (partial mode) visits no tile: the
+    // producer loaded nothing, and the epilogue writes zeros and lse_empty
+    if (n_tiles > 0) {
+      mbar_wait(&bars->q_full, 0);
+      // The first consumer takes the first turn: it completes its own barrier.
+      if (cw == 0) bar_arrive(kSchedBar, 256);
+      mbar_wait(&bars->k_full[0], 0);
       bar_sync(kSchedBar + cw, 256);
       wgmma_fence();
-      start_qk(s, q_desc, desc_advance(k_desc0, st * kTile));
-      wgmma_commit();
-      scale_rows(o, alpha);  // by the factors of tile i - 1, whose probs pfrag holds
-      mbar_wait(&bars->v_full[sv], ph_v);
-      wgmma_fence();
-      start_pv(o, pfrag, desc_advance(v_desc0, sv * kTile));
+      start_qk(s, q_desc, k_desc0);
       wgmma_commit();
       bar_arrive(kSchedBar + (cw ^ 1), 256);
-      wgmma_wait<1>();  // S of tile i is there; O += P V of tile i - 1 still runs
+      wgmma_wait<0>();
       fence_regs(s);
-      if (lane == 0) mbar_arrive(&bars->k_empty[st]);
-      softmax_tile<kBand>(s, m_run, l_run, alpha, scale_log2, masked(i),
-                          (j_lo + i) * BKV + tig * 2, lo, hi);
-      wgmma_wait<0>();
-      fence_regs(o);
-      if (lane == 0) mbar_arrive(&bars->v_empty[sv]);
+      if (lane == 0) mbar_arrive(&bars->k_empty[0]);
+      softmax_tile<kBand>(s, m_run, l_run, alpha, scale_log2, masked(0), j_lo * BKV + tig * 2,
+                          lo, hi);
       pack_probs(pfrag, s);
-    }
-    {
-      const int sv = (n_tiles - 1) % kStages;
-      scale_rows(o, alpha);
-      mbar_wait(&bars->v_full[sv], ((n_tiles - 1) / kStages) & 1);
-      wgmma_fence();
-      start_pv(o, pfrag, desc_advance(v_desc0, sv * kTile));
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(o);
+      // unrolled by the ring's depth, so each stage and phase is a constant:
+      // without it the band build ran measurably slower than the dense build
+      // over the same tiles (chip_smoke.py times the two side by side)
+#pragma unroll 2
+      for (int i = 1; i < n_tiles; ++i) {
+        const int st = i % kStages, sv = (i - 1) % kStages;
+        const uint32_t ph = (i / kStages) & 1, ph_v = ((i - 1) / kStages) & 1;
+        mbar_wait(&bars->k_full[st], ph);
+        bar_sync(kSchedBar + cw, 256);
+        wgmma_fence();
+        start_qk(s, q_desc, desc_advance(k_desc0, st * kTile));
+        wgmma_commit();
+        scale_rows(o, alpha);  // by the factors of tile i - 1, whose probs pfrag holds
+        mbar_wait(&bars->v_full[sv], ph_v);
+        wgmma_fence();
+        start_pv(o, pfrag, desc_advance(v_desc0, sv * kTile));
+        wgmma_commit();
+        bar_arrive(kSchedBar + (cw ^ 1), 256);
+        wgmma_wait<1>();  // S of tile i is there; O += P V of tile i - 1 still runs
+        fence_regs(s);
+        if (lane == 0) mbar_arrive(&bars->k_empty[st]);
+        softmax_tile<kBand>(s, m_run, l_run, alpha, scale_log2, masked(i),
+                            (j_lo + i) * BKV + tig * 2, lo, hi);
+        wgmma_wait<0>();
+        fence_regs(o);
+        if (lane == 0) mbar_arrive(&bars->v_empty[sv]);
+        pack_probs(pfrag, s);
+      }
+      {
+        const int sv = (n_tiles - 1) % kStages;
+        scale_rows(o, alpha);
+        mbar_wait(&bars->v_full[sv], ((n_tiles - 1) / kStages) & 1);
+        wgmma_fence();
+        start_pv(o, pfrag, desc_advance(v_desc0, sv * kTile));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(o);
+      }
     }
 
     // ---- epilogue: O / l -> bf16 -> shared (this warpgroup's Q rows) -> TMA store ----
@@ -369,7 +395,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(const __grid_con
         const int row = q0 + cw * 64 + warp * 16 + g + r * 8;
         if (row < p.sq)
           p.lse[((long long)b * gridDim.y + h) * p.sq + row] =
-              l > 0.f ? (m_run[r] * p.scale_log2 + log2f(l)) * 0.6931471805599453f : INFINITY;
+              l > 0.f ? (m_run[r] * p.scale_log2 + log2f(l)) * 0.6931471805599453f
+                      : p.lse_empty;
       }
     }
     uint8_t* sO = sQ + cw * 64 * 128;
@@ -412,16 +439,21 @@ bool make_map(CUtensorMap* map, const void* base, long long seq, int heads, long
 // holds the byte strides of (seq, head, batch) for q, k, v and o in turn,
 // multiples of 16. 1 <= kv_valid <= Sk; scale > 0. tpf = 0: dense mode; tpf
 // >= 1: band mode with radii[h] >= 0 (a host array of H <= 64 ints) frames.
-// lse: null, or f32 [B, H, Sq] contiguous for the residual mode's log-sum-exp.
+// lse: null, or f32 [B, H, Sq] contiguous for the log-sum-exp of the residual
+// (lse_empty = +inf) or partial (lse_empty = -inf) mode. q_offset, kv_offset,
+// kv_len: the shard's global positions (partial mode); 0, 0 and kv_valid
+// otherwise. kv_valid must equal min(Sk, kv_len - kv_offset).
 WANQ_API int wanq_flash_attention(const void* q, const void* k, const void* v, void* o,
                                   long long B, int H, int Sq, int Sk, long long q_ss,
                                   long long q_sh, long long q_sb, long long k_ss,
                                   long long k_sh, long long k_sb, long long v_ss,
                                   long long v_sh, long long v_sb, long long o_ss,
                                   long long o_sh, long long o_sb, int kv_valid, float scale,
-                                  int tpf, const int* radii, float* lse, void* stream) {
+                                  int tpf, const int* radii, float* lse, int q_offset,
+                                  int kv_offset, int kv_len, float lse_empty, void* stream) {
   if (B == 0 || Sq == 0) return 0;
-  if (kv_valid < 1 || kv_valid > Sk || !(scale > 0.f) || B > 65535 || H > 65535 || tpf < 0)
+  if (kv_valid < 1 || kv_valid > Sk || !(scale > 0.f) || B > 65535 || H > 65535 || tpf < 0 ||
+      q_offset < 0 || kv_offset < 0 || kv_valid != (kv_len - kv_offset < Sk ? kv_len - kv_offset : Sk))
     return (int)cudaErrorInvalidValue;
   const long long qs[3] = {q_ss, q_sh, q_sb}, ks[3] = {k_ss, k_sh, k_sb};
   const long long vs[3] = {v_ss, v_sh, v_sb}, os[3] = {o_ss, o_sh, o_sb};
@@ -432,15 +464,22 @@ WANQ_API int wanq_flash_attention(const void* q, const void* k, const void* v, v
     return (int)cudaErrorInvalidValue;
   p.kv_valid = kv_valid;
   p.lse = lse;
+  p.lse_empty = lse_empty;
   p.sq = Sq;
+  p.q_offset = q_offset;
+  p.kv_offset = kv_offset;
+  p.kv_len = kv_len;
   p.scale_log2 = scale * 1.4426950408889634f;
   p.tpf = 0;
   if (tpf > 0) {
     if (radii == nullptr || H > kMaxHeads) return (int)cudaErrorInvalidValue;
     // a frame longer than the sequence, or a radius past its last frame, is
     // the same band as one that just covers it: clamping keeps (f + r + 1) * tpf
-    // within 5 * max(Sq, Sk)
-    const int s_max = Sq > Sk ? Sq : Sk;
+    // within 5 * s_max, s_max the furthest global position of q, k or kv_len
+    const long long s_ll = std::max({(long long)q_offset + Sq, (long long)kv_offset + Sk,
+                                     (long long)kv_len});
+    if (s_ll > (1LL << 28)) return (int)cudaErrorInvalidValue;
+    const int s_max = (int)s_ll;
     p.tpf = tpf < s_max ? tpf : s_max;
     const int n_frames = (s_max + p.tpf - 1) / p.tpf;
     for (int h = 0; h < H; ++h) {

@@ -257,13 +257,17 @@ def tensor_map_layout(t: torch.Tensor, name: str = "operand"):
 
 
 def _flash_cuda(q, k, v, scale: float, kv_valid: int, tokens_per_frame: int = 0,
-                radii: Optional[Sequence[int]] = None, lse: bool = False):
+                radii: Optional[Sequence[int]] = None, lse: bool = False,
+                partial: Optional[Tuple[int, int, int]] = None):
     """K4 launch on logical [B, N, S, D] views; returns [B, Sq, N, D]. With
     ``radii`` (one per head, >= 0) it runs the band mode over frames of
     ``tokens_per_frame`` tokens (counter ``attention_band``), else the dense
     mode (counter ``attention``). ``lse``: the residual mode (counter
     ``attention_lse``), which also returns each row's log-sum-exp, f32 [B, N,
-    Sq]."""
+    Sq]. ``partial`` = (q_offset, kv_offset, kv_len): the partial mode of one
+    ring hop (counter ``attention_partial``; see :func:`flash_partial`), dense
+    or banded, returning the output and the LSE with -inf on the rows that see
+    no key; ``kv_valid`` must then be min(Sk, kv_len - kv_offset)."""
     layouts = []
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         _lib.require_cuda(t, torch.bfloat16, name)
@@ -285,12 +289,20 @@ def _flash_cuda(q, k, v, scale: float, kv_valid: int, tokens_per_frame: int = 0,
                              f"heads and tokens_per_frame >= 1, got {n} heads, radii {radii}, "
                              f"tokens_per_frame {tokens_per_frame}")
         counter, table = "attention_band", (ctypes.c_int * n)(*radii)
-    row_lse = None
-    if lse:
+    offsets, lse_empty = (0, 0, int(kv_valid)), math.inf
+    if partial is not None:
+        offsets, lse, lse_empty, counter = tuple(int(x) for x in partial), True, -math.inf, \
+            "attention_partial"
+        q_off, kv_off, kv_len = offsets
+        if q_off < 0 or kv_off < 0 or kv_valid != min(sk, kv_len - kv_off):
+            raise ValueError(f"partial mode: offsets ({q_off}, {kv_off}) and kv_len {kv_len} "
+                             f"do not give kv_valid {kv_valid} of Sk {sk}")
+    elif lse:
         if table is not None:
             raise ValueError("the residual mode is dense: the band mode has no backward")
         counter = "attention_lse"
-        row_lse = torch.empty((b, n, sq), dtype=torch.float32, device=q.device)
+    row_lse = (torch.empty((b, n, sq), dtype=torch.float32, device=q.device) if lse
+               else None)
     out = torch.empty((b, sq, n, d), dtype=torch.bfloat16, device=q.device)
     layouts.append(tensor_map_layout(out.transpose(1, 2), "out"))
     _lib.launch(
@@ -298,9 +310,28 @@ def _flash_cuda(q, k, v, scale: float, kv_valid: int, tokens_per_frame: int = 0,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n, sq, sk,
         *(st for _, strides in layouts for st in strides),
         int(kv_valid), float(scale), int(tokens_per_frame) if table else 0, table,
-        _lib.ptr(row_lse),
+        _lib.ptr(row_lse), *offsets, lse_empty,
     )
     return (out, row_lse) if lse else out
+
+
+def flash_partial(q, k, v, scale: float, q_offset: int, kv_offset: int, kv_len: int,
+                  window: Optional[TemporalWindow] = None):
+    """K4's partial mode, one hop of ring attention on CUDA tensors: q [B, N,
+    Sq, D] at global positions q_offset.., k / v [B, N, Sk, D] at kv_offset..,
+    ``kv_len`` the global valid length (the mask of ``parallel/ring.py``'s
+    ``_partial_attn``: columns past kv_len masked, q rows past it see every
+    valid column, the others the band of ``window`` on global frames, or
+    everything without one). Returns (out [B, Sq, N, D] bf16, lse [B, N, Sq]
+    f32), out 0 and lse -inf on the rows that see no key of the shard. The
+    shard must hold a valid key (the ring skips it otherwise)."""
+    _check_window(window)
+    kv_valid = min(k.shape[2], kv_len - kv_offset)
+    band = {}
+    if window is not None:
+        band = {"tokens_per_frame": window.tokens_per_frame,
+                "radii": window.resolved_radii(q.shape[1])}
+    return _flash_cuda(q, k, v, scale, kv_valid, partial=(q_offset, kv_offset, kv_len), **band)
 
 
 # the row table of K11 and K12 (csrc/flash_attention_bwd.cu) pads Sq to a

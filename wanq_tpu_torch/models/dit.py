@@ -53,6 +53,20 @@ The rope tables, padded to the sequence with the identity and, for K4's q,
 scaled by the softmax scale, are built once per ``dit_forward``
 (:func:`self_attn_tables`) and shared by every block.
 
+Under a sharding plan (``plan``: ``parallel/sharding.py``'s ShardingPlan,
+``wanq_tpu``'s ``plan`` argument) every rank runs the same forward on its
+shard: its dp rows of the batch, its slice of the tokens (taken after the
+patch embedding and the pad; the rope and K3 tables sliced at its global
+offset), each block's weights and quant state all-gathered at use over the
+storage axes. Self-attention trades tokens for heads in a Ulysses all-to-all
+(or, where sp does not divide the heads, gathers the whole sequence), runs K4,
+K10 or the ring (``parallel/ring.py``, K4's partial mode a hop) there, and
+trades back before the o projection; every other layer is token-local. The
+tokens are gathered over sp x ring before ``head_forward`` and the batch over
+dp at the end. Unlike ``wanq_tpu``, which takes its unfused q/k chain under a
+plan, the port keeps K3 on the local rows. Calibration, map capture and
+training under a plan raise (ROADMAP Queue 1 item 10).
+
 Training (``dit_forward(training=True)``, as ``wanq_tpu``'s): an int8 ctx
 becomes ``trainable`` (the differentiable dequant route of ``qlinear``); the
 fused producers (K1, K3, the GELU + quant modes) stay off, so every site takes
@@ -340,11 +354,13 @@ def _self_attention(p: Params, name: str, ctx: Optional[QuantCtx],
                     x: Optional[torch.Tensor], cfg: WanConfig, cos: torch.Tensor,
                     sin: torch.Tensor, valid_len: int, dtype,
                     prequant=None, tables: Optional[SelfAttnTables] = None,
-                    training: bool = False) -> torch.Tensor:
+                    training: bool = False, plan=None) -> torch.Tensor:
     """Self-attention sublayer. ``prequant``: (q8, scale, sum) from the
     fused LN+modulate+quant producer, shared by the q/k/v GEMMs; ``tables``:
     K3's tables for this sequence (built here when not given); ``training``:
-    the plain q/k chain into the differentiable attention."""
+    the plain q/k chain into the differentiable attention. Under ``plan`` x
+    holds this rank's tokens, ``cos`` / ``sin`` and ``tables`` its rows of the
+    padded tables, and ``valid_len`` is global."""
     n, hd = cfg.num_heads, cfg.head_dim
     if prequant is not None:
         q8, s_a, ssum = prequant
@@ -386,21 +402,28 @@ def _self_attention(p: Params, name: str, ctx: Optional[QuantCtx],
                                 eps=cfg.eps, out_dtype=q.dtype)
             kh = rms_rope_heads(k, p["norm_k"], tables.ca, tables.sb, num_heads=n,
                                 eps=cfg.eps, out_dtype=k.dtype)
-            y = attention_int8(qh.transpose(1, 2), kh.transpose(1, 2),
-                               v.reshape(b, s, n, hd).to(dtype), k_valid_len=valid_len)
-            return qlinear(ctx, f"{name}.o", p["o"], y.reshape(b, s, n * hd), dtype)
-        qh = rms_rope_heads(q, p["norm_q"], tables.ca_q, tables.sb_q,
-                            num_heads=n, eps=cfg.eps, out_dtype=dtype)
-        kh = rms_rope_heads(k, p["norm_k"], tables.ca, tables.sb, num_heads=n, eps=cfg.eps,
-                            out_dtype=dtype)
-        y = attention_heads_major(qh, kh, split_heads(v.to(dtype), n), k_valid_len=valid_len,
-                                  window=window)
-        if resolves_fp(ctx, f"{name}.o"):
-            return _o_proj_heads_major(p["o"], y, dtype)
-        # int o over the merged row, a view of K4's seq-major output: the
-        # int8 route's per-token quant (K7) is what wanq_tpu's
-        # o_proj_heads_major_int8 computes; W4A4 quantizes per group (K9)
-        return qlinear(ctx, f"{name}.o", p["o"], merge_heads(y), dtype)
+            attend = lambda q_, k_, v_: attention_int8(q_, k_, v_, k_valid_len=valid_len)
+        else:
+            # K4 with the softmax scale in q's tables; its seq-major output merges
+            # as a view, and the int o route's per-token quant (K7) is what
+            # wanq_tpu's o_proj_heads_major_int8 computes (W4A4: per group, K9)
+            qh = rms_rope_heads(q, p["norm_q"], tables.ca_q, tables.sb_q,
+                                num_heads=n, eps=cfg.eps, out_dtype=dtype)
+            kh = rms_rope_heads(k, p["norm_k"], tables.ca, tables.sb, num_heads=n, eps=cfg.eps,
+                                out_dtype=dtype)
+            attend = lambda q_, k_, v_: attention(q_, k_, v_, scale=1.0, k_valid_len=valid_len,
+                                                  window=window)
+        vh = split_heads(v.to(dtype), n)
+        if plan is not None:
+            # q carries the softmax scale: the ring's hops (K4 only: an attn:
+            # section under ring raises) take 1.0
+            y = plan.ulysses_attention(qh, kh, vh, attend, valid_len, window, 1.0)
+        elif int8_attn:
+            y = attend(qh.transpose(1, 2), kh.transpose(1, 2), vh.transpose(1, 2))
+        else:
+            y = merge_heads(attention_heads_major(qh, kh, vh, k_valid_len=valid_len,
+                                                  window=window))
+        return qlinear(ctx, f"{name}.o", p["o"], y.reshape(b, s, n * hd), dtype)
 
     if cfg.qk_norm:
         q = rms_norm(q, p["norm_q"], cfg.eps)
@@ -408,8 +431,10 @@ def _self_attention(p: Params, name: str, ctx: Optional[QuantCtx],
     q = q.reshape(b, s, n, hd)
     k = k.reshape(b, s, n, hd)
     v = v.reshape(b, s, n, hd).to(dtype)
-    q = rope_apply_interleaved(q, cos, sin, valid_len, scale=q_scale).to(dtype)
-    k = rope_apply_interleaved(k, cos, sin, valid_len).to(dtype)
+    # under a plan cos / sin are this rank's rows of the padded tables
+    rope_valid = valid_len if plan is None else s
+    q = rope_apply_interleaved(q, cos, sin, rope_valid, scale=q_scale).to(dtype)
+    k = rope_apply_interleaved(k, cos, sin, rope_valid).to(dtype)
     if calib:
         # per-(head, dim) absmax of the attention inputs
         for tag, tensor in (("q", q), ("k", k), ("v", v)):
@@ -422,13 +447,22 @@ def _self_attention(p: Params, name: str, ctx: Optional[QuantCtx],
     if int8_attn:
         # K10a + K10 (q/k per 512-token block, v per channel, 127-level
         # probs) behind the plain chain: no qk_norm, or a head dim K3 lacks
-        y = attention_int8(q, k, v, k_valid_len=valid_len)
+        attend = lambda q_, k_, v_: attention_int8(q_, k_, v_, k_valid_len=valid_len)
     elif attn_quant:
-        y = quantized_attention(q, k, v, ctx.attn, k_valid_len=valid_len,
-                                perm=ctx.attn_perms.get(name))
+        attend = lambda q_, k_, v_: quantized_attention(
+            q_, k_, v_, ctx.attn, k_valid_len=valid_len, perm=ctx.attn_perms.get(name))
     else:
-        y = attention(q, k, v, scale=1.0 if plain_attn else None, k_valid_len=valid_len,
-                      window=window, trainable=training)
+        attend = lambda q_, k_, v_: attention(
+            q_, k_, v_, scale=1.0 if plain_attn else None, k_valid_len=valid_len,
+            window=window, trainable=training)
+    if plan is not None:
+        # the simulated attention quantizers group over every head: the gathered sequence
+        y = plan.ulysses_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                   attend, valid_len, window,
+                                   1.0 if plain_attn else 1.0 / math.sqrt(hd),
+                                   shard_heads=not attn_quant or int8_attn)
+    else:
+        y = attend(q, k, v)
     return qlinear(ctx, f"{name}.o", p["o"], y.reshape(b, s, n * hd), dtype)
 
 
@@ -498,11 +532,12 @@ def _cross_attention(p: Params, name: str, ctx: Optional[QuantCtx],
 def block_forward(p: Params, name: str, ctx: Optional[QuantCtx], x: torch.Tensor,
                   e: torch.Tensor, context: torch.Tensor, cfg: WanConfig,
                   cos: torch.Tensor, sin: torch.Tensor, valid_len: int,
-                  tables: Optional[SelfAttnTables] = None, training: bool = False
-                  ) -> torch.Tensor:
+                  tables: Optional[SelfAttnTables] = None, training: bool = False,
+                  plan=None) -> torch.Tensor:
     """One transformer block. x [B, L, C] in the residual dtype; ``tables``:
     the forward's K3 tables (built by the self-attention when not given);
-    ``training``: no fused producer, the differentiable attention."""
+    ``training``: no fused producer, the differentiable attention; ``plan``:
+    x holds this rank's tokens (see :func:`_self_attention`)."""
     dtype = cfg.dtype
     ee = p["modulation"].float() + e.float()
     e0, e1, e2, e3, e4, e5 = [ee[:, i] for i in range(6)]
@@ -520,15 +555,18 @@ def block_forward(p: Params, name: str, ctx: Optional[QuantCtx], x: torch.Tensor
         prequant = ln_modulate_quant_static(
             x, e0, e1, ctx.state[qkv_sites[0]]["delta_a"], eps=cfg.eps)
         y = _self_attention(p["self_attn"], f"{name}.self_attn", ctx, None, cfg,
-                            cos, sin, valid_len, dtype, prequant=prequant, tables=tables)
+                            cos, sin, valid_len, dtype, prequant=prequant, tables=tables,
+                            plan=plan)
     elif int8_fusable(fused, qkv_sites):
         prequant = ln_modulate_quant(x, e0, e1, eps=cfg.eps)
         y = _self_attention(p["self_attn"], f"{name}.self_attn", ctx, None, cfg,
-                            cos, sin, valid_len, dtype, prequant=prequant, tables=tables)
+                            cos, sin, valid_len, dtype, prequant=prequant, tables=tables,
+                            plan=plan)
     else:
         xn1 = layer_norm(x, cfg.eps) * (1.0 + e1[:, None, :]) + e0[:, None, :]
         y = _self_attention(p["self_attn"], f"{name}.self_attn", ctx, xn1.to(dtype), cfg,
-                            cos, sin, valid_len, dtype, tables=tables, training=training)
+                            cos, sin, valid_len, dtype, tables=tables, training=training,
+                            plan=plan)
     x = (x.float() + y.float() * e2[:, None, :]).to(x.dtype)
 
     if cq_static or (cfg.cross_attn_norm and int8_fusable(fused, [cq_site])):
@@ -641,11 +679,48 @@ def img_embedding(params: Params, clip_fea: torch.Tensor, dtype) -> torch.Tensor
     return layer_norm(ci, 1e-5, ip["4"]["w"], ip["4"]["b"]).to(dtype)
 
 
+def _check_plan(plan, ctx: Optional[QuantCtx], win, training: bool) -> None:
+    """What a sharded forward refuses, as ``wanq_tpu`` does (and calibration,
+    map capture and training, not ported under a plan)."""
+    if training:
+        raise NotImplementedError("training under a mesh is not ported yet (ROADMAP Queue 1 "
+                                  "item 10)")
+    if ctx is None:
+        return
+    if ctx.mode == "calib" or ctx.attn_map_pool:
+        raise NotImplementedError("calibration and map capture under a mesh are not ported "
+                                  "yet (ROADMAP Queue 1 item 10)")
+    if plan.ring_size > 1 and ctx.attn is not None and ctx.mode in ("int8", "sim"):
+        raise NotImplementedError(
+            "attention-map quantization is not supported under ring context parallelism "
+            "(its group scales span the whole map); run with --ring_size 1 or drop the attn "
+            "section")
+    if (win is not None and win.head_radii is not None and len(set(win.head_radii)) > 1
+            and plan.sp_size > 1):
+        raise NotImplementedError(
+            "per-head window radii under sequence parallelism: deploy a uniform window "
+            "(scalar attn_window) on the mesh, or per-head radii on a single card")
+
+
+def _gathered_state(plan, ctx: Optional[QuantCtx], prefix: Optional[str]):
+    """``ctx`` with the quant state of the layers under ``prefix`` (a block's
+    ``blocks.i.``; None: every layer outside the blocks) all-gathered."""
+    if ctx is None or not ctx.state:
+        return ctx
+    if prefix:  # block-relative names: every block reuses the same buffers
+        mine = {k[len(prefix):]: v for k, v in ctx.state.items() if k.startswith(prefix)}
+        full = {prefix + k: v for k, v in plan.gather_weights(mine, slot="state").items()}
+    else:
+        full = plan.gather_weights({k: v for k, v in ctx.state.items()
+                                    if not k.startswith("blocks.")}, slot="state_top")
+    return dataclasses.replace(ctx, state={**ctx.state, **full}, collect=ctx.collect)
+
+
 def dit_forward(params: Params, cfg: WanConfig, x: torch.Tensor, t: torch.Tensor,
                 context: torch.Tensor, seq_len: int, ctx: Optional[QuantCtx] = None,
                 clip_fea: Optional[torch.Tensor] = None,
                 y: Optional[torch.Tensor] = None, remat: bool = False,
-                training: bool = False) -> torch.Tensor:
+                training: bool = False, plan=None) -> torch.Tensor:
     """Denoising forward. x [B, C_in, F, H, W]; t [B]; context [B, text_len,
     text_dim]. An i2v model also takes ``y`` [B, C_y, F, H, W] (the
     first-frame mask and its VAE latents, concatenated to x on channels) and
@@ -653,7 +728,8 @@ def dit_forward(params: Params, cfg: WanConfig, x: torch.Tensor, t: torch.Tensor
     text context). Returns [B, C_out, F, H, W] float32. ``training``: the
     differentiable routes (an int8 ctx trains as ``trainable``); ``remat``:
     each block is recomputed in the backward instead of keeping its
-    activations."""
+    activations. ``plan``: a ShardingPlan (``parallel/sharding.py``); every
+    rank passes the whole inputs and gets the whole output."""
     if (cfg.model_type == "i2v") != (clip_fea is not None):
         raise ValueError(f"clip_fea is for i2v models only and needed there "
                          f"(model_type {cfg.model_type!r})")
@@ -664,6 +740,7 @@ def dit_forward(params: Params, cfg: WanConfig, x: torch.Tensor, t: torch.Tensor
     dtype = cfg.dtype
     grid = (x.shape[2] // cfg.patch_size[0], x.shape[3] // cfg.patch_size[1],
             x.shape[4] // cfg.patch_size[2])
+    win = None
     if ctx is not None and ctx.attn_window is not None:
         win = resolve_window(ctx.attn_window, grid, cfg.num_heads)
         if win is not None and training:
@@ -679,34 +756,56 @@ def dit_forward(params: Params, cfg: WanConfig, x: torch.Tensor, t: torch.Tensor
         dense_pass = ctx.mode == "calib" or bool(ctx.attn_map_pool)
         ctx = dataclasses.replace(ctx, attn_window=None if dense_pass else win,
                                   collect=ctx.collect)
+    top = params
+    # the dp ranks split the batch; a batch dp does not divide (a cond step of
+    # the step cache, sequential CFG) runs whole on each of them
+    split_batch = plan is not None and x.shape[0] % plan.dp_size == 0
+    if plan is not None:
+        _check_plan(plan, ctx, win, training)
+        if split_batch:
+            x, t, context, clip_fea = (plan.batch(a) for a in (x, t, context, clip_fea))
+        top = plan.gather_weights({k: v for k, v in params.items() if k != "blocks"},
+                                  slot="top")
+        ctx = _gathered_state(plan, ctx, None)
     tokens = patchify(x, cfg.patch_size)
-    xq = qlinear(None, "patch_embedding", params["patch_embedding"], tokens.to(dtype), dtype)
+    xq = qlinear(None, "patch_embedding", top["patch_embedding"], tokens.to(dtype), dtype)
     valid_len = xq.shape[1]
     if valid_len > seq_len:
         raise ValueError(f"{valid_len} tokens exceed seq_len {seq_len}")
     if valid_len < seq_len:
         xq = F.pad(xq, (0, 0, 0, seq_len - valid_len))
 
-    e, e0 = time_embedding(params, cfg, t, ctx)
+    e, e0 = time_embedding(top, cfg, t, ctx)
 
-    c = qlinear(ctx, "text_embedding.0", params["text_embedding"]["0"], context.to(dtype), dtype)
+    c = qlinear(ctx, "text_embedding.0", top["text_embedding"]["0"], context.to(dtype), dtype)
     c = gelu_tanh(c).to(dtype)
-    c = qlinear(ctx, "text_embedding.2", params["text_embedding"]["2"], c, dtype).to(dtype)
+    c = qlinear(ctx, "text_embedding.2", top["text_embedding"]["2"], c, dtype).to(dtype)
     if clip_fea is not None:
-        c = torch.cat([img_embedding(params, clip_fea, dtype), c], dim=1)
+        c = torch.cat([img_embedding(top, clip_fea, dtype), c], dim=1)
 
     cos, sin = _rope_tables_on(grid, cfg.head_dim, x.device)
     tables = self_attn_tables(cos, sin, valid_len, seq_len, cfg.head_dim)
+    if plan is not None:
+        # this rank's tokens, and its rows of the padded tables (global positions)
+        xq = plan.tokens(xq)
+        tables = SelfAttnTables(*(plan.tokens(tab, dim=0) for tab in tables))
+        cos, sin = tables.ca, tables.sb
 
     xf = xq.to(cfg.res_dtype)
     for i in range(cfg.num_layers):
-        args = (params["blocks"][i], f"blocks.{i}", ctx, xf, e0, c, cfg, cos, sin, valid_len)
-        kw = {"tables": tables, "training": training}
+        bp, bctx = params["blocks"][i], ctx
+        if plan is not None:
+            bp, bctx = plan.gather_weights(bp), _gathered_state(plan, ctx, f"blocks.{i}.")
+        args = (bp, f"blocks.{i}", bctx, xf, e0, c, cfg, cos, sin, valid_len)
+        kw = {"tables": tables, "training": training, "plan": plan}
         if remat:
             # no random draw in a block, so no RNG state to keep for the recompute
             xf = torch.utils.checkpoint.checkpoint(block_forward, *args, use_reentrant=False,
                                                    preserve_rng_state=False, **kw)
         else:
             xf = block_forward(*args, **kw)
-    out = head_forward(params, xf, e, cfg, ctx)
-    return unpatchify(out.float(), grid, cfg.patch_size, cfg.out_dim)
+    if plan is not None:
+        xf = plan.gather_tokens(xf)
+    out = head_forward(top, xf, e, cfg, ctx)
+    out = unpatchify(out.float(), grid, cfg.patch_size, cfg.out_dim)
+    return plan.gather_batch(out) if split_batch else out

@@ -144,12 +144,25 @@ def convert_tensor(key: str, v: torch.Tensor,
     return key, v, torch.float32
 
 
-def _convert_into(params: Dict[str, Any], items, dtype, device) -> Dict[str, Any]:
-    """Convert (key, tensor) pairs one at a time into ``params`` on ``device``."""
+def _convert_into(params: Dict[str, Any], items, dtype, device, plan=None) -> Dict[str, Any]:
+    """Convert (key, tensor) pairs one at a time into ``params`` on ``device``;
+    under ``plan`` each keeps only this rank's storage slice."""
+    if plan is not None:
+        from wanq_tpu_torch.parallel.sharding import leaf_sharding, slice_leaf
+
+        _, _, index = plan.storage()
     for key, val in items:
         conv = convert_tensor(key, torch.as_tensor(val), dtype)
         if conv is not None:
             path, v, leaf_dtype = conv
+            if plan is not None:
+                spec = leaf_sharding(plan.mesh, path.rsplit(".", 1)[-1], v.dim(),
+                                     tuple(v.shape), plan.full_shard)
+                v = slice_leaf(v, spec, index)
+                if not torch.is_tensor(v):
+                    v.local = v.local.to(device=device, dtype=leaf_dtype)
+                    _set(params, path, v)
+                    continue
             _set(params, path, v.to(device=device, dtype=leaf_dtype).contiguous())
     return params
 
@@ -160,13 +173,16 @@ def convert_state_dict(sd: Mapping[str, torch.Tensor], dtype=torch.bfloat16,
     return _convert_into({}, sd.items(), dtype, device)
 
 
-def load_wan_checkpoint(ckpt_dir: str, dtype=torch.bfloat16, device="cuda") -> Dict[str, Any]:
+def load_wan_checkpoint(ckpt_dir: str, dtype=torch.bfloat16, device="cuda",
+                        plan=None) -> Dict[str, Any]:
     """Load a Wan2.1 checkpoint dir: sharded safetensors and their index
     JSON (the format WanModel.from_pretrained reads), or every
     ``*.safetensors`` file in it without an index. Each tensor is read by
     ``safe_open(..., framework="pt", device=...)`` straight onto ``device``,
     converted there and kept, one at a time: the host never holds the model
-    (T2V-14B is 28.6 GB in bf16)."""
+    (T2V-14B is 28.6 GB in bf16). Under ``plan`` (a ShardingPlan) each tensor
+    keeps only this rank's storage slice (``parallel.sharding.leaf_sharding``)
+    as it is read, and the slices are packed as ``shard_params`` packs them."""
     from safetensors import safe_open
 
     index_path = os.path.join(ckpt_dir, INDEX_FILE)
@@ -181,5 +197,9 @@ def load_wan_checkpoint(ckpt_dir: str, dtype=torch.bfloat16, device="cuda") -> D
     params: Dict[str, Any] = {}
     for fname in files:
         with safe_open(os.path.join(ckpt_dir, fname), framework="pt", device=str(dev)) as f:
-            _convert_into(params, ((k, f.get_tensor(k)) for k in f.keys()), dtype, dev)
+            _convert_into(params, ((k, f.get_tensor(k)) for k in f.keys()), dtype, dev, plan)
+    if plan is not None:
+        from wanq_tpu_torch.parallel.sharding import pack_params
+
+        pack_params(params)
     return params

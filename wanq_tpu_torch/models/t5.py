@@ -12,6 +12,12 @@ wanq_tpu. Every linear multiplies in f32 over operands rounded to the
 param dtype (wanq_tpu's ``jnp.dot(..., preferred_element_type=f32)``): the
 products of bf16 values are exact in f32, so only the sum order differs.
 Dropout is off (inference only). No module here holds a kernel of the port.
+
+Under ``--t5_fsdp`` (a ShardingPlan, ``parallel/sharding.py``) each rank
+stores the encoder as ``wanq_tpu``'s ``shard_t5_params`` places it over
+``fsdp``: linear weights split on their output dim, gathered a block at a
+time at use; the token embedding split on its vocab, looked up where it lies
+and summed over the fsdp group (one rank holds each id, so the sum is exact).
 """
 
 from __future__ import annotations
@@ -168,13 +174,39 @@ def decoder_forward(params: Params, cfg: T5Config, ids: torch.Tensor,
     return t5_layer_norm(x, params["norm"]["w"]).float()
 
 
+def _sharded_embedding(emb, ids: torch.Tensor, plan) -> torch.Tensor:
+    """The rows ``ids`` of a token embedding stored split on its vocab over
+    the plan's fsdp group (a sharding.Shard), in f32: each rank looks up the
+    ids it holds, zeros elsewhere, and the group sums."""
+    import torch.distributed as dist
+
+    rows = emb.local.shape[0]
+    lo = plan.mesh.index("fsdp") * rows
+    mine = (ids >= lo) & (ids < lo + rows)
+    x = emb.local[(ids - lo).clamp(0, rows - 1)].float() * mine[..., None]
+    group = plan.mesh.group("fsdp")
+    if group is not None:
+        dist.all_reduce(x, group=group)
+    return x
+
+
 def encoder_forward(params: Params, cfg: T5Config, ids: torch.Tensor,
-                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """T5Encoder. ids: [B, L] -> [B, L, dim] (f32)."""
-    x = params["token_embedding"][ids].float()
+                    mask: Optional[torch.Tensor] = None, plan=None) -> torch.Tensor:
+    """T5Encoder. ids: [B, L] -> [B, L, dim] (f32). ``plan``: the params are
+    this rank's storage of ``parallel.sharding.shard_t5_params``."""
+    emb = params["token_embedding"]
+    if plan is None or torch.is_tensor(emb):  # a vocab fsdp does not divide: replicated
+        x = emb[ids].float()
+    else:
+        x = _sharded_embedding(emb, ids, plan)
+        params = dict(plan.gather_weights(
+            {k: v for k, v in params.items() if k not in ("blocks", "token_embedding")},
+            slot="t5_top"), blocks=params["blocks"])
     lq = ids.shape[1]
     for i in range(cfg.num_layers):
         bp = params["blocks"][i]
+        if plan is not None:
+            bp = plan.gather_weights(bp, slot="t5")
         emb = (params["pos_embedding"] if cfg.shared_pos else bp["pos_embedding"])["embedding"]
         bias = rel_pos_bias(emb, lq, lq, cfg.num_buckets, True)
         h = t5_layer_norm(x, bp["norm1"]["w"])
@@ -293,15 +325,28 @@ def init_t5_params_on_device(cfg: T5Config, seed: int = 0, device="cuda") -> Par
 
 
 def convert_t5_state_dict(sd: Dict[str, torch.Tensor], dtype=torch.bfloat16,
-                          device="cuda") -> Params:
+                          device="cuda", plan=None) -> Params:
     """The reference's models_t5_umt5-xxl-enc-bf16.pth state dict -> params,
     one tensor at a time onto ``device``: linear weights transposed to
-    [C_in, C_out] in ``dtype``, norms and relative embeddings f32."""
+    [C_in, C_out] in ``dtype``, norms and relative embeddings f32. Under
+    ``plan`` (--t5_fsdp) each tensor is cut to this rank's fsdp slice
+    (``parallel.sharding.t5_leaf_sharding``) where ``sd`` lies (the host, for
+    the mmap'd checkpoint) and only the slice moves to ``device``; the slices
+    are packed as ``shard_t5_params`` packs them."""
     params: Params = {"blocks": []}
+    if plan is not None:
+        from wanq_tpu_torch.parallel.sharding import pack_t5_params, slice_leaf, t5_leaf_sharding
 
-    def put(v, dt, transpose=False):
-        v = v.to(device=device, dtype=dt)
-        return v.t().contiguous() if transpose else v
+        index = plan.mesh.index("fsdp")
+
+    def put(v, dt, transpose=False, leaf="w"):  # leaf: its name in the param tree
+        v = v.t() if transpose else v  # a view: nothing is copied yet
+        if plan is not None:
+            v = slice_leaf(v, t5_leaf_sharding(plan.mesh, leaf, v.dim(), tuple(v.shape)), index)
+            if not torch.is_tensor(v):  # a Shard: this rank's slice alone moves
+                v.local = v.local.to(device=device, dtype=dt)
+                return v
+        return v.to(device=device, dtype=dt).contiguous()
 
     def block(i):
         while len(params["blocks"]) <= i:
@@ -311,11 +356,11 @@ def convert_t5_state_dict(sd: Dict[str, torch.Tensor], dtype=torch.bfloat16,
     for key, val in sd.items():
         m = re.match(r"blocks\.(\d+)\.(.+)", key)
         if key == "token_embedding.weight":
-            params["token_embedding"] = put(val, dtype)
+            params["token_embedding"] = put(val, dtype, leaf="token_embedding")
         elif key == "norm.weight":
             params["norm"] = {"w": put(val, torch.float32)}
         elif key == "pos_embedding.embedding.weight":
-            params["pos_embedding"] = {"embedding": put(val, torch.float32)}
+            params["pos_embedding"] = {"embedding": put(val, torch.float32, leaf="embedding")}
         elif m:
             blk, sub = block(int(m.group(1))), m.group(2)
             if sub in ("norm1.weight", "norm2.weight"):
@@ -323,7 +368,8 @@ def convert_t5_state_dict(sd: Dict[str, torch.Tensor], dtype=torch.bfloat16,
             elif sub.startswith("attn."):
                 blk.setdefault("attn", {})[sub.split(".")[1]] = {"w": put(val, dtype, True)}
             elif sub == "pos_embedding.embedding.weight":
-                blk["pos_embedding"] = {"embedding": put(val, torch.float32)}
+                blk["pos_embedding"] = {"embedding": put(val, torch.float32,
+                                                         leaf="embedding")}
             elif sub == "ffn.gate.0.weight":
                 blk.setdefault("ffn", {}).setdefault("gate", {})["0"] = {
                     "w": put(val, dtype, True)}
@@ -333,7 +379,7 @@ def convert_t5_state_dict(sd: Dict[str, torch.Tensor], dtype=torch.bfloat16,
                 raise KeyError(f"unexpected T5 key {key}")
         else:
             raise KeyError(f"unexpected T5 key {key}")
-    return params
+    return params if plan is None else pack_t5_params(params)
 
 
 class T5EncoderModel:
@@ -347,26 +393,33 @@ class T5EncoderModel:
 
     def __init__(self, text_len: int, checkpoint_path: Optional[str] = None,
                  tokenizer_path: str = "google/umt5-xxl", cfg: T5Config = UMT5_XXL,
-                 seed: int = 0, device="cuda", params: Optional[Params] = None):
+                 seed: int = 0, device="cuda", params: Optional[Params] = None,
+                 plan=None):
         self.text_len = text_len
         self.cfg = cfg
         self.device = torch.device(device)
         self.tokenizer_path = tokenizer_path
         self.tokenizer = None
-        if params is not None:
-            self.params = params
-        elif checkpoint_path:
+        self.plan = plan
+        if params is None and checkpoint_path:
+            # under plan each rank's slices are cut on the host as they are read
             sd = torch.load(checkpoint_path, map_location="cpu", mmap=True, weights_only=True)
-            self.params = convert_t5_state_dict(sd, dtype=cfg.dtype, device=self.device)
+            params = convert_t5_state_dict(sd, dtype=cfg.dtype, device=self.device, plan=plan)
         else:
-            self.params = init_t5_params(cfg, seed=seed, device=self.device)
+            if params is None:
+                params = init_t5_params(cfg, seed=seed, device=self.device)
+            if plan is not None:
+                from wanq_tpu_torch.parallel.sharding import shard_t5_params
+
+                params = shard_t5_params(params, plan)
+        self.params = params
 
     @torch.no_grad()
     def encode_ids(self, ids, mask) -> torch.Tensor:
         """ids, mask: [B, L] -> states [B, L, dim] (f32), zero where mask is 0."""
         ids = torch.as_tensor(np.asarray(ids), device=self.device).long()
         mask = torch.as_tensor(np.asarray(mask), device=self.device)
-        context = encoder_forward(self.params, self.cfg, ids, mask)
+        context = encoder_forward(self.params, self.cfg, ids, mask, plan=self.plan)
         return context * mask[:, :, None].to(context.dtype)
 
     def __call__(self, texts) -> torch.Tensor:
@@ -380,16 +433,17 @@ class T5EncoderModel:
 
 
 def encode_prompts(ckpt_dir: str, wan_cfg, prompts, neg_prompts, on_cpu: bool = False,
-                   device="cuda"):
+                   device="cuda", plan=None):
     """CLI hook: T5-encode the positive and negative prompts with the
     encoder of a Wan checkpoint dir. Returns two [B, text_len, dim] numpy
     arrays. ``on_cpu`` (the reference's --t5_cpu) keeps the encoder on the
     host; either way it is freed before returning, so the DiT gets the
-    card's memory back."""
+    card's memory back. ``plan`` (--t5_fsdp): the encoder is stored over its
+    fsdp ranks (every rank of the plan calls this)."""
     enc = T5EncoderModel(wan_cfg.text_len,
                          checkpoint_path=os.path.join(ckpt_dir, wan_cfg.t5_checkpoint),
                          tokenizer_path=wan_cfg.t5_tokenizer,
-                         device="cpu" if on_cpu else device)
+                         device="cpu" if on_cpu else device, plan=plan)
     out = enc(prompts).cpu().numpy(), enc(neg_prompts).cpu().numpy()
     del enc
     gc.collect()

@@ -61,7 +61,7 @@ _SIGNATURES = {
     "wanq_w4a4_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "wanq_rms_rope_heads": [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _F, _P],
     "wanq_flash_attention": [_P, _P, _P, _P, _LL, _I, _I, _I] + [_LL] * 12
-    + [_I, _F, _I, _P, _P, _P],
+    + [_I, _F, _I, _P, _P, _I, _I, _I, _F, _P],
     "wanq_flash_bwd_dq": [_P] * 6 + [_LL, _I, _I, _I, _P, _I, _F, _P],
     "wanq_flash_bwd_dkv": [_P] * 7 + [_LL, _I, _I, _I, _P, _I, _F, _P],
     "wanq_quantize_qkv_int8": [_P] * 3 + [_LL] * 9 + [_P] * 7 + [_LL, _I, _I, _I, _P],

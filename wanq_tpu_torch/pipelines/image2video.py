@@ -91,6 +91,7 @@ class WanI2V(WanT2V):
         h, w = lat_h * cfg.vae_stride[1], lat_w * cfg.vae_stride[2]
         lat_f = (frame_num - 1) // cfg.vae_stride[0] + 1
         seq_len = lat_f * lat_h * lat_w // (cfg.patch_size[1] * cfg.patch_size[2])
+        seq_len = -(-seq_len // self.sp_size) * self.sp_size  # a multiple of sp x ring
 
         latents = self._initial_latents((1, cfg.z_dim, lat_f, lat_h, lat_w), seed, noise)
         if ref_latents is not None:

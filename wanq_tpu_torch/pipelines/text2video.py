@@ -226,13 +226,19 @@ class WanT2V:
     ``quant_ctx_schedule``: timestep-aware mixed precision, a descending
     list ``[(t_threshold, ctx), ...]``; a step runs the ctx of the first
     entry with ``t >= t_threshold`` (an fp-mode ctx or None: the plain
-    forward), ``quant_ctx`` when none matches. Calibration ignores it."""
+    forward), ``quant_ctx`` when none matches. Calibration ignores it.
+
+    Multi-GPU (``shardings``, a ``parallel/sharding.py`` ShardingPlan): every
+    rank builds the pipeline with the same plan over its storage of the
+    params, draws the same latents from the seed and gets the same latents
+    back; the sequence rounds up to a multiple of the plan's sp x ring."""
 
     config: WanConfig
     params: Dict[str, Any]
     quant_ctx: Optional[QuantCtx] = None
     device: Any = "cuda"
     quant_ctx_schedule: Optional[List[Tuple[float, Optional[QuantCtx]]]] = None
+    shardings: Optional[Any] = None
     last_cache_stats: Optional[Dict[str, int]] = dataclasses.field(default=None, init=False)
     last_adaptive_trace: Optional[List[Dict[str, Any]]] = dataclasses.field(
         default=None, init=False)
@@ -243,6 +249,11 @@ class WanT2V:
             if threshs != sorted(threshs, reverse=True):
                 raise ValueError("quant_ctx_schedule thresholds must be descending "
                                  f"(the first match wins); got {threshs}")
+
+    @property
+    def sp_size(self) -> int:
+        """The degree the sequence rounds up to: the plan's sp x ring, 1 without one."""
+        return 1 if self.shardings is None else self.shardings.sp_size
 
     def _ctx_at(self, t: float, ctx: Optional[QuantCtx]) -> Optional[QuantCtx]:
         """The ctx a step at timestep ``t`` runs: the schedule's (as a plain
@@ -263,7 +274,7 @@ class WanT2V:
         tt = torch.full((latents.shape[0],), float(t), dtype=torch.float32,
                         device=latents.device)
         return dit_forward(self.params, self.config, latents, tt, context, seq_len, ctx=ctx,
-                           **(extra or {}))
+                           plan=self.shardings, **(extra or {}))
 
     def _split(self, latents, t: float, context, context_null, ctx: Optional[QuantCtx],
                seq_len: int, sequential: bool = False,
@@ -361,7 +372,7 @@ class WanT2V:
         cfg = self.config
         dev = torch.device(self.device)
         target_shape = compute_target_shape(cfg, size, frame_num)
-        seq_len = compute_seq_len(cfg, target_shape)
+        seq_len = compute_seq_len(cfg, target_shape, self.sp_size)
         latents = self._initial_latents((context.shape[0], *target_shape), seed, noise)
         context = context.to(dev)
         context_null = context_null.to(dev)
@@ -489,7 +500,7 @@ class WanT2V:
         the draw from ``seed``."""
         cfg = self.config
         target_shape = compute_target_shape(cfg, size, frame_num)
-        seq_len = compute_seq_len(cfg, target_shape)
+        seq_len = compute_seq_len(cfg, target_shape, self.sp_size)
         context = context.to(torch.device(self.device))
         latents = self._initial_latents((context.shape[0], *target_shape), seed, latents)
         base = self.quant_ctx if self.quant_ctx is not None else QuantCtx(mode="fp")

@@ -513,3 +513,50 @@ def compare_scale_dicts(ours: Mapping[str, Mapping[str, Any]],
         report["layers"][layer] = errs
     report["worst"] = worst
     return report
+
+
+# the state leaves split on the output channels under FSDP, and the dim that
+# holds them: w_q [C_in, C_out] and the W4A4 scale plane [C_in / 128, C_out] on
+# their last dim; the K-major codes [C_out, ...] and the per-C_out vectors on
+# their first. Everything else (SmoothQuant masks, static activation scales,
+# low-rank factors, adapters) rides replicated.
+_STATE_SPLIT = {"w_q": -1, "scale_wg": -1, "w_int8": 0, "w_int4": 0, "w_int4g": 0,
+                "delta_w": 0, "zp_w": 0, "scale_w": 0, "zp_w_int": 0}
+
+
+def quant_state_shardings(state, mesh, full_shard: bool = False):
+    """{layer: {key: LeafShard or None}}: ``wanq_tpu``'s quant_state_shardings
+    on the port's layouts. A packed int4 row holds two C_in codes (pack_int4
+    packs along C_in), so a split on C_out never cuts a byte."""
+    from wanq_tpu_torch.parallel.sharding import LeafShard, storage_axes
+
+    _, fs = storage_axes(mesh, full_shard)
+
+    def spec(key, leaf):
+        dim = _STATE_SPLIT.get(key)
+        if dim is None or not torch.is_tensor(leaf) or leaf.ndim == 0:
+            return None
+        dim %= leaf.ndim
+        return LeafShard(dim, fs) if leaf.shape[dim] % fs == 0 else None
+
+    return {name: {k: spec(k, v) for k, v in st.items()} for name, st in state.items()}
+
+
+def shard_quant_state(state, plan):
+    """This rank's storage of a quant state under ``plan`` (its storage axes):
+    the leaves of :func:`quant_state_shardings` cut to the rank's slice and
+    packed one block a pack (``blocks.i.*``) plus one for the rest, so a
+    block's state gathers in one collective beside its weights."""
+    from wanq_tpu_torch.parallel.sharding import pack_shards, slice_leaf
+
+    specs = quant_state_shardings(state, plan.mesh, plan.full_shard)
+    _, _, index = plan.storage()
+    out = {name: {k: slice_leaf(v, specs[name][k], index) for k, v in st.items()}
+           for name, st in state.items()}
+    groups: Dict[str, Dict[str, Any]] = {}
+    for name, st in out.items():
+        key = ".".join(name.split(".")[:2]) if name.startswith("blocks.") else ""
+        groups.setdefault(key, {})[name] = st
+    for group in groups.values():
+        pack_shards(group)
+    return out
