@@ -197,7 +197,26 @@ non-zero:
    dit_forward(plan=) on a one-rank NCCL group from init_distributed against
    the forward without a plan (equal bits, else rel-L2 <= 1e-3 with the
    reason), its launches W8A8's per-block counts x 30; (d) printed: K4 on
-   one rank's 5 heads of Ulysses 8 at 14B 720p against the 40-head launch.
+   one rank's 5 heads of Ulysses 8 at 14B 720p against the 40-head launch;
+   (e) K12 and K11's accumulate mode (counters attention_bwd_dq_acc,
+   attention_bwd_dkv_acc: one hop of the ring's backward, f32 added into
+   caller-given buffers from a row table of the folded LSE) against
+   attention_bwd_reference(rows=) at q [1, 12, 8192, 128] against an 8192-key
+   shard and the last shard (8184 valid) of the 1.3B 480p self shape (n = 4):
+   rel-L2 <= 1e-2 each, nothing added past the valid keys, dq's f32 sum over 4
+   hops against the plain sum; each hop timed beside the bf16-out launch on
+   the same shard, its bound and the library's flash backward fed the fold;
+   (f) the ring's backward over virtual ranks (flash_bwd_rows once a rank,
+   one K12 and one K11 accumulate launch a visited hop, the dk / dv
+   accumulators in the ring's order) at 1.3B 480p (n = 4, 8; B = 1) and one
+   rank's 5 heads of T2V-14B 720p (n = 8): dq, dk, dv against one
+   flash_attention_bwd launch, rel-L2 <= 1e-2, the launches the visited hops,
+   the host-clock total beside the launch; (g) on a one-rank NCCL group at
+   1.3B full width and depth: a 1-step calibration sweep (minmax, the 210
+   GPTQ_REGEX Hessians) and one QLoRA step (phase 7's base, adapters and
+   batch) through the plan against the planless ones: equal bits (else the
+   QLoRA gradients rel-L2 <= 1e-3 with the reason), the planned step's
+   seconds, peak and launches (QLORA_STEP x 30).
 
 The third-to-last line is the kernels' JSON record, then the card's name
 and power limit, and the last line {"ok": true, "device": {...}}.
@@ -353,6 +372,12 @@ SOURCES = {
                           "jax/experimental/pallas/ops/tpu/flash_attention.py:1121"),
     "attention_bwd_dq": ("wanq_tpu_torch/csrc/flash_attention_bwd.cu",
                          "jax/experimental/pallas/ops/tpu/flash_attention.py:1456"),
+    # the ring's backward hop: K12's and K11's accumulate mode (wanq_tpu takes
+    # the ring's gradient from autodiff through its fold, XLA)
+    "attention_bwd_dq_acc": ("wanq_tpu_torch/csrc/flash_attention_bwd.cu",
+                             "jax/experimental/pallas/ops/tpu/flash_attention.py:1456"),
+    "attention_bwd_dkv_acc": ("wanq_tpu_torch/csrc/flash_attention_bwd.cu",
+                              "jax/experimental/pallas/ops/tpu/flash_attention.py:1121"),
 }
 # launch counters of a kernel's further modes -> the kernel they belong to
 MODES = {"w8a8_linear_gelu_quant": "w8a8_linear", "w4a8_linear_gelu_quant": "w4a8_linear",
@@ -3903,6 +3928,314 @@ def ulysses_14b_note(torch):
     torch.cuda.empty_cache()
 
 
+def _rel_dev(want, got) -> float:
+    """rel-L2 of two tensors on their device, in f32."""
+    w = want.float()
+    return ((got.float() - w).norm() / w.norm()).item()
+
+
+def hop_mode_checks(torch, record):
+    """(e) K12 and K11's accumulate mode, one hop of the ring's backward, against
+    attention_bwd_reference(rows=) (f32) at the 1.3B 480p self shape split n =
+    4 ways: q [1, 12, 8192, 128] (rank 1's rows) against the 8192-key shard 2
+    and the last shard (8184 valid keys, its pad k/v planted), dense, the row
+    table from rank 1's 4-hop fold (K4's partial mode) of 32760 valid keys.
+    Gates: each hop's dq, dk, dv rel-L2 <= 1e-2 (K12's and K11's limits), dk =
+    dv = 0 added past the valid keys, and dq summed in f32 over all 4 hops
+    against the plain versions' f32 sum at the same limit. Each hop launch is
+    timed beside the bf16-out launch on the same shard (flash_attention_bwd,
+    its row table included) and its bound (1/16 of the self launch's work),
+    with the library's flash backward fed the same folded output and LSE."""
+    from wanq_tpu_torch.models.attention import (
+        attention_bwd_reference, flash_attention_bwd, flash_attention_bwd_acc, flash_bwd_rows)
+    from wanq_tpu_torch.parallel import ring
+
+    g = torch.Generator(device="cuda").manual_seed(84)
+    b, n_heads, s, valid, n, idx = 1, 12, 32768, 32760, 4, 1
+    q, k, v = _ring_operands(torch, g, b, n_heads, s, valid)
+    qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+    s_loc = s // n
+    rsl = slice(idx * s_loc, (idx + 1) * s_loc)
+    acc = None
+    for src in range(n):
+        sl = slice(src * s_loc, (src + 1) * s_loc)
+        acc = ring.fold_partial(acc, *ring.partial_attention(
+            qs[:, rsl], ks[:, sl], vs[:, sl], 1.0, idx * s_loc, src * s_loc, valid))
+    o, lse = acc[0].to(torch.bfloat16), acc[1].contiguous()
+    do = torch.randn((b, s_loc, n_heads, 128), device="cuda", generator=g).bfloat16()
+    rows = flash_bwd_rows(lse, o, do)
+    qr = qs[:, rsl]
+    f32 = lambda rows_: torch.zeros((b, rows_, n_heads, 128), device="cuda")
+    dq_sum, want_sum = f32(s_loc), f32(s_loc)
+    for src in range(n):
+        sl = slice(src * s_loc, (src + 1) * s_loc)
+        kv_valid = min(s_loc, valid - src * s_loc)
+        dq, dk, dv = f32(s_loc), f32(s_loc), f32(s_loc)
+        flash_attention_bwd_acc(qr, ks[:, sl], vs[:, sl], do, rows, 1.0, kv_valid, dq, dk, dv)
+        flash_attention_bwd_acc(qr, ks[:, sl], vs[:, sl], do, rows, 1.0, kv_valid, dq_sum)
+        (want, plain_ms) = once_ms(lambda: attention_bwd_reference(
+            qr, ks[:, sl], vs[:, sl], None, None, do, 1.0, kv_valid, q_chunk=1024, rows=rows))
+        want_sum += want[0]
+        rels = [_rel_dev(w, a) for a, w in zip((dq, dk, dv), want)]
+        errs = [(a - w).abs().max().item() for a, w in zip((dq, dk, dv), want)]
+        check(max(rels) <= 1e-2, f"hop mode shard {src}: rel-L2 dq, dk, dv {rels} (limit 1e-2)")
+        check(not dk[:, kv_valid:].any() and not dv[:, kv_valid:].any(),
+              f"hop mode shard {src}: dk / dv added past the valid keys")
+        if src < 2:
+            continue
+        # the timed shards: shard 2 (8192 valid keys) and the last (8184)
+        ms_dq = cuda_ms(lambda: flash_attention_bwd_acc(qr, ks[:, sl], vs[:, sl], do, rows, 1.0,
+                                                        kv_valid, dq))
+        ms_dkv = cuda_ms(lambda: flash_attention_bwd_acc(qr, ks[:, sl], vs[:, sl], do, rows, 1.0,
+                                                         kv_valid, None, dk, dv))
+        bf_dq = cuda_ms(lambda: flash_attention_bwd(qr, ks[:, sl], vs[:, sl], o, lse, do, 1.0,
+                                                    kv_valid, dkv=False))
+        bf_dkv = cuda_ms(lambda: flash_attention_bwd(qr, ks[:, sl], vs[:, sl], o, lse, do, 1.0,
+                                                     kv_valid, dq=False))
+        lib_ms, lib = _hop_bwd_library_ms(torch, qr, ks[:, sl], vs[:, sl], o, lse, do, kv_valid,
+                                          want)
+        pairs = 2 * b * n_heads * s_loc * kv_valid * 128  # one S-sized product
+        ins = 2 * b * n_heads * 128 * 2 * (s_loc + kv_valid) + 8 * b * n_heads * s_loc
+        shape = (f"hop q [1,12,8192,128] (rank 1 of n = 4) against shard {src}'s {kv_valid} "
+                 f"valid keys, the row table of the 4-hop fold (valid 32760)")
+        for name, ms, bf, err, rel, out_rows, products, what in (
+                ("attention_bwd_dq_acc", ms_dq, bf_dq, errs[0], rels[0], s_loc, 3, "dq"),
+                ("attention_bwd_dkv_acc", ms_dkv, bf_dkv, max(errs[1:]), max(rels[1:]),
+                 2 * kv_valid, 4, "dk, dv")):
+            record(name, err, ms, plain_ms,
+                   f"{shape} ({what} rel-L2 {rel:.2e}; the bf16-out launch on this shard "
+                   f"{bf:.3f} ms = {ms / bf:.3f}x, its row table included; "
+                   f"{products * pairs / ms / 1e9:.0f} TFLOP/s; the plain time is the hop's "
+                   f"whole plain backward; library = {lib})",
+                   ins + 8 * b * n_heads * 128 * out_rows, products * pairs, "bf16",
+                   library_ms=lib_ms)
+    rel = _rel_dev(want_sum, dq_sum)
+    check(rel <= 1e-2, f"hop mode: dq summed over 4 hops rel-L2 {rel:.3e} from the plain sum")
+    log(f"  hop mode: dq summed in f32 over the 4 hops (K12's accumulate mode, launch order) "
+        f"against the plain versions' f32 sum: rel-L2 {rel:.2e}")
+    del q, k, v, qs, ks, vs, o, lse, do, rows, dq_sum, want_sum
+    torch.cuda.empty_cache()
+
+
+def _hop_bwd_library_ms(torch, q, k, v, o, lse, do, kv_valid, want):
+    """(ms, what) of the library's flash backward on one hop: aten's
+    _scaled_dot_product_flash_attention_backward on k/v[:kv_valid], fed the
+    folded output and LSE (so its di and P are the global ones), after the
+    forward that gives it its other arguments; (None, the reason) where it
+    does not run or does not compute the hop's gradient (rel-L2 > 1e-2 from the
+    plain version). The port never calls it."""
+    aten = torch.ops.aten
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k[:, :kv_valid], v[:, :kv_valid]))
+    try:
+        fwd = aten._scaled_dot_product_flash_attention(qh, kh, vh, scale=1.0)
+        lse_lib = fwd[1].clone()
+        lse_lib[..., :lse.shape[-1]] = lse
+        args = (do.transpose(1, 2), qh, kh, vh, o.transpose(1, 2), lse_lib, *fwd[2:6], 0.0,
+                False, fwd[6], fwd[7])
+        got = aten._scaled_dot_product_flash_attention_backward(*args, scale=1.0)
+        rel = _rel_dev(want[0], got[0].transpose(1, 2).float())
+        if not rel <= 1e-2:
+            return None, f"none: the flash backward fed the fold reads {rel:.2e} from the hop's dq"
+        return (cuda_ms(lambda: aten._scaled_dot_product_flash_attention_backward(
+            *args, scale=1.0)), "aten._scaled_dot_product_flash_attention_backward on "
+                f"k/v[:valid], fed the folded output and LSE (dq rel-L2 {rel:.2e})")
+    except RuntimeError as e:
+        return None, f"none runs ({str(e).splitlines()[0][:160]})"
+
+
+def ring_backward_checks(torch, launches):
+    """(f) The ring's backward over virtual ranks in one process, through the
+    functions _RingAttention's backward calls (flash_bwd_rows once a rank from
+    its fold, hop_backward: one K12 and one K11 accumulate launch a visited
+    hop, the dk / dv accumulators travelling with their shards in the ring's
+    order), at T2V-1.3B 480p (n = 4 and 8; B = 1, as training runs) and one
+    rank's 5 heads of T2V-14B 720p (n = 8): dq, dk and dv against one
+    flash_attention_bwd launch over the whole sequence (its own K4 residual
+    output and LSE), rel-L2 <= 1e-2; the launches are the visited hops; the
+    host-clock total beside the single launch. Its launches count into the
+    kernels line."""
+    from wanq_tpu_torch.models.attention import _flash_cuda, flash_attention_bwd, flash_bwd_rows
+    from wanq_tpu_torch.ops import _lib
+    from wanq_tpu_torch.parallel import ring
+
+    g = torch.Generator(device="cuda").manual_seed(85)
+    for tag, n_heads, s, valid, sizes in (("1.3B 480p", 12, 32768, 32760, (4, 8)),
+                                          ("T2V-14B 720p, 5 heads", 5, 75776, 75600, (8,))):
+        q, k, v = _ring_operands(torch, g, 1, n_heads, s, valid)
+        qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+        do = torch.randn((1, s, n_heads, 128), device="cuda", generator=g).bfloat16()
+        out, lse = _flash_cuda(q, k, v, 1.0, valid, lse=True)
+        whole = lambda: flash_attention_bwd(qs, ks, vs, out, lse, do, 1.0, valid)
+        want = whole()
+        one_ms = cuda_ms(whole, warmup=1, reps=3)
+        for n in sizes:
+            s_loc = s // n
+            rank = [slice(i * s_loc, (i + 1) * s_loc) for i in range(n)]
+            folds = []
+            for idx in range(n):
+                acc = None
+                for src in range(n):
+                    if ring.hop_visits(idx * s_loc, s_loc, src * s_loc, s_loc, valid):
+                        acc = ring.fold_partial(acc, *ring.partial_attention(
+                            qs[:, rank[idx]], ks[:, rank[src]], vs[:, rank[src]], 1.0,
+                            idx * s_loc, src * s_loc, valid))
+                folds.append((acc[0].to(torch.bfloat16), acc[1].contiguous()))
+
+            def backward():
+                rows = [flash_bwd_rows(lse_r, o_r, do[:, rank[i]])
+                        for i, (o_r, lse_r) in enumerate(folds)]
+                dq = torch.zeros((1, s, n_heads, 128), device="cuda")
+                dk, dv = torch.zeros_like(dq), torch.zeros_like(dq)
+                hops = 0
+                for i in range(n):  # hop i: rank idx holds shard idx - i
+                    for idx in range(n):
+                        src = (idx - i) % n
+                        kv_valid = min(s_loc, valid - src * s_loc)
+                        if kv_valid < 1:
+                            continue
+                        hops += 1
+                        ring.hop_backward(qs[:, rank[idx]], ks[:, rank[src]], vs[:, rank[src]],
+                                          do[:, rank[idx]], rows[idx], 1.0, kv_valid,
+                                          dq[:, rank[idx]], dk[:, rank[src]], dv[:, rank[src]])
+                return (dq, dk, dv), hops
+
+            _lib.reset_launch_counts()
+            got, hops = backward()
+            counts = _lib.launch_counts()
+            check(counts == {"attention_bwd_dq_acc": hops, "attention_bwd_dkv_acc": hops},
+                  f"ring backward {tag} n={n}: launches {counts}, {hops} hops")
+            for name, cnt in counts.items():
+                launches[name] = launches.get(name, 0) + cnt
+            rels = [_rel_dev(w.float(), a) for a, w in zip(got, want)]
+            check(max(rels) <= 1e-2, f"ring backward {tag} n={n}: rel-L2 dq, dk, dv {rels}")
+            del got
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            backward()
+            torch.cuda.synchronize()
+            ring_ms = (time.perf_counter() - t0) * 1e3
+            log(f"  ring backward {tag} n={n}: {hops} of {n * n} hops run (one K12 and one K11 "
+                f"accumulate launch each), dq, dk, dv against one flash_attention_bwd launch "
+                f"rel-L2 {', '.join(f'{r:.2e}' for r in rels)}; all ranks' hops with their row "
+                f"tables {ring_ms:.2f} ms (host clock) against the launch {one_ms:.2f} ms "
+                f"({ring_ms / one_ms:.3f}x); per rank {ring_ms / n:.2f} ms")
+        del q, k, v, qs, ks, vs, do, out, lse, want
+        torch.cuda.empty_cache()
+
+
+def planned_training_check(torch, launches):
+    """(g) Calibration and QLoRA through the plan on a one-rank NCCL group at
+    T2V-1.3B full width and depth (832x480x81): a 1-step calibration sweep
+    (collect_calibration, minmax and GPTQ_REGEX's 210 Hessians) of the seed-42
+    weights stored by shard_params, against the planless sweep: equal bits
+    (the statistics' all-reduces over one rank); one QLoRA step (phase 7's
+    base, adapters and batch; make_qlora_distill_step(plan=), remat) against
+    the planless step from the same adapters: the loss, the gradient norm and
+    every adapter's gradient equal bits, else rel-L2 <= 1e-3 with the reason
+    printed; the planned step's seconds, peak and launches (QLORA_STEP x 30)."""
+    import socket
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from wanq_tpu_torch.cli.common import load_params
+    from wanq_tpu_torch.configs import WAN_CONFIGS
+    from wanq_tpu_torch.ops import _lib
+    from wanq_tpu_torch.parallel import ShardingPlan, init_distributed, make_mesh, shard_params
+    from wanq_tpu_torch.pipelines.text2video import WanT2V
+    from wanq_tpu_torch.quant.ptq import shard_quant_state
+    from wanq_tpu_torch.quant.qlinear import QuantCtx
+    from wanq_tpu_torch.training import DistillConfig, init_train_state, make_qlora_distill_step
+
+    cfg = WAN_CONFIGS[TASK]
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    init_distributed("cuda", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    try:
+        plan = ShardingPlan(make_mesh())
+        params = load_params(argparse.Namespace(base_seed=42, device="cuda", ckpt_dir=None,
+                                                random_init=True), cfg)
+        g = torch.Generator(device="cuda").manual_seed(86)
+        c, cn = (torch.randn((1, cfg.text_len, cfg.text_dim), device="cuda", generator=g)
+                 for _ in range(2))
+        stats, secs = {}, {}
+        for label, pl in (("planless", None), ("plan", plan)):
+            pipe = WanT2V(cfg, params if pl is None else shard_params(params, pl),
+                          quant_ctx=QuantCtx(mode="calib", collect_minmax=True,
+                                             hessian_regex=GPTQ_REGEX),
+                          device="cuda", shardings=pl)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stats[label] = pipe.collect_calibration(c, cn, sampling_steps=1, size=(832, 480),
+                                                    frame_num=FRAMES, seed=42)
+            torch.cuda.synchronize()
+            secs[label] = time.perf_counter() - t0
+            del pipe
+        a, z = stats["planless"], stats["plan"]
+        n_hess = sum(k.endswith(".hess") for k in a)
+        check(sorted(a) == sorted(z) and n_hess == 7 * cfg.num_layers,
+              f"planned calibration: {len(z)} entries, {n_hess} Hessians")
+        unequal = [k for k in a if not (torch.equal(a[k], z[k]) if torch.is_tensor(a[k])
+                                        else np.array_equal(a[k], z[k]))]
+        check(not unequal, f"planned calibration: {len(unequal)} entries differ, e.g. "
+              f"{unequal[:3]}")
+        log(f"  calibration, 1 step at {TASK} 832x480x81 on a one-rank NCCL group: {len(a)} "
+            f"entries ({n_hess} f64 Hessians, the absmax and min/max stacks) equal bits to the "
+            f"planless sweep; {secs['plan']:.2f} s against {secs['planless']:.2f} s (the first "
+            f"planned call makes the groups' NCCL communicators)")
+        del stats, a, z, params
+        torch.cuda.empty_cache()
+
+        params, qctx, lora = qlora_base(torch, cfg)
+        batch = distill_batch(torch, cfg, FRAMES)
+        dcfg = DistillConfig(learning_rate=1e-4, seq_len=QLORA_SEQ, remat=True)
+        runs = {}
+        for label, pl in (("planless", None), ("plan", plan)):
+            state, tx = init_train_state(lora, dcfg)
+            step = make_qlora_distill_step(cfg, dcfg, tx, plan=pl)
+            p, qc = params, qctx
+            if pl is not None:
+                p = shard_params(params, pl)
+                qc = dataclasses.replace(qctx, state=shard_quant_state(qctx.state, pl))
+            torch.cuda.reset_peak_memory_stats()
+            _lib.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, _, _, loss, gnorm = step(state.params, state.ema_params, tx, p, qc, *batch, 3.0)
+            loss, gnorm = float(loss), float(gnorm)
+            runs[label] = dict(loss=loss, gnorm=gnorm, s=time.perf_counter() - t0,
+                               peak=torch.cuda.max_memory_allocated() / 2**30,
+                               counts=_lib.launch_counts(),
+                               grads=[t.grad.clone() for ab in state.params.values()
+                                      if isinstance(ab, dict) for t in ab.values()])
+            del state, tx, step, p, qc
+        a, z = runs["planless"], runs["plan"]
+        want = {k: v * cfg.num_layers for k, v in QLORA_STEP.items()}
+        check(z["counts"] == want, f"planned QLoRA step: launches {z['counts']}, want {want}")
+        for name, cnt in z["counts"].items():
+            launches[name] = launches.get(name, 0) + cnt
+        equal = (a["loss"] == z["loss"] and a["gnorm"] == z["gnorm"]
+                 and all(torch.equal(x, y) for x, y in zip(a["grads"], z["grads"])))
+        num = sum(float((x.float() - y.float()).square().sum()) for x, y in zip(a["grads"],
+                                                                               z["grads"]))
+        rel = math.sqrt(num / sum(float(x.float().square().sum()) for x in a["grads"]))
+        check(math.isfinite(z["loss"]) and (equal or rel <= 1e-3),
+              f"planned QLoRA step: gradients rel-L2 {rel:.2e} from the planless step")
+        log(f"  QLoRA step at {TASK} 832x480x81 through make_qlora_distill_step(plan=) on a "
+            f"one-rank NCCL group: loss {z['loss']:.6f}, gnorm {z['gnorm']:.4e}; "
+            + ("loss, gradient norm and the " + str(len(z["grads"])) + " adapter gradients "
+               "equal bits to the planless step" if equal else
+               f"rel-L2 {rel:.2e} from the planless step (loss {a['loss']:.6f}, gnorm "
+               f"{a['gnorm']:.4e}; not equal bits: an ulp of a reduction order)")
+            + f"; planned {z['s']:.3f} s, peak {z['peak']:.2f} GiB against planless "
+            f"{a['s']:.3f} s, {a['peak']:.2f} GiB; launches a step {z['counts']}")
+        del params, qctx, lora, batch, runs, a, z
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+
 def multi_gpu(torch, results, launches, calib_path):
     """Phase 8: what one card can show of multi-GPU serving (a run on more
     than one card is not made here)."""
@@ -3916,6 +4249,15 @@ def multi_gpu(torch, results, launches, calib_path):
     planned_forward_check(torch, calib_path, launches)
     log(f"  phase 8 (c): {time.time() - t0:.1f} s")
     ulysses_14b_note(torch)
+    t0 = time.time()
+    hop_mode_checks(torch, recorder(results))
+    log(f"  phase 8 (e): {time.time() - t0:.1f} s")
+    t0 = time.time()
+    ring_backward_checks(torch, launches)
+    log(f"  phase 8 (f): {time.time() - t0:.1f} s")
+    t0 = time.time()
+    planned_training_check(torch, launches)
+    log(f"  phase 8 (g): {time.time() - t0:.1f} s")
 
 
 # kernels whose build must show no spill: the wgmma kernels (a spill there
@@ -3947,8 +4289,8 @@ def hopper_evidence(_lib, nvcc: str) -> None:
     own instructions: counts HGMMA (bf16 wgmma: K4, K11, K12), IGMMA (int8
     wgmma: K10, K2, K8, K9) and UTMALDG / UTMASTG (TMA loads / stores) in the
     library's SASS, and reads any note that ptxas serialised their wgmma
-    instructions. K4 (dense and band mode), K2, K8 and K9 are templates: every
-    instantiation is held to the same.
+    instructions. K4 (dense and band mode), K2, K8, K9, K11 and K12 (bf16 out and
+    the accumulate mode) are templates: every instantiation is held to the same.
     Fails if such a kernel has no wgmma or no TMA load, or was serialised, or
     if any kernel still holds an mma.sync product (IMMA int, HMMA bf16)."""
     import re
@@ -3973,8 +4315,8 @@ def hopper_evidence(_lib, nvcc: str) -> None:
     # kernel -> (its wgmma instruction, how many instantiations the library has)
     kernels = {"flash_fwd_kernel": ("HGMMA", 2), "attn_int8_kernel": ("IGMMA", 1),
                "w8a8_gemm_kernel": ("IGMMA", 6), "w4a8_gemm_kernel": ("IGMMA", 6),
-               "w4a4_gemm_kernel": ("IGMMA", 2), "flash_bwd_dq_kernel": ("HGMMA", 1),
-               "flash_bwd_dkv_kernel": ("HGMMA", 1)}
+               "w4a4_gemm_kernel": ("IGMMA", 2), "flash_bwd_dq_kernel": ("HGMMA", 2),
+               "flash_bwd_dkv_kernel": ("HGMMA", 2)}
     for kernel, (mma, n_inst) in kernels.items():
         sass = [f for f in functions if kernel in f.split("\n", 1)[0]]
         check(len(sass) == n_inst, f"{kernel}: {len(sass)} functions of that name in the SASS")
@@ -4130,7 +4472,9 @@ def main() -> int:
     log(f"  phase 7: {time.time() - t0:.1f} s")
 
     log(f"[8] multi-GPU on one card: K4's partial mode (a ring hop), the ring's hop schedule "
-        f"over virtual ranks, dit_forward(plan=) on a one-rank NCCL group; no multi-card run "
+        f"over virtual ranks, dit_forward(plan=) on a one-rank NCCL group, K12 / K11's "
+        f"accumulate mode (the ring's backward hop) and the ring's backward over virtual ranks, "
+        f"calibration and QLoRA on a one-rank NCCL group; no multi-card run "
         f"(card: {nvidia_smi()})")
     t0 = time.time()
     multi_gpu(torch, results, launches, calib[TASK])

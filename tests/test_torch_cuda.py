@@ -2088,6 +2088,95 @@ def test_k11_k12_read_strided_views_and_give_equal_bits(dev, gen):
     assert not got[1][:, valid:].any() and not got[2][:, valid:].any()
 
 
+# ring hops: shards of a 4-rank ring of 1024 tokens (the last 24 pad: the last
+# shard's valid length 232), of a 3-rank ring of 900 (Sq 300, not a multiple of
+# 128: the row table's +inf rows), and of a 2-rank ring of 640 with one valid key
+# in the last shard
+@pytest.mark.parametrize("n,s,valid", [(4, 1024, 1000), (3, 900, 890), (2, 640, 321)])
+def test_k11_k12_accumulate_mode_matches_plain(dev, gen, n, s, valid):
+    """K12 and K11's accumulate mode, one launch of each a visited hop, from one
+    row table of the rank's rows (the whole sequence's LSE and output): each
+    hop added into non-zero f32 buffers equals the plain version
+    (attention_bwd_reference(rows=)) added into the same, rel-L2 <= 1e-2 of
+    the hop's part; over all hops the f32 sums equal flash_attention_bwd's
+    whole backward at its limits; dk = dv = 0 added past a shard's valid keys;
+    a second run gives equal bits; the launches are one of each a hop."""
+    from wanq_tpu_torch.models.attention import (
+        _flash_cuda, attention_bwd_reference, flash_attention_bwd, flash_attention_bwd_acc,
+        flash_bwd_rows)
+
+    q, k, vh, do = _bwd_inputs(dev, gen, 2, 3, s, s, valid)
+    out, lse = _flash_cuda(q.transpose(1, 2), k.transpose(1, 2), vh.transpose(1, 2), 0.0884,
+                           valid, lse=True)
+    s_loc = s // n
+    whole = flash_attention_bwd(q, k, vh, out, lse, do, 0.0884, valid)
+    for idx in (0, n - 1):
+        rows_sl = slice(idx * s_loc, (idx + 1) * s_loc)
+        qs, dos = q[:, rows_sl], do[:, rows_sl]
+        rows = flash_bwd_rows(lse[:, :, rows_sl].contiguous(), out[:, rows_sl], dos)
+        runs = []
+        start = (torch.randn((2, s_loc, 3, 128), device=dev, generator=gen),
+                 *(torch.randn((2, s, 3, 128), device=dev, generator=gen) for _ in range(2)))
+        for _ in range(2):
+            dq, dk, dv = (t.clone() for t in start)
+            _lib.reset_launch_counts()
+            hops = 0
+            for src in range(n):
+                kv_valid = min(s_loc, valid - src * s_loc)
+                if kv_valid < 1:
+                    continue
+                hops += 1
+                sl = slice(src * s_loc, (src + 1) * s_loc)
+                before = (dq.clone(), dk[:, sl].clone(), dv[:, sl].clone())
+                dks, dvs = dk[:, sl].contiguous(), dv[:, sl].contiguous()
+                flash_attention_bwd_acc(qs, k[:, sl], vh[:, sl], dos, rows, 0.0884, kv_valid,
+                                        dq, dks, dvs)
+                dk[:, sl], dv[:, sl] = dks, dvs
+                want = attention_bwd_reference(qs, k[:, sl], vh[:, sl], None, None, dos, 0.0884,
+                                               kv_valid, rows=rows)
+                for got, b0, w in zip((dq, dks, dvs), before, want):
+                    assert _grad_rel(got - b0, w) <= 1e-2
+                assert torch.equal(dks[:, kv_valid:], before[1][:, kv_valid:])
+                assert torch.equal(dvs[:, kv_valid:], before[2][:, kv_valid:])
+            _finish_within(60, f"K11/K12 accumulate n {n} rank {idx}")
+            assert _lib.launch_counts() == {"attention_bwd_dq_acc": hops,
+                                            "attention_bwd_dkv_acc": hops}
+            assert _grad_rel(dq - start[0], whole[0][:, rows_sl]) <= 1e-2
+            runs.append((dq, dk, dv))
+        assert all(torch.equal(a, z) for a, z in zip(*runs))
+    with pytest.raises(ValueError):
+        flash_attention_bwd_acc(qs, k[:, :s_loc], vh[:, :s_loc], dos, rows, 0.0884, 0, dq)
+
+
+def test_ring_attention_autograd_on_one_rank_runs_the_hop_kernels(dev, gen):
+    """ring_attention under autograd with no ring group (one rank, one hop):
+    K4's partial mode forward, K12 / K11's accumulate mode backward, its
+    gradients within rel-L2 1e-2 of attention(trainable=True)'s (K4's
+    residual mode, K12, K11); a window under training raises."""
+    from wanq_tpu_torch.models.attention import TemporalWindow, attention
+    from wanq_tpu_torch.parallel.ring import ring_attention
+
+    q, k, vh, do = _bwd_inputs(dev, gen, 1, 2, 384, 384, 290)
+    grads = []
+    for route in ("ring", "single"):
+        leaves = [t.clone().requires_grad_() for t in (q, k, vh)]
+        _lib.reset_launch_counts()
+        if route == "ring":
+            out = ring_attention(*leaves, scale=0.0884, k_valid_len=290)
+        else:
+            out = attention(*leaves, scale=0.0884, k_valid_len=290, trainable=True)
+        out.backward(do)
+        grads.append([t.grad for t in leaves])
+        if route == "ring":
+            assert _lib.launch_counts() == {"attention_partial": 1, "attention_bwd_dq_acc": 1,
+                                            "attention_bwd_dkv_acc": 1}
+    for got, want in zip(*grads):
+        assert _grad_rel(got, want) <= 1e-2
+    with pytest.raises(NotImplementedError, match="dense"):
+        ring_attention(q.clone().requires_grad_(), k, vh, scale=0.0884, k_valid_len=290,
+                       window=TemporalWindow(100, 1))
+
+
 # ---------------------------------------------------------------------------
 # evaluation (utils/fvd.py, image_metrics.py, clip_metrics.py, flow.py,
 # cli/evaluate.py) on the card against the CPU

@@ -59,8 +59,9 @@ while True:
     if msg is None:
         break
     fn, kw = msg
+    module, _, fn = fn.rpartition(":")
     try:
-        out = ("ok", getattr(importlib.import_module("test_torch_parallel"), fn)(**kw))
+        out = ("ok", getattr(importlib.import_module(module or "test_torch_parallel"), fn)(**kw))
     except BaseException:
         out = ("err", traceback.format_exc())
     results.send(out)
@@ -69,7 +70,8 @@ while True:
 
 class _Ranks:
     """``world`` worker processes in one gloo group; ``run(fn, **kw)`` calls
-    this module's ``fn(**kw)`` on every rank and returns the results by rank."""
+    this module's ``fn(**kw)`` (or ``module:fn``'s, a test module of this
+    directory) on every rank and returns the results by rank."""
 
     def __init__(self, world: int, tmp):
         self.world, self.procs, self.conns = world, [], []
@@ -534,21 +536,55 @@ def test_launch_is_a_no_op_at_world_one(monkeypatch):
     assert launch.is_main_rank()
 
 
-def test_training_and_calibration_under_a_plan_raise():
-    """Item 10's second part: training and calibration under a mesh raise
-    (a one-rank plan without a process group)."""
+def test_training_and_calibration_under_a_plan_raise(tmp_path):
+    """What training and calibration under a mesh still refuse, as wanq_tpu
+    does (one process, the plans' meshes without a process group): a window
+    under training, an attn: section under a ring, a training batch that dp
+    does not divide, and cli.ptq with mesh flags (wanq_tpu's ptq has no
+    mesh). A one-rank plan runs the forward's, the calibration's and the
+    training's code: equal to the planless runs."""
+    from wanq_tpu_torch.cli import ptq
+    from wanq_tpu_torch.quant.attn import AttnQuantCfg
+
     cfg = tiny_config()
     params = tdit.init_params(cfg, 0, device="cpu")
     x, t, c = (torch.from_numpy(a) for a in _inputs({}, b=1))
     plan = ShardingPlan(make_mesh())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tdit.dit_forward(params, cfg, x, t, c, 64, plan=plan, training=True)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tdit.dit_forward(params, cfg, x, t, c, 64, ctx=QuantCtx(mode="calib"), plan=plan)
+    with pytest.raises(NotImplementedError, match="inference-only"):
+        tdit.dit_forward(params, cfg, x, t, c, 64, ctx=QuantCtx(mode="fp", attn_window=1),
+                         plan=plan, training=True)
+    with pytest.raises(NotImplementedError, match="ring context parallelism"):
+        tdit.dit_forward(params, cfg, x, t, c, 64, plan=ShardingPlan(_mesh_at((1, 1, 1, 2), 0)),
+                         ctx=QuantCtx(mode="sim", attn=AttnQuantCfg()))
+    with pytest.raises(ValueError, match="batch that dp divides"):
+        tdit.dit_forward(params, cfg, x, t, c, 64, plan=ShardingPlan(_mesh_at((2, 1, 1, 1), 0)),
+                         training=True)
+    with pytest.raises(SystemExit, match="wanq_tpu's ptq"):
+        ptq.generate(ptq.parse_args(["--task", "tiny", "--random_init", "--device", "cpu",
+                                     "--quant_config", W8A8, "--ulysses_size", "2",
+                                     "--save_path", str(tmp_path / "qp.npz")]))
     # a one-rank plan runs the whole forward's code: equal to the planless one
     want = tdit.dit_forward(params, cfg, x, t, c, 64)
     got = tdit.dit_forward(shard_params(params, plan), cfg, x, t, c, 64, plan=plan)
     assert torch.equal(got, want)
+    calib = [QuantCtx(mode="calib", collect_minmax=True, hessian_regex="ffn", attn_map_pool=8)
+             for _ in range(2)]
+    tdit.dit_forward(params, cfg, x, t, c, 64, ctx=calib[0])
+    tdit.dit_forward(shard_params(params, plan), cfg, x, t, c, 64, ctx=calib[1], plan=plan)
+    assert sorted(calib[0].collect) == sorted(calib[1].collect)
+    assert all(torch.equal(v, calib[1].collect[k]) for k, v in calib[0].collect.items())
+    grads = []
+    for p in (params, shard_params(tdit.init_params(cfg, 0, device="cpu"), plan)):
+        leaves = [leaf.local if isinstance(leaf, sharding.Shard) else leaf
+                  for _, leaf in sharding._walk(p)
+                  if isinstance(leaf, sharding.Shard) or torch.is_tensor(leaf)]
+        for leaf in leaves:
+            leaf.requires_grad_()
+        out = tdit.dit_forward(p, cfg, x, t, c, 64, training=True, remat=True,
+                               plan=None if p is params else plan)
+        torch.mean(out ** 2).backward()
+        grads.append([leaf.grad for leaf in leaves])
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
 
 
 # ---------------------------------------------------------------------------

@@ -290,7 +290,8 @@ def test_cli_chain_tiny_on_cpu(tmp_path):
     lat_sim = np.load(sim)["latents"]
     assert lat_sim.shape == lat.shape and np.isfinite(lat_sim).all()
     assert 0 < _rel(lat, lat_sim) < 0.2  # the same quantizers, other arithmetic
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the mesh flags shard the sweep under torchrun; one process cannot hold ulysses 2
+    with pytest.raises(SystemExit, match="does not fill the world of 1"):
         get_calib_data.generate(get_calib_data.parse_args(common + ["--ulysses_size", "2"]))
 
 

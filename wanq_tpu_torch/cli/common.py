@@ -13,8 +13,8 @@ Multi-GPU serving: under torchrun the mesh flags (``--ulysses_size``,
 ``--ring_size``, ``--dp_size``, ``--fsdp_size`` or ``--dit_fsdp``,
 ``--full_shard``) make a ShardingPlan (:func:`build_mesh_and_plan`) over the
 process group, and ``--t5_fsdp`` stores the umT5 encoder over ``fsdp``; only
-rank 0 writes files and logs at INFO. Calibration and PTQ refuse the mesh
-flags (ROADMAP Queue 1 item 10).
+rank 0 writes files and logs at INFO. ``get_calib_data`` takes them too; PTQ
+refuses them (``wanq_tpu``'s ptq has no mesh).
 """
 
 from __future__ import annotations
@@ -238,8 +238,8 @@ def maybe_extend_prompt(args, logger=None) -> str:
 
 
 def validate_args(args, mesh: bool = True):
-    """``mesh``: whether the CLI serves under a mesh; one that does not
-    (calibration, PTQ) refuses the mesh flags."""
+    """``mesh``: whether the CLI runs under a mesh; one that does not (PTQ, as
+    ``wanq_tpu``'s) refuses the mesh flags."""
     if args.frame_num % 4 != 1:
         raise SystemExit("frame_num must be 4n+1")
     if args.size not in SUPPORTED_SIZES[args.task]:
@@ -249,9 +249,10 @@ def validate_args(args, mesh: bool = True):
         raise SystemExit("the mesh sizes must be >= 1")
     if not mesh and (any(getattr(args, f) != 1 for f in _MULTI_DEVICE_FLAGS)
                      or args.dit_fsdp or args.t5_fsdp or args.full_shard):
-        raise NotImplementedError(
-            "calibration and PTQ under a mesh (the mesh flags, --dit_fsdp, --t5_fsdp) are "
-            "not ported yet (ROADMAP Queue 1 item 10)")
+        raise SystemExit(
+            "cli.ptq runs in one process, as wanq_tpu's ptq (it has no mesh): drop the mesh "
+            "flags (--ulysses_size, --ring_size, --dp_size, --fsdp_size, --dit_fsdp, "
+            "--t5_fsdp, --full_shard)")
     if args.ckpt_dir is None and not args.random_init and args.context_file is None:
         raise SystemExit("need --ckpt_dir, or --random_init (+ optional --context_file) "
                          "for checkpoint-free runs")

@@ -13,6 +13,16 @@ GPTQ rounding.
 the [T, ...] stacks concatenate. The sweep runs dense: --attn_window is
 ignored.
 
+Under torchrun the mesh flags (--ulysses_size, --ring_size, --dp_size,
+--fsdp_size or --dit_fsdp, --full_shard, --t5_fsdp) shard the sweep as
+quant_generate's forward is sharded; each statistic is reduced over the ranks
+that split its rows, so the artifact is the one-process sweep's (at the same
+sequence length: the sequence rounds up to a multiple of ulysses x ring), and
+only rank 0 writes it:
+
+    torchrun --nproc_per_node 8 -m wanq_tpu_torch.cli.get_calib_data --task t2v-14B \
+        --random_init --collect_minmax --sample_steps 1 --ulysses_size 4 --dit_fsdp
+
     python -m wanq_tpu_torch.cli.get_calib_data --task t2v-1.3B --size 832*480 \
         --frame_num 81 --random_init --collect_minmax --sample_steps 1 \
         --quant_config quant_configs/wan_w8a8_speed.yaml
@@ -34,6 +44,7 @@ import torch
 
 from wanq_tpu_torch.cli.common import (
     add_common_args,
+    build_mesh_and_plan,
     load_contexts,
     load_params,
     require_t2v,
@@ -41,6 +52,7 @@ from wanq_tpu_torch.cli.common import (
     validate_args,
 )
 from wanq_tpu_torch.configs import SIZE_CONFIGS, WAN_CONFIGS
+from wanq_tpu_torch.parallel.launch import is_main_rank
 from wanq_tpu_torch.pipelines.text2video import WanT2V
 from wanq_tpu_torch.quant import QuantConfig
 from wanq_tpu_torch.quant.qlinear import QuantCtx
@@ -71,9 +83,10 @@ def parse_args(argv=None):
 
 
 def generate(args):
-    """Run the sweep and write the npz; returns its path."""
+    """Run the sweep and write the npz; returns its path (None on the ranks
+    other than 0)."""
     setup_logging()
-    validate_args(args, mesh=False)
+    validate_args(args)
     require_t2v(args, "get_calib_data")
     cfg = WAN_CONFIGS[args.task]
     size = SIZE_CONFIGS[args.size]
@@ -85,12 +98,13 @@ def generate(args):
     if save_path.endswith(".pth"):
         save_path = save_path[:-4] + ".npz"
 
-    params = load_params(args, cfg)
-    context, context_null = load_contexts(args, cfg)
+    plan = build_mesh_and_plan(args)
+    params = load_params(args, cfg, plan)
+    context, context_null = load_contexts(args, cfg, plan)
     pipe = WanT2V(cfg, params, quant_ctx=QuantCtx(
         mode="calib", collect_minmax=args.collect_minmax, attn_map_pool=args.attn_map_pool,
         attn_map_reduce=args.attn_map_reduce, hessian_regex=args.collect_hessian),
-        device=args.device)
+        device=args.device, shardings=plan)
     t0 = time.time()
     rounds = max(1, args.calib_rounds)
     stats = {}
@@ -112,6 +126,8 @@ def generate(args):
     logging.info("calibration sweep done in %.2fs: %d entries (%d Hessians) x %d steps x %d "
                  "rounds", time.time() - t0, len(stats),
                  sum(k.endswith(".hess") for k in stats), args.sample_steps, rounds)
+    if not is_main_rank():
+        return None
     # the Hessians' f64 sums are saved as f32, as wanq_tpu saves them
     stats = {k: v.float().cpu().numpy() if isinstance(v, torch.Tensor) else v
              for k, v in stats.items()}

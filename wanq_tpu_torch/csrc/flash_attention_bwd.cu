@@ -16,6 +16,15 @@
 // written contiguous [B, S, H, D]. Every output element is summed by one
 // thread in a fixed order, so two calls give equal bits.
 //
+// The accumulate mode (kAcc; entry points wanq_flash_bwd_dq_acc and
+// wanq_flash_bwd_dkv_acc) is one hop of the ring attention's backward
+// (parallel/ring.py): q and dO are the rank's rows, k and v the shard the hop
+// holds, kv_valid its valid keys, and the row table is the caller's, built
+// once a layer from the folded (global) LSE and output. Each thread adds its
+// dQ, or dK and dV, in f32 into caller-given contiguous [B, S, H, D] f32
+// buffers (a read-add-write of the elements it owns, in place of the bf16
+// store), so a rank's hops sum in f32 in launch order, with no atomics.
+//
 // Bound on the H100: tensor-core throughput. K12 does three S-sized products
 // (S, dP, dQ) and K11 four (S, dP, dV, dK), 2 S_q S_k D flops each per head,
 // against O(S D) bytes. Design (sm90.cuh has the parts; the pipeline is K4's,
@@ -90,6 +99,9 @@ constexpr int kSmemDkv = 1024 + 2 * kTile + kDkvStages * (2 * kStep + kStatBytes
 struct Params {
   CUtensorMap q, k, v, dout;
   CUtensorMap out_a, out_b;                   // K12: dq; K11: dk, dv
+  float* acc_a;                               // the accumulate mode's f32 [B, S, H, 128]:
+  float* acc_b;                               //   K12 dq; K11 dk, dv
+  int out_rows;                               // S of those: K12 Sq, K11 Sk
   const float* rows;                          // [B, H, 2, sq_pad]: lse log2e, di
   int sq_pad;
   int kv_valid;
@@ -174,6 +186,28 @@ __device__ __forceinline__ void stage_out(uint8_t* rows64, const float (&acc)[64
   }
 }
 
+// acc * scale added in f32 into rows row0 .. row0 + 63 (the warpgroup's) of
+// head h, batch b of a contiguous [B, n_rows, H, 128] f32 buffer; rows past
+// n_rows are skipped. The thread owns columns 8 j + 2 tig, + 1 of its two rows.
+__device__ __forceinline__ void add_rows(float* out, const float (&acc)[64], float scale,
+                                         int row0, int n_rows, int h, int b, int H, int warp,
+                                         int g, int tig) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + warp * 16 + g + r * 8;
+    if (row >= n_rows) continue;
+    float* dst = out + (((long long)b * n_rows + row) * H + h) * D + tig * 2;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      float2* d2 = reinterpret_cast<float2*>(dst + j * 8);
+      float2 cur = *d2;
+      cur.x += acc[4 * j + 2 * r] * scale;
+      cur.y += acc[4 * j + 2 * r + 1] * scale;
+      *d2 = cur;
+    }
+  }
+}
+
 // The warpgroup's staged 64 rows -> rows row0 .. row0 + 63 of `map`'s (h, b).
 __device__ __forceinline__ void store_rows(const CUtensorMap* map, const uint8_t* rows64,
                                            int row0, int h, int b) {
@@ -182,6 +216,7 @@ __device__ __forceinline__ void store_rows(const CUtensorMap* map, const uint8_t
 }
 
 // K12: dQ for the 128 query rows of block x, head y, batch z.
+template <bool kAcc>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(16) uint8_t smem_raw[];
@@ -304,20 +339,26 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (lane == 0) mbar_arrive(&bars->k_empty[st]);
     }
 
-    // ---- epilogue: dQ scale -> bf16 -> shared (this consumer's Q rows) -> TMA store ----
-    uint8_t* sO = sQ + cw * 64 * 128;
-    stage_out(sO, dq, p.scale, warp, g, tig);
-    fence_proxy_async();
-    bar_sync(kEpiBar + cw, 128);
-    if ((tid & 127) == 0) {
-      store_rows(&p.out_a, sO, q0 + cw * 64, h, b);
-      tma_store_commit();
-      tma_store_wait_read();
+    if constexpr (kAcc) {
+      // ---- epilogue: dQ scale added into the caller's f32 dq ----
+      add_rows(p.acc_a, dq, p.scale, q0 + cw * 64, p.out_rows, h, b, gridDim.y, warp, g, tig);
+    } else {
+      // ---- epilogue: dQ scale -> bf16 -> shared (this consumer's Q rows) -> TMA store ----
+      uint8_t* sO = sQ + cw * 64 * 128;
+      stage_out(sO, dq, p.scale, warp, g, tig);
+      fence_proxy_async();
+      bar_sync(kEpiBar + cw, 128);
+      if ((tid & 127) == 0) {
+        store_rows(&p.out_a, sO, q0 + cw * 64, h, b);
+        tma_store_commit();
+        tma_store_wait_read();
+      }
     }
   }
 }
 
 // K11: dK and dV for the 128 keys of block x, head y, batch z.
+template <bool kAcc>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(16) uint8_t smem_raw[];
@@ -448,19 +489,25 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
 
-    // ---- epilogue: dK scale and dV -> bf16 -> shared (this consumer's K and V
-    // rows) -> TMA stores ----
-    uint8_t* sOk = sK + cw * 64 * 128;
-    uint8_t* sOv = sV + cw * 64 * 128;
-    stage_out(sOk, dk, p.scale, warp, g, tig);
-    stage_out(sOv, dv, 1.f, warp, g, tig);
-    fence_proxy_async();
-    bar_sync(kEpiBar + cw, 128);
-    if ((tid & 127) == 0) {
-      store_rows(&p.out_a, sOk, k0 + cw * 64, h, b);
-      store_rows(&p.out_b, sOv, k0 + cw * 64, h, b);
-      tma_store_commit();
-      tma_store_wait_read();
+    if constexpr (kAcc) {
+      // ---- epilogue: dK scale and dV added into the caller's f32 dk, dv ----
+      add_rows(p.acc_a, dk, p.scale, k0 + cw * 64, p.out_rows, h, b, gridDim.y, warp, g, tig);
+      add_rows(p.acc_b, dv, 1.f, k0 + cw * 64, p.out_rows, h, b, gridDim.y, warp, g, tig);
+    } else {
+      // ---- epilogue: dK scale and dV -> bf16 -> shared (this consumer's K and V
+      // rows) -> TMA stores ----
+      uint8_t* sOk = sK + cw * 64 * 128;
+      uint8_t* sOv = sV + cw * 64 * 128;
+      stage_out(sOk, dk, p.scale, warp, g, tig);
+      stage_out(sOv, dv, 1.f, warp, g, tig);
+      fence_proxy_async();
+      bar_sync(kEpiBar + cw, 128);
+      if ((tid & 127) == 0) {
+        store_rows(&p.out_a, sOk, k0 + cw * 64, h, b);
+        store_rows(&p.out_b, sOv, k0 + cw * 64, h, b);
+        tma_store_commit();
+        tma_store_wait_read();
+      }
     }
   }
 }
@@ -504,6 +551,30 @@ bool fill_params(Params& p, const void* q, const void* k, const void* v, const v
   return true;
 }
 
+// K12 into a bf16 map (out_a) or, accumulating, into acc_a.
+template <bool kAcc>
+int launch_dq(Params& p, int Sq, long long B, int H, void* stream) {
+  p.n_iter = (p.kv_valid + BKV - 1) / BKV;
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_kernel<kAcc>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemDq);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((Sq + kRows - 1) / kRows, H, (unsigned)B);
+  flash_bwd_dq_kernel<kAcc><<<grid, kThreads, kSmemDq, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// K11 into bf16 maps (out_a, out_b) or, accumulating, into acc_a, acc_b.
+template <bool kAcc>
+int launch_dkv(Params& p, int Sq, int Sk, long long B, int H, void* stream) {
+  p.n_iter = (Sq + BQ - 1) / BQ;
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_kernel<kAcc>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemDkv);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((Sk + kRows - 1) / kRows, H, (unsigned)B);
+  flash_bwd_dkv_kernel<kAcc><<<grid, kThreads, kSmemDkv, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Operands q [B, Sq, H, 128], k/v [B, Sk, H, 128], dout [B, Sq, H, 128], bf16
@@ -521,13 +592,9 @@ WANQ_API int wanq_flash_bwd_dq(const void* q, const void* k, const void* v, cons
       !out_map(&p.out_a, dq, Sq, H, B))
     return (int)cudaErrorInvalidValue;
   p.out_b = p.out_a;
-  p.n_iter = (kv_valid + BKV - 1) / BKV;
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemDq);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((Sq + kRows - 1) / kRows, H, (unsigned)B);
-  flash_bwd_dq_kernel<<<grid, kThreads, kSmemDq, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  p.acc_a = p.acc_b = nullptr;
+  p.out_rows = Sq;
+  return launch_dq<false>(p, Sq, B, H, stream);
 }
 
 // The same operands; dk, dv: bf16 [B, Sk, H, 128] contiguous, zero at keys >=
@@ -540,11 +607,41 @@ WANQ_API int wanq_flash_bwd_dkv(const void* q, const void* k, const void* v, con
   if (!fill_params(p, q, k, v, dout, rows, strides, B, H, Sq, Sk, kv_valid, scale, BQ) ||
       !out_map(&p.out_a, dk, Sk, H, B) || !out_map(&p.out_b, dv, Sk, H, B))
     return (int)cudaErrorInvalidValue;
-  p.n_iter = (Sq + BQ - 1) / BQ;
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemDkv);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((Sk + kRows - 1) / kRows, H, (unsigned)B);
-  flash_bwd_dkv_kernel<<<grid, kThreads, kSmemDkv, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  p.acc_a = p.acc_b = nullptr;
+  p.out_rows = Sk;
+  return launch_dkv<false>(p, Sq, Sk, B, H, stream);
+}
+
+// The accumulate mode of K12: the same operands and row table (the caller's);
+// dq_acc: f32 [B, Sq, H, 128] contiguous, 8-byte aligned, to which scale dS K
+// is added.
+WANQ_API int wanq_flash_bwd_dq_acc(const void* q, const void* k, const void* v,
+                                   const void* dout, const float* rows, float* dq_acc,
+                                   long long B, int H, int Sq, int Sk, const long long* strides,
+                                   int kv_valid, float scale, void* stream) {
+  Params p;
+  if (!fill_params(p, q, k, v, dout, rows, strides, B, H, Sq, Sk, kv_valid, scale, kRows) ||
+      reinterpret_cast<uintptr_t>(dq_acc) % 8)
+    return (int)cudaErrorInvalidValue;
+  p.acc_a = p.acc_b = dq_acc;
+  p.out_rows = Sq;
+  return launch_dq<true>(p, Sq, B, H, stream);
+}
+
+// The accumulate mode of K11: dk_acc, dv_acc f32 [B, Sk, H, 128] contiguous,
+// 8-byte aligned, to which scale dS^T Q and P^T dO are added (nothing at keys
+// >= kv_valid).
+WANQ_API int wanq_flash_bwd_dkv_acc(const void* q, const void* k, const void* v,
+                                    const void* dout, const float* rows, float* dk_acc,
+                                    float* dv_acc, long long B, int H, int Sq, int Sk,
+                                    const long long* strides, int kv_valid, float scale,
+                                    void* stream) {
+  Params p;
+  if (!fill_params(p, q, k, v, dout, rows, strides, B, H, Sq, Sk, kv_valid, scale, BQ) ||
+      reinterpret_cast<uintptr_t>(dk_acc) % 8 || reinterpret_cast<uintptr_t>(dv_acc) % 8)
+    return (int)cudaErrorInvalidValue;
+  p.acc_a = dk_acc;
+  p.acc_b = dv_acc;
+  p.out_rows = Sk;
+  return launch_dkv<true>(p, Sq, Sk, B, H, stream);
 }

@@ -36,6 +36,13 @@ work in query chunks from the LSE
 (``force_reference`` runs them under the same autograd wiring on the card).
 On CPU tensors autograd runs through the plain forward. The band mode has no
 backward: a window under training raises.
+
+Ring attention's backward (``parallel/ring.py``) runs K12 and K11 a hop at a
+time in their accumulate mode (:func:`flash_attention_bwd_acc`, counters
+``attention_bwd_dq_acc`` and ``attention_bwd_dkv_acc``): the row table comes
+from the caller, made once a layer from the folded LSE and output, and the
+kernels add their f32 gradients into the caller's buffers. Its plain version
+is :func:`attention_bwd_reference` with ``rows``.
 """
 
 from __future__ import annotations
@@ -202,32 +209,45 @@ def _sdpa_lse_reference(q, k, v, scale: float, k_valid_len: Optional[int],
 
 
 def attention_bwd_reference(q, k, v, o, lse, do, scale: float, k_valid_len: Optional[int],
-                            q_chunk: Optional[int] = None):
+                            q_chunk: Optional[int] = None, rows: Optional[torch.Tensor] = None):
     """The plain version of K11 and K12: (dq, dk, dv) of attention in the
     dtypes of q, k, v, from the forward's output ``o`` and log-sum-exp
     ``lse`` [B, N, Sq]; q, k, v, o, do [B, S, N, D]. In f32, a query chunk of
     ``q_chunk`` rows at a time: P = exp(scale q k^T - lse) (0 past the valid
     keys), dv = P^T do, dS = P (do v^T - di) with di = sum(o do), dq = scale
-    dS k, dk = scale dS^T q."""
+    dS k, dk = scale dS^T q. With ``rows`` (a :func:`flash_bwd_rows` table:
+    the accumulate mode's input, whose lse and di may come from other keys
+    than k's, as a ring hop's do) ``o`` and ``lse`` are not read, P = 2^(scale
+    log2(e) q k^T - lse log2(e)) as the kernels form it, and the gradients
+    stay f32."""
     sq, sk = q.shape[1], k.shape[1]
     kf, vf = k.float(), v.float()
     valid = _valid(k_valid_len, sk)
-    di = (o.float() * do.float()).sum(-1).transpose(1, 2)  # [B, N, Sq]
+    if rows is None:
+        di = (o.float() * do.float()).sum(-1).transpose(1, 2)  # [B, N, Sq]
+    else:
+        lse2, di = rows[:, :, 0, :sq], rows[:, :, 1, :sq]
     dk = torch.zeros(kf.shape, dtype=torch.float32, device=q.device)
     dv = torch.zeros_like(dk)
     dqs = []
     step = q_chunk or sq
     for i in range(0, sq, step):
         qc, doc = q[:, i:i + step].float(), do[:, i:i + step].float()
-        p = torch.exp(torch.einsum("bsnd,btnd->bnst", qc, kf) * scale
-                      - lse[:, :, i:i + step, None])
+        s = torch.einsum("bsnd,btnd->bnst", qc, kf)
+        if rows is None:
+            p = torch.exp(s * scale - lse[:, :, i:i + step, None])
+        else:
+            p = torch.exp2(s * (scale * _LOG2E) - lse2[:, :, i:i + step, None])
         if valid < sk:
             p[..., valid:] = 0.0
         dv += torch.einsum("bnst,bsnd->btnd", p, doc)
         ds = p * (torch.einsum("bsnd,btnd->bnst", doc, vf) - di[:, :, i:i + step, None])
         dqs.append(torch.einsum("bnst,btnd->bsnd", ds, kf) * scale)
         dk += torch.einsum("bnst,bsnd->btnd", ds, qc) * scale
-    return torch.cat(dqs, dim=1).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    dq = torch.cat(dqs, dim=1)
+    if rows is not None:
+        return dq, dk, dv
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def tensor_map_layout(t: torch.Tensor, name: str = "operand"):
@@ -399,6 +419,50 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale: float, kv_valid: int, dq: bo
         _lib.launch("attention_bwd_dkv", "wanq_flash_bwd_dkv", *args, grad_k.data_ptr(),
                     grad_v.data_ptr(), *tail)
     return grad_q, grad_k, grad_v
+
+
+def flash_attention_bwd_acc(q, k, v, do, rows, scale: float, kv_valid: int,
+                            dq_acc: Optional[torch.Tensor] = None,
+                            dk_acc: Optional[torch.Tensor] = None,
+                            dv_acc: Optional[torch.Tensor] = None) -> None:
+    """K12 and K11's accumulate mode, one hop of ring attention's backward:
+    q, do [B, Sq, N, D] the rank's rows, k, v [B, Sk, N, D] the shard the hop
+    holds (bf16 views with a contiguous head dim 128), ``kv_valid`` its valid
+    keys, ``rows`` the :func:`flash_bwd_rows` table of q's rows from the
+    folded LSE and output. Adds scale dS k into ``dq_acc`` (K12, counter
+    ``attention_bwd_dq_acc``) and scale dS^T q, P^T do into ``dk_acc``,
+    ``dv_acc`` (K11, counter ``attention_bwd_dkv_acc``), each f32 contiguous
+    [B, S, N, D]; a None buffer skips its kernel."""
+    for t, name in ((q, "q"), (k, "k"), (v, "v"), (do, "do")):
+        _lib.require_cuda(t, torch.bfloat16, name)
+    b, sq, n, d = q.shape
+    sk = k.shape[1]
+    if k.shape != (b, sk, n, d) or v.shape != k.shape or do.shape != q.shape:
+        raise ValueError(f"shape mismatch: q{tuple(q.shape)} k{tuple(k.shape)} "
+                         f"v{tuple(v.shape)} do{tuple(do.shape)}")
+    pad = -(-sq // _BWD_ROW_PAD) * _BWD_ROW_PAD
+    _lib.require_cuda(rows, torch.float32, "rows")
+    if rows.shape != (b, n, 2, pad) or not rows.is_contiguous():
+        raise ValueError(f"rows must be contiguous [{b}, {n}, 2, {pad}], got "
+                         f"{tuple(rows.shape)}")
+    for t, name, s in ((dq_acc, "dq_acc", sq), (dk_acc, "dk_acc", sk), (dv_acc, "dv_acc", sk)):
+        if t is not None:
+            _lib.require_cuda(t, torch.float32, name)
+            if t.shape != (b, s, n, d) or not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous [{b}, {s}, {n}, {d}] f32")
+    if (dk_acc is None) != (dv_acc is None):
+        raise ValueError("dk_acc and dv_acc go together (one K11 launch)")
+    if not 1 <= kv_valid <= sk:
+        raise ValueError(f"kv_valid {kv_valid} outside [1, {sk}]")
+    table = (ctypes.c_longlong * 12)(*flash_bwd_strides(q, k, v, do))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), rows.data_ptr())
+    tail = (b, n, sq, sk, table, int(kv_valid), float(scale))
+    if dq_acc is not None:
+        _lib.launch("attention_bwd_dq_acc", "wanq_flash_bwd_dq_acc", *args, dq_acc.data_ptr(),
+                    *tail)
+    if dk_acc is not None:
+        _lib.launch("attention_bwd_dkv_acc", "wanq_flash_bwd_dkv_acc", *args,
+                    dk_acc.data_ptr(), dv_acc.data_ptr(), *tail)
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -61,11 +61,16 @@ offset), each block's weights and quant state all-gathered at use over the
 storage axes. Self-attention trades tokens for heads in a Ulysses all-to-all
 (or, where sp does not divide the heads, gathers the whole sequence), runs K4,
 K10 or the ring (``parallel/ring.py``, K4's partial mode a hop) there, and
-trades back before the o projection; every other layer is token-local. The
-tokens are gathered over sp x ring before ``head_forward`` and the batch over
-dp at the end. Unlike ``wanq_tpu``, which takes its unfused q/k chain under a
-plan, the port keeps K3 on the local rows. Calibration, map capture and
-training under a plan raise (ROADMAP Queue 1 item 10).
+trades back before the o projection; every other layer, ``head_forward`` too,
+is token-local. The head's output is gathered over sp x ring and the batch
+over dp at the end. Unlike ``wanq_tpu``, which takes its unfused q/k chain
+under a plan, the port keeps K3 on the local rows. Under a plan, calibration
+reduces each statistic over the ranks that split its rows
+(``QuantCtx.collect_groups``); map capture gathers the rank's heads over the
+whole sequence and batch for the pooled map, then the heads over sp; training
+differentiates through every collective (``parallel/sharding.py``; the ring's
+backward runs K12 / K11 a hop). With ``remat`` a block's weight gathers run
+inside its recompute.
 
 Training (``dit_forward(training=True)``, as ``wanq_tpu``'s): an int8 ctx
 becomes ``trainable`` (the differentiable dequant route of ``qlinear``); the
@@ -116,11 +121,13 @@ from wanq_tpu_torch.ops.rmsnorm_rope import (
 from wanq_tpu_torch.quant.attn import pooled_attn_map, quantized_attention
 from wanq_tpu_torch.quant.qlinear import (
     QuantCtx,
+    context_rows,
     ffn0_gelu_quant_from_prequant,
     fp_linear,
     int8_fusable,
     int8_static_fusable,
     qlinear,
+    reduce_stat,
     resolves_fp,
     w8a8_from_prequant,
 )
@@ -438,12 +445,17 @@ def _self_attention(p: Params, name: str, ctx: Optional[QuantCtx],
     if calib:
         # per-(head, dim) absmax of the attention inputs
         for tag, tensor in (("q", q), ("k", k), ("v", v)):
-            ctx.collect[f"{name}.attn_{tag}"] = tensor.float().abs().amax(dim=(0, 1))
+            ctx.collect[f"{name}.attn_{tag}"] = reduce_stat(
+                ctx, tensor.float().abs().amax(dim=(0, 1)), "max")
     if capture:
         # pooled post-softmax map (reorder tables, window radii) of the
-        # unscaled q: pooled_attn_map applies the softmax scale once
-        ctx.collect[f"{name}.attn_map"] = pooled_attn_map(
-            q, k, ctx.attn_map_pool, k_valid_len=valid_len, reduce=ctx.attn_map_reduce)
+        # unscaled q: pooled_attn_map applies the softmax scale once. Under a
+        # plan: of this rank's heads over the whole sequence and batch, the
+        # heads then gathered
+        qm, km = (q, k) if plan is None else (plan.whole_heads(q), plan.whole_heads(k))
+        amap = pooled_attn_map(qm, km, ctx.attn_map_pool, k_valid_len=valid_len,
+                               reduce=ctx.attn_map_reduce)
+        ctx.collect[f"{name}.attn_map"] = amap if plan is None else plan.gather_heads(amap, n)
     if int8_attn:
         # K10a + K10 (q/k per 512-token block, v per channel, 127-level
         # probs) behind the plain chain: no qk_norm, or a head dim K3 lacks
@@ -490,17 +502,19 @@ def _cross_attention(p: Params, name: str, ctx: Optional[QuantCtx],
     else:
         b = x.shape[0]
         q = qlinear(ctx, f"{name}.q", p["q"], x, dtype).to(dtype)
-    k = qlinear(ctx, f"{name}.k", p["k"], context, dtype).to(dtype)
-    v = qlinear(ctx, f"{name}.v", p["v"], context, dtype).to(dtype)
+    # the text context is every token rank's whole: its statistics reduce over dp
+    kctx = context_rows(ctx)
+    k = qlinear(kctx, f"{name}.k", p["k"], context, dtype).to(dtype)
+    v = qlinear(kctx, f"{name}.v", p["v"], context, dtype).to(dtype)
     if cfg.qk_norm:
         k = rms_norm(k, p["norm_k"], cfg.eps)
     k = k.reshape(b, -1, n, hd).to(dtype)
     v = v.reshape(b, -1, n, hd).to(dtype)
     if i2v:
         # the norm takes the f32 projection, as wanq_tpu's does
-        k_img = rms_norm(qlinear(ctx, f"{name}.k_img", p["k_img"], context_img, dtype),
+        k_img = rms_norm(qlinear(kctx, f"{name}.k_img", p["k_img"], context_img, dtype),
                          p["norm_k_img"], cfg.eps).reshape(b, -1, n, hd).to(dtype)
-        v_img = qlinear(ctx, f"{name}.v_img", p["v_img"], context_img,
+        v_img = qlinear(kctx, f"{name}.v_img", p["v_img"], context_img,
                         dtype).reshape(b, -1, n, hd).to(dtype)
     # a cross_attn section runs the simulated quantizers in int8 mode too:
     # the int8 kernel is for the long self-attention
@@ -679,17 +693,14 @@ def img_embedding(params: Params, clip_fea: torch.Tensor, dtype) -> torch.Tensor
     return layer_norm(ci, 1e-5, ip["4"]["w"], ip["4"]["b"]).to(dtype)
 
 
-def _check_plan(plan, ctx: Optional[QuantCtx], win, training: bool) -> None:
-    """What a sharded forward refuses, as ``wanq_tpu`` does (and calibration,
-    map capture and training, not ported under a plan)."""
-    if training:
-        raise NotImplementedError("training under a mesh is not ported yet (ROADMAP Queue 1 "
-                                  "item 10)")
+def _check_plan(plan, ctx: Optional[QuantCtx], win, training: bool, split_batch: bool) -> None:
+    """What a sharded forward refuses, as ``wanq_tpu`` does, and training on a
+    batch that dp does not divide (every dp rank would hold the whole batch's
+    gradient, which the sum over dp counts dp times)."""
+    if training and not split_batch:
+        raise ValueError(f"training under dp {plan.dp_size} needs a batch that dp divides")
     if ctx is None:
         return
-    if ctx.mode == "calib" or ctx.attn_map_pool:
-        raise NotImplementedError("calibration and map capture under a mesh are not ported "
-                                  "yet (ROADMAP Queue 1 item 10)")
     if plan.ring_size > 1 and ctx.attn is not None and ctx.mode in ("int8", "sim"):
         raise NotImplementedError(
             "attention-map quantization is not supported under ring context parallelism "
@@ -761,9 +772,16 @@ def dit_forward(params: Params, cfg: WanConfig, x: torch.Tensor, t: torch.Tensor
     # the step cache, sequential CFG) runs whole on each of them
     split_batch = plan is not None and x.shape[0] % plan.dp_size == 0
     if plan is not None:
-        _check_plan(plan, ctx, win, training)
+        _check_plan(plan, ctx, win, training, split_batch)
         if split_batch:
             x, t, context, clip_fea = (plan.batch(a) for a in (x, t, context, clip_fea))
+        else:
+            plan = dataclasses.replace(plan, batch_split=False)
+        if ctx is not None and ctx.mode == "calib":
+            # statistics of the tokens reduce over dp x sp x ring, of the text
+            # context and the timesteps over dp (where dp splits the batch)
+            ctx = dataclasses.replace(ctx, collect=ctx.collect, collect_groups=(
+                plan.stats_group(tokens=True), plan.stats_group(tokens=False)))
         top = plan.gather_weights({k: v for k, v in params.items() if k != "blocks"},
                                   slot="top")
         ctx = _gathered_state(plan, ctx, None)
@@ -775,11 +793,12 @@ def dit_forward(params: Params, cfg: WanConfig, x: torch.Tensor, t: torch.Tensor
     if valid_len < seq_len:
         xq = F.pad(xq, (0, 0, 0, seq_len - valid_len))
 
-    e, e0 = time_embedding(top, cfg, t, ctx)
+    cctx = context_rows(ctx)
+    e, e0 = time_embedding(top, cfg, t, cctx)
 
-    c = qlinear(ctx, "text_embedding.0", top["text_embedding"]["0"], context.to(dtype), dtype)
+    c = qlinear(cctx, "text_embedding.0", top["text_embedding"]["0"], context.to(dtype), dtype)
     c = gelu_tanh(c).to(dtype)
-    c = qlinear(ctx, "text_embedding.2", top["text_embedding"]["2"], c, dtype).to(dtype)
+    c = qlinear(cctx, "text_embedding.2", top["text_embedding"]["2"], c, dtype).to(dtype)
     if clip_fea is not None:
         c = torch.cat([img_embedding(top, clip_fea, dtype), c], dim=1)
 
@@ -791,21 +810,24 @@ def dit_forward(params: Params, cfg: WanConfig, x: torch.Tensor, t: torch.Tensor
         tables = SelfAttnTables(*(plan.tokens(tab, dim=0) for tab in tables))
         cos, sin = tables.ca, tables.sb
 
-    xf = xq.to(cfg.res_dtype)
-    for i in range(cfg.num_layers):
+    def block(i: int, xf: torch.Tensor) -> torch.Tensor:
         bp, bctx = params["blocks"][i], ctx
         if plan is not None:
             bp, bctx = plan.gather_weights(bp), _gathered_state(plan, ctx, f"blocks.{i}.")
-        args = (bp, f"blocks.{i}", bctx, xf, e0, c, cfg, cos, sin, valid_len)
-        kw = {"tables": tables, "training": training, "plan": plan}
+        return block_forward(bp, f"blocks.{i}", bctx, xf, e0, c, cfg, cos, sin, valid_len,
+                             tables=tables, training=training, plan=plan)
+
+    xf = xq.to(cfg.res_dtype)
+    for i in range(cfg.num_layers):
         if remat:
-            # no random draw in a block, so no RNG state to keep for the recompute
-            xf = torch.utils.checkpoint.checkpoint(block_forward, *args, use_reentrant=False,
-                                                   preserve_rng_state=False, **kw)
+            # no random draw in a block, so no RNG state to keep for the
+            # recompute, which gathers the block's weights again
+            xf = torch.utils.checkpoint.checkpoint(block, i, xf, use_reentrant=False,
+                                                   preserve_rng_state=False)
         else:
-            xf = block_forward(*args, **kw)
-    if plan is not None:
-        xf = plan.gather_tokens(xf)
+            xf = block(i, xf)
     out = head_forward(top, xf, e, cfg, ctx)
+    if plan is not None:
+        out = plan.gather_tokens(out)
     out = unpatchify(out.float(), grid, cfg.patch_size, cfg.out_dim)
     return plan.gather_batch(out) if split_batch else out

@@ -64,6 +64,8 @@ _SIGNATURES = {
     + [_I, _F, _I, _P, _P, _I, _I, _I, _F, _P],
     "wanq_flash_bwd_dq": [_P] * 6 + [_LL, _I, _I, _I, _P, _I, _F, _P],
     "wanq_flash_bwd_dkv": [_P] * 7 + [_LL, _I, _I, _I, _P, _I, _F, _P],
+    "wanq_flash_bwd_dq_acc": [_P] * 6 + [_LL, _I, _I, _I, _P, _I, _F, _P],
+    "wanq_flash_bwd_dkv_acc": [_P] * 7 + [_LL, _I, _I, _I, _P, _I, _F, _P],
     "wanq_quantize_qkv_int8": [_P] * 3 + [_LL] * 9 + [_P] * 7 + [_LL, _I, _I, _I, _P],
     "wanq_attention_int8": [_P] * 7 + [_LL, _I, _I, _I, _I, _F, _LL, _LL, _LL, _P],
 }

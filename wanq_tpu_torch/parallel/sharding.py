@@ -35,6 +35,21 @@ point of the forward (``models/dit.py``):
 A :class:`Mesh` holds this rank's coordinates and the process groups of every
 axis set; ranks are laid out row-major over (dp, fsdp, sp, ring), as
 ``wanq_tpu``'s devices are.
+
+Training (``wanq_tpu`` differentiates through its plan): every collective of
+the forward is an autograd function. The Ulysses all-to-all's backward is
+the inverse all-to-all. The output's gathers over tokens and batch rows
+(:meth:`ShardingPlan.gather_tokens`, :meth:`ShardingPlan.gather_batch`) feed a
+loss that every rank computes whole, so their backward keeps this rank's own
+slice of the incoming gradient (a sum over the ranks would count it group-size
+times); the gather of q, k, v where sp does not divide the heads feeds each
+rank's own tokens, so its backward sums (a reduce-scatter). The weights'
+gather (:meth:`ShardingPlan.gather_weights`) reduce-scatters a stored leaf's
+gradient into its shard, and :meth:`ShardingPlan.reduce_grads` then sums the
+gradients over the axes that split the data, dp x sp x ring (never fsdp,
+whose ranks compute the same rows, as ``wanq_tpu``'s ``tokens`` spec
+replicates over it). Calibration reduces each statistic over the same axes
+(``QuantCtx.collect_groups``, :meth:`ShardingPlan.stats_group`).
 """
 
 from __future__ import annotations
@@ -49,10 +64,12 @@ import torch
 import torch.distributed as dist
 
 AXES = ("dp", "fsdp", "sp", "ring")
-# the axis sets a Mesh makes a process group for: dp, and every non-empty set
-# of the others (the sp x ring sequence group, the storage axes of full_shard)
-_GROUP_AXES = (("dp",),) + tuple(
-    c for r in (1, 2, 3) for c in itertools.combinations(("fsdp", "sp", "ring"), r))
+# the axis sets a Mesh makes a process group for: every non-empty one (the sp x
+# ring sequence group, the storage axes of full_shard, the data axes dp x sp x
+# ring of the gradients and statistics)
+_GROUP_AXES = tuple(c for r in range(1, 5) for c in itertools.combinations(AXES, r))
+# the axes that split the data (the batch over dp, the tokens over sp x ring)
+DATA_AXES = ("dp", "sp", "ring")
 
 
 @dataclasses.dataclass(eq=False)
@@ -184,11 +201,19 @@ class Shard:
     along ``dim`` over a storage group; ``pack`` is the flat byte buffer that
     holds it with the other shards gathered in the same collective."""
 
-    __slots__ = ("local", "dim", "full_shape", "pack", "offset")
+    __slots__ = ("local", "dim", "full_shape", "pack", "offset", "merge")
 
     def __init__(self, local: torch.Tensor, dim: int, full_shape):
         self.local, self.dim, self.full_shape = local, dim, tuple(full_shape)
-        self.pack, self.offset = None, 0
+        self.pack, self.offset, self.merge = None, 0, None
+
+    def merged(self, fn) -> "Shard":
+        """This shard (the same storage) with ``fn(whole)`` applied to the
+        whole tensor after each gather (a LoRA merge into the gathered
+        weight, ``training/lora.py::apply_lora``)."""
+        out = Shard(self.local, self.dim, self.full_shape)
+        out.pack, out.offset, out.merge = self.pack, self.offset, fn
+        return out
 
     @property
     def dtype(self):
@@ -233,6 +258,9 @@ class ShardingPlan:
 
     mesh: Mesh
     full_shard: bool = False
+    # whether the forward splits its batch over dp (dit_forward: False for a
+    # batch dp does not divide, which runs whole on every dp rank)
+    batch_split: bool = True
     _buffers: Dict[Any, torch.Tensor] = dataclasses.field(default_factory=dict, repr=False)
 
     # ---- sizes and positions -------------------------------------------
@@ -275,8 +303,9 @@ class ShardingPlan:
         return x[self.mesh.coords["dp"] * n:(self.mesh.coords["dp"] + 1) * n]
 
     def gather_batch(self, x: torch.Tensor) -> torch.Tensor:
-        """All-gather the rows of x over dp, in batch order."""
-        return _all_gather_dim0(x, self.mesh.group("dp"), self.dp_size)
+        """All-gather the rows of x over dp, in batch order; the backward
+        keeps this rank's rows of the gradient."""
+        return _Gather.apply(x, self.mesh.group("dp"), self.dp_size, False)
 
     # ---- tokens ----------------------------------------------------------
     def tokens(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
@@ -284,12 +313,15 @@ class ShardingPlan:
         off, n = self.token_slice(x.shape[dim])
         return x.narrow(dim, off, n)
 
-    def gather_tokens(self, x: torch.Tensor) -> torch.Tensor:
+    def gather_tokens(self, x: torch.Tensor, summed: bool = False) -> torch.Tensor:
         """[B, S_loc, ...] -> [B, S, ...]: all-gather over sp x ring, the slices
         put back in token order (the group's rank s * ring + r holds slice r *
-        sp + s)."""
+        sp + s). The backward keeps this rank's slice of the gradient (every
+        rank computes the same function of the whole), or with ``summed``
+        sums the ranks' gradients (each rank computes its own tokens from the
+        whole)."""
         sp, ring = self.mesh.shape["sp"], self.ring_size
-        out = _all_gather_dim0(x.unsqueeze(0), self.mesh.group("sp", "ring"), sp * ring)
+        out = _Gather.apply(x.unsqueeze(0), self.mesh.group("sp", "ring"), sp * ring, summed)
         b, s_loc, rest = x.shape[0], x.shape[1], x.shape[2:]
         out = out.view(sp, ring, b, s_loc, *rest).transpose(0, 1)  # [ring, sp, B, S_loc, ...]
         return out.movedim(2, 0).reshape(b, ring * sp * s_loc, *rest)
@@ -305,8 +337,8 @@ class ShardingPlan:
         heads over the ring shard's sequence."""
         sp = self.mesh.shape["sp"]
         b, n, s_loc, d = x.shape
-        inp = x.reshape(b, sp, n // sp, s_loc, d).transpose(0, 1).contiguous()
-        out = _all_to_all(inp, self.mesh.group("sp"))
+        inp = x.reshape(b, sp, n // sp, s_loc, d).transpose(0, 1)
+        out = _AllToAll.apply(inp, self.mesh.group("sp"))
         return out.permute(1, 2, 0, 3, 4).reshape(b, n // sp, sp * s_loc, d)
 
     def tokens_from_heads(self, y: torch.Tensor) -> torch.Tensor:
@@ -315,9 +347,32 @@ class ShardingPlan:
         this rank's tokens [B, S_loc, N * D], heads in global order."""
         sp = self.mesh.shape["sp"]
         b, s, nh, d = y.shape
-        inp = y.reshape(b, sp, s // sp, nh, d).transpose(0, 1).contiguous()
-        out = _all_to_all(inp, self.mesh.group("sp"))  # [sp (head slice), B, S_loc, N/sp, D]
+        inp = y.reshape(b, sp, s // sp, nh, d).transpose(0, 1)
+        out = _AllToAll.apply(inp, self.mesh.group("sp"))  # [sp (head slice), B, S_loc, N/sp, D]
         return out.permute(1, 2, 0, 3, 4).reshape(b, s // sp, sp * nh * d)
+
+    def whole_heads(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, S_loc, N, D] -> this rank's heads over the whole sequence and
+        the whole batch, [B_all, S, N / sp, D] (every head where sp does not
+        divide them): the Ulysses all-to-all, then a gather over the ring
+        group and, where the batch is split, over dp. The map capture's
+        operands, so its pool windows never meet a shard edge."""
+        n, ring = x.shape[2], self.ring_size
+        if self.can_shard_heads(n):
+            y = self.heads(x.transpose(1, 2)).transpose(1, 2)  # [B, S_ring, N / sp, D]
+            y = _all_gather_dim0(y.unsqueeze(0).contiguous(), self.mesh.group("ring"), ring)
+            y = y.movedim(0, 1).reshape(y.shape[1], ring * y.shape[2], *y.shape[3:])
+        else:
+            y = self.gather_tokens(x)
+        return self.gather_batch(y) if self.batch_split else y
+
+    def gather_heads(self, x: torch.Tensor, n_heads: int) -> torch.Tensor:
+        """[N / sp, ...] of this rank's heads (:meth:`whole_heads`) -> [N,
+        ...], all-gathered over sp (as they are where sp does not divide the
+        heads)."""
+        if not self.can_shard_heads(n_heads):
+            return x
+        return _all_gather_dim0(x.contiguous(), self.mesh.group("sp"), self.mesh.shape["sp"])
 
     def ulysses_attention(self, q, k, v, attend, k_valid_len: int, window, scale: float,
                           shard_heads: bool = True) -> torch.Tensor:
@@ -339,7 +394,7 @@ class ShardingPlan:
             else:
                 y = attend(qh, kh, vh)
             return self.tokens_from_heads(y)
-        y = attend(*(self.gather_tokens(t.transpose(1, 2)) for t in (q, k, v)))
+        y = attend(*(self.gather_tokens(t.transpose(1, 2), summed=True) for t in (q, k, v)))
         return self.tokens(y).reshape(b, s_loc, n * d)
 
     def ring_attention(self, q, k, v, scale=None, k_valid_len=None, window=None):
@@ -350,44 +405,172 @@ class ShardingPlan:
         return ring_attention(q, k, v, group=self.mesh.group("ring"), scale=scale,
                               k_valid_len=k_valid_len, window=window)
 
+    # ---- gradients and statistics ------------------------------------------
+    def stats_group(self, tokens: bool = True):
+        """The group over which a statistic of this forward's rows sums: dp
+        where the batch is split, with sp x ring where the rows are this
+        rank's tokens (``tokens``; False for a site fed by the text context
+        or the timesteps, which every sp x ring rank holds whole). None when
+        no axis splits them, or without a process group."""
+        axes = (("dp",) if self.batch_split else ()) + (("sp", "ring") if tokens else ())
+        return self.mesh.group(*axes) if axes else None
+
+    def reduce_grads(self, tensors, stored: bool = False) -> None:
+        """Sum gradients in place over the axes that split the data: dp x sp x
+        ring for replicated parameters; for ``stored`` ones (the shards of
+        stored leaves, which :meth:`gather_weights`' backward has already
+        summed over the storage axes that split the data) over the others.
+        Never over fsdp, whose ranks compute the same rows. One all-reduce a
+        dtype."""
+        axes = DATA_AXES
+        if stored:
+            axes = tuple(a for a in DATA_AXES if a not in storage_axes(self.mesh,
+                                                                       self.full_shard)[0])
+        group = self.mesh.group(*axes)
+        if group is None:
+            return
+        by_dtype: Dict[torch.dtype, list] = {}
+        for t in tensors:
+            by_dtype.setdefault(t.dtype, []).append(t)
+        for ts in by_dtype.values():
+            flat = torch.cat([t.reshape(-1) for t in ts])
+            dist.all_reduce(flat, group=group)
+            off = 0
+            for t in ts:
+                t.copy_(flat[off:off + t.numel()].view_as(t))
+                off += t.numel()
+
     # ---- weights ---------------------------------------------------------
-    def _buffer(self, key, shape, dtype, device) -> torch.Tensor:
+    def _buffer(self, key, shape, dtype, device, fresh: bool = False) -> torch.Tensor:
+        if fresh:
+            return torch.empty(shape, dtype=dtype, device=device)
         buf = self._buffers.get(key)
         if buf is None or buf.shape != tuple(shape) or buf.dtype != dtype:
             buf = self._buffers[key] = torch.empty(shape, dtype=dtype, device=device)
         return buf
 
     def gather_weights(self, tree, slot: str = "block"):
-        """The tree with every Shard replaced by its whole tensor: one
-        all-gather over the storage group per pack, into buffers kept under
-        ``slot`` and the leaf's path, so every block reuses the same ones (the
-        blocks run in turn on one stream). Replicated leaves pass through."""
-        shards = [(p, leaf) for p, leaf in _walk(tree) if isinstance(leaf, Shard)]
+        """The tree with every Shard replaced by its whole tensor (and a
+        merged Shard's ``merge`` applied to it): one all-gather over the
+        storage group per pack, into buffers kept under ``slot`` and the
+        leaf's place in the tree, so every block reuses the same ones (the
+        blocks run in turn on one stream). Replicated leaves pass through. While autograd
+        records the whole tensors are new (autograd may keep them), and where
+        a stored shard needs a gradient the gather is an autograd function
+        whose backward reduce-scatters each whole gradient into its shard
+        (:meth:`_shard_grad`)."""
+        shards = [leaf for _, leaf in _walk(tree) if isinstance(leaf, Shard)]
         if not shards:
             return tree
+        fresh = torch.is_grad_enabled()
+        if fresh and any(sh.local.requires_grad for sh in shards):
+            fulls = _GatherShards.apply(self, shards, *(sh.local for sh in shards))
+        else:
+            fulls = self._gather(shards, slot, fresh)
+        whole = {id(sh): w for sh, w in zip(shards, fulls)}
+
+        def sub(path, leaf):
+            if not isinstance(leaf, Shard):
+                return leaf
+            full = whole[id(leaf)]
+            return full if leaf.merge is None else leaf.merge(full)
+
+        return _map(tree, sub)
+
+    def _gather(self, shards, slot: str, fresh: bool):
+        """The whole tensors of ``shards``, in order: one all-gather a pack."""
         group, fs, _ = self.storage()
         gathered = {}
-        for _, sh in shards:
+        for sh in shards:
             if id(sh.pack) in gathered:
                 continue
             recv = self._buffer((slot, "recv", len(gathered)), (fs * sh.pack.numel(),),
-                                torch.uint8, sh.pack.device)
+                                torch.uint8, sh.pack.device, fresh)
             _all_gather_into(recv, sh.pack, group)
             gathered[id(sh.pack)] = recv.view(fs, sh.pack.numel())
-
-        def whole(path, leaf):
-            if not isinstance(leaf, Shard):
-                return leaf
-            nb = leaf.local.numel() * leaf.local.element_size()
-            src = gathered[id(leaf.pack)][:, leaf.offset:leaf.offset + nb]
-            src = src.view(leaf.dtype).view(fs, *leaf.local.shape)
-            full = self._buffer((slot, path), leaf.full_shape, leaf.dtype, leaf.local.device)
-            d = leaf.dim
-            split = (*leaf.full_shape[:d], fs, leaf.local.shape[d], *leaf.full_shape[d + 1:])
+        out = []
+        for i, sh in enumerate(shards):
+            nb = sh.local.numel() * sh.local.element_size()
+            src = gathered[id(sh.pack)][:, sh.offset:sh.offset + nb]
+            src = src.view(sh.dtype).view(fs, *sh.local.shape)
+            full = self._buffer((slot, i), sh.full_shape, sh.dtype, sh.local.device, fresh)
+            d = sh.dim
+            split = (*sh.full_shape[:d], fs, sh.local.shape[d], *sh.full_shape[d + 1:])
             full.view(split).copy_(src.movedim(0, d))
-            return full
+            out.append(full)
+        return out
 
-        return _map(tree, whole)
+    def _shard_grad(self, g: torch.Tensor, sh: Shard) -> torch.Tensor:
+        """The gradient of a stored shard from the gradient ``g`` of its whole
+        tensor on this rank: the slice of this rank's storage index, summed
+        over the storage axes that split the data (sp, ring under full_shard:
+        a reduce-scatter over them) and taken as it is over fsdp, whose ranks
+        hold the same gradient."""
+        axes, fs = storage_axes(self.mesh, self.full_shard)
+        data = tuple(a for a in axes if a in DATA_AXES)
+        nd = math.prod(self.mesh.shape[a] for a in data)
+        n = sh.full_shape[sh.dim] // fs
+        f_idx = self.mesh.index(*(a for a in axes if a not in DATA_AXES))
+        block = g.narrow(sh.dim, f_idx * nd * n, nd * n)
+        group = self.mesh.group(*data) if data else None
+        if group is None:
+            return block.narrow(sh.dim, self.mesh.index(*data) * n, n).contiguous()
+        parts = block.reshape(*g.shape[:sh.dim], nd, n, *g.shape[sh.dim + 1:]).movedim(
+            sh.dim, 0).contiguous()
+        out = torch.empty(sh.local.shape, dtype=g.dtype, device=g.device)
+        dist.reduce_scatter_tensor(out, parts.reshape(nd * out.shape[0], *out.shape[1:]),
+                                   group=group)
+        return out
+
+
+class _GatherShards(torch.autograd.Function):
+    """:meth:`ShardingPlan.gather_weights` of shards that need a gradient."""
+
+    @staticmethod
+    def forward(ctx, plan, shards, *locals_):
+        ctx.plan, ctx.shards = plan, shards
+        return tuple(plan._gather(shards, "", fresh=True))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        out = [None, None]
+        for sh, g, need in zip(ctx.shards, grads, ctx.needs_input_grad[2:]):
+            out.append(ctx.plan._shard_grad(g, sh) if need and g is not None else None)
+        return tuple(out)
+
+
+class _AllToAll(torch.autograd.Function):
+    """:func:`_all_to_all`; its own inverse, so also its backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x.contiguous(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g.contiguous(), ctx.group), None
+
+
+class _Gather(torch.autograd.Function):
+    """:func:`_all_gather_dim0` over ``n`` ranks; the backward keeps this
+    rank's rows of the gradient, or with ``summed`` reduce-scatters it."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, summed):
+        ctx.group, ctx.n, ctx.summed = group, n, summed
+        return _all_gather_dim0(x, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.group is None:
+            return g, None, None, None
+        m = g.shape[0] // ctx.n
+        if not ctx.summed:
+            return g.narrow(0, dist.get_rank(ctx.group) * m, m), None, None, None
+        out = torch.empty((m, *g.shape[1:]), dtype=g.dtype, device=g.device)
+        dist.reduce_scatter_tensor(out, g.contiguous(), group=ctx.group)
+        return out, None, None, None
 
 
 def _all_gather_into(out: torch.Tensor, x: torch.Tensor, group) -> None:

@@ -42,7 +42,10 @@ output in both modes, x' the transformed activation, as fp_linear
 multiplies (bf16 operands, f32 products); the fused producers refuse such
 sites. Calibration with ``QuantCtx.hessian_regex`` also collects each
 matching site's input Hessian ``<name>.hess`` = x^T x [C_in, C_in] over
-every token, summed in f64.
+every token, summed in f64. Under a sharding plan (``QuantCtx.collect_groups``,
+set by ``dit_forward``) each statistic is reduced over the ranks that hold the
+site's other rows: absmax and ``act_max`` by MAX, ``act_min`` by MIN, the f64
+Hessian by SUM (float64 on the wire too).
 
 A QLoRA adapter in a layer's state (``lora_a`` [C_in, r], ``lora_b`` [r,
 C_out], alpha/r folded into ``lora_b`` by ``training/lora.py``) adds ``(x @
@@ -58,6 +61,7 @@ import re
 from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from wanq_tpu_torch.ops.fused import quant_sum
 from wanq_tpu_torch.ops.qgemm import (
@@ -117,6 +121,10 @@ class QuantCtx:
     # differentiable bf16 product, the activations fake-quantized with the
     # straight-through round. dit_forward(training=True) sets it
     trainable: bool = False
+    # calib under a sharding plan (dit_forward sets it): the process groups
+    # over which a site's statistics reduce, (fed by this rank's tokens, fed
+    # by the text context or the timesteps); a None entry reduces nothing
+    collect_groups: Optional[tuple] = None
 
     def __post_init__(self):
         if self.mode not in MODES:
@@ -127,6 +135,29 @@ class QuantCtx:
 
     def policy(self, name: str) -> LayerPolicy:
         return self.policies.get(name, FP_POLICY)
+
+
+_REDUCE_OPS = {"max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN, "sum": dist.ReduceOp.SUM}
+
+
+def reduce_stat(ctx: QuantCtx, t: torch.Tensor, op: str) -> torch.Tensor:
+    """A calibration statistic of this rank's rows, reduced in place by
+    ``op`` ('max', 'min', 'sum') over ``ctx.collect_groups[0]``; as it is
+    without one."""
+    group = None if ctx.collect_groups is None else ctx.collect_groups[0]
+    if group is not None:
+        dist.all_reduce(t, op=_REDUCE_OPS[op], group=group)
+    return t
+
+
+def context_rows(ctx: Optional[QuantCtx]) -> Optional[QuantCtx]:
+    """``ctx`` for a site fed by the text context or the timesteps, which
+    every rank of the token axes holds whole: its statistics reduce over the
+    second group of ``collect_groups`` (the batch's)."""
+    if ctx is None or ctx.collect_groups is None:
+        return ctx
+    group = ctx.collect_groups[1]
+    return dataclasses.replace(ctx, collect=ctx.collect, collect_groups=(group, group))
 
 
 class _MmF32(torch.autograd.Function):
@@ -205,10 +236,10 @@ def qlinear(ctx: Optional[QuantCtx], name: str, params: Params, x: torch.Tensor,
     if ctx.mode == "calib":
         xf = x.float()
         lead = tuple(range(xf.ndim - 1))
-        ctx.collect[name] = xf.abs().amax(dim=lead)
+        ctx.collect[name] = reduce_stat(ctx, xf.abs().amax(dim=lead), "max")
         if ctx.collect_minmax:
-            ctx.collect[f"{name}.act_max"] = xf.amax(dim=lead)
-            ctx.collect[f"{name}.act_min"] = xf.amin(dim=lead)
+            ctx.collect[f"{name}.act_max"] = reduce_stat(ctx, xf.amax(dim=lead), "max")
+            ctx.collect[f"{name}.act_min"] = reduce_stat(ctx, xf.amin(dim=lead), "min")
         if ctx.hessian_regex and re.search(ctx.hessian_regex, name):
             # f64 sums: at T2V-1.3B a few massive channels put most of a
             # site's energy in one direction, and an f32 sum over a sweep's
@@ -217,7 +248,7 @@ def qlinear(ctx: Optional[QuantCtx], name: str, params: Params, x: torch.Tensor,
             # eigenvalue at C = 1536), which made the damped Hessian of
             # blocks.29.self_attn.o indefinite
             x2 = xf.reshape(-1, xf.shape[-1]).double()
-            ctx.collect[f"{name}.hess"] = x2.t() @ x2
+            ctx.collect[f"{name}.hess"] = reduce_stat(ctx, x2.t() @ x2, "sum")
         return fp_linear(params, x, compute_dtype)
 
     policy = ctx.policy(name)

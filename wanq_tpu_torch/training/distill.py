@@ -25,6 +25,17 @@ decay 1e-2 is never used). A step updates the trained tensors, the
 optimizer and the EMA in place and returns them, with the loss and the
 gradients' global norm before clipping. The LoRA scale stays outside the
 optimizer.
+
+Under a sharding plan (``plan=``, as ``wanq_tpu``'s builders take it) every
+rank runs the three forwards through ``dit_forward(plan=)``: each takes its
+dp rows of the batch and its tokens, and every rank computes the same loss on
+the gathered output. The backward runs through the plan's collectives
+(``parallel/sharding.py``); the update then sums the gradients over the data
+axes (``ShardingPlan.reduce_grads``) before the clip, the global norm and
+AdamW, so every rank applies the same update and the trained tensors stay
+equal on every rank, bit for bit. Under FSDP every parameter of
+``make_distill_step`` trains as its shard (a ``Shard``'s local tensor, in its
+pack), and the global norm sums the shards' squares over the storage ranks.
 """
 
 from __future__ import annotations
@@ -34,9 +45,11 @@ from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from wanq_tpu_torch.configs import WanConfig
 from wanq_tpu_torch.models.dit import dit_forward
+from wanq_tpu_torch.parallel.sharding import Shard, pack_params
 from wanq_tpu_torch.training.lora import SCALE, apply_lora, merge_lora_into_quant_state
 
 
@@ -62,9 +75,12 @@ class TrainState:
 
 
 def _leaves(tree) -> List[torch.Tensor]:
-    """The trained tensors of a tree (the LoRA scale excluded), in order."""
+    """The trained tensors of a tree (the LoRA scale excluded; a Shard's local
+    tensor), in order."""
     if torch.is_tensor(tree):
         return [tree]
+    if isinstance(tree, Shard):
+        return [tree.local]
     if isinstance(tree, dict):
         return [t for k, v in tree.items() if k != SCALE for t in _leaves(v)]
     if isinstance(tree, (list, tuple)):
@@ -72,9 +88,24 @@ def _leaves(tree) -> List[torch.Tensor]:
     return []
 
 
+def _stored(tree) -> List[bool]:
+    """For each of :func:`_leaves`, whether it is a Shard's (stored split)."""
+    if isinstance(tree, Shard):
+        return [True]
+    if torch.is_tensor(tree):
+        return [False]
+    if isinstance(tree, dict):
+        return [f for k, v in tree.items() if k != SCALE for f in _stored(v)]
+    if isinstance(tree, (list, tuple)):
+        return [f for v in tree for f in _stored(v)]
+    return []
+
+
 def _tree_map(fn, tree):
     if torch.is_tensor(tree):
         return fn(tree)
+    if isinstance(tree, Shard):
+        return Shard(fn(tree.local), tree.dim, tree.full_shape)
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -87,6 +118,8 @@ def init_train_state(params, cfg: DistillConfig) -> Tuple[TrainState, torch.opti
     takes gradients (the caller's tree stays as it is, e.g. as the teacher);
     the EMA starts equal to it."""
     params = _tree_map(lambda t: t.detach().clone(), params)
+    if any(_stored(params)):
+        pack_params(params)  # the cloned shards gather from packs of their own
     leaves = _leaves(params)
     for t in leaves:
         t.requires_grad_(True)
@@ -117,10 +150,11 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads, max_norm: float, norm=None) -> torch.Tensor:
     """optax.clip_by_global_norm in place: every gradient times max / |g| when
-    the global norm |g| >= max. Returns |g| (before clipping)."""
-    norm = global_norm(grads)
+    the global norm |g| (``norm``, else :func:`global_norm` of ``grads``) >=
+    max. Returns |g| (before clipping)."""
+    norm = global_norm(grads) if norm is None else norm
     if norm >= max_norm:
         for g in grads:
             g.copy_(g / norm.to(g.dtype) * max_norm)
@@ -141,8 +175,21 @@ def _distill_loss(student, teacher, g) -> torch.Tensor:
     return torch.mean(torch.square(student() - v_teacher))
 
 
-def _update(loss_fn, trained, ema, tx, dcfg: DistillConfig):
-    """Gradients of loss_fn() w.r.t. the trained tensors, clip, AdamW, EMA."""
+@torch.no_grad()
+def _planned_norm(grads, stored, plan) -> torch.Tensor:
+    """The global norm of gradients some of which are shards (``stored``):
+    their squares sum over the storage ranks."""
+    sq = sum(g.float().square().sum() for g, st in zip(grads, stored) if st)
+    group = plan.storage()[0]
+    if group is not None:
+        dist.all_reduce(sq, group=group)
+    return torch.sqrt(sum((g.float().square().sum() for g, st in zip(grads, stored) if not st),
+                          sq))
+
+
+def _update(loss_fn, trained, ema, tx, dcfg: DistillConfig, plan=None):
+    """Gradients of loss_fn() w.r.t. the trained tensors, summed over the
+    plan's data axes, clip, AdamW, EMA."""
     leaves = _leaves(trained)
     tx.zero_grad(set_to_none=True)
     loss = loss_fn()
@@ -151,23 +198,32 @@ def _update(loss_fn, trained, ema, tx, dcfg: DistillConfig):
         if t.grad is None:
             t.grad = torch.zeros_like(t)
     grads = [t.grad for t in leaves]
-    gnorm = clip_by_global_norm_(grads, dcfg.max_grad_norm)
+    norm = None
+    if plan is not None:
+        stored = _stored(trained)
+        with torch.no_grad():
+            plan.reduce_grads([g for g, st in zip(grads, stored) if not st])
+            plan.reduce_grads([g for g, st in zip(grads, stored) if st], stored=True)
+        if any(stored):
+            norm = _planned_norm(grads, stored, plan)
+    gnorm = clip_by_global_norm_(grads, dcfg.max_grad_norm, norm)
     tx.step()
     ema_update(ema, trained, dcfg.ema_decay)
     return loss.detach(), gnorm
 
 
-def make_distill_step(model_cfg: WanConfig, dcfg: DistillConfig, tx) -> Callable:
+def make_distill_step(model_cfg: WanConfig, dcfg: DistillConfig, tx, plan=None) -> Callable:
     """step(params, ema_params, opt_state, teacher_params, x0, noise, t,
     context, null_context, g) -> (params, ema_params, opt_state, loss,
     gnorm): every parameter of ``params`` (the optimizer's) trains. The
     step's loss function is ``step.loss_fn(params, teacher_params, x0, noise,
-    t, context, null_context, g)``."""
+    t, context, null_context, g)``. ``plan``: a ShardingPlan (see the module
+    docstring); both trees then hold this rank's storage."""
 
     def loss_fn(params, teacher_params, x0, noise, t, context, null_context, g):
         xt = _noised(x0, noise, t, dcfg)
         fwd = lambda p, c, **kw: dit_forward(p, model_cfg, xt, t, c, dcfg.seq_len,
-                                             training=True, **kw)
+                                             training=True, plan=plan, **kw)
         return _distill_loss(lambda: fwd(params, context, remat=dcfg.remat),
                              lambda: (fwd(teacher_params, context),
                                       fwd(teacher_params, null_context)), g)
@@ -175,22 +231,25 @@ def make_distill_step(model_cfg: WanConfig, dcfg: DistillConfig, tx) -> Callable
     def step(params, ema_params, opt_state, teacher_params, x0, noise, t, context,
              null_context, g):
         loss, gnorm = _update(lambda: loss_fn(params, teacher_params, x0, noise, t, context,
-                                              null_context, g), params, ema_params, tx, dcfg)
+                                              null_context, g), params, ema_params, tx, dcfg,
+                              plan)
         return params, ema_params, opt_state, loss, gnorm
 
     step.loss_fn = loss_fn
     return step
 
 
-def make_lora_distill_step(model_cfg: WanConfig, dcfg: DistillConfig, tx) -> Callable:
+def make_lora_distill_step(model_cfg: WanConfig, dcfg: DistillConfig, tx,
+                           plan=None) -> Callable:
     """FP LoRA: step(lora, ema_lora, opt_state, base_params, x0, noise, t,
     context, null_context, g); the student is ``apply_lora(base_params,
-    lora)``, the base the teacher. ``step.loss_fn(lora, base_params, ...)``."""
+    lora)`` (under FSDP merged into each gathered weight), the base the
+    teacher. ``step.loss_fn(lora, base_params, ...)``."""
 
     def loss_fn(lora, base_params, x0, noise, t, context, null_context, g):
         xt = _noised(x0, noise, t, dcfg)
         fwd = lambda p, c, **kw: dit_forward(p, model_cfg, xt, t, c, dcfg.seq_len,
-                                             training=True, **kw)
+                                             training=True, plan=plan, **kw)
         return _distill_loss(lambda: fwd(apply_lora(base_params, lora), context,
                                          remat=dcfg.remat),
                              lambda: (fwd(base_params, context),
@@ -198,14 +257,15 @@ def make_lora_distill_step(model_cfg: WanConfig, dcfg: DistillConfig, tx) -> Cal
 
     def step(lora, ema_lora, opt_state, base_params, x0, noise, t, context, null_context, g):
         loss, gnorm = _update(lambda: loss_fn(lora, base_params, x0, noise, t, context,
-                                              null_context, g), lora, ema_lora, tx, dcfg)
+                                              null_context, g), lora, ema_lora, tx, dcfg, plan)
         return lora, ema_lora, opt_state, loss, gnorm
 
     step.loss_fn = loss_fn
     return step
 
 
-def make_qlora_distill_step(model_cfg: WanConfig, dcfg: DistillConfig, tx) -> Callable:
+def make_qlora_distill_step(model_cfg: WanConfig, dcfg: DistillConfig, tx,
+                            plan=None) -> Callable:
     """QLoRA: step(lora, ema_lora, opt_state, params, qctx, x0, noise, t,
     context, null_context, g). ``qctx`` is the frozen base (an int8 QuantCtx,
     its FP weights may be stripped; ``params`` carries the leaves that are
@@ -215,7 +275,7 @@ def make_qlora_distill_step(model_cfg: WanConfig, dcfg: DistillConfig, tx) -> Ca
     def loss_fn(lora, params, qctx, x0, noise, t, context, null_context, g):
         xt = _noised(x0, noise, t, dcfg)
         fwd = lambda ctx, c, **kw: dit_forward(params, model_cfg, xt, t, c, dcfg.seq_len,
-                                               ctx=ctx, training=True, **kw)
+                                               ctx=ctx, training=True, plan=plan, **kw)
         student_ctx = dataclasses.replace(
             qctx, state=merge_lora_into_quant_state(qctx.state, lora))
         return _distill_loss(lambda: fwd(student_ctx, context, remat=dcfg.remat),
@@ -223,7 +283,7 @@ def make_qlora_distill_step(model_cfg: WanConfig, dcfg: DistillConfig, tx) -> Ca
 
     def step(lora, ema_lora, opt_state, params, qctx, x0, noise, t, context, null_context, g):
         loss, gnorm = _update(lambda: loss_fn(lora, params, qctx, x0, noise, t, context,
-                                              null_context, g), lora, ema_lora, tx, dcfg)
+                                              null_context, g), lora, ema_lora, tx, dcfg, plan)
         return lora, ema_lora, opt_state, loss, gnorm
 
     step.loss_fn = loss_fn

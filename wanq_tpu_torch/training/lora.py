@@ -30,6 +30,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from wanq_tpu_torch.parallel.sharding import Shard
 from wanq_tpu_torch.quant.ptq import params_get
 
 DEFAULT_TARGETS = r"self_attn\.(q|k|v|o)|ffn\.(0|2)"
@@ -102,7 +103,9 @@ def init_lora_from_cfg(cfg, rank: int = 16, targets: str = DEFAULT_TARGETS, seed
 def apply_lora(params: Any, lora) -> Any:
     """A copy of the param tree with ``w + scale * a @ b`` (the product in
     f32, the sum in the weight's dtype) at each adapted layer; only the dicts
-    along adapted paths are copied."""
+    along adapted paths are copied. A weight stored split (a sharding plan's
+    ``Shard``, FSDP) keeps its storage and takes the sum into the whole
+    weight at each gather."""
     scale = lora_scale(lora)
     out = dict(params)
     copied = {id(out)}
@@ -117,7 +120,9 @@ def apply_lora(params: Any, lora) -> Any:
             node = node[key]
         leaf = dict(node[parts[-1]])
         w = leaf["w"]
-        leaf["w"] = w + (scale * (ab["a"].float() @ ab["b"].float())).to(w.dtype)
+        merge = lambda whole, a=ab["a"], b=ab["b"]: whole + (
+            scale * (a.float() @ b.float())).to(whole.dtype)
+        leaf["w"] = w.merged(merge) if isinstance(w, Shard) else merge(w)
         node[parts[-1]] = leaf
     return out
 
