@@ -86,8 +86,13 @@ non-zero:
    (the YAML's adaptive cache plans all-full steps); wan_w4a8_14b at 480p over
    8 steps, where the YAML's adaptive policy decides (its trace printed, its
    actions equal to simulate_adaptive_actions replayed on the trace's own
-   drifts, the time of each step by action); and wan_w4a8_14b at 1280x720x81
-   (seq 75776) with --cfg_mode sequential, 2 steps. Per path: step times, peak
+   drifts, the time of each step by action); wan_w4a8_14b at 1280x720x81
+   (seq 75776) with --cfg_mode sequential, 2 steps; and w4w8_plan_14b:
+   quant_generate --auto_bits_gib PLAN_GIB (4.75 GiB at 20 blocks, which plans
+   what 9.5 GiB plans at 40: the two plans' W8 classes held equal) with
+   wan_w4a8_14b.yaml's act section, 3 steps at 480p: K8 on the six W4
+   classes, ffn.0 in its GELU + quant mode feeding ffn.2's K2, K2 on the four
+   W8 classes. Per path: step times, peak
    memory, finite latents of the task's shape, and kernel launch counts, reset
    just before each path and read just after, equal to the per-block counts of
    PATHS x the layers x the forwards its step actions took (a full step one
@@ -121,9 +126,10 @@ non-zero:
    or K10's own error (gated only on a finite prediction). Then T2V-14B at
    480p: w8a8_14b and w4a8_14b against bf16 with the 1.3B gates (W8A8 PSNR
    >= 30 dB with CFG, W4A8 cosine >= 0.9 conditional and >= 0.5 with CFG),
-   the memory of the weights and of each quant state, each forward and
-   bf16's under torch.profiler, and one sequential-CFG step of w4a8_14b and
-   of bf16 at 720p.
+   w4w8_plan_14b at the 4-bit gates (its PSNR printed beside w4a8_14b's and
+   w8a8_14b's), the memory of the weights and of each quant state, each
+   forward and bf16's under torch.profiler, and one sequential-CFG step of
+   w4a8_14b and of bf16 at 720p.
 5. whole generate (T2V-1.3B): a checkpoint dir, umT5-XXL, fp_generate from
    --random_init and --ckpt_dir, cli.generate W8A8 to the decoded video, the
    W8A8 video scored against fp_generate's by cli.evaluate --clip_metrics
@@ -167,7 +173,8 @@ non-zero:
    wan_w4a8_mixed.yaml's int8 base (the FP copies stripped, rank-16
    adapters, remat, lr 1e-4, guidance 3, one batch): a warm-up and 3 steps
    with their loss, gradient norm, seconds, peak and launches (exactly
-   QLORA_STEP x 30 each), finite, the last loss below the first, and one
+   QLORA_STEP x 30 each; the warm-up's loss, norm and gradients kept for
+   8 (g)), finite, the last loss below the first, and one
    more forward and backward split by the host clock; the adapters'
    gradients on the first 2 blocks against the plain-attention route
    (rel-L2 <= 1e-2);
@@ -213,10 +220,24 @@ non-zero:
    flash_attention_bwd launch, rel-L2 <= 1e-2, the launches the visited hops,
    the host-clock total beside the launch; (g) on a one-rank NCCL group at
    1.3B full width and depth: a 1-step calibration sweep (minmax, the 210
-   GPTQ_REGEX Hessians) and one QLoRA step (phase 7's base, adapters and
-   batch) through the plan against the planless ones: equal bits (else the
-   QLoRA gradients rel-L2 <= 1e-3 with the reason), the planned step's
-   seconds, peak and launches (QLORA_STEP x 30).
+   GPTQ_REGEX Hessians) through the plan against the planless sweep, and one
+   QLoRA step (phase 7's base, adapters and batch) through the plan against
+   phase 7's warm-up step (the planless step): equal bits (else the QLoRA
+   gradients rel-L2 <= 1e-3 with the reason), the planned step's seconds,
+   peak and launches (QLORA_STEP x 30);
+9. the streamed quantized base (quant/stream.py) and QLoRA at T2V-14B: (i)
+   at full width and 2 blocks, the streamed W4A8 base's state equal bit for
+   bit to prepare_quant_state on the same generators' draws, one int8 forward
+   of each within rel-L2 1e-3; (ii) the streamed base at all 40 blocks: its
+   seconds, int bytes (the byte model's 6.56 GiB), the memory held after and
+   the peak during the build (gate: the int bytes + 4 GiB); (iii) K4's
+   residual mode, K12 and K11 at [1, 40, 4680, 128] self and against 512 text
+   tokens, held as in phase 7 (printed, not summed), the row table's pad rows
+   (+inf, 0); (iv) 1 warm-up + 2 QLoRA steps on that base at all 40 blocks,
+   832x480x9 (seq 4680), rank 16 on self q/k/v/o and ffn, remat, lr 1e-4,
+   guidance 3: finite, the last loss below the warm-up's (the loss before
+   any update), the launches exactly QLORA_STEP x 40, and one more step split
+   by the host clock.
 
 The third-to-last line is the kernels' JSON record, then the card's name
 and power limit, and the last line {"ok": true, "device": {...}}.
@@ -284,6 +305,13 @@ W4A8_STATIC = {"ln_modulate_quant": 3, "w4a8_linear": 7, "w4a8_linear_gelu_quant
 #   cross k/v, ffn.2 static): K1 for q/k/v, cross q and ffn.0; K7 for the
 #   self and cross o inputs; K2 for self q/k/v/o, cross q/o and ffn.2, and in
 #   its GELU + quant mode for ffn.0.
+# W4/W8 under a capacity plan (w4w8_plan_14b, --auto_bits_gib; the act section
+#   of wan_w4a8_14b.yaml: ffn.2 static): K1 for q/k/v, cross q and ffn.0; K7 for
+#   the self and cross o inputs and for the text context of cross k and v each;
+#   K8 for self q/k and cross q/k/v, and in its GELU + quant mode for ffn.0,
+#   which hands ffn.2's K2 its int8 input; K2 for self v/o, cross o and ffn.2.
+W4W8_PLAN = {"ln_modulate_quant": 3, "w4a8_linear": 5, "w4a8_linear_gelu_quant": 1,
+             "w8a8_linear": 4, "quant_sum": 4, "rms_rope_heads": 3, "attention": 2}
 PATHS = {
     "w8a8": (YAML, W8A8),
     "w4a8_mixed": ("quant_configs/wan_w4a8_mixed.yaml",
@@ -313,11 +341,17 @@ PATHS = {
                   "quant_sum": 2, "rms_rope_heads": 3, "attention": 2}),
     "w4a8_14b_cache": (W4A8_14B_YAML, W4A8_STATIC),
     "w4a8_14b_720p": (W4A8_14B_YAML, W4A8_STATIC),
+    "w4w8_plan_14b": (W4A8_14B_YAML, W4W8_PLAN),
 }
 TASK_14B = "t2v-14B"
 # T2V-14B and I2V-14B run at full width with 20 of their 40 blocks, so the
 # whole script stays well inside its time limit; the 1.3B model keeps its 30
 DEPTH_14B = 20
+# w4w8_plan_14b: quant_generate --auto_bits_gib. The byte model is linear in
+# the depth, so this budget plans at DEPTH_14B blocks what 9.5 GiB plans at 40:
+# W8 on ffn.2, self o, cross o and self v, W4 on the other six classes (cross
+# k/v included)
+PLAN_GIB = 9.5 * DEPTH_14B / 40
 # how a path's run differs from the 1.3B default (TASK, SIZE, STEPS, no flags).
 # The 14B YAML's cache: section (the adaptive policy, warmup 2, tail 2) plans
 # all-full steps for 3 or fewer steps; over 8 the policy decides.
@@ -331,6 +365,8 @@ RUNS = {
     "w4a8_14b_cache": {"task": TASK_14B, "steps": 8, "flags": ("--strip_fp",)},
     "w4a8_14b_720p": {"task": TASK_14B, "size": "1280*720", "steps": 2,
                       "flags": ("--strip_fp", "--cfg_mode", "sequential")},
+    "w4w8_plan_14b": {"task": TASK_14B, "flags": ("--auto_bits_gib", repr(PLAN_GIB),
+                                                  "--strip_fp")},
 }
 SIM_PATHS = ("w8a8_sim",)                        # quant_generate without --hardware
 WINDOWS = {"w8a8_win1": 1}                       # quant_generate --attn_window
@@ -348,7 +384,7 @@ FIDELITY_13B = ("w8a8", "w4a8_mixed", "w4a4", "w8a8_attn", "w8a8_sim", "w4a8_sta
 PSNR_GATED = ("w8a8", "w8a8_sim", "w8a8_win1", "viditq")
 # a 1.3B path beside the path it changes the rounding of
 RTN_TWIN = {"w4a8_gptq": "w4a8_static", "svdquant": "w4a4"}
-FIDELITY_14B = ("w8a8_14b", "w4a8_14b")
+FIDELITY_14B = ("w8a8_14b", "w4a8_14b", "w4w8_plan_14b")
 SOURCES = {
     "ln_modulate_quant": ("wanq_tpu_torch/csrc/ln_modulate_quant.cu",
                           "wanq_tpu/ops/fused.py:172"),
@@ -1411,17 +1447,19 @@ def calibrate(torch, task=TASK, yaml=YAML, extra=(), tag=None):
 
 def step_actions(label, args, lat_file, steps):
     """The actions of each denoise step of a path's run, checked against the
-    policy its arguments and YAML give (cache_policy_from_args, as
-    quant_generate builds it): all 'full' without a step cache; a static
+    policy its arguments and quant config give (cache_policy_from_args, as
+    quant_generate builds it; a capacity plan has no cache: section): all
+    'full' without a step cache; a static
     schedule equal to StepCachePolicy.plan; an adaptive one equal to
     simulate_adaptive_actions replayed on the run's own drifts (the trace
     saved beside the latents)."""
     from wanq_tpu_torch.cli.common import cache_policy_from_args
+    from wanq_tpu_torch.cli.quant_generate import quant_config_from_args
+    from wanq_tpu_torch.configs import WAN_CONFIGS
     from wanq_tpu_torch.pipelines.text2video import (
         AdaptiveCachePolicy, simulate_adaptive_actions)
-    from wanq_tpu_torch.quant import QuantConfig
 
-    pol = cache_policy_from_args(args, QuantConfig.from_yaml(args.quant_config))
+    pol = cache_policy_from_args(args, quant_config_from_args(args, WAN_CONFIGS[args.task]))
     stats = json.loads(str(lat_file["cache_stats"])) if "cache_stats" in lat_file else None
     if pol is None:
         acts = ["full"] * steps
@@ -1467,6 +1505,8 @@ def run_path(torch, label, launches, calib_path=None):
     cfg = WAN_CONFIGS[task]
     lat_path = str(OUT / f"latents_{label}.npz")
     marks, first = [], []
+    if "--auto_bits_gib" in flags:
+        plan_check(cfg, float(flags[flags.index("--auto_bits_gib") + 1]))
 
     def on_step(i, t, latents):
         torch.cuda.synchronize()
@@ -1539,6 +1579,20 @@ def run_path(torch, label, launches, calib_path=None):
     check(bool(np.isfinite(lat).all()), f"{label}: non-finite latents")
     log(f"  [{label}] latents {lat.shape} finite, std {lat.std():.4f}")
     return mean, first[0]
+
+
+def plan_check(cfg, gib):
+    """The capacity plan of ``gib`` at the run's depth (``quant_generate
+    --auto_bits_gib``) upgrades the classes that 9.5 GiB upgrades at all 40
+    blocks of T2V-14B; both printed."""
+    from wanq_tpu_torch.quant.planner import plan_capacity_bits
+
+    plan = plan_capacity_bits(cfg, int(gib * 2**30))
+    full = plan_capacity_bits(dataclasses.replace(cfg, num_layers=40), int(9.5 * 2**30))
+    log(f"  {cfg.num_layers} blocks, {gib} GiB: {plan.report()}")
+    log(f"  40 blocks, 9.5 GiB: {full.report()}")
+    check(plan.upgraded == full.upgraded,
+          f"the plan at {cfg.num_layers} blocks {plan.upgraded} != at 40 {full.upgraded}")
 
 
 @contextlib.contextmanager
@@ -1939,21 +1993,24 @@ def gptq_layer_gate(torch, np, params, ctx, calib_path):
 def fidelity_14b(torch, calib_path):
     """T2V-14B at 480p from phase 3's seed (the same weights and text
     states) and its calibration: one CFG forward at t=999 of bf16 and of
-    each path of FIDELITY_14B, the path's noise prediction against bf16's
+    each path of FIDELITY_14B (the plan's config as quant_generate
+    --auto_bits_gib builds it), the path's noise prediction against bf16's
     with CFG 5 and conditional (the gates of the 1.3B paths: W8A8 PSNR >= 30
-    dB with CFG; W4A8 cosine >= 0.9 conditional and >= 0.5 with CFG), the
+    dB with CFG; W4A8 and the W4/W8 plan cosine >= 0.9 conditional and >= 0.5
+    with CFG; the plan's PSNR printed beside W4A8's and W8A8's), the
     device memory of the weights and of each quant state, then each forward
     under torch.profiler (wall time against bf16's, the forward's own peak
     allocation, kernels by device time); then one sequential-CFG step of
     w4a8_14b and of bf16 at 720p (seq 75776), timed on the host clock."""
     import numpy as np
 
+    from wanq_tpu_torch.cli import quant_generate
     from wanq_tpu_torch.cli.common import load_contexts, load_params
+    from wanq_tpu_torch.cli.quant_generate import quant_config_from_args
     from wanq_tpu_torch.configs import SIZE_CONFIGS, WAN_CONFIGS
     from wanq_tpu_torch.models.dit import linear_layer_names
     from wanq_tpu_torch.pipelines.text2video import (
         WanT2V, compute_seq_len, compute_target_shape)
-    from wanq_tpu_torch.quant import QuantConfig
     from wanq_tpu_torch.quant.ptq import prepare_quant_state
     from wanq_tpu_torch.quant.qlinear import QuantCtx
 
@@ -1985,9 +2042,11 @@ def fidelity_14b(torch, calib_path):
                     1.0: cond.cpu().numpy().astype(np.float64)}
 
     fp = predictions(None)
-    ctxs, failures = {}, []
+    ctxs, failures, psnrs = {}, [], {}
     for label in FIDELITY_14B:
-        qcfg = QuantConfig.from_yaml(PATHS[label][0])
+        # as quant_generate builds it from the path's YAML and flags (a plan)
+        qcfg = quant_config_from_args(quant_generate.parse_args(cli_args(
+            PATHS[label][0], RUNS[label]["flags"], TASK_14B)), cfg)
         held = torch.cuda.memory_allocated()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2005,18 +2064,22 @@ def fidelity_14b(torch, calib_path):
         log(f"  {label} vs bf16 FP noise prediction ({TASK_14B} {SIZE}x{FRAMES}, t=999): CFG 5.0 "
             f"PSNR {psnr:.2f} dB, cosine {cos:.6f}; conditional PSNR {psnr1:.2f} dB, cosine "
             f"{cos1:.6f}")
+        psnrs[label] = psnr
         if label.startswith("w8a8") and psnr < 30.0:
             failures.append(f"{label} PSNR {psnr:.2f} dB < 30 dB")
-        if label.startswith("w4a8") and (cos1 < 0.9 or cos < 0.5):
+        if not label.startswith("w8a8") and (cos1 < 0.9 or cos < 0.5):
             failures.append(f"{label} cosine {cos1:.4f} (conditional) < 0.9 or {cos:.4f} (CFG) "
                             f"< 0.5")
+    log(f"  w4w8_plan_14b (W8 on {PLAN_GIB} GiB's planned classes) PSNR with CFG 5 "
+        f"{psnrs['w4w8_plan_14b']:.2f} dB beside w4a8_14b's {psnrs['w4a8_14b']:.2f} dB and "
+        f"w8a8_14b's {psnrs['w8a8_14b']:.2f} dB (printed, not gated)")
     log(f"  held for the profile: {torch.cuda.memory_allocated() / 2**30:.2f} GiB (bf16 weights "
-        f"and both quant states)")
+        f"and the {len(ctxs)} quant states)")
     with torch.no_grad():
         profile_steps(torch, {**{label: (lambda c=ctx: step(c)) for label, ctx in ctxs.items()},
                               "bf16_14b": lambda: step(None)}, ref="bf16_14b")
     # 720p (seq 75776), sequential CFG: one step's forwards of w4a8_14b and bf16
-    del ctxs["w8a8_14b"]
+    del ctxs["w8a8_14b"], ctxs["w4w8_plan_14b"]
     torch.cuda.empty_cache()
     shape = compute_target_shape(cfg, SIZE_CONFIGS["1280*720"], FRAMES)
     seq_len = compute_seq_len(cfg, shape)
@@ -3098,18 +3161,26 @@ def once_ms(fn):
     return out, start.elapsed_time(end)
 
 
-def training_kernel_checks(torch, record):
+# the training shapes of phase 7: (label, heads, Sq, Sk, valid keys, the plain
+# version's q chunk, summed into the kernels line)
+TRAIN_SHAPES = (("self", 12, 32768, 32768, 32760, 1024, True),
+                ("cross", 12, 32768, 512, 512, 8192, True),
+                ("self 40 heads", 40, 32768, 32768, 32760, 256, False))
+
+
+def training_kernel_checks(torch, record, shapes=TRAIN_SHAPES):
     """K4's residual mode (the output and each row's LSE), K12 (dq) and K11
     (dk, dv) against their plain versions (_sdpa_lse_reference,
     attention_bwd_reference on the kernel's own o and LSE) at the training
     shapes: self-attention [1, 12, 32768, 128] with 32760 valid keys (the pad
     rows of k/v planted), cross-attention against 512 keys, and self with 40
-    heads (T2V-14B, printed with summed=False). Limits: the output at K4's,
-    the LSE abs <= 1e-3, each gradient rel-L2 <= 1e-2, dk = dv = 0 past the
-    valid keys, and a second call of K12 and K11 equal to the first bit for
-    bit. K12 and K11 are timed through flash_attention_bwd, each with the
-    plain reduction that fills the row table (flash_bwd_rows: di = sum(o do),
-    lse log2e) inside its time; that reduction alone and the whole backward
+    heads (T2V-14B, printed with summed=False); ``shapes`` others. Limits:
+    the output at K4's, the LSE abs <= 1e-3, each gradient rel-L2 <= 1e-2,
+    dk = dv = 0 past the valid keys, a second call of K12 and K11 equal to
+    the first bit for bit, and the row table's pad rows (+inf, 0). K12 and
+    K11 are timed through flash_attention_bwd, each with the plain reduction
+    that fills the row table (flash_bwd_rows: di = sum(o do), lse log2e)
+    inside its time; that reduction alone and the whole backward
     (dq, dk and dv in one call, the row table once) are printed beside.
     Beside the kernels: scaled_dot_product_attention's forward and its
     backward (one autograd.grad for dq, dk and dv, on the valid keys)."""
@@ -3121,10 +3192,7 @@ def training_kernel_checks(torch, record):
     g = torch.Generator(device=dev).manual_seed(7)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     b, d, qs = 1, 128, 1.0 / math.sqrt(128)
-    for label, n, sq, sk, valid, chunk, summed in (
-            ("self", 12, 32768, 32768, 32760, 1024, True),
-            ("cross", 12, 32768, 512, 512, 8192, True),
-            ("self 40 heads", 40, 32768, 32768, 32760, 256, False)):
+    for label, n, sq, sk, valid, chunk, summed in shapes:
         shape = f"{label} q [1,{sq},{n},128], k/v [1,{sk},{n},128] valid {valid}"
         # [B, S, N, D] views of the projections' [B, S, N*D] rows, as the model
         # hands them over
@@ -3181,6 +3249,10 @@ def training_kernel_checks(torch, record):
         note = (f"; flash_attention_bwd, the row table included; the plain and the library "
                 f"time are the whole backward (dq, dk, dv: attention_bwd_reference; "
                 f"scaled_dot_product_attention's backward on k/v[:valid])")
+        rows = flash_bwd_rows(lse, out, do)
+        pad = rows[..., sq:]
+        check(bool((pad[:, :, 0] == math.inf).all()) and not pad[:, :, 1].any(),
+              f"row table {label}: its {pad.shape[-1]} pad rows are not (+inf, 0)")
         rows_ms = cuda_ms(lambda: flash_bwd_rows(lse, out, do), warmup=1, reps=3)
         whole_ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do, qs, valid),
                            warmup=1, reps=3)
@@ -3201,7 +3273,7 @@ def training_kernel_checks(torch, record):
                f"{4 * flops / ms / 1e9:.0f} TFLOP/s{note})",
                in_bytes + 2 * 2 * b * n * sk * d, 4 * flops, "bf16", library_ms=lib_bwd,
                summed=summed)
-        del q, k, v, do, out, lse, ql, kl, vl
+        del q, k, v, do, out, lse, ql, kl, vl, rows, pad
         torch.cuda.empty_cache()
 
 
@@ -3256,15 +3328,19 @@ def distill_batch(torch, cfg, frames, seed=11):
             torch.randn(text, device="cuda", generator=g))
 
 
-def qlora_steps(torch, cfg, params, qctx, lora, batch, launches):
-    """(b) and (d): 1 warm-up + 3 QLoRA steps at full depth (lr 1e-4, remat,
-    the same batch, guidance 3): loss, gnorm, seconds and peak memory of each,
-    the launches of every step equal to QLORA_STEP x the layers, finite
-    losses, the last of the three below the first. Then one more forward and
-    backward, split by the host clock: the teacher's two forwards, the
-    student's forward, its backward (the blocks' recompute included).
-    Returns the train state, the optimizer, the config and one more step
-    (a callable) for qlora_step_profile."""
+def qlora_steps(torch, cfg, params, qctx, lora, batch, launches, steps=3, seq=QLORA_SEQ,
+                since_warmup=False):
+    """1 warm-up + ``steps`` QLoRA steps (lr 1e-4, remat, the same batch,
+    guidance 3): loss, gnorm, seconds and peak memory of each, the launches
+    of every step equal to QLORA_STEP x the layers, finite losses, the last
+    of the timed steps below the first of them (``since_warmup``: below the
+    warm-up's, the loss of the adapters before any update). Then one more
+    forward and backward, split by the host clock: the teacher's two
+    forwards, the student's forward, its backward (the blocks' recompute
+    included), and the peak of that split. Returns the train
+    state, the optimizer, the config, one more step (a callable) for
+    qlora_step_profile and the warm-up step's loss, gradient norm and adapter
+    gradients (phase 8 (g) holds the planned step against them)."""
     import dataclasses
 
     from wanq_tpu_torch.models.dit import dit_forward
@@ -3273,12 +3349,12 @@ def qlora_steps(torch, cfg, params, qctx, lora, batch, launches):
         DistillConfig, init_train_state, make_qlora_distill_step)
     from wanq_tpu_torch.training.lora import merge_lora_into_quant_state
 
-    dcfg = DistillConfig(learning_rate=1e-4, seq_len=QLORA_SEQ, remat=True)
+    dcfg = DistillConfig(learning_rate=1e-4, seq_len=seq, remat=True)
     state, tx = init_train_state(lora, dcfg)
     step = make_qlora_distill_step(cfg, dcfg, tx)
     want = {k: v * cfg.num_layers for k, v in QLORA_STEP.items()}
-    losses = []
-    for i in range(4):
+    losses, warm = [], None
+    for i in range(steps + 1):
         torch.cuda.reset_peak_memory_stats()
         _lib.reset_launch_counts()
         torch.cuda.synchronize()
@@ -3297,27 +3373,33 @@ def qlora_steps(torch, cfg, params, qctx, lora, batch, launches):
             losses.append(loss)
             for name, cnt in counts.items():
                 launches[name] = launches.get(name, 0) + cnt
-    check(losses[-1] < losses[0], f"QLoRA: the loss did not fall over 3 steps: {losses}")
+        else:
+            warm = dict(loss=loss, gnorm=gnorm, grads=[t.grad.clone() for t in _adapter_leaves(
+                state.params)])
+    first = warm["loss"] if since_warmup else losses[0]
+    check(losses[-1] < first, f"QLoRA: the loss {losses[-1]} of the last step is not below "
+          f"{first} ({'the warm-up' if since_warmup else 'the first timed step'})")
 
     # the step's loss, piece by piece (training/distill.py's make_qlora_distill_step)
     x0, noise, t, c, cn = batch
     sigma = (t / dcfg.num_train_timesteps)[:, None, None, None, None]
     xt = (1.0 - sigma) * x0 + sigma * noise
-    split, marks = {}, []
+    marks = []
 
     def mark():
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
 
+    torch.cuda.reset_peak_memory_stats()
     mark()
     with torch.no_grad():
-        tc, tu = (dit_forward(params, cfg, xt, t, ctx_, QLORA_SEQ, ctx=qctx, training=True)
+        tc, tu = (dit_forward(params, cfg, xt, t, ctx_, seq, ctx=qctx, training=True)
                   for ctx_ in (c, cn))
         v_teacher = tu + 3.0 * (tc - tu)
     mark()
     student = dataclasses.replace(qctx, state=merge_lora_into_quant_state(qctx.state,
                                                                           state.params))
-    v = dit_forward(params, cfg, xt, t, c, QLORA_SEQ, ctx=student, training=True, remat=True)
+    v = dit_forward(params, cfg, xt, t, c, seq, ctx=student, training=True, remat=True)
     loss = torch.mean(torch.square(v - v_teacher))
     mark()
     loss.backward()
@@ -3327,9 +3409,15 @@ def qlora_steps(torch, cfg, params, qctx, lora, batch, launches):
              "student forward (remat)": marks[2] - marks[1],
              "backward (the blocks' recompute included)": marks[3] - marks[2]}
     log("  QLoRA step split (host clock, synchronized): "
-        + ", ".join(f"{k} {v:.3f} s" for k, v in split.items()))
+        + ", ".join(f"{k} {v:.3f} s" for k, v in split.items())
+        + f"; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return state, tx, dcfg, lambda: step(state.params, state.ema_params, tx, params, qctx,
-                                         *batch, 3.0)
+                                         *batch, 3.0), warm
+
+
+def _adapter_leaves(lora):
+    """The adapters' tensors (a and b of each layer), in the tree's order."""
+    return [t for ab in lora.values() if isinstance(ab, dict) for t in ab.values()]
 
 
 def qlora_step_profile(torch, run, want):
@@ -3576,7 +3664,8 @@ def other_builders(torch, cfg):
 def training(torch, results, launches):
     """Phase 7: the kernels of the training path against their plain
     versions, QLoRA at T2V-1.3B full depth, its gradients against the plain
-    route, the deployment of its adapters, and the other two step builders."""
+    route, the deployment of its adapters, and the other two step builders.
+    Returns the warm-up QLoRA step's loss, gradient norm and gradients."""
     from wanq_tpu_torch.configs import WAN_CONFIGS
 
     t0 = time.time()
@@ -3588,7 +3677,8 @@ def training(torch, results, launches):
     log(f"  QLoRA base ({QLORA_YAML}, FP copies stripped) and rank-16 adapters: "
         f"{time.time() - t0:.1f} s, held {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     batch = distill_batch(torch, cfg, FRAMES)
-    state, tx, dcfg, one_step = qlora_steps(torch, cfg, params, qctx, lora, batch, launches)
+    state, tx, dcfg, one_step, warm = qlora_steps(torch, cfg, params, qctx, lora, batch,
+                                                  launches)
     qlora_grad_check(torch, cfg, params, qctx, state.params, batch, dcfg)
     qlora_deploy(torch, cfg, params, qctx, state, tx, launches)
     torch.cuda.empty_cache()
@@ -3596,6 +3686,7 @@ def training(torch, results, launches):
     del params, qctx, lora, state, tx, batch, one_step
     torch.cuda.empty_cache()
     other_builders(torch, cfg)
+    return warm
 
 
 # ---------------------------------------------------------------------------
@@ -4123,16 +4214,17 @@ def ring_backward_checks(torch, launches):
         torch.cuda.empty_cache()
 
 
-def planned_training_check(torch, launches):
+def planned_training_check(torch, launches, warm):
     """(g) Calibration and QLoRA through the plan on a one-rank NCCL group at
     T2V-1.3B full width and depth (832x480x81): a 1-step calibration sweep
     (collect_calibration, minmax and GPTQ_REGEX's 210 Hessians) of the seed-42
     weights stored by shard_params, against the planless sweep: equal bits
     (the statistics' all-reduces over one rank); one QLoRA step (phase 7's
     base, adapters and batch; make_qlora_distill_step(plan=), remat) against
-    the planless step from the same adapters: the loss, the gradient norm and
-    every adapter's gradient equal bits, else rel-L2 <= 1e-3 with the reason
-    printed; the planned step's seconds, peak and launches (QLORA_STEP x 30)."""
+    phase 7's warm-up step (``warm``: the planless step from the same
+    adapters): the loss, the gradient norm and every adapter's gradient equal
+    bits, else rel-L2 <= 1e-3 with the reason printed; the planned step's
+    seconds, peak and launches (QLORA_STEP x 30)."""
     import socket
 
     import numpy as np
@@ -4190,27 +4282,19 @@ def planned_training_check(torch, launches):
         params, qctx, lora = qlora_base(torch, cfg)
         batch = distill_batch(torch, cfg, FRAMES)
         dcfg = DistillConfig(learning_rate=1e-4, seq_len=QLORA_SEQ, remat=True)
-        runs = {}
-        for label, pl in (("planless", None), ("plan", plan)):
-            state, tx = init_train_state(lora, dcfg)
-            step = make_qlora_distill_step(cfg, dcfg, tx, plan=pl)
-            p, qc = params, qctx
-            if pl is not None:
-                p = shard_params(params, pl)
-                qc = dataclasses.replace(qctx, state=shard_quant_state(qctx.state, pl))
-            torch.cuda.reset_peak_memory_stats()
-            _lib.reset_launch_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            _, _, _, loss, gnorm = step(state.params, state.ema_params, tx, p, qc, *batch, 3.0)
-            loss, gnorm = float(loss), float(gnorm)
-            runs[label] = dict(loss=loss, gnorm=gnorm, s=time.perf_counter() - t0,
-                               peak=torch.cuda.max_memory_allocated() / 2**30,
-                               counts=_lib.launch_counts(),
-                               grads=[t.grad.clone() for ab in state.params.values()
-                                      if isinstance(ab, dict) for t in ab.values()])
-            del state, tx, step, p, qc
-        a, z = runs["planless"], runs["plan"]
+        state, tx = init_train_state(lora, dcfg)
+        step = make_qlora_distill_step(cfg, dcfg, tx, plan=plan)
+        p = shard_params(params, plan)
+        qc = dataclasses.replace(qctx, state=shard_quant_state(qctx.state, plan))
+        torch.cuda.reset_peak_memory_stats()
+        _lib.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, _, loss, gnorm = step(state.params, state.ema_params, tx, p, qc, *batch, 3.0)
+        z = dict(loss=float(loss), gnorm=float(gnorm), s=time.perf_counter() - t0,
+                 peak=torch.cuda.max_memory_allocated() / 2**30, counts=_lib.launch_counts(),
+                 grads=[t.grad.clone() for t in _adapter_leaves(state.params)])
+        a = warm
         want = {k: v * cfg.num_layers for k, v in QLORA_STEP.items()}
         check(z["counts"] == want, f"planned QLoRA step: launches {z['counts']}, want {want}")
         for name, cnt in z["counts"].items():
@@ -4220,25 +4304,28 @@ def planned_training_check(torch, launches):
         num = sum(float((x.float() - y.float()).square().sum()) for x, y in zip(a["grads"],
                                                                                z["grads"]))
         rel = math.sqrt(num / sum(float(x.float().square().sum()) for x in a["grads"]))
-        check(math.isfinite(z["loss"]) and (equal or rel <= 1e-3),
-              f"planned QLoRA step: gradients rel-L2 {rel:.2e} from the planless step")
+        check(len(a["grads"]) == len(z["grads"]) and math.isfinite(z["loss"])
+              and (equal or rel <= 1e-3),
+              f"planned QLoRA step: gradients rel-L2 {rel:.2e} from phase 7's warm-up step")
         log(f"  QLoRA step at {TASK} 832x480x81 through make_qlora_distill_step(plan=) on a "
             f"one-rank NCCL group: loss {z['loss']:.6f}, gnorm {z['gnorm']:.4e}; "
             + ("loss, gradient norm and the " + str(len(z["grads"])) + " adapter gradients "
-               "equal bits to the planless step" if equal else
-               f"rel-L2 {rel:.2e} from the planless step (loss {a['loss']:.6f}, gnorm "
+               "equal bits to phase 7's warm-up step (the planless step from the same base, "
+               "adapters and batch)" if equal else
+               f"rel-L2 {rel:.2e} from phase 7's warm-up step (loss {a['loss']:.6f}, gnorm "
                f"{a['gnorm']:.4e}; not equal bits: an ulp of a reduction order)")
-            + f"; planned {z['s']:.3f} s, peak {z['peak']:.2f} GiB against planless "
-            f"{a['s']:.3f} s, {a['peak']:.2f} GiB; launches a step {z['counts']}")
-        del params, qctx, lora, batch, runs, a, z
+            + f"; planned {z['s']:.3f} s, peak {z['peak']:.2f} GiB; launches a step "
+            f"{z['counts']}")
+        del params, qctx, lora, batch, state, tx, step, p, qc, a, z
         torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
 
 
-def multi_gpu(torch, results, launches, calib_path):
+def multi_gpu(torch, results, launches, calib_path, warm):
     """Phase 8: what one card can show of multi-GPU serving (a run on more
-    than one card is not made here)."""
+    than one card is not made here). ``warm``: phase 7's warm-up QLoRA step,
+    which (g)'s planned step is held against."""
     t0 = time.time()
     partial_checks(torch, recorder(results), attn_err)
     log(f"  phase 8 (a): {time.time() - t0:.1f} s")
@@ -4256,8 +4343,123 @@ def multi_gpu(torch, results, launches, calib_path):
     ring_backward_checks(torch, launches)
     log(f"  phase 8 (f): {time.time() - t0:.1f} s")
     t0 = time.time()
-    planned_training_check(torch, launches)
+    planned_training_check(torch, launches, warm)
     log(f"  phase 8 (g): {time.time() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the streamed quantized base and QLoRA at T2V-14B full depth
+# ---------------------------------------------------------------------------
+
+# tools/qlora_smoke.py's 14B base: 4-bit weights at every block linear (cross
+# k/v too: their FP copies would hold 4.2 GiB), dynamic 8-bit activations
+QLORA_14B = {"remain_fp_regex": r"text_embedding|time_embedding|time_projection|head\.head",
+             "weight": {"n_bits": 4, "sym": False}, "act": {"n_bits": 8, "sym": True}}
+QLORA_14B_FRAMES = 9
+QLORA_14B_SEQ = 4680  # 3 x 30 x 52 latent tokens of 832x480x9: 36 tiles of 128 + 72 rows
+# the training kernels at the 14B 9-frame shapes (printed, not summed)
+TRAIN_SHAPES_14B = (("14B self", 40, QLORA_14B_SEQ, QLORA_14B_SEQ, QLORA_14B_SEQ, 1024, False),
+                    ("14B cross", 40, QLORA_14B_SEQ, 512, 512, QLORA_14B_SEQ, False))
+
+
+def stream_parity(torch, cfg, qcfg):
+    """(i) The streamed base at full width and ``cfg.num_layers`` blocks
+    against prepare_quant_state on the same generators' draws (the prelude,
+    the head's redraw, each block's seed): every state leaf equal bit for
+    bit, and one int8 forward of each at 832x480x9 within rel-L2 1e-3 (the
+    streamed base runs with stripped FP placeholders; equal bits printed)."""
+    from wanq_tpu_torch.models import dit
+    from wanq_tpu_torch.quant.ptq import prepare_quant_state
+    from wanq_tpu_torch.quant.qlinear import QuantCtx
+    from wanq_tpu_torch.quant.stream import (
+        BLOCK_SEED, PRELUDE_SEED, build_streamed_quant_base, head_draw)
+
+    params_s, qctx_s, qbytes = build_streamed_quant_base(cfg, qcfg)
+    params = dit.make_nonblock_generator(cfg)(PRELUDE_SEED)
+    w = params["head"]["head"]["w"]
+    params["head"]["head"]["w"] = head_draw(w.shape, w.dtype, "cuda")
+    gen = dit.make_block_generator(cfg)
+    params["blocks"] = [gen(BLOCK_SEED + i) for i in range(cfg.num_layers)]
+    pol, state, rot = prepare_quant_state(params, dit.linear_layer_names(cfg), qcfg,
+                                          targets="int8")
+    check(sorted(state) == sorted(qctx_s.state), "streamed base: other layers than the "
+          "conventional build's")
+    unequal = [f"{n}|{k}" for n, st in state.items() for k, v in st.items()
+               if not torch.equal(v, qctx_s.state[n][k])]
+    check(not unequal, f"streamed base: {len(unequal)} state leaves differ, e.g. {unequal[:3]}")
+    x0, _, t, c, _ = distill_batch(torch, cfg, QLORA_14B_FRAMES, seed=21)
+    with torch.no_grad():
+        out_s = dit.dit_forward(params_s, cfg, x0, t, c, QLORA_14B_SEQ, ctx=qctx_s)
+        out_c = dit.dit_forward(params, cfg, x0, t, c, QLORA_14B_SEQ,
+                                ctx=QuantCtx(mode="int8", policies=pol, state=state,
+                                             rotations=rot))
+    rel = _rel(torch, out_c, out_s)
+    log(f"  (i) streamed base, {cfg.num_layers} blocks at full width: {len(state)} layers' "
+        f"state ({qbytes / 2**20:.1f} MiB) equal bits to prepare_quant_state on the same draws; "
+        f"one int8 forward at 832x480x{QLORA_14B_FRAMES} against the conventional build's: "
+        f"rel-L2 {rel:.3e}, equal bits {torch.equal(out_s, out_c)}")
+    check(bool(torch.isfinite(out_s).all()) and rel <= 1e-3,
+          f"streamed forward rel-L2 {rel:.3e} from the conventional build")
+
+
+def streamed_14b(torch, results, launches):
+    """Phase 9: (i) the streamed base against the conventional build at 2
+    blocks; (ii) the streamed W4A8 base of T2V-14B at all 40 blocks: seconds,
+    int bytes against class_weight_bytes, memory held after, the peak
+    allocated during the build (gate: the int bytes + 4 GiB); (iii) K4's
+    residual mode, K12 and K11 at the 14B 9-frame shapes; (iv) 1 warm-up + 2
+    QLoRA steps on that base (rank 16, seed 3, remat, lr 1e-4, guidance 3,
+    x0 and noise [1, 16, 3, 60, 104], seq 4680) with launches QLORA_STEP x 40,
+    the last loss below the warm-up's (the two timed steps need not fall
+    between themselves: on the card the second reads above the first at lr
+    1e-4, both far below the warm-up's), and the split of one more."""
+    from wanq_tpu_torch.configs import WAN_CONFIGS
+    from wanq_tpu_torch.quant import QuantConfig
+    from wanq_tpu_torch.quant.planner import class_weight_bytes
+    from wanq_tpu_torch.quant.stream import build_streamed_quant_base
+    from wanq_tpu_torch.training.lora import DEFAULT_TARGETS, init_lora_from_cfg
+
+    full = dataclasses.replace(WAN_CONFIGS[TASK_14B], num_layers=40)
+    qcfg = QuantConfig.from_dict(QLORA_14B)
+    t0 = time.time()
+    stream_parity(torch, dataclasses.replace(full, num_layers=2), qcfg)
+    torch.cuda.empty_cache()
+    log(f"  phase 9 (i): {time.time() - t0:.1f} s")
+
+    torch.cuda.synchronize()
+    held0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, qctx, qbytes = build_streamed_quant_base(full, qcfg, log=log)
+    secs = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated() - held0
+    peak = torch.cuda.max_memory_allocated() - held0
+    model = sum(class_weight_bytes(full, 4).values())
+    log(f"  (ii) streamed W4A8 base, T2V-14B all 40 blocks ({len(qctx.state)} layers): "
+        f"{secs:.2f} s; int bytes {qbytes / 2**30:.3f} GiB (class_weight_bytes: "
+        f"{model / 2**30:.3f} GiB, which leaves out delta_w and zp_w, 8 B a channel); held after "
+        f"{held / 2**30:.3f} GiB; peak during the build {peak / 2**30:.3f} GiB (gate: the int "
+        f"bytes + 4 GiB)")
+    check(abs(qbytes - model) <= 0.01 * model, f"streamed base: {qbytes} int bytes, the byte "
+          f"model {model}")
+    check(peak <= qbytes + 4 * 2**30, f"streamed build peak {peak / 2**30:.3f} GiB over the "
+          f"int bytes + 4 GiB")
+
+    t0 = time.time()
+    training_kernel_checks(torch, recorder(results), TRAIN_SHAPES_14B)
+    log(f"  phase 9 (iii): {time.time() - t0:.1f} s")
+
+    t0 = time.time()
+    lora = init_lora_from_cfg(full, rank=16, seed=3, targets=DEFAULT_TARGETS, device="cuda")
+    batch = distill_batch(torch, full, QLORA_14B_FRAMES)
+    log(f"  (iv) QLoRA at {TASK_14B}, all 40 blocks, 832x480x{QLORA_14B_FRAMES} (seq "
+        f"{QLORA_14B_SEQ}), rank 16 on {DEFAULT_TARGETS}: base and adapters held "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB (card: {nvidia_smi()})")
+    qlora_steps(torch, full, params, qctx, lora, batch, launches, steps=2, seq=QLORA_14B_SEQ,
+                since_warmup=True)
+    del params, qctx, lora, batch
+    torch.cuda.empty_cache()
+    log(f"  phase 9 (iv): {time.time() - t0:.1f} s")
 
 
 # kernels whose build must show no spill: the wgmma kernels (a spill there
@@ -4442,6 +4644,8 @@ def main() -> int:
         log(f"  step time {label} / {twin}: {step_s[label] / step_s[twin]:.3f} "
             f"({step_s[label]:.3f} / {step_s[twin]:.3f} s)")
     log(f"  step time w4a8_14b / w8a8_14b: {step_s['w4a8_14b'] / step_s['w8a8_14b']:.3f}")
+    log(f"  step time w4w8_plan_14b {step_s['w4w8_plan_14b']:.3f} s against w4a8_14b "
+        f"{step_s['w4a8_14b']:.3f} and w8a8_14b {step_s['w8a8_14b']:.3f} s")
     log(f"  phase 3: {time.time() - t0:.1f} s")
 
     log("[4] fidelity and profile")
@@ -4468,7 +4672,7 @@ def main() -> int:
     log(f"[7] training: K4's residual mode, K12 and K11; QLoRA at {TASK} {SIZE}x{FRAMES}, "
         f"its deployment, the other step builders")
     t0 = time.time()
-    training(torch, results, launches)
+    warm = training(torch, results, launches)
     log(f"  phase 7: {time.time() - t0:.1f} s")
 
     log(f"[8] multi-GPU on one card: K4's partial mode (a ring hop), the ring's hop schedule "
@@ -4477,8 +4681,14 @@ def main() -> int:
         f"calibration and QLoRA on a one-rank NCCL group; no multi-card run "
         f"(card: {nvidia_smi()})")
     t0 = time.time()
-    multi_gpu(torch, results, launches, calib[TASK])
+    multi_gpu(torch, results, launches, calib[TASK], warm)
     log(f"  phase 8: {time.time() - t0:.1f} s")
+
+    log(f"[9] the streamed quantized base and QLoRA at {TASK_14B}, all 40 blocks, "
+        f"832x480x{QLORA_14B_FRAMES} (card: {nvidia_smi()})")
+    t0 = time.time()
+    streamed_14b(torch, results, launches)
+    log(f"  phase 9: {time.time() - t0:.1f} s")
     log(f"total {time.time() - t_all:.1f} s")
 
     record = {"kernels": [

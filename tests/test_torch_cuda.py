@@ -2272,3 +2272,106 @@ def test_evaluate_on_the_card_end_to_end(dev, tmp_path, monkeypatch):
     for k, want in host.items():
         if not k.startswith("clip_"):
             assert abs(card[k] - want) <= 1e-4 * max(abs(want), 1e-12), k
+
+
+# ---------------------------------------------------------------------------
+# the W4/W8 capacity plan's ffn pair, the streamed base, QLoRA at 14B x 9 frames
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m", [1, 129, 1024 + 3, 2 * 4680 - 5])
+def test_k8_gelu_quant_mode_feeds_k2(dev, gen, m):
+    """The ffn pair of quant_generate --auto_bits_gib's plans (a W4 ffn.0, a
+    static W8 ffn.2): K8's GELU + quant mode hands K2 the int8 codes, scale
+    and row sums that K2's own mode gives on the unpacked weight, bit for
+    bit, and the pair K8 mode -> K2 equals the plain chain exactly, ragged M
+    too (narrow widths; chip_smoke.py phase 2 runs each mode at the 14B
+    widths)."""
+    from wanq_tpu_torch.ops.qgemm import (
+        w4a8_linear_gelu_quant_cuda, w4a8_linear_gelu_quant_plain, w8a8_linear_cuda,
+        w8a8_linear_gelu_quant_cuda, w8a8_linear_plain)
+    from wanq_tpu_torch.quant.quantizers import unpack_int4
+
+    k, n, n2 = 512, 1280, 256  # ffn.0: k -> n at W4; ffn.2: n -> n2 at W8
+    a, wp, s_a, s_w, sum_a, zp, bias = _k8_operands(dev, gen, m, k, n)
+    scale2 = torch.tensor(0.03, device=dev)
+    got = w4a8_linear_gelu_quant_cuda(a, wp, s_a, s_w, scale2, sum_a, zp, bias)
+    plain = w4a8_linear_gelu_quant_plain(a, wp, s_a, s_w, scale2, sum_a, zp, bias)
+    _check_gelu_quant(got, plain, scale2)
+    k2_mode = w8a8_linear_gelu_quant_cuda(a, unpack_int4(wp), s_a, s_w, scale2, sum_a, zp, bias)
+    assert all(torch.equal(x, y) for x, y in zip(got, k2_mode))
+    _, w2, _, s_w2, _, zp2, bias2 = _k2_operands(dev, gen, 1, n, n2)
+    out = w8a8_linear_cuda(got[0], w2, got[1], s_w2, got[2], zp2, bias2, torch.float32)
+    want = w8a8_linear_plain(plain[0], w2, plain[1], s_w2, plain[2], zp2, bias2, torch.float32)
+    assert out.shape == (m, n2) and torch.equal(out, want)
+
+
+def test_streamed_base_matches_conventional_build_at_14b_width(dev):
+    """quant/stream.py at T2V-14B's width (dim 5120, 40 heads, ffn 13824), one
+    block: every state leaf equal bit for bit to prepare_quant_state on the
+    same generators' draws, and the int8 forward within rel-L2 1e-3 of the
+    conventional build's (chip_smoke.py phase 9 (i) runs 2 blocks)."""
+    import dataclasses
+
+    from wanq_tpu_torch.configs import WAN_CONFIGS
+    from wanq_tpu_torch.models import dit
+    from wanq_tpu_torch.quant import QuantConfig
+    from wanq_tpu_torch.quant.ptq import prepare_quant_state
+    from wanq_tpu_torch.quant.qlinear import QuantCtx
+    from wanq_tpu_torch.quant.stream import (
+        BLOCK_SEED, PRELUDE_SEED, build_streamed_quant_base, head_draw)
+
+    cfg = dataclasses.replace(WAN_CONFIGS["t2v-14B"], num_layers=1)
+    qcfg = QuantConfig.from_dict({
+        "remain_fp_regex": r"text_embedding|time_embedding|time_projection|head\.head",
+        "weight": {"n_bits": 4, "sym": False}, "act": {"n_bits": 8, "sym": True}})
+    params_s, qctx_s, qbytes = build_streamed_quant_base(cfg, qcfg, device=dev)
+    params = dit.make_nonblock_generator(cfg, device=dev)(PRELUDE_SEED)
+    w = params["head"]["head"]["w"]
+    params["head"]["head"]["w"] = head_draw(w.shape, w.dtype, dev)
+    params["blocks"] = [dit.make_block_generator(cfg, device=dev)(BLOCK_SEED)]
+    pol, state, rot = prepare_quant_state(params, dit.linear_layer_names(cfg), qcfg,
+                                          targets="int8")
+    assert sorted(state) == sorted(qctx_s.state) and len(state) == 10
+    for name, st in state.items():
+        assert all(torch.equal(v, qctx_s.state[name][key]) for key, v in st.items()), name
+    assert qbytes == sum(v.numel() * v.element_size() for st in state.values()
+                         for v in st.values())
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((1, 16, 2, 16, 32), device=dev, generator=g)
+    c = torch.randn((1, cfg.text_len, cfg.text_dim), device=dev, generator=g)
+    t = torch.tensor([500.0], device=dev)
+    with torch.no_grad():
+        out_s = dit.dit_forward(params_s, cfg, x, t, c, 256, ctx=qctx_s)
+        out_c = dit.dit_forward(params, cfg, x, t, c, 256,
+                                ctx=QuantCtx(mode="int8", policies=pol, state=state,
+                                             rotations=rot))
+    assert torch.isfinite(out_s).all()
+    assert ((out_s.float() - out_c.float()).norm() / out_c.float().norm()).item() <= 1e-3
+
+
+@pytest.mark.parametrize("sk", [4680, 512], ids=["self", "cross"])
+def test_k4_residual_k11_k12_at_14b_nine_frames(dev, gen, sk):
+    """K4's residual mode, K12 and K11 at the 14B QLoRA shape of chip_smoke.py
+    phase 9: q [1, 4680, 40, 128] (36 full 128-row tiles and 72 rows, no pad
+    keys) against itself or the 512 text tokens, at the limits above; the row
+    table's 56 pad rows hold (+inf, 0)."""
+    from wanq_tpu_torch.models.attention import (
+        _flash_cuda, _sdpa_lse_reference, attention_bwd_reference, flash_attention_bwd,
+        flash_bwd_rows)
+
+    sq = 4680
+    q, k, vh, do = _bwd_inputs(dev, gen, 1, 40, sq, sk, sk)
+    out, lse = _flash_cuda(q.transpose(1, 2), k.transpose(1, 2), vh.transpose(1, 2), 0.0884, sk,
+                           lse=True)
+    want_o, want_lse = _sdpa_lse_reference(q, k, vh, 0.0884, sk, q_chunk=1024)
+    _k4_close(out, want_o)
+    assert (lse - want_lse).abs().max().item() <= 1e-3
+    rows = flash_bwd_rows(lse, out, do)
+    assert rows.shape == (1, 40, 2, 4736)
+    assert (rows[:, :, 0, sq:] == math.inf).all() and not rows[:, :, 1, sq:].any()
+    got = flash_attention_bwd(q, k, vh, out, lse, do, 0.0884, sk)
+    _finish_within(120, f"K11/K12 at [1, 40, {sq}, 128], Sk {sk}")
+    want = attention_bwd_reference(q, k, vh, out, lse, do, 0.0884, sk, q_chunk=1024)
+    for g_, w_ in zip(got, want):
+        assert g_.shape == w_.shape and _grad_rel(g_, w_) <= 1e-2

@@ -40,6 +40,16 @@ the quant state; only rank 0 writes the latents):
         --task t2v-14B --random_init --quant_config quant_configs/wan_w4a8_14b.yaml \
         --calib_data calib_14b.npz --hardware --ulysses_size 8 --dit_fsdp
 
+``--auto_bits_gib GIB`` plans the weight bitwidths instead (``quant/planner.py``):
+each block-linear class at W4 or W8, greedy under GIB of weight state, the
+plan's config dict deployed as a quant config. Only the ``act`` section of
+``--quant_config`` is read then (default: 8-bit symmetric, static ffn.2); the
+rest of that YAML, its ``cache:`` section too, is dropped:
+
+    python -m wanq_tpu_torch.cli.quant_generate --task t2v-14B --random_init \
+        --auto_bits_gib 9.5 --quant_config quant_configs/wan_w4a8_14b.yaml \
+        --calib_data calib_14b.npz --hardware --strip_fp
+
 ``--lora`` deploys QLoRA adapters (the npz of ``training/lora.py::save_lora``,
 either package's, or a ``lora-checkpoint-N`` dir): they are merged into the
 quant state before the denoise loop, and the adapted sites take ``qlinear``'s
@@ -90,7 +100,11 @@ from wanq_tpu_torch.training.lora import load_lora, merge_lora_into_quant_state
 def parse_args(argv=None):
     p = argparse.ArgumentParser("wanq_tpu_torch quant_generate")
     add_common_args(p)
-    p.add_argument("--quant_config", type=str, required=True)
+    p.add_argument("--quant_config", type=str, default=None)
+    p.add_argument("--auto_bits_gib", type=float, default=None,
+                   help="capacity-aware mixed W4/W8: plan the bitwidths under this "
+                        "weight-state budget in GiB (quant/planner.py) instead of "
+                        "--quant_config's weight section; only its act section is read")
     p.add_argument("--calib_data", type=str, default=None,
                    help="get_calib_data npz (needed for static activations and "
                         "SmoothQuant masks when quantizing on the fly)")
@@ -107,6 +121,27 @@ def parse_args(argv=None):
                    help="QLoRA adapters (a save_lora npz or a lora-checkpoint-N dir) merged "
                         "into the quant state")
     return p.parse_args(argv)
+
+
+# the activation section of a capacity plan when --quant_config gives none
+PLAN_ACT = {"n_bits": 8, "sym": True, "static_regex": r"ffn\.2"}
+
+
+def quant_config_from_args(args, cfg) -> QuantConfig:
+    """The run's QuantConfig: ``--auto_bits_gib``'s capacity plan (its report
+    logged; the act section from ``--quant_config`` or ``PLAN_ACT``), else
+    ``--quant_config``. Neither flag is an error."""
+    if args.auto_bits_gib is not None:
+        from wanq_tpu_torch.quant.planner import plan_capacity_bits
+
+        base = QuantConfig.from_yaml(args.quant_config).raw if args.quant_config else {}
+        plan = plan_capacity_bits(cfg, int(args.auto_bits_gib * 2**30),
+                                  act=base.get("act") or PLAN_ACT)
+        logging.info("%s", plan.report())
+        return QuantConfig.from_dict(plan.config)
+    if args.quant_config:
+        return QuantConfig.from_yaml(args.quant_config)
+    raise SystemExit("need --quant_config or --auto_bits_gib")
 
 
 def quantize_or_load(args, params, cfg, qcfg, mode: str):
@@ -150,7 +185,7 @@ def generate(args, on_step=None):
     mode = "int8" if args.hardware else "sim"
     cfg = WAN_CONFIGS[args.task]
     size = SIZE_CONFIGS[args.size]
-    qcfg = QuantConfig.from_yaml(args.quant_config)
+    qcfg = quant_config_from_args(args, cfg)
     cache_policy = cache_policy_from_args(args, qcfg)
     logging.info("step cache: %s", cache_policy or "off")
     params = load_params(args, cfg)

@@ -174,14 +174,10 @@ def sinusoidal_embedding_1d(dim: int, t: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _param_tree(cfg: WanConfig, lin, modulation, device) -> Params:
-    """The DiT's parameter tree, its weights drawn by ``lin(c_in, c_out,
-    scheme)`` and ``modulation(n)`` in wanq_tpu's order."""
+def _nonblock_tree(cfg: WanConfig, lin, modulation, device) -> Params:
+    """Every parameter but the blocks, its weights drawn by ``lin(c_in,
+    c_out, scheme)`` and ``modulation(n)`` in wanq_tpu's order."""
     d = cfg.dim
-
-    def ones():
-        return torch.ones((d,), device=device)
-
     params: Params = {
         "patch_embedding": lin(int(np.prod(cfg.patch_size)) * cfg.in_dim, d),
         "text_embedding": {"0": lin(cfg.text_dim, d, "normal02"),
@@ -193,7 +189,6 @@ def _param_tree(cfg: WanConfig, lin, modulation, device) -> Params:
             "head": lin(d, int(np.prod(cfg.patch_size)) * cfg.out_dim, "zeros"),
             "modulation": modulation(2),
         },
-        "blocks": [],
     }
     if cfg.model_type == "i2v":
         # the CLIP-feature MLP: LN -> Linear -> GELU -> Linear -> LN
@@ -202,23 +197,39 @@ def _param_tree(cfg: WanConfig, lin, modulation, device) -> Params:
             "0": {"w": torch.ones((c,), device=device), "b": torch.zeros((c,), device=device)},
             "1": lin(c, c),
             "3": lin(c, d),
-            "4": {"w": ones(), "b": torch.zeros((d,), device=device)},
+            "4": {"w": torch.ones((d,), device=device), "b": torch.zeros((d,), device=device)},
         }}
-    for _ in range(cfg.num_layers):
-        block = {
-            "self_attn": {"q": lin(d, d), "k": lin(d, d), "v": lin(d, d), "o": lin(d, d),
-                          "norm_q": ones(), "norm_k": ones()},
-            "cross_attn": {"q": lin(d, d), "k": lin(d, d), "v": lin(d, d), "o": lin(d, d),
-                           "norm_q": ones(), "norm_k": ones()},
-            "norm3": ({"w": ones(), "b": torch.zeros((d,), device=device)}
-                      if cfg.cross_attn_norm else None),
-            "ffn": {"0": lin(d, cfg.ffn_dim), "2": lin(cfg.ffn_dim, d)},
-            "modulation": modulation(6),
-        }
-        if cfg.model_type == "i2v":
-            # drawn after the block's other weights, as wanq_tpu draws them
-            block["cross_attn"].update(k_img=lin(d, d), v_img=lin(d, d), norm_k_img=ones())
-        params["blocks"].append(block)
+    return params
+
+
+def _block_tree(cfg: WanConfig, lin, modulation, device) -> Params:
+    """One transformer block's parameters, drawn as :func:`_nonblock_tree`'s."""
+    d = cfg.dim
+
+    def ones():
+        return torch.ones((d,), device=device)
+
+    block = {
+        "self_attn": {"q": lin(d, d), "k": lin(d, d), "v": lin(d, d), "o": lin(d, d),
+                      "norm_q": ones(), "norm_k": ones()},
+        "cross_attn": {"q": lin(d, d), "k": lin(d, d), "v": lin(d, d), "o": lin(d, d),
+                       "norm_q": ones(), "norm_k": ones()},
+        "norm3": ({"w": ones(), "b": torch.zeros((d,), device=device)}
+                  if cfg.cross_attn_norm else None),
+        "ffn": {"0": lin(d, cfg.ffn_dim), "2": lin(cfg.ffn_dim, d)},
+        "modulation": modulation(6),
+    }
+    if cfg.model_type == "i2v":
+        # drawn after the block's other weights, as wanq_tpu draws them
+        block["cross_attn"].update(k_img=lin(d, d), v_img=lin(d, d), norm_k_img=ones())
+    return block
+
+
+def _param_tree(cfg: WanConfig, lin, modulation, device) -> Params:
+    """The DiT's parameter tree: :func:`_nonblock_tree`, then the blocks."""
+    params = _nonblock_tree(cfg, lin, modulation, device)
+    params["blocks"] = [_block_tree(cfg, lin, modulation, device)
+                        for _ in range(cfg.num_layers)]
     return params
 
 
@@ -250,20 +261,17 @@ def init_params(cfg: WanConfig, seed: int = 0, device="cuda") -> Params:
     return _param_tree(cfg, lin, modulation, device)
 
 
-# the f32 elements init_params_on_device draws at once
+# the f32 elements a device draw makes at once
 _DRAW_BLOCK = 1 << 24
 
 
-def init_params_on_device(cfg: WanConfig, seed: int = 0, device="cuda") -> Params:
-    """Random init drawn on ``device`` by a ``torch.Generator`` seeded with
-    ``seed`` (counterpart of wanq_tpu's init_params_on_device): no host copy
-    of the weights, so T2V-14B (28.6 GB of bf16) draws in seconds. The
-    schemes and the tree are :func:`init_params`' (xavier-uniform, normal x
-    0.02, zeros for ``head.head``, modulation N(0, 1) / sqrt(dim)); the bits
-    are not, as torch cannot reproduce numpy's or jax.random's streams. Each
-    weight is drawn in f32 blocks of rows of at most ``_DRAW_BLOCK``
-    elements, each cast to ``cfg.dtype`` at once, so the peak is the model
-    plus one such block (64 MB)."""
+def _device_draws(cfg: WanConfig, seed: int, device):
+    """(lin, modulation) drawing on ``device`` from a ``torch.Generator``
+    seeded with ``seed``: the schemes of :func:`init_params` (xavier-uniform,
+    normal x 0.02, zeros; modulation N(0, 1) / sqrt(dim)), each weight in f32
+    blocks of rows of at most ``_DRAW_BLOCK`` elements, each cast to
+    ``cfg.dtype`` at once, so a draw holds one such block (64 MB) beyond the
+    weights."""
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def lin(c_in, c_out, scheme="xavier"):
@@ -284,7 +292,38 @@ def init_params_on_device(cfg: WanConfig, seed: int = 0, device="cuda") -> Param
     def modulation(n):
         return torch.randn((1, n, cfg.dim), generator=gen, device=device) / math.sqrt(cfg.dim)
 
-    return _param_tree(cfg, lin, modulation, device)
+    return lin, modulation
+
+
+def init_params_on_device(cfg: WanConfig, seed: int = 0, device="cuda") -> Params:
+    """Random init drawn on ``device`` by a ``torch.Generator`` seeded with
+    ``seed`` (counterpart of wanq_tpu's init_params_on_device): no host copy
+    of the weights, so T2V-14B (28.6 GB of bf16) draws in seconds. The
+    schemes and the tree are :func:`init_params`'; the bits are not, as torch
+    cannot reproduce numpy's or jax.random's streams (:func:`_device_draws`)."""
+    return _param_tree(cfg, *_device_draws(cfg, seed, device), device)
+
+
+def make_param_generator(cfg: WanConfig, device="cuda"):
+    """``gen(seed) -> params``: :func:`init_params_on_device` as a generator
+    (counterpart of wanq_tpu's ``make_param_generator``, which maps a PRNG
+    key)."""
+    return lambda seed: init_params_on_device(cfg, seed, device=device)
+
+
+def make_block_generator(cfg: WanConfig, device="cuda"):
+    """``gen_block(seed) -> one block's params``, drawn on ``device`` (the
+    streamed build of ``quant/stream.py``: draw a block, quantize it, drop the
+    FP copy, draw the next). Counterpart of wanq_tpu's
+    ``make_block_generator``; the bits are a ``torch.Generator``'s."""
+    return lambda seed: _block_tree(cfg, *_device_draws(cfg, seed, device), device)
+
+
+def make_nonblock_generator(cfg: WanConfig, device="cuda"):
+    """``gen(seed) -> every parameter but the blocks``, drawn on ``device``:
+    the streamed build's prelude (embeddings, time projection, head,
+    img_emb). Counterpart of wanq_tpu's ``make_nonblock_generator``."""
+    return lambda seed: _nonblock_tree(cfg, *_device_draws(cfg, seed, device), device)
 
 
 def linear_layer_names(cfg: WanConfig) -> List[str]:

@@ -31,22 +31,11 @@ import numpy as np
 import torch
 
 from wanq_tpu_torch.parallel.sharding import Shard
+from wanq_tpu_torch.quant.planner import block_linear_dims
 from wanq_tpu_torch.quant.ptq import params_get
 
 DEFAULT_TARGETS = r"self_attn\.(q|k|v|o)|ffn\.(0|2)"
 SCALE = "__scale__"
-
-
-def block_linear_dims(cfg) -> Dict[str, tuple]:
-    """(C_in, C_out) of each block linear of a WanConfig (the port's copy of
-    wanq_tpu/quant/planner.py::block_linear_dims)."""
-    d, f = cfg.dim, cfg.ffn_dim
-    dims = {f"{mod}.{leaf}": (d, d) for mod in ("self_attn", "cross_attn")
-            for leaf in ("q", "k", "v", "o")}
-    dims.update({"ffn.0": (d, f), "ffn.2": (f, d)})
-    if getattr(cfg, "model_type", "t2v") == "i2v":
-        dims.update({"cross_attn.k_img": (d, d), "cross_attn.v_img": (d, d)})
-    return dims
 
 
 def lora_layer_names(layer_names, targets: str = DEFAULT_TARGETS):
