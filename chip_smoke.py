@@ -80,7 +80,7 @@ non-zero:
    w8a8 over 8 steps under a static step cache (--reuse_interval 2
    --cfg_cache_interval 2 --cache_warmup 2 --cache_tail 2: the actions of
    StepCachePolicy.plan). Then T2V-14B at full width (dim 5120, 40 heads;
-   DEPTH_14B = 20 of its 40 blocks, as for I2V-14B) after its own 1-step
+   DEPTH_14B = 10 of its 40 blocks, as for I2V-14B) after its own 1-step
    calibration at 480p, each with --strip_fp (the CLI logs the memory held
    before and after): wan_w4a8_14b and wan_w8a8_14b at 832x480x81, 3 steps
    (the YAML's adaptive cache plans all-full steps); wan_w4a8_14b at 480p over
@@ -88,7 +88,7 @@ non-zero:
    actions equal to simulate_adaptive_actions replayed on the trace's own
    drifts, the time of each step by action); wan_w4a8_14b at 1280x720x81
    (seq 75776) with --cfg_mode sequential, 2 steps; and w4w8_plan_14b:
-   quant_generate --auto_bits_gib PLAN_GIB (4.75 GiB at 20 blocks, which plans
+   quant_generate --auto_bits_gib PLAN_GIB (2.375 GiB at 10 blocks, which plans
    what 9.5 GiB plans at 40: the two plans' W8 classes held equal) with
    wan_w4a8_14b.yaml's act section, 3 steps at 480p: K8 on the six W4
    classes, ffn.0 in its GELU + quant mode feeding ffn.2's K2, K2 on the four
@@ -139,7 +139,7 @@ non-zero:
    card against the CPU), the VAE and umT5 on the card against the CPU,
    bf16 decodes at 480p and 720p;
 6. image to video: I2V-14B at full width (dim 5120, clip_dim 1280; DEPTH_14B
-   = 20 of its 40 blocks) from a seeded [3, 480, 832] image at 832*480x81
+   = 10 of its 40 blocks) from a seeded [3, 480, 832] image at 832*480x81
    (58 x 104 latents, seq 31668: no token is padded). Every kernel the path runs at its
    shapes and at seq 32760 (K1, K3, K7, K2, K8, K4 self over all keys and
    cross against 512 text and 257 CLIP tokens), printed beside its bound and
@@ -237,7 +237,13 @@ non-zero:
    832x480x9 (seq 4680), rank 16 on self q/k/v/o and ffn, remat, lr 1e-4,
    guidance 3: finite, the last loss below the warm-up's (the loss before
    any update), the launches exactly QLORA_STEP x 40, and one more step split
-   by the host clock.
+   by the host clock; (v) 1 warm-up + 1 QLoRA step at 832x480x81 (seq 32760)
+   on 2 blocks of that base (the same adapters and batch), in a child
+   process whose environment has PYTORCH_CUDA_ALLOC_CONF removed (the
+   default allocator): finite, the launches QLORA_STEP x 2, the peak and
+   its projection to 40 blocks, the peak + 38 x (one block's int bytes, its
+   adapters' tensor, gradient, Adam moments and EMA, and one saved bf16 block
+   input), gated at <= 60 GiB.
 
 The third-to-last line is the kernels' JSON record, then the card's name
 and power limit, and the last line {"ok": true, "device": {...}}.
@@ -344,9 +350,10 @@ PATHS = {
     "w4w8_plan_14b": (W4A8_14B_YAML, W4W8_PLAN),
 }
 TASK_14B = "t2v-14B"
-# T2V-14B and I2V-14B run at full width with 20 of their 40 blocks, so the
-# whole script stays well inside its time limit; the 1.3B model keeps its 30
-DEPTH_14B = 20
+# T2V-14B and I2V-14B run at full width with 10 of their 40 blocks, so the
+# whole script stays inside its time limit (with 20 blocks a whole run read
+# up to 1140.6 s of its 1200); the 1.3B model keeps its 30
+DEPTH_14B = 10
 # w4w8_plan_14b: quant_generate --auto_bits_gib. The byte model is linear in
 # the depth, so this budget plans at DEPTH_14B blocks what 9.5 GiB plans at 40:
 # W8 on ffn.2, self o, cross o and self v, W4 on the other six classes (cross
@@ -4460,6 +4467,74 @@ def streamed_14b(torch, results, launches):
     del params, qctx, lora, batch
     torch.cuda.empty_cache()
     log(f"  phase 9 (iv): {time.time() - t0:.1f} s")
+
+    t0 = time.time()
+    env = {k: v for k, v in os.environ.items() if k != "PYTORCH_CUDA_ALLOC_CONF"}
+    r = subprocess.run([sys.executable, "-c", "import sys, chip_smoke; "
+                        "sys.exit(chip_smoke.qlora_81_frames(2))"], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    for line in r.stdout.splitlines():
+        log(line)
+    check(r.returncode == 0, f"phase 9 (v) failed (exit {r.returncode}): {r.stderr[-3000:]}")
+    log(f"  phase 9 (v): {time.time() - t0:.1f} s")
+
+
+QLORA_81_GATE_GIB = 60.0
+
+
+def qlora_81_frames(blocks: int) -> int:
+    """Phase 9 (v), in its own process (the caller removes
+    PYTORCH_CUDA_ALLOC_CONF from its environment): 1 warm-up + 1 QLoRA step
+    at 832x480x81 on ``blocks`` blocks of the streamed T2V-14B W4A8 base, as
+    phase 9 (iv) takes them; prints the peak and its projection to 40
+    blocks. 0 when finite, the launches QLORA_STEP x blocks, the projection
+    <= QLORA_81_GATE_GIB."""
+    import torch
+
+    from wanq_tpu_torch.configs import WAN_CONFIGS
+    from wanq_tpu_torch.ops import _lib
+    from wanq_tpu_torch.quant import QuantConfig
+    from wanq_tpu_torch.quant.stream import build_streamed_quant_base
+    from wanq_tpu_torch.training import (
+        DistillConfig, init_train_state, make_qlora_distill_step)
+    from wanq_tpu_torch.training.lora import DEFAULT_TARGETS, init_lora_from_cfg
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _lib.lib()
+    cfg = dataclasses.replace(WAN_CONFIGS[TASK_14B], num_layers=blocks)
+    params, qctx, qbytes = build_streamed_quant_base(cfg, QuantConfig.from_dict(QLORA_14B))
+    lora = init_lora_from_cfg(cfg, rank=16, seed=3, targets=DEFAULT_TARGETS, device="cuda")
+    batch = distill_batch(torch, cfg, 81)
+    dcfg = DistillConfig(learning_rate=1e-4, seq_len=QLORA_SEQ, remat=True)
+    state, tx = init_train_state(lora, dcfg)
+    step = make_qlora_distill_step(cfg, dcfg, tx)
+    want = {k: v * blocks for k, v in QLORA_STEP.items()}
+    adapters = sum(t.numel() * t.element_size() for t in _adapter_leaves(state.params))
+    per_block = (qbytes + 5 * adapters) / blocks + QLORA_SEQ * cfg.dim * 2
+    ok = True
+    for i in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        _lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, _, _, loss, gnorm = step(state.params, state.ema_params, tx, params, qctx, *batch,
+                                    3.0)
+        loss, gnorm = float(loss), float(gnorm)
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        counts = _lib.launch_counts()
+        proj = peak + (40 - blocks) * per_block
+        print(f"  (v) QLoRA at {TASK_14B} 832x480x81 (seq {QLORA_SEQ}), {blocks} blocks, "
+              f"PYTORCH_CUDA_ALLOC_CONF {os.environ.get('PYTORCH_CUDA_ALLOC_CONF', 'unset')}, "
+              f"step {i}{' (warm-up)' if i == 0 else ''}: loss {loss:.8f}  gnorm {gnorm:.8e}  "
+              f"{secs:.3f} s  peak {peak / 2**30:.3f} GiB; projected to 40 blocks "
+              f"{proj / 2**30:.3f} GiB (+ 38 x {per_block / 2**30:.4f}: a block's int state "
+              f"{qbytes / blocks / 2**30:.4f}, its adapters x5 {5 * adapters / blocks / 2**30:.4f}"
+              f", a saved bf16 input {QLORA_SEQ * cfg.dim * 2 / 2**30:.4f}; gate "
+              f"{QLORA_81_GATE_GIB} GiB); launches {counts}", flush=True)
+        ok &= math.isfinite(loss) and math.isfinite(gnorm) and counts == want
+        ok &= proj <= QLORA_81_GATE_GIB * 2**30
+    print(f"  (v) card: {nvidia_smi()}", flush=True)
+    return 0 if ok else 1
 
 
 # kernels whose build must show no spill: the wgmma kernels (a spill there

@@ -2375,3 +2375,112 @@ def test_k4_residual_k11_k12_at_14b_nine_frames(dev, gen, sk):
     want = attention_bwd_reference(q, k, vh, out, lse, do, 0.0884, sk, q_chunk=1024)
     for g_, w_ in zip(got, want):
         assert g_.shape == w_.shape and _grad_rel(g_, w_) <= 1e-2
+
+
+# ---------------------------------------------------------------------------
+# the trainable quantized linear (QLoRA's route) at the 14B shapes
+# ---------------------------------------------------------------------------
+
+
+def _trainable_layer(dev, gen, c_in, c_out, static):
+    """A W4 trainable layer 'lin' with a rank-16 adapter (b != 0): (ctx, bias)."""
+    from wanq_tpu_torch.quant.config import LayerPolicy
+    from wanq_tpu_torch.quant.qlinear import QuantCtx
+    from wanq_tpu_torch.quant.quantizers import QuantizerCfg, pack_int4, weight_int_quant
+
+    w = torch.randn((c_in, c_out), device=dev, generator=gen) * 0.02
+    wcfg = QuantizerCfg(n_bits=4, sym=False)
+    codes, scale, zp = weight_int_quant(w, wcfg)
+    st = {"w_int4": pack_int4(codes), "scale_w": scale, "zp_w_int": zp,
+          "lora_a": torch.randn((c_in, 16), device=dev, generator=gen) * 0.02,
+          "lora_b": torch.randn((16, c_out), device=dev, generator=gen) * 0.5}
+    if static:
+        st["delta_a"] = torch.tensor([8.0 / 127], device=dev)
+        st["zp_a"] = torch.zeros(1, device=dev)
+    pol = LayerPolicy(method="base", weight=wcfg,
+                      act=QuantizerCfg(n_bits=8, sym=True, dynamic=not static))
+    return (QuantCtx(mode="int8", policies={"lin": pol}, state={"lin": st}, trainable=True),
+            torch.randn((c_out,), device=dev, generator=gen) * 0.1)
+
+
+def _chain_trainable_qlinear(st, bias, x):
+    """The trainable route as the autograd chain it replaced (f32 fake-quant,
+    f32 dequant, fp_linear, the adapter on x.float()): the reference."""
+    from wanq_tpu_torch.quant.qlinear import fp_linear
+    from wanq_tpu_torch.quant.quantizers import compute_quant_params, fake_quant, unpack_int4
+
+    b, n, c = x.shape
+    xf = x.float()
+    if "delta_a" in st:
+        xq = fake_quant(xf, st["delta_a"], st["zp_a"], 8, True)
+    else:
+        d_a, zp_a = compute_quant_params(xf.reshape(b * n, c), 8, True)
+        xq = fake_quant(xf.reshape(b * n, c), d_a, zp_a, 8, True).reshape(b, n, c)
+    w_deq = (unpack_int4(st["w_int4"]).float() + st["zp_w_int"][:, None]) * st["scale_w"][:, None]
+    y = fp_linear({"w": w_deq.t(), "b": bias}, xq)
+    return y + (x.float() @ st["lora_a"].float()) @ st["lora_b"].float()
+
+
+@pytest.mark.parametrize("c_in,c_out,static", [(5120, 5120, False), (13824, 5120, False),
+                                               (5120, 13824, True)],
+                         ids=["self_o", "ffn2", "ffn0_static"])
+def test_trainable_linear_matches_the_chain_at_14b_shapes(dev, gen, c_in, c_out, static):
+    """The trainable route on the card at the 14B 9-frame rows (M = 4680,
+    bf16 input, one row chunk) against the chain it replaced: the forward and
+    the gradients to x, the adapters and a static delta_a equal bit for bit
+    (the same products, the same elementwise passes, and row sums that do not
+    depend on the chunk). Planted: a tied absmax, a row under the eps, codes
+    on -128 / 127 (static)."""
+    from wanq_tpu_torch.quant.qlinear import qlinear
+
+    ctx, bias = _trainable_layer(dev, gen, c_in, c_out, static)
+    x = (torch.randn((1, 4680, c_in), device=dev, generator=gen) * 2).bfloat16()
+    x[0, 0, 3], x[0, 0, 7] = 9.0, -9.0
+    x[0, 1] = 1e-8
+    x[0, 2, :4] = torch.tensor([-8.0, 8.0, -9.0, 9.0])
+    g = torch.randn((1, 4680, c_out), device=dev, generator=gen)
+    grads, outs = [], []
+    for route in ("function", "chain"):
+        st = dict(ctx.state["lin"])
+        keys = ["lora_a", "lora_b"] + (["delta_a"] if static else [])
+        for k in keys:
+            st[k] = st[k].clone().requires_grad_()
+        xl = x.clone().requires_grad_()
+        if route == "function":
+            import dataclasses
+
+            y = qlinear(dataclasses.replace(ctx, state={"lin": st}), "lin", {"b": bias}, xl)
+        else:
+            y = _chain_trainable_qlinear(st, bias, xl)
+        outs.append(y)
+        grads.append(torch.autograd.grad(y, [xl] + [st[k] for k in keys], g))
+    assert torch.equal(outs[0].view(torch.int32), outs[1].view(torch.int32))
+    for name, got, want in zip(("x", "lora_a", "lora_b", "delta_a"), *grads):
+        rel = ((got.double() - want.double()).norm() / want.double().norm()).item()
+        assert got.dtype == want.dtype and torch.equal(got, want), (name, rel)
+
+
+def test_trainable_linear_keeps_no_f32_copy_at_81_frames(dev, gen):
+    """ffn.2's trainable route at 832x480x81 (M = 32760, C_in 13824, bf16, 7
+    row chunks of 4680): after the forward it holds its f32 output and per-row
+    tensors only (the chain it replaced held five f32 copies of its input,
+    8.4 GiB), and the input's gradient is the chain's bit for bit."""
+    from wanq_tpu_torch.quant.qlinear import qlinear
+
+    ctx, bias = _trainable_layer(dev, gen, 13824, 5120, False)
+    st = ctx.state["lin"]
+    st["lora_a"].requires_grad_()
+    st["lora_b"].requires_grad_()
+    x = (torch.randn((1, 32760, 13824), device=dev, generator=gen) * 2).bfloat16()
+    x.requires_grad_()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    y = qlinear(ctx, "lin", {"b": bias}, x)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - before - y.numel() * y.element_size()
+    assert held <= 32760 * 64 * 4, f"{held / 2**20:.1f} MiB held beside the output"
+    g = torch.randn(y.shape, device=dev, generator=gen)
+    gx, = torch.autograd.grad(y, [x], g)
+    del y
+    want, = torch.autograd.grad(_chain_trainable_qlinear(st, bias, x), [x], g)
+    assert torch.equal(gx, want)

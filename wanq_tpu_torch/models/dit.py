@@ -582,6 +582,17 @@ def _cross_attention(p: Params, name: str, ctx: Optional[QuantCtx],
     return qlinear(ctx, f"{name}.o", p["o"], y.reshape(b, -1, n * hd), dtype)
 
 
+def _recomputed(training: bool, fn, x: torch.Tensor) -> torch.Tensor:
+    """fn(x). Training under autograd keeps only x: the backward runs fn
+    again (a non-reentrant checkpoint, nested in remat's), so its gradients
+    are the same bits and its f32 intermediates (a LayerNorm's, the f32 GELU
+    input at ffn width) are not held through the block's backward."""
+    if training and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, x, use_reentrant=False,
+                                                 preserve_rng_state=False)
+    return fn(x)
+
+
 def block_forward(p: Params, name: str, ctx: Optional[QuantCtx], x: torch.Tensor,
                   e: torch.Tensor, context: torch.Tensor, cfg: WanConfig,
                   cos: torch.Tensor, sin: torch.Tensor, valid_len: int,
@@ -616,8 +627,9 @@ def block_forward(p: Params, name: str, ctx: Optional[QuantCtx], x: torch.Tensor
                             cos, sin, valid_len, dtype, prequant=prequant, tables=tables,
                             plan=plan)
     else:
-        xn1 = layer_norm(x, cfg.eps) * (1.0 + e1[:, None, :]) + e0[:, None, :]
-        y = _self_attention(p["self_attn"], f"{name}.self_attn", ctx, xn1.to(dtype), cfg,
+        xn1 = _recomputed(training, lambda x_: (
+            layer_norm(x_, cfg.eps) * (1.0 + e1[:, None, :]) + e0[:, None, :]).to(dtype), x)
+        y = _self_attention(p["self_attn"], f"{name}.self_attn", ctx, xn1, cfg,
                             cos, sin, valid_len, dtype, tables=tables, training=training,
                             plan=plan)
     x = (x.float() + y.float() * e2[:, None, :]).to(x.dtype)
@@ -637,9 +649,10 @@ def block_forward(p: Params, name: str, ctx: Optional[QuantCtx], x: torch.Tensor
         y = _cross_attention(p["cross_attn"], f"{name}.cross_attn", ctx, None, context,
                              cfg, dtype, prequant=cq_prequant)
     else:
-        xn3 = (layer_norm(x, cfg.eps, p["norm3"]["w"], p["norm3"]["b"])
-               if cfg.cross_attn_norm else x)
-        y = _cross_attention(p["cross_attn"], f"{name}.cross_attn", ctx, xn3.to(dtype),
+        xn3 = (_recomputed(training, lambda x_: layer_norm(
+            x_, cfg.eps, p["norm3"]["w"], p["norm3"]["b"]).to(dtype), x)
+               if cfg.cross_attn_norm else x.to(dtype))
+        y = _cross_attention(p["cross_attn"], f"{name}.cross_attn", ctx, xn3,
                              context, cfg, dtype, training=training)
     x = (x.float() + y.float()).to(x.dtype)
 
@@ -652,10 +665,12 @@ def block_forward(p: Params, name: str, ctx: Optional[QuantCtx], x: torch.Tensor
             ctx, ffn_sites[0], ffn_sites[1], p["ffn"]["0"], h8, s_a, ssum)
         y = w8a8_from_prequant(ctx, ffn_sites[1], p["ffn"]["2"], h8b, s2, sm2)
     else:
-        xn2 = layer_norm(x, cfg.eps) * (1.0 + e4[:, None, :]) + e3[:, None, :]
-        h = qlinear(ctx, f"{name}.ffn.0", p["ffn"]["0"], xn2.to(dtype), dtype)
-        h = gelu_tanh(h).to(dtype)
-        y = qlinear(ctx, f"{name}.ffn.2", p["ffn"]["2"], h, dtype)
+        def ffn_in(x_):
+            xn2 = layer_norm(x_, cfg.eps) * (1.0 + e4[:, None, :]) + e3[:, None, :]
+            h = qlinear(ctx, f"{name}.ffn.0", p["ffn"]["0"], xn2.to(dtype), dtype)
+            return gelu_tanh(h).to(dtype)
+
+        y = qlinear(ctx, f"{name}.ffn.2", p["ffn"]["2"], _recomputed(training, ffn_in, x), dtype)
     return (x.float() + y.float() * e5[:, None, :]).to(x.dtype)
 
 

@@ -74,9 +74,10 @@ from wanq_tpu_torch.ops.qgemm import (
 from wanq_tpu_torch.quant.config import FP_POLICY, LayerPolicy
 from wanq_tpu_torch.quant.quantizers import (
     act_group_int4_quant,
-    compute_quant_params,
     dynamic_fake_quant,
     fake_quant,
+    fake_quant_ste,
+    row_chunks,
     unpack_int4,
 )
 
@@ -294,22 +295,89 @@ def qlinear(ctx: Optional[QuantCtx], name: str, params: Params, x: torch.Tensor,
                                                                  torch.float32)))
 
 
+def _dequant_bf16(src, zp, scale, packed: bool) -> torch.Tensor:
+    """W8 codes or packed W4 codes dequantized to the bf16 operand, ``((codes +
+    zp) * scale)`` [C_out, C_in] rounded once to bf16; made a chunk of rows at
+    a time, so no f32 copy of the weight is whole."""
+    n = src.shape[0]
+    w = torch.empty((n, src.shape[1] * (2 if packed else 1)), dtype=torch.bfloat16,
+                    device=src.device)
+    for i, j in row_chunks(n, w.shape[1]):
+        codes = unpack_int4(src[i:j]) if packed else src[i:j]
+        w[i:j] = (codes.float() + zp[i:j, None]) * scale[i:j, None]
+    return w
+
+
+class _DequantMm(torch.autograd.Function):
+    """a [M, K] bf16 @ the frozen codes dequantized for the moment
+    (:func:`_dequant_bf16`, transposed) into f32, as fp_linear
+    multiplies on each device (the card: ``torch.mm(..., out_dtype=float32)``;
+    the CPU: the rounded operands in f32). The weight takes no gradient, so
+    nothing is kept but the state's own tensors: the backward makes the bf16
+    weight again for a's gradient, which is fp_linear's."""
+
+    @staticmethod
+    def forward(ctx, a, src, zp, scale, packed):
+        w = _dequant_bf16(src, zp, scale, packed).t()
+        ctx.packed = packed
+        ctx.save_for_backward(src, zp, scale)
+        if a.is_cuda:
+            return torch.mm(a, w, out_dtype=torch.float32)
+        return torch.mm(a.float(), w.float())
+
+    @staticmethod
+    def backward(ctx, g):
+        w = _dequant_bf16(*ctx.saved_tensors, ctx.packed)  # [N, K]: the operand, transposed
+        if g.is_cuda:
+            ga = torch.mm(g.to(torch.bfloat16), w, out_dtype=torch.float32)
+        else:
+            ga = torch.mm(g, w.float())
+        return ga.to(torch.bfloat16), None, None, None, None
+
+
 def _trainable_linear(policy: LayerPolicy, st, bias, x: torch.Tensor) -> torch.Tensor:
     """The int kernels' function, differentiable: the (transformed)
     activation fake-quantized to 8 bits (static ``delta_a``, or per token with
     the gradient through its absmax) times the codes dequantized for the
     moment, ``(codes + zp) * scale``, as one bf16 product with f32 sums and
-    bias (``wanq_tpu`` computes it as a plain dot, outside its kernels)."""
+    bias (``wanq_tpu`` computes it as a plain dot, outside its kernels). The
+    fake-quant keeps x in its own dtype and writes the bf16 operand; the
+    product keeps nothing (:class:`_DequantMm`)."""
     b, n, c = x.shape
-    xf = x.float()
-    if not policy.act.dynamic:
-        xq = fake_quant(xf, st["delta_a"], st["zp_a"], 8, True)
-    else:
-        d_a, zp_a = compute_quant_params(xf.reshape(b * n, c), 8, True)
-        xq = fake_quant(xf.reshape(b * n, c), d_a, zp_a, 8, True).reshape(b, n, c)
-    codes = unpack_int4(st["w_int4"]) if "w_int4" in st else st["w_int8"]  # [C_out, C_in]
-    w_deq = (codes.float() + st["zp_w_int"][:, None]) * st["scale_w"][:, None]
-    return fp_linear({"w": w_deq.t(), "b": bias}, xq)
+    dyn = policy.act.dynamic
+    xq = fake_quant_ste(x.reshape(b * n, c), 8, None if dyn else st["delta_a"],
+                        None if dyn else st["zp_a"], out_dtype=torch.bfloat16)
+    packed = "w_int4" in st
+    y = _DequantMm.apply(xq, st["w_int4"] if packed else st["w_int8"], st["zp_w_int"],
+                         st["scale_w"], packed).reshape(b, n, -1)
+    return y if bias is None else y + bias.float()
+
+
+class _LoraF32(torch.autograd.Function):
+    """(x @ a) @ b in f32 on the raw layer input x [M, C_in]: the products of
+    ``(x.float() @ a.float()) @ b.float()``, keeping x in its own dtype (the
+    cast to f32 is exact, so the backward makes it again) and the rank-r
+    h = x @ a. Each product is the chain's own call, so its bits are too."""
+
+    @staticmethod
+    def forward(ctx, x, a, b):
+        h = x.float() @ a
+        ctx.save_for_backward(x, a, b, h)
+        return h @ b
+
+    @staticmethod
+    def backward(ctx, g):
+        x, a, b, h = ctx.saved_tensors
+        want_x, want_a, want_b = ctx.needs_input_grad
+        gx = ga = gb = None
+        gh = g @ b.t() if want_x or want_a else None
+        if want_b:
+            gb = h.t() @ g
+        if want_a:
+            ga = x.float().t() @ gh
+        if want_x:
+            gx = (gh @ a.t()).to(x.dtype)
+        return gx, ga, gb
 
 
 def _maybe_lora(st, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -317,7 +385,9 @@ def _maybe_lora(st, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     the layer carries a QLoRA adapter (alpha/r already in ``lora_b``)."""
     if "lora_a" not in st:
         return y
-    return y + (x.float() @ st["lora_a"].float()) @ st["lora_b"].float()
+    x2 = x.reshape(-1, x.shape[-1])
+    lo = _LoraF32.apply(x2, st["lora_a"].float(), st["lora_b"].float())
+    return y + lo.reshape(*x.shape[:-1], -1)
 
 
 def _maybe_lowrank(st, xt: Optional[torch.Tensor], y: torch.Tensor) -> torch.Tensor:

@@ -129,6 +129,119 @@ def dynamic_fake_quant(x: torch.Tensor, cfg: QuantizerCfg) -> torch.Tensor:
     return fake_quant(x, delta, zp, n_bits, cfg.sym).to(x.dtype)
 
 
+# elements of one row chunk of the straight-through fake-quant's passes: each
+# f32 transient of its forward and backward stays at 256 MiB, and each chunk
+# costs a dozen launches a pass
+STE_CHUNK = 1 << 26
+
+
+def row_chunks(m: int, c: int):
+    """[start, stop) row ranges of an [m, c] tensor, about STE_CHUNK elements
+    each and of near-equal rows (no short tail: a reduction along a row then
+    runs in the same order as over the whole tensor)."""
+    n = max(1, -(-m * c // STE_CHUNK))
+    step = -(-m // n)
+    return [(i, min(m, i + step)) for i in range(0, m, step)]
+
+
+class _SymFakeQuantSTE(torch.autograd.Function):
+    """Symmetric fake-quant of x [M, C] with the straight-through round, the
+    function of ``fake_quant(x, *compute_quant_params(x, n_bits, True), ...)``
+    (``delta`` None: per row, the gradient through the absmax) or of
+    ``fake_quant(x, delta, zp, ...)`` (static), with that autograd chain's
+    gradients. It keeps x as it came and the per-row delta [M, 1]; the
+    backward rebuilds the f32 intermediates a chunk of rows at a time."""
+
+    @staticmethod
+    def forward(ctx, x, delta, zp, n_bits, out_dtype):
+        if zp is not None and zp.requires_grad:
+            raise ValueError("the zero point takes no gradient")
+        nl = n_levels_for(n_bits, True)
+        m, c = x.shape
+        out = torch.empty((m, c), dtype=out_dtype, device=x.device)
+        dyn = delta is None
+        d_rows = torch.empty((m, 1), dtype=torch.float32, device=x.device) if dyn else None
+        for i, j in row_chunks(m, c):
+            xf = x[i:j].float()
+            if dyn:
+                d = true_div(xf.abs().amax(dim=1), nl)
+                d = torch.where(d < _EPS_SYM, torch.full_like(d, _EPS_SYM), d)[:, None]
+                d_rows[i:j] = d
+                z = 0.0
+            else:
+                d, z = delta, zp
+            # round(u) is u + (round(u) - u) bit for bit (the difference is
+            # exact), and clamp is maximum-then-minimum's value; q + zp turns
+            # a -0 code into +0 as the chain does
+            q = torch.clamp(torch.round(xf / d) - z, -nl - 1, nl)
+            out[i:j] = (q + z) * d
+        ctx.nl, ctx.dyn = nl, dyn
+        ctx.save_for_backward(x, d_rows if dyn else delta, zp)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, delta, zp = ctx.saved_tensors
+        nl, dyn = ctx.nl, ctx.dyn
+        want_x, want_d = ctx.needs_input_grad[:2]
+        m, c = x.shape
+        gx = torch.empty_like(x) if want_x else None
+        # a static delta's gradient is a sum over the whole tensor: its two
+        # terms are kept whole, so that each sums in the chain's order
+        if want_d:
+            whole = [torch.empty((m, c), device=x.device) for _ in range(2)]
+        for i, j in row_chunks(m, c):
+            if dyn and not want_x:
+                break
+            xf, gf = x[i:j].float(), g[i:j].float()
+            d = delta[i:j] if dyn else delta
+            z = 0.0 if dyn else zp
+            u = xf / d
+            q = torch.round(u) - z
+            gq = gf * d
+            # the STE passes the gradient; the clamp's maximum / minimum halve
+            # it at a bound and stop it outside
+            gu = torch.where((q == -nl - 1) | (q == nl), gq / 2, gq).masked_fill_(
+                (q < -nl - 1) | (q > nl), 0.0)
+            # delta's gradient: through (q + zp) * delta and through x / delta,
+            # each term's sum as the chain's mul and div backwards take it
+            if dyn or want_d:
+                d_out = gf * (torch.clamp(q, -nl - 1, nl) + z)
+                d_div = -gu * (u / d)
+            if dyn:
+                # delta = where(absmax / nl < eps, eps, absmax / nl): nothing on
+                # the eps branch; torch.amax shares its gradient evenly among
+                # the tied maxima; abs passes it times sgn(x). A row's sums do
+                # not depend on the chunk (row_chunks keeps chunks long)
+                gd = d_out.sum(dim=1, keepdim=True) + d_div.sum(dim=1, keepdim=True)
+                a = xf.abs()
+                amax = a.amax(dim=1, keepdim=True)
+                ga = true_div(gd.masked_fill(true_div(amax, nl) < _EPS_SYM, 0.0), nl)
+                tied = a == amax
+                gabs = (ga / tied.sum(dim=1, keepdim=True)) * tied
+                gx[i:j] = (gu / d + gabs * xf.sgn()).to(x.dtype)
+                continue
+            if want_x:
+                gx[i:j] = (gu / d).to(x.dtype)
+            if want_d:
+                whole[0][i:j], whole[1][i:j] = d_out, d_div
+        gdelta = None
+        if want_d:
+            gdelta = (whole[0].sum() + whole[1].sum()).expand(delta.shape).clone()
+        return gx, gdelta, None, None, None
+
+
+def fake_quant_ste(x: torch.Tensor, n_bits: int, delta: torch.Tensor = None,
+                   zp: torch.Tensor = None, out_dtype=torch.float32) -> torch.Tensor:
+    """Symmetric straight-through fake-quant of x [M, C] as one autograd
+    Function: per row from x's absmax (``delta`` None) or with a static
+    ``delta`` / ``zp`` (shape [1]; zp takes no gradient). The values of the
+    ``quantize`` / ``dequantize`` chain, cast to ``out_dtype`` (the trainable
+    linear asks bf16, its product's operand); its gradients; x is kept in
+    its own dtype and no [M, C] f32 tensor outlives a call."""
+    return _SymFakeQuantSTE.apply(x, delta, zp, n_bits, out_dtype)
+
+
 def weight_quant_params(w_in_out: torch.Tensor, cfg: QuantizerCfg):
     """Per-output-channel (delta, zp), each [C_out], of a [C_in, C_out]
     weight (the JAX package's param layout, kept by the port's params)."""
