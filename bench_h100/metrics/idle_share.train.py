@@ -1,0 +1,8 @@
+"""idle_share.train: 1 - the union of the device's busy intervals over the
+traced window, in %. Read in the QLoRA cells."""
+
+
+def read(t):
+    if not t or t.get("kind") != "train":
+        return None
+    return 100.0 * (1.0 - t["busy_s"] / t["window_s"])
