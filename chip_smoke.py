@@ -1663,6 +1663,17 @@ KERNEL_NAMES = {"ln_mod_quant_kernel": "K1", "w8a8_gemm_kernel": "K2",
                 "flash_bwd_dq_kernel": "K12"}
 
 
+def device_ops(events):
+    """The device work among a ``torch.profiler`` trace's events: its CUDA
+    events less the user annotations, which the program's spans
+    (``wanq_tpu_torch/utils/trace.py``) put on the device's timeline around
+    the kernels launched inside them."""
+    from torch.autograd import DeviceType
+
+    return [e for e in events if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def profile_steps(torch, steps, ref="bf16"):
     """One CFG forward of each step function: its wall time unprofiled
     (host clock around a synchronized call, after a warm call) and the peak
@@ -1671,7 +1682,6 @@ def profile_steps(torch, steps, ref="bf16"):
     union of device-activity intervals / the profiled call's wall time.
     The whole table goes to _smoke_out/profile_<label>.txt; each wall time
     is printed against that of ``ref``."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     walls, peaks = {}, {}
@@ -1692,9 +1702,7 @@ def profile_steps(torch, steps, ref="bf16"):
             torch.cuda.synchronize()
             prof_wall = (time.perf_counter() - t0) * 1e3
         spans, by_name = [], {}
-        for e in prof.events():
-            if e.device_type != DeviceType.CUDA:
-                continue
+        for e in device_ops(prof.events()):
             t_us = e.time_range.end - e.time_range.start
             spans.append((e.time_range.start, e.time_range.end))
             tot = by_name.setdefault(e.name, [0.0, 0])
@@ -3441,7 +3449,6 @@ def qlora_step_profile(torch, run, want):
     logs. The whole table goes to _smoke_out/profile_qlora_step.txt."""
     import re
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from wanq_tpu_torch.ops import _lib
@@ -3466,8 +3473,7 @@ def qlora_step_profile(torch, run, want):
         _lib.launch = launch
     counts = _lib.launch_counts()
     check(counts == want, f"QLoRA profiled step: launches {counts}, want {want}")
-    kern = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                  key=lambda e: e.time_range.start)
+    kern = sorted(device_ops(prof.events()), key=lambda e: e.time_range.start)
     if not kern:
         log(f"  QLoRA step profile: wall {wall:.1f} ms; the profiler saw no device activity, "
             "so the kernel split is not measured")

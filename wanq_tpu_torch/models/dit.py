@@ -131,6 +131,7 @@ from wanq_tpu_torch.quant.qlinear import (
     resolves_fp,
     w8a8_from_prequant,
 )
+from wanq_tpu_torch.utils.trace import CROSS_ATTN, DIT_BLOCK, DIT_FORWARD, FFN, SELF_ATTN, span
 
 Params = Dict[str, Any]
 
@@ -613,64 +614,68 @@ def block_forward(p: Params, name: str, ctx: Optional[QuantCtx], x: torch.Tensor
     fused = None if training else ctx
     static_qkv = all(int8_static_fusable(fused, st) for st in qkv_sites)
     cq_static = cfg.cross_attn_norm and int8_static_fusable(fused, cq_site)
-    if static_qkv:
-        # static-scale producer: plain PyTorch (its kernel is not ported;
-        # the W8A8 speed config keeps q/k/v dynamic)
-        prequant = ln_modulate_quant_static(
-            x, e0, e1, ctx.state[qkv_sites[0]]["delta_a"], eps=cfg.eps)
-        y = _self_attention(p["self_attn"], f"{name}.self_attn", ctx, None, cfg,
-                            cos, sin, valid_len, dtype, prequant=prequant, tables=tables,
-                            plan=plan)
-    elif int8_fusable(fused, qkv_sites):
-        prequant = ln_modulate_quant(x, e0, e1, eps=cfg.eps)
-        y = _self_attention(p["self_attn"], f"{name}.self_attn", ctx, None, cfg,
-                            cos, sin, valid_len, dtype, prequant=prequant, tables=tables,
-                            plan=plan)
-    else:
-        xn1 = _recomputed(training, lambda x_: (
-            layer_norm(x_, cfg.eps) * (1.0 + e1[:, None, :]) + e0[:, None, :]).to(dtype), x)
-        y = _self_attention(p["self_attn"], f"{name}.self_attn", ctx, xn1, cfg,
-                            cos, sin, valid_len, dtype, tables=tables, training=training,
-                            plan=plan)
+    with span(SELF_ATTN):
+        if static_qkv:
+            # static-scale producer: plain PyTorch (its kernel is not ported;
+            # the W8A8 speed config keeps q/k/v dynamic)
+            prequant = ln_modulate_quant_static(
+                x, e0, e1, ctx.state[qkv_sites[0]]["delta_a"], eps=cfg.eps)
+            y = _self_attention(p["self_attn"], f"{name}.self_attn", ctx, None, cfg,
+                                cos, sin, valid_len, dtype, prequant=prequant, tables=tables,
+                                plan=plan)
+        elif int8_fusable(fused, qkv_sites):
+            prequant = ln_modulate_quant(x, e0, e1, eps=cfg.eps)
+            y = _self_attention(p["self_attn"], f"{name}.self_attn", ctx, None, cfg,
+                                cos, sin, valid_len, dtype, prequant=prequant, tables=tables,
+                                plan=plan)
+        else:
+            xn1 = _recomputed(training, lambda x_: (
+                layer_norm(x_, cfg.eps) * (1.0 + e1[:, None, :]) + e0[:, None, :]).to(dtype), x)
+            y = _self_attention(p["self_attn"], f"{name}.self_attn", ctx, xn1, cfg,
+                                cos, sin, valid_len, dtype, tables=tables, training=training,
+                                plan=plan)
     x = (x.float() + y.float() * e2[:, None, :]).to(x.dtype)
 
-    if cq_static or (cfg.cross_attn_norm and int8_fusable(fused, [cq_site])):
-        # the affine norm3 maps onto the modulate producer: scale = w - 1, shift = b
-        w3 = p["norm3"]["w"].float()
-        b3 = p["norm3"]["b"].float()
-        bsz = x.shape[0]
-        shift3 = b3[None, :].expand(bsz, -1)
-        scale3 = (w3 - 1.0)[None, :].expand(bsz, -1)
-        if cq_static:
-            cq_prequant = ln_modulate_quant_static(
-                x, shift3, scale3, ctx.state[cq_site]["delta_a"], eps=cfg.eps)
+    with span(CROSS_ATTN):
+        if cq_static or (cfg.cross_attn_norm and int8_fusable(fused, [cq_site])):
+            # the affine norm3 maps onto the modulate producer: scale = w - 1, shift = b
+            w3 = p["norm3"]["w"].float()
+            b3 = p["norm3"]["b"].float()
+            bsz = x.shape[0]
+            shift3 = b3[None, :].expand(bsz, -1)
+            scale3 = (w3 - 1.0)[None, :].expand(bsz, -1)
+            if cq_static:
+                cq_prequant = ln_modulate_quant_static(
+                    x, shift3, scale3, ctx.state[cq_site]["delta_a"], eps=cfg.eps)
+            else:
+                cq_prequant = ln_modulate_quant(x, shift3, scale3, eps=cfg.eps)
+            y = _cross_attention(p["cross_attn"], f"{name}.cross_attn", ctx, None, context,
+                                 cfg, dtype, prequant=cq_prequant)
         else:
-            cq_prequant = ln_modulate_quant(x, shift3, scale3, eps=cfg.eps)
-        y = _cross_attention(p["cross_attn"], f"{name}.cross_attn", ctx, None, context,
-                             cfg, dtype, prequant=cq_prequant)
-    else:
-        xn3 = (_recomputed(training, lambda x_: layer_norm(
-            x_, cfg.eps, p["norm3"]["w"], p["norm3"]["b"]).to(dtype), x)
-               if cfg.cross_attn_norm else x.to(dtype))
-        y = _cross_attention(p["cross_attn"], f"{name}.cross_attn", ctx, xn3,
-                             context, cfg, dtype, training=training)
+            xn3 = (_recomputed(training, lambda x_: layer_norm(
+                x_, cfg.eps, p["norm3"]["w"], p["norm3"]["b"]).to(dtype), x)
+                   if cfg.cross_attn_norm else x.to(dtype))
+            y = _cross_attention(p["cross_attn"], f"{name}.cross_attn", ctx, xn3,
+                                 context, cfg, dtype, training=training)
     x = (x.float() + y.float()).to(x.dtype)
 
-    if int8_fusable(fused, [ffn_sites[0]], allow_mask=True) and (
-            int8_static_fusable(fused, ffn_sites[1])
-            or int8_fusable(fused, [ffn_sites[1]], allow_mask=True)):
-        h8, s_a, ssum = ln_modulate_quant(
-            x, e3, e4, eps=cfg.eps, channel_scale=ctx.state[ffn_sites[0]].get("channel_mask"))
-        h8b, s2, sm2 = ffn0_gelu_quant_from_prequant(
-            ctx, ffn_sites[0], ffn_sites[1], p["ffn"]["0"], h8, s_a, ssum)
-        y = w8a8_from_prequant(ctx, ffn_sites[1], p["ffn"]["2"], h8b, s2, sm2)
-    else:
-        def ffn_in(x_):
-            xn2 = layer_norm(x_, cfg.eps) * (1.0 + e4[:, None, :]) + e3[:, None, :]
-            h = qlinear(ctx, f"{name}.ffn.0", p["ffn"]["0"], xn2.to(dtype), dtype)
-            return gelu_tanh(h).to(dtype)
+    with span(FFN):
+        if int8_fusable(fused, [ffn_sites[0]], allow_mask=True) and (
+                int8_static_fusable(fused, ffn_sites[1])
+                or int8_fusable(fused, [ffn_sites[1]], allow_mask=True)):
+            h8, s_a, ssum = ln_modulate_quant(
+                x, e3, e4, eps=cfg.eps, channel_scale=ctx.state[ffn_sites[0]].get("channel_mask"))
+            h8b, s2, sm2 = ffn0_gelu_quant_from_prequant(
+                ctx, ffn_sites[0], ffn_sites[1], p["ffn"]["0"], h8, s_a, ssum)
+            y = w8a8_from_prequant(ctx, ffn_sites[1], p["ffn"]["2"], h8b, s2, sm2)
+        else:
+            def ffn_in(x_):
+                xn2 = layer_norm(x_, cfg.eps) * (1.0 + e4[:, None, :]) + e3[:, None, :]
+                h = qlinear(ctx, f"{name}.ffn.0", p["ffn"]["0"], xn2.to(dtype), dtype)
+                return gelu_tanh(h).to(dtype)
 
-        y = qlinear(ctx, f"{name}.ffn.2", p["ffn"]["2"], _recomputed(training, ffn_in, x), dtype)
+            y = qlinear(ctx, f"{name}.ffn.2", p["ffn"]["2"], _recomputed(training, ffn_in, x),
+                        dtype)
     return (x.float() + y.float() * e5[:, None, :]).to(x.dtype)
 
 
@@ -795,93 +800,95 @@ def dit_forward(params: Params, cfg: WanConfig, x: torch.Tensor, t: torch.Tensor
     each block is recomputed in the backward instead of keeping its
     activations. ``plan``: a ShardingPlan (``parallel/sharding.py``); every
     rank passes the whole inputs and gets the whole output."""
-    if (cfg.model_type == "i2v") != (clip_fea is not None):
-        raise ValueError(f"clip_fea is for i2v models only and needed there "
-                         f"(model_type {cfg.model_type!r})")
-    if training and ctx is not None and ctx.mode == "int8" and not ctx.trainable:
-        ctx = dataclasses.replace(ctx, trainable=True)
-    if y is not None:
-        x = torch.cat([x, y.to(x.dtype)], dim=1)
-    dtype = cfg.dtype
-    grid = (x.shape[2] // cfg.patch_size[0], x.shape[3] // cfg.patch_size[1],
-            x.shape[4] // cfg.patch_size[2])
-    win = None
-    if ctx is not None and ctx.attn_window is not None:
-        win = resolve_window(ctx.attn_window, grid, cfg.num_heads)
-        if win is not None and training:
-            raise NotImplementedError("attn_window is inference-only: K4's band mode has no "
-                                      "backward (train dense, deploy windowed)")
-        if win is not None and ctx.attn is not None and ctx.mode in ("sim", "int8"):
-            raise NotImplementedError(
-                "attn_window does not compose with attention-map quantization: the "
-                "sim materializes the full map and the int8 kernel is dense; window "
-                "the plain/int8-GEMM deployment instead (drop the attn: section)")
-        # calibration and map capture run dense (window selection needs the
-        # full map's mass); collect stays the caller's dict
-        dense_pass = ctx.mode == "calib" or bool(ctx.attn_map_pool)
-        ctx = dataclasses.replace(ctx, attn_window=None if dense_pass else win,
-                                  collect=ctx.collect)
-    top = params
-    # the dp ranks split the batch; a batch dp does not divide (a cond step of
-    # the step cache, sequential CFG) runs whole on each of them
-    split_batch = plan is not None and x.shape[0] % plan.dp_size == 0
-    if plan is not None:
-        _check_plan(plan, ctx, win, training, split_batch)
-        if split_batch:
-            x, t, context, clip_fea = (plan.batch(a) for a in (x, t, context, clip_fea))
-        else:
-            plan = dataclasses.replace(plan, batch_split=False)
-        if ctx is not None and ctx.mode == "calib":
-            # statistics of the tokens reduce over dp x sp x ring, of the text
-            # context and the timesteps over dp (where dp splits the batch)
-            ctx = dataclasses.replace(ctx, collect=ctx.collect, collect_groups=(
-                plan.stats_group(tokens=True), plan.stats_group(tokens=False)))
-        top = plan.gather_weights({k: v for k, v in params.items() if k != "blocks"},
-                                  slot="top")
-        ctx = _gathered_state(plan, ctx, None)
-    tokens = patchify(x, cfg.patch_size)
-    xq = qlinear(None, "patch_embedding", top["patch_embedding"], tokens.to(dtype), dtype)
-    valid_len = xq.shape[1]
-    if valid_len > seq_len:
-        raise ValueError(f"{valid_len} tokens exceed seq_len {seq_len}")
-    if valid_len < seq_len:
-        xq = F.pad(xq, (0, 0, 0, seq_len - valid_len))
-
-    cctx = context_rows(ctx)
-    e, e0 = time_embedding(top, cfg, t, cctx)
-
-    c = qlinear(cctx, "text_embedding.0", top["text_embedding"]["0"], context.to(dtype), dtype)
-    c = gelu_tanh(c).to(dtype)
-    c = qlinear(cctx, "text_embedding.2", top["text_embedding"]["2"], c, dtype).to(dtype)
-    if clip_fea is not None:
-        c = torch.cat([img_embedding(top, clip_fea, dtype), c], dim=1)
-
-    cos, sin = _rope_tables_on(grid, cfg.head_dim, x.device)
-    tables = self_attn_tables(cos, sin, valid_len, seq_len, cfg.head_dim)
-    if plan is not None:
-        # this rank's tokens, and its rows of the padded tables (global positions)
-        xq = plan.tokens(xq)
-        tables = SelfAttnTables(*(plan.tokens(tab, dim=0) for tab in tables))
-        cos, sin = tables.ca, tables.sb
-
-    def block(i: int, xf: torch.Tensor) -> torch.Tensor:
-        bp, bctx = params["blocks"][i], ctx
+    with span(DIT_FORWARD):
+        if (cfg.model_type == "i2v") != (clip_fea is not None):
+            raise ValueError(f"clip_fea is for i2v models only and needed there "
+                             f"(model_type {cfg.model_type!r})")
+        if training and ctx is not None and ctx.mode == "int8" and not ctx.trainable:
+            ctx = dataclasses.replace(ctx, trainable=True)
+        if y is not None:
+            x = torch.cat([x, y.to(x.dtype)], dim=1)
+        dtype = cfg.dtype
+        grid = (x.shape[2] // cfg.patch_size[0], x.shape[3] // cfg.patch_size[1],
+                x.shape[4] // cfg.patch_size[2])
+        win = None
+        if ctx is not None and ctx.attn_window is not None:
+            win = resolve_window(ctx.attn_window, grid, cfg.num_heads)
+            if win is not None and training:
+                raise NotImplementedError("attn_window is inference-only: K4's band mode has no "
+                                          "backward (train dense, deploy windowed)")
+            if win is not None and ctx.attn is not None and ctx.mode in ("sim", "int8"):
+                raise NotImplementedError(
+                    "attn_window does not compose with attention-map quantization: the "
+                    "sim materializes the full map and the int8 kernel is dense; window "
+                    "the plain/int8-GEMM deployment instead (drop the attn: section)")
+            # calibration and map capture run dense (window selection needs the
+            # full map's mass); collect stays the caller's dict
+            dense_pass = ctx.mode == "calib" or bool(ctx.attn_map_pool)
+            ctx = dataclasses.replace(ctx, attn_window=None if dense_pass else win,
+                                      collect=ctx.collect)
+        top = params
+        # the dp ranks split the batch; a batch dp does not divide (a cond step of
+        # the step cache, sequential CFG) runs whole on each of them
+        split_batch = plan is not None and x.shape[0] % plan.dp_size == 0
         if plan is not None:
-            bp, bctx = plan.gather_weights(bp), _gathered_state(plan, ctx, f"blocks.{i}.")
-        return block_forward(bp, f"blocks.{i}", bctx, xf, e0, c, cfg, cos, sin, valid_len,
-                             tables=tables, training=training, plan=plan)
+            _check_plan(plan, ctx, win, training, split_batch)
+            if split_batch:
+                x, t, context, clip_fea = (plan.batch(a) for a in (x, t, context, clip_fea))
+            else:
+                plan = dataclasses.replace(plan, batch_split=False)
+            if ctx is not None and ctx.mode == "calib":
+                # statistics of the tokens reduce over dp x sp x ring, of the text
+                # context and the timesteps over dp (where dp splits the batch)
+                ctx = dataclasses.replace(ctx, collect=ctx.collect, collect_groups=(
+                    plan.stats_group(tokens=True), plan.stats_group(tokens=False)))
+            top = plan.gather_weights({k: v for k, v in params.items() if k != "blocks"},
+                                      slot="top")
+            ctx = _gathered_state(plan, ctx, None)
+        tokens = patchify(x, cfg.patch_size)
+        xq = qlinear(None, "patch_embedding", top["patch_embedding"], tokens.to(dtype), dtype)
+        valid_len = xq.shape[1]
+        if valid_len > seq_len:
+            raise ValueError(f"{valid_len} tokens exceed seq_len {seq_len}")
+        if valid_len < seq_len:
+            xq = F.pad(xq, (0, 0, 0, seq_len - valid_len))
 
-    xf = xq.to(cfg.res_dtype)
-    for i in range(cfg.num_layers):
-        if remat:
-            # no random draw in a block, so no RNG state to keep for the
-            # recompute, which gathers the block's weights again
-            xf = torch.utils.checkpoint.checkpoint(block, i, xf, use_reentrant=False,
-                                                   preserve_rng_state=False)
-        else:
-            xf = block(i, xf)
-    out = head_forward(top, xf, e, cfg, ctx)
-    if plan is not None:
-        out = plan.gather_tokens(out)
-    out = unpatchify(out.float(), grid, cfg.patch_size, cfg.out_dim)
-    return plan.gather_batch(out) if split_batch else out
+        cctx = context_rows(ctx)
+        e, e0 = time_embedding(top, cfg, t, cctx)
+
+        c = qlinear(cctx, "text_embedding.0", top["text_embedding"]["0"], context.to(dtype), dtype)
+        c = gelu_tanh(c).to(dtype)
+        c = qlinear(cctx, "text_embedding.2", top["text_embedding"]["2"], c, dtype).to(dtype)
+        if clip_fea is not None:
+            c = torch.cat([img_embedding(top, clip_fea, dtype), c], dim=1)
+
+        cos, sin = _rope_tables_on(grid, cfg.head_dim, x.device)
+        tables = self_attn_tables(cos, sin, valid_len, seq_len, cfg.head_dim)
+        if plan is not None:
+            # this rank's tokens, and its rows of the padded tables (global positions)
+            xq = plan.tokens(xq)
+            tables = SelfAttnTables(*(plan.tokens(tab, dim=0) for tab in tables))
+            cos, sin = tables.ca, tables.sb
+
+        def block(i: int, xf: torch.Tensor) -> torch.Tensor:
+            bp, bctx = params["blocks"][i], ctx
+            if plan is not None:
+                bp, bctx = plan.gather_weights(bp), _gathered_state(plan, ctx, f"blocks.{i}.")
+            with span(DIT_BLOCK):
+                return block_forward(bp, f"blocks.{i}", bctx, xf, e0, c, cfg, cos, sin, valid_len,
+                                     tables=tables, training=training, plan=plan)
+
+        xf = xq.to(cfg.res_dtype)
+        for i in range(cfg.num_layers):
+            if remat:
+                # no random draw in a block, so no RNG state to keep for the
+                # recompute, which gathers the block's weights again
+                xf = torch.utils.checkpoint.checkpoint(block, i, xf, use_reentrant=False,
+                                                       preserve_rng_state=False)
+            else:
+                xf = block(i, xf)
+        out = head_forward(top, xf, e, cfg, ctx)
+        if plan is not None:
+            out = plan.gather_tokens(out)
+        out = unpatchify(out.float(), grid, cfg.patch_size, cfg.out_dim)
+        return plan.gather_batch(out) if split_batch else out

@@ -18,6 +18,7 @@ import torch
 from wanq_tpu_torch.configs import WanConfig
 from wanq_tpu_torch.models.clip import resize_cubic
 from wanq_tpu_torch.pipelines.text2video import WanT2V
+from wanq_tpu_torch.utils.trace import PIPE_STEP, span
 
 
 def i2v_latent_size(cfg: WanConfig, img_hw: Tuple[int, int], max_area: int) -> Tuple[int, int]:
@@ -125,9 +126,10 @@ class WanI2V(WanT2V):
                                              context_null, guide_scale, seq_len, sequential,
                                              on_step, extra)
             for i, t in enumerate(sch.timesteps):
-                noise_pred = self._step(latents, float(t), context, context_null, guide_scale,
-                                        self._ctx_at(float(t), ctx), seq_len, sequential, extra)
-                latents = sch.step(noise_pred, int(t), latents)
+                with span(PIPE_STEP):
+                    noise_pred = self._step(latents, float(t), context, context_null, guide_scale,
+                                            self._ctx_at(float(t), ctx), seq_len, sequential, extra)
+                    latents = sch.step(noise_pred, int(t), latents)
                 if on_step is not None:
                     on_step(i, float(t), latents)
         return latents

@@ -35,6 +35,7 @@ from wanq_tpu_torch.solvers.dpm import (
     retrieve_timesteps,
 )
 from wanq_tpu_torch.solvers.unipc import FlowUniPCMultistepScheduler
+from wanq_tpu_torch.utils.trace import PIPE_STEP, span
 
 
 def compute_target_shape(cfg: WanConfig, size: Tuple[int, int],
@@ -395,17 +396,18 @@ class WanT2V:
             # on the device ([C, C] f64 each: no per-step host copy)
             hess: Dict[str, torch.Tensor] = {}
             for i, t in enumerate(sch.timesteps):
-                step_ctx = ctx if collect_calib else self._ctx_at(float(t), ctx)
-                noise_pred = self._step(latents, float(t), context, context_null, guide_scale,
-                                        step_ctx, seq_len, sequential)
-                if collect_calib:
-                    for k, v in ctx.collect.items():
-                        if k.endswith(".hess"):
-                            hess[k] = v if k not in hess else hess[k] + v
-                        else:
-                            all_stats.setdefault(k, []).append(v.float().cpu().numpy())
-                    ctx.collect.clear()
-                latents = sch.step(noise_pred, int(t), latents)
+                with span(PIPE_STEP):
+                    step_ctx = ctx if collect_calib else self._ctx_at(float(t), ctx)
+                    noise_pred = self._step(latents, float(t), context, context_null, guide_scale,
+                                            step_ctx, seq_len, sequential)
+                    if collect_calib:
+                        for k, v in ctx.collect.items():
+                            if k.endswith(".hess"):
+                                hess[k] = v if k not in hess else hess[k] + v
+                            else:
+                                all_stats.setdefault(k, []).append(v.float().cpu().numpy())
+                        ctx.collect.clear()
+                    latents = sch.step(noise_pred, int(t), latents)
                 if on_step is not None:
                     on_step(i, float(t), latents)
         if collect_calib:
@@ -433,53 +435,54 @@ class WanT2V:
         # from model outputs only, never from earlier forecasts
         exec_hist: List[Tuple[float, torch.Tensor]] = []
         for i, t in enumerate(timesteps):
-            t = float(t)
-            step_ctx = self._ctx_at(t, ctx)
-            if not adaptive:
-                act = actions[i]
-            elif i < policy.warmup or i >= n_steps - policy.tail or x_prev is None:
-                act = "full" if (i < policy.warmup or i >= n_steps - policy.tail
-                                 or last_uncond is None) else (
-                    "cond" if policy.cfg_interval > 1 and n_eval % policy.cfg_interval
-                    else "full")
-            else:
-                d = _rel_l1(latents, x_prev)
-                acc += float(np.polyval(policy.poly, d))
-                if acc < policy.threshold:
-                    act = "reuse"
-                elif policy.cfg_interval > 1 and n_eval % policy.cfg_interval:
-                    act = "cond"
+            with span(PIPE_STEP):
+                t = float(t)
+                step_ctx = self._ctx_at(t, ctx)
+                if not adaptive:
+                    act = actions[i]
+                elif i < policy.warmup or i >= n_steps - policy.tail or x_prev is None:
+                    act = "full" if (i < policy.warmup or i >= n_steps - policy.tail
+                                     or last_uncond is None) else (
+                        "cond" if policy.cfg_interval > 1 and n_eval % policy.cfg_interval
+                        else "full")
+                else:
+                    d = _rel_l1(latents, x_prev)
+                    acc += float(np.polyval(policy.poly, d))
+                    if acc < policy.threshold:
+                        act = "reuse"
+                    elif policy.cfg_interval > 1 and n_eval % policy.cfg_interval:
+                        act = "cond"
+                    else:
+                        act = "full"
+                    trace.append({"step": i, "d": d, "acc": acc, "act": act})
+                if act == "reuse" and last_pred is not None:
+                    if policy.order and len(exec_hist) >= 2:
+                        noise_pred = _forecast(exec_hist[-(policy.order + 1):], t, policy)
+                    else:
+                        noise_pred = last_pred
+                elif act == "cond" and last_uncond is not None:
+                    cond = self._cond(latents, t, context, step_ctx, seq_len, extra)
+                    noise_pred = last_uncond + guide_scale * (cond - last_uncond)
                 else:
                     act = "full"
-                trace.append({"step": i, "d": d, "acc": acc, "act": act})
-            if act == "reuse" and last_pred is not None:
-                if policy.order and len(exec_hist) >= 2:
-                    noise_pred = _forecast(exec_hist[-(policy.order + 1):], t, policy)
-                else:
-                    noise_pred = last_pred
-            elif act == "cond" and last_uncond is not None:
-                cond = self._cond(latents, t, context, step_ctx, seq_len, extra)
-                noise_pred = last_uncond + guide_scale * (cond - last_uncond)
-            else:
-                act = "full"
-                cond, last_uncond = self._split(latents, t, context, context_null, step_ctx,
-                                                seq_len, sequential, extra)
-                noise_pred = last_uncond + guide_scale * (cond - last_uncond)
-            if adaptive and act != "reuse":
-                # the realized output change between consecutive executed
-                # forwards: what fit_drift_poly pairs with d
-                if trace and trace[-1]["step"] == i and prev_exec_pred is not None:
-                    trace[-1]["o"] = _rel_l1(noise_pred, prev_exec_pred)
-                prev_exec_pred = noise_pred
-                acc = 0.0
-                n_eval += 1
-            if policy.order and act != "reuse":
-                exec_hist.append((t, noise_pred))
-                del exec_hist[:-(policy.order + 1)]
-            stats[act] += 1
-            last_pred = noise_pred
-            x_prev = latents
-            latents = sch.step(noise_pred, int(t), latents)
+                    cond, last_uncond = self._split(latents, t, context, context_null, step_ctx,
+                                                    seq_len, sequential, extra)
+                    noise_pred = last_uncond + guide_scale * (cond - last_uncond)
+                if adaptive and act != "reuse":
+                    # the realized output change between consecutive executed
+                    # forwards: what fit_drift_poly pairs with d
+                    if trace and trace[-1]["step"] == i and prev_exec_pred is not None:
+                        trace[-1]["o"] = _rel_l1(noise_pred, prev_exec_pred)
+                    prev_exec_pred = noise_pred
+                    acc = 0.0
+                    n_eval += 1
+                if policy.order and act != "reuse":
+                    exec_hist.append((t, noise_pred))
+                    del exec_hist[:-(policy.order + 1)]
+                stats[act] += 1
+                last_pred = noise_pred
+                x_prev = latents
+                latents = sch.step(noise_pred, int(t), latents)
             if on_step is not None:
                 on_step(i, t, latents)
         self.last_cache_stats = stats
