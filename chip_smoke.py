@@ -14,8 +14,8 @@ non-zero:
    of the attention kernels (K4, K10, and K11 and K12 of the backward) and
    the three wgmma int GEMMs (K2, K8, K9) in the library, which must hold no
    mma.sync product (IMMA, HMMA), and the build log gives every kernel's
-   registers and spills (no spill allowed in the wgmma kernels, K1, K3, K7
-   and K10a's two); the SASS instruction counts and TMA copy counts (UBLKCP,
+   registers and spills (no spill allowed in the wgmma kernels, K1, K3, K7,
+   K10a's two and K13); the SASS instruction counts and TMA copy counts (UBLKCP,
    UTMALDG) of K3's, K7's and K10a's kernels are printed (K10a must have
    tensor-map loads);
 2. each kernel against its plain PyTorch version on the card at the main
@@ -54,7 +54,11 @@ non-zero:
    keep the shapes of earlier runs), the f32
    rotation product x @ Q (torch.mm, TF32 off) against its bound, one whole
    viditq site through qlinear, and PTQ's f64 weight rotation on the card
-   (equal to the CPU's);
+   (equal to the CPU's); K13 (the block's residual update x + (y + bias) *
+   gate) at [2, 32768, 1536] and [2, 32768, 5120], every combination of gate
+   and bias equal bit for bit to the plain chain, each update the paths run
+   timed beside the plain chain and its bound (8 bytes an element), the 1.3B
+   self-attention update summed into the kernels line;
 3. the paths of PATHS through the CLIs, random weights drawn on the card
    from a seed (init_params_on_device) and random text states. At full 1.3B
    width and depth, 3 UniPC steps each: W8A8 (get_calib_data
@@ -274,7 +278,9 @@ YAML = "quant_configs/wan_w8a8_speed.yaml"
 # mixed W4A8 (cross-attention FP): K1 for q/k/v and ffn.0; K2 for q/k/v/o;
 #   K7 for the o input and the ffn.2 GELU; K8 for ffn.0/2.
 # W4A4 (unfused: 4-bit activations): K9 at self q/k/v/o, cross q/o, ffn.0/2.
-# Every path: K3 for q and k rope and the cross-q split; K4 self + cross.
+# Every path: K3 for q and k rope and the cross-q split; K4 self + cross;
+#   K13 for the block's three residual updates (calibration and the QLoRA
+#   steps too: under autograd its backward is the plain chain's).
 # W4A8 static (wan_w4a8_14b.yaml: 4-bit weights at every quantized linear,
 #   cross k/v FP, ffn.2 static): K1 for q/k/v, cross q and ffn.0; K7 for the
 #   self and cross o inputs; K8 for self q/k/v/o, cross q/o and ffn.2, and in
@@ -302,11 +308,11 @@ GPTQ_YAML = "quant_configs/wan_w4a8_gptq.yaml"
 SVD_YAML = "quant_configs/wan_svdquant.yaml"
 # the Hessian sites of wan_w4a8_gptq.yaml's own calibration recipe (7 a block)
 GPTQ_REGEX = r"self_attn|cross_attn\.(q|o)|ffn\.0"
-W4A4 = {"rms_rope_heads": 3, "attention": 2, "w4a4_linear": 8}
+W4A4 = {"rms_rope_heads": 3, "gate_residual": 3, "attention": 2, "w4a4_linear": 8}
 W8A8 = {"ln_modulate_quant": 3, "w8a8_linear": 5, "w8a8_linear_gelu_quant": 1,
-        "rms_rope_heads": 3, "attention": 2}
+        "rms_rope_heads": 3, "gate_residual": 3, "attention": 2}
 W4A8_STATIC = {"ln_modulate_quant": 3, "w4a8_linear": 7, "w4a8_linear_gelu_quant": 1,
-               "quant_sum": 2, "rms_rope_heads": 3, "attention": 2}
+               "quant_sum": 2, "rms_rope_heads": 3, "gate_residual": 3, "attention": 2}
 # W8A8 at 14B (wan_w8a8_14b.yaml: 8-bit weights at every block linear but
 #   cross k/v, ffn.2 static): K1 for q/k/v, cross q and ffn.0; K7 for the
 #   self and cross o inputs; K2 for self q/k/v/o, cross q/o and ffn.2, and in
@@ -317,22 +323,25 @@ W4A8_STATIC = {"ln_modulate_quant": 3, "w4a8_linear": 7, "w4a8_linear_gelu_quant
 #   K8 for self q/k and cross q/k/v, and in its GELU + quant mode for ffn.0,
 #   which hands ffn.2's K2 its int8 input; K2 for self v/o, cross o and ffn.2.
 W4W8_PLAN = {"ln_modulate_quant": 3, "w4a8_linear": 5, "w4a8_linear_gelu_quant": 1,
-             "w8a8_linear": 4, "quant_sum": 4, "rms_rope_heads": 3, "attention": 2}
+             "w8a8_linear": 4, "quant_sum": 4, "rms_rope_heads": 3, "gate_residual": 3,
+             "attention": 2}
 PATHS = {
     "w8a8": (YAML, W8A8),
     "w4a8_mixed": ("quant_configs/wan_w4a8_mixed.yaml",
                    {"ln_modulate_quant": 2, "w8a8_linear": 4, "rms_rope_heads": 3,
-                    "attention": 2, "quant_sum": 2, "w4a8_linear": 2}),
+                    "gate_residual": 3, "attention": 2, "quant_sum": 2, "w4a8_linear": 2}),
     "w4a4": ("quant_configs/wan_w4a4.yaml", W4A4),
     "w8a8_attn": (ATTN_YAML, {"ln_modulate_quant": 3, "w8a8_linear": 5,
                               "w8a8_linear_gelu_quant": 1, "rms_rope_heads": 3,
-                              "attention": 1, "quantize_qkv_int8": 1, "attention_int8": 1}),
-    "w8a8_sim": (YAML, {"rms_rope_heads": 3, "attention": 2}),
+                              "gate_residual": 3, "attention": 1, "quantize_qkv_int8": 1,
+                              "attention_int8": 1}),
+    "w8a8_sim": (YAML, {"rms_rope_heads": 3, "gate_residual": 3, "attention": 2}),
     "w4a8_static": (W4A8_14B_YAML, W4A8_STATIC),
     "w8a8_win1": (YAML, {"ln_modulate_quant": 3, "w8a8_linear": 5, "w8a8_linear_gelu_quant": 1,
-                         "rms_rope_heads": 3, "attention": 1, "attention_band": 1}),
+                         "rms_rope_heads": 3, "gate_residual": 3, "attention": 1,
+                         "attention_band": 1}),
     "viditq": (VIDITQ_YAML, {"quant_sum": 3, "w8a8_linear": 3, "rms_rope_heads": 3,
-                             "attention": 2}),
+                             "gate_residual": 3, "attention": 2}),
     "w4a8_gptq": (GPTQ_YAML, W4A8_STATIC),
     "svdquant": (SVD_YAML, W4A4),
     # two checks of the CFG schedules at 1.3B: w8a8 with sequential CFG (its
@@ -344,7 +353,7 @@ PATHS = {
     "w4a8_14b": (W4A8_14B_YAML, W4A8_STATIC),
     "w8a8_14b": ("quant_configs/wan_w8a8_14b.yaml",
                  {"ln_modulate_quant": 3, "w8a8_linear": 7, "w8a8_linear_gelu_quant": 1,
-                  "quant_sum": 2, "rms_rope_heads": 3, "attention": 2}),
+                  "quant_sum": 2, "rms_rope_heads": 3, "gate_residual": 3, "attention": 2}),
     "w4a8_14b_cache": (W4A8_14B_YAML, W4A8_STATIC),
     "w4a8_14b_720p": (W4A8_14B_YAML, W4A8_STATIC),
     "w4w8_plan_14b": (W4A8_14B_YAML, W4W8_PLAN),
@@ -421,6 +430,9 @@ SOURCES = {
                              "jax/experimental/pallas/ops/tpu/flash_attention.py:1456"),
     "attention_bwd_dkv_acc": ("wanq_tpu_torch/csrc/flash_attention_bwd.cu",
                               "jax/experimental/pallas/ops/tpu/flash_attention.py:1121"),
+    # the block's gated residual update: no TPU kernel to replace (wanq_tpu's
+    # ops/fused.py::gate_residual is an XLA fusion, no pallas_call)
+    "gate_residual": ("wanq_tpu_torch/csrc/gate_residual.cu", None),
 }
 # launch counters of a kernel's further modes -> the kernel they belong to
 MODES = {"w8a8_linear_gelu_quant": "w8a8_linear", "w4a8_linear_gelu_quant": "w4a8_linear",
@@ -771,6 +783,66 @@ def kernel_checks(torch, results):
     attention_14b_checks(torch, record, attn_err)
     int4_checks(torch, g, record)
     viditq_checks(torch, g, record)
+    gate_residual_checks(torch, g, record)
+
+
+def gate_residual_checks(torch, g, record):
+    """K13, the block's residual update, at the whole update of a CFG pair at
+    480p x 81 frames: [2, 32768, 1536] (1.3B) and [2, 32768, 5120] (14B), bf16
+    x, f32 y, the gate a column of the [2, 6, C] modulation. Each combination
+    of gate and bias equal bit for bit to the plain chain (the block's former
+    update), with a signed zero planted; then each update the paths run (self:
+    the gate, and at 1.3B the FP o's bias; cross: the bias or nothing; ffn: the
+    gate) timed against the plain chain and the bound of its 8 bytes an
+    element (x read, y read, x written) at 3.35 TB/s. Each time is a tenth of
+    ten calls back to back, as a forward runs them: a lone 0.3 ms launch timed
+    between events from an idle card reads ~10% slower on an H100. The 1.3B
+    self-attention update is summed into the kernels line, the others printed."""
+    from wanq_tpu_torch.ops import _lib
+    from wanq_tpu_torch.ops.fused import gate_residual_cuda, gate_residual_plain
+
+    def ten(fn, *args):
+        for _ in range(10):
+            fn(*args)
+
+    dev = torch.device("cuda")
+    b, s = 2, 32768
+    for cw in (1536, 5120):
+        x = (torch.randn((b, s, cw), device=dev, generator=g) * 4).bfloat16()
+        y = torch.randn((b, s, cw), device=dev, generator=g) * 3
+        x[0, 0, :8] = -0.0
+        y[0, 0, :8] = -0.0
+        gate = torch.randn((b, 6, cw), device=dev, generator=g)[:, 2]
+        bias = torch.randn((cw,), device=dev, generator=g)
+        for gi, bi in ((None, None), (gate, None), (None, bias), (gate, bias)):
+            _lib.reset_launch_counts()
+            got = gate_residual_cuda(x, y, gi, bi)
+            want = gate_residual_plain(x, y, gi, bi)
+            torch.cuda.synchronize()
+            check(_lib.launch_counts() == {"gate_residual": 1},
+                  f"K13 launches {_lib.launch_counts()}")
+            check(torch.equal(got.view(torch.int16), want.view(torch.int16)),
+                  f"K13 C={cw} gate {gi is not None} bias {bi is not None}: "
+                  f"{(got != want).sum().item()} elements differ from the plain chain")
+            del got, want
+        cases = [("self-attention: gate e2", gate, None), ("ffn: gate e5", gate, None),
+                 ("cross-attention: no gate", None, None)]
+        if cw == 1536:  # the FP o projections leave their bias to K13
+            cases = [("self-attention: gate e2 + the FP o bias", gate, bias),
+                     ("ffn: gate e5", gate, None), ("cross-attention: the FP o bias", None, bias)]
+        for i, (what, gi, bi) in enumerate(cases):
+            ms = cuda_ms(lambda: ten(gate_residual_cuda, x, y, gi, bi), reps=5) / 10
+            nbytes = b * s * cw * 8 + (0 if gi is None else b * cw * 4) + (0 if bi is None
+                                                                            else cw * 4)
+            bound = nbytes / HBM_BPS * 1e3
+            record("gate_residual", 0.0, ms,
+                   cuda_ms(lambda: ten(gate_residual_plain, x, y, gi, bi), reps=3) / 10,
+                   f"[2,32768,{cw}] bf16 x, f32 y, {what}: equal bits ({bound / ms:.1%} of the "
+                   f"bandwidth bound; {nbytes / ms / 1e6:.0f} GB/s)",
+                   nbytes, 3 * b * s * cw, "f32", summed=cw == 1536 and i == 0)
+        copy_note(torch, x, y)
+        del x, y
+        torch.cuda.empty_cache()
 
 
 def attention_14b_checks(torch, record, attn_err):
@@ -1437,7 +1509,7 @@ def calibrate(torch, task=TASK, yaml=YAML, extra=(), tag=None):
     log(f"  get_calib_data {task} {' '.join(extra)} (1 step a round, incl. random init on the "
         f"card): {time.time() - t0:.1f} s; peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
-        f"{_lib.launch_counts()} (calibration runs FP)")
+        f"{_lib.launch_counts()} (calibration runs FP; K13 adds the residual updates)")
     if "--collect_hessian" in extra:
         regex = extra[extra.index("--collect_hessian") + 1]
         want = [n for n in linear_layer_names(WAN_CONFIGS[task]) if re.search(regex, n)]
@@ -1660,7 +1732,7 @@ KERNEL_NAMES = {"ln_mod_quant_kernel": "K1", "w8a8_gemm_kernel": "K2",
                 "quant_sum_kernel": "K7", "w4a8_gemm_kernel": "K8", "w4a4_gemm_kernel": "K9",
                 "attn_int8_kernel": "K10", "qkv_absmax_quant_kernel": "K10a",
                 "v_quant_kernel": "K10a", "flash_bwd_dkv_kernel": "K11",
-                "flash_bwd_dq_kernel": "K12"}
+                "flash_bwd_dq_kernel": "K12", "gate_residual_kernel": "K13"}
 
 
 def device_ops(events):
@@ -2613,7 +2685,7 @@ I2V_STEPS = 3
 # self-attention, then the one cross q against the text and against the 257
 # CLIP tokens
 I2V_PER_BLOCK = {"ln_modulate_quant": 2, "w8a8_linear": 4, "quant_sum": 2, "w4a8_linear": 2,
-                 "rms_rope_heads": 3, "attention": 3}
+                 "rms_rope_heads": 3, "gate_residual": 3, "attention": 3}
 CKPT_I2V = OUT / f"ckpt_{TASK_I2V}"
 CLIP_TOKENS = 257
 # the quant_ctx_schedule check at 1.3B: the two paths whose ctxs it switches
@@ -3297,15 +3369,16 @@ QLORA_YAML = "quant_configs/wan_w4a8_mixed.yaml"
 # recompute in the backward run K4's residual mode at self- and cross-attention;
 # the backward runs K12 at both and K11 at self-attention only (the cross k/v
 # come from the frozen FP cross-attention, so they need no gradient); the
-# teacher's two no-grad forwards run the plain K4 launch at both
+# teacher's two no-grad forwards run the plain K4 launch at both; K13 runs the
+# three residual updates in each of those four forwards
 QLORA_STEP = {"attention_lse": 4, "attention_bwd_dq": 2, "attention_bwd_dkv": 1,
-              "attention": 4}
+              "attention": 4, "gate_residual": 12}
 # the deployed adapted model (quant_generate --lora --hardware, one batched
 # forward a block): each adapted site (self q/k/v/o, ffn.0/2) leaves the fused
 # producers for qlinear's int route, K7 then K2 (W8) or K8 (W4); the ffn.2
 # input's GELU is PyTorch's; K3 and K4 as in bf16; cross-attention is FP
 QLORA_DEPLOY = {"quant_sum": 6, "w8a8_linear": 4, "w4a8_linear": 2, "rms_rope_heads": 3,
-                "attention": 2}
+                "gate_residual": 3, "attention": 2}
 QLORA_SEQ = 32760  # 21 x 30 x 52 latent tokens of 832x480x81, unpadded
 
 
@@ -3530,12 +3603,15 @@ def qlora_grad_check(torch, cfg, params, qctx, lora, batch, dcfg):
     blocks, full width and sequence: the kernel route (K4's residual mode,
     K12, K11) against the plain-attention route (attention(force_reference=
     True): the chunked plain forward with its LSE and attention_bwd_reference),
-    rel-L2 <= 1e-2 over all adapters."""
+    rel-L2 <= 1e-2 over all adapters; and the same loss and gradients with
+    the residual updates on the plain chain instead of K13: equal bit for
+    bit."""
     import dataclasses
     import functools
 
     import wanq_tpu_torch.models.dit as dit
     from wanq_tpu_torch.models.attention import attention
+    from wanq_tpu_torch.ops.fused import gate_residual_plain
     from wanq_tpu_torch.training import make_qlora_distill_step
 
     cfg2 = dataclasses.replace(cfg, num_layers=2)
@@ -3545,15 +3621,29 @@ def qlora_grad_check(torch, cfg, params, qctx, lora, batch, dcfg):
     leaves = [t for k, ab in lora2.items() if k != "__scale__" for t in ab.values()]
     loss_fn = make_qlora_distill_step(cfg2, dcfg, None).loss_fn
 
-    def grads():
+    def grads(with_loss=False):
         for t in leaves:
             t.grad = None
-        loss_fn(lora2, params2, qctx, *batch, 3.0).backward()
-        return [t.grad.clone() for t in leaves]
+        loss = loss_fn(lora2, params2, qctx, *batch, 3.0)
+        loss.backward()
+        return ([loss.detach()] if with_loss else []) + [t.grad.clone() for t in leaves]
 
     t0 = time.perf_counter()
-    kern = grads()
+    kern = grads(with_loss=True)
     t_kern = time.perf_counter() - t0
+    k13 = dit.gate_residual
+    dit.gate_residual = gate_residual_plain
+    try:
+        chain = grads(with_loss=True)
+    finally:
+        dit.gate_residual = k13
+    same = all(torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+               for a, b in zip(kern, chain))
+    log(f"  QLoRA loss and gradients, 2 blocks at seq {QLORA_SEQ}: K13 against the plain "
+        f"chain at the residual updates: {'equal bits' if same else 'DIFFERENT'} "
+        f"(loss {float(kern[0]):.9e})")
+    check(same, "QLoRA: K13's loss or gradients differ from the plain chain's")
+    kern = kern[1:]
     dit.attention = functools.partial(attention, force_reference=True)
     try:
         t0 = time.perf_counter()
@@ -4545,12 +4635,13 @@ def qlora_81_frames(blocks: int) -> int:
 
 # kernels whose build must show no spill: the wgmma kernels (a spill there
 # means ptxas gave up on the setmaxnreg budgets), K1, K3 and K7, which hold a
-# row in registers, and K10a's two, which hold half a tile (q/k) or a
-# channel-by-row block (v) in registers
+# row in registers, K10a's two, which hold half a tile (q/k) or a
+# channel-by-row block (v) in registers, and K13, which holds two vectors of
+# x and y in flight
 NO_SPILL = ("flash_fwd_kernel", "attn_int8_kernel", "w8a8_gemm_kernel", "w4a8_gemm_kernel",
             "w4a4_gemm_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
             "ln_mod_quant_kernel", "rms_rope_heads_kernel", "quant_sum_kernel",
-            "qkv_absmax_quant_kernel", "v_quant_kernel")
+            "qkv_absmax_quant_kernel", "v_quant_kernel", "gate_residual_kernel")
 
 
 def ptxas_records(log_text: str):

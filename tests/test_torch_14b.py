@@ -299,6 +299,7 @@ DISPATCH = {
     (tqlinear, "w4a8_linear"): ("w4a8_linear",),
     (tqlinear, "w4a8_linear_gelu_quant"): ("w4a8_linear_gelu_quant",),
     (tqlinear, "w4a4_linear"): ("w4a4_linear",),
+    (tdit, "gate_residual"): ("gate_residual",),
 }
 
 

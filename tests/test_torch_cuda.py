@@ -50,7 +50,11 @@ and LSE (bf16 P and dS in their products; a floor of 1e-5 a element where a
 single valid key makes dq and dk zero), dk = dv = 0 past kv_valid, two calls
 of K12 and K11 equal bit for bit (no atomics), and
 ``attention(trainable=True)``'s launches under autograd and without it; the
-K11 / K12 tests wait for the card with the deadline of the band tests.
+K11 / K12 tests wait for the card with the deadline of the band tests. K13
+(the block's gated residual update) is exact: each of its steps is one IEEE
+rounding in the plain version's order, at the 1.3B update's shape and a 14B
+width, one launch a call; under autograd its backward gives the plain
+chain's gradients bit for bit, alone and in a training block.
 """
 
 import math
@@ -2484,3 +2488,153 @@ def test_trainable_linear_keeps_no_f32_copy_at_81_frames(dev, gen):
     del y
     want, = torch.autograd.grad(_chain_trainable_qlinear(st, bias, x), [x], g)
     assert torch.equal(gx, want)
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+# K13 at the whole 1.3B update [2, 32768, 1536], a 14B width, and a ragged
+# shape whose vectors do not fill the last block
+@pytest.mark.parametrize("with_bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("with_gate", [False, True], ids=["nogate", "gate"])
+@pytest.mark.parametrize("shape", [(2, 32768, 1536), (2, 4096, 5120), (3, 301, 40)],
+                         ids=["1.3b", "14b", "ragged"])
+def test_k13_kernel_matches_plain_bit_for_bit(dev, gen, shape, with_gate, with_bias):
+    from wanq_tpu_torch.ops.fused import gate_residual_cuda, gate_residual_plain
+
+    b, s, c = shape
+    for dtype in (torch.bfloat16, torch.float32):
+        x = (torch.randn(shape, device=dev, generator=gen) * 4).to(dtype)
+        y = torch.randn(shape, device=dev, generator=gen) * 3
+        x[0, 0, :8] = -0.0  # -0 + -0 keeps its sign only where no bias is added
+        y[0, 0, :8] = -0.0
+        # the gate as the block passes it: a column of its [B, 6, C] modulation
+        gate = torch.randn((b, 6, c), device=dev, generator=gen)[:, 2] if with_gate else None
+        bias = torch.randn((c,), device=dev, generator=gen).bfloat16() if with_bias else None
+        _lib.reset_launch_counts()
+        got = gate_residual_cuda(x, y, gate, bias)
+        _finish_within(60, f"K13 {shape} {dtype}")
+        assert _lib.launch_counts() == {"gate_residual": 1}
+        want = gate_residual_plain(x, y, gate, bias)
+        assert got.dtype == dtype and torch.equal(_bits(got), _bits(want))
+
+
+def test_k13_dispatch_launches_under_autograd_too(dev, gen):
+    from wanq_tpu_torch.ops.fused import gate_residual, gate_residual_plain
+
+    x = torch.randn((2, 64, 256), device=dev, generator=gen).bfloat16()
+    y = torch.randn((2, 64, 256), device=dev, generator=gen).requires_grad_()
+    gate = torch.randn((2, 256), device=dev, generator=gen)
+    want = gate_residual_plain(x, y.detach(), gate)
+    _lib.reset_launch_counts()
+    out = gate_residual(x, y, gate)
+    torch.cuda.synchronize()
+    assert out.grad_fn is not None and _lib.launch_counts() == {"gate_residual": 1}
+    with torch.no_grad():
+        got = gate_residual(x, y, gate)
+    torch.cuda.synchronize()
+    assert _lib.launch_counts() == {"gate_residual": 2}
+    assert torch.equal(_bits(got), _bits(want)) and torch.equal(_bits(out.detach()), _bits(want))
+
+
+@pytest.mark.parametrize("with_bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("with_gate", [False, True], ids=["nogate", "gate"])
+def test_k13_backward_matches_the_plain_chains_autograd(dev, gen, with_gate, with_bias):
+    """K13 under autograd at the 1.3B update's shape: output and the
+    gradients of x, y, gate and bias equal bit for bit to autograd through
+    the plain chain, one launch."""
+    from wanq_tpu_torch.ops.fused import gate_residual, gate_residual_plain
+
+    shape = (2, 32768, 1536)
+    x = (torch.randn(shape, device=dev, generator=gen) * 4).bfloat16()
+    y = torch.randn(shape, device=dev, generator=gen) * 3
+    gate = torch.randn((2, 6, 1536), device=dev, generator=gen) if with_gate else None
+    bias = torch.randn((1536,), device=dev, generator=gen).bfloat16() if with_bias else None
+    up = torch.randn(shape, device=dev, generator=gen).bfloat16()
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_() if t is not None else None
+                  for t in (x, y, gate, bias)]
+        g = leaves[2][:, 2] if with_gate else None  # a column, as the block passes it
+        out = fn(leaves[0], leaves[1], g, leaves[3])
+        out.backward(up)
+        return [out.detach()] + [t.grad for t in leaves if t is not None]
+
+    _lib.reset_launch_counts()
+    got = run(gate_residual)
+    _finish_within(60, "K13 backward")
+    assert _lib.launch_counts() == {"gate_residual": 1}
+    want = run(gate_residual_plain)
+    assert len(got) == len(want)
+    assert all(a.dtype == b.dtype and torch.equal(_bits(a), _bits(b)) for a, b in zip(got, want))
+
+
+def test_k13_training_block_gradients_equal_the_plain_chain(dev):
+    """A training block on the card (bf16 residual, K4's residual mode, K12
+    and K11): its three residual updates through K13 give the output and the
+    gradients of the plain chain bit for bit."""
+    import wanq_tpu_torch.models.dit as tdit
+    from wanq_tpu_torch.configs import tiny_config
+    from wanq_tpu_torch.models.rope import rope_tables_interleaved
+    from wanq_tpu_torch.ops.fused import gate_residual_plain
+
+    cfg = tiny_config(dim=256, num_heads=2, num_layers=2, ffn_dim=512, text_len=32,
+                      text_dim=64, freq_dim=64, param_dtype="bfloat16",
+                      residual_dtype="bfloat16")
+    params = tdit.init_params_on_device(cfg, 6, device=dev)
+    bp = params["blocks"][1]
+    leaves = [bp["modulation"], bp["self_attn"]["o"]["w"], bp["cross_attn"]["o"]["b"],
+              bp["ffn"]["2"]["w"]]
+    g = torch.Generator(device=dev).manual_seed(5)
+    x0 = torch.randn((2, 64, 256), device=dev, generator=g).bfloat16()
+    e = torch.randn((2, 6, 256), device=dev, generator=g) * 0.1
+    c = torch.randn((2, 32, 256), device=dev, generator=g).bfloat16()
+    ca, sb = (torch.as_tensor(np.array(t), device=dev)
+              for t in rope_tables_interleaved((3, 4, 5), cfg.head_dim))
+
+    def grads():
+        for leaf in leaves:
+            leaf.grad = None
+            leaf.requires_grad_(True)
+        x = x0.clone().requires_grad_(True)
+        out = tdit.block_forward(bp, "blocks.1", None, x, e, c, cfg, ca, sb, 60,
+                                 training=True)
+        out.float().square().sum().backward()
+        return [out.detach()] + [t.grad.clone() for t in leaves + [x]]
+
+    _lib.reset_launch_counts()
+    got = grads()
+    assert _lib.launch_counts()["gate_residual"] == 3
+    real = tdit.gate_residual
+    tdit.gate_residual = gate_residual_plain
+    try:
+        want = grads()
+    finally:
+        tdit.gate_residual = real
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, want))
+
+
+def test_k13_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    from wanq_tpu_torch.ops.fused import gate_residual_cuda
+
+    shape = (2, 64, 48)
+    x = torch.zeros(shape, device=dev, dtype=torch.bfloat16)
+    y = torch.zeros(shape, device=dev)
+    y_off = torch.zeros(y.numel() + 1, device=dev)[1:].view(shape)  # 4 bytes off 16
+    x_off = torch.zeros(x.numel() + 1, device=dev, dtype=torch.bfloat16)[1:].view(shape)
+    bad = [
+        (x, y.bfloat16(), None),                                # y not f32
+        (x, y.double(), None),
+        (x[..., :44].contiguous(), y[..., :44].contiguous(), None),  # C not a multiple of 8
+        (x, y_off, None),                                       # y misaligned
+        (x_off, y, None),                                       # x misaligned
+        (x, y.transpose(0, 1).contiguous().transpose(0, 1), None),  # y not contiguous
+        (x, y[:1], None),                                       # shapes differ
+        (x, y, torch.zeros((2, 40), device=dev)),               # gate not [B, C]
+    ]
+    _lib.reset_launch_counts()
+    for xi, yi, gi in bad:
+        with pytest.raises(ValueError):
+            gate_residual_cuda(xi, yi, gi)
+    assert not _lib.launch_counts()

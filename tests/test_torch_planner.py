@@ -265,6 +265,7 @@ DISPATCH = {
     (tqlinear, "w8a8_linear_gelu_quant"): ("w8a8_linear_gelu_quant",),
     (tqlinear, "w4a8_linear"): ("w4a8_linear",),
     (tqlinear, "w4a8_linear_gelu_quant"): ("w4a8_linear_gelu_quant",),
+    (tdit, "gate_residual"): ("gate_residual",),
 }
 
 

@@ -21,6 +21,9 @@ JAX's unfused chain):
   attention (K4) reading v through strides and writing seq-major memory,
   and the o-projection reading that memory as [B, S, N*D], a view: FP, or
   ``qlinear``'s int routes (K7 -> K2 for int8 o, K9 for W4A4 o).
+* the block's three residual updates, ``x + y * e2``, ``x + y``, ``x + y *
+  e5``, each one pass (K13, ``ops/fused.py::gate_residual``); an FP o
+  projection leaves its f32 bias to that pass.
 
 Sites whose policy is not fusable (W4A4: 4-bit activations; every site in
 sim mode) take the unfused chain through ``qlinear`` (K9 for W4A4).
@@ -108,6 +111,7 @@ from wanq_tpu_torch.models.rope import (
     rope_tables_interleaved,
 )
 from wanq_tpu_torch.ops.fused import (
+    gate_residual,
     ln_modulate_quant,
     ln_modulate_quant_static,
 )
@@ -123,7 +127,6 @@ from wanq_tpu_torch.quant.qlinear import (
     QuantCtx,
     context_rows,
     ffn0_gelu_quant_from_prequant,
-    fp_linear,
     int8_fusable,
     int8_static_fusable,
     qlinear,
@@ -391,23 +394,34 @@ def unpatchify(x: torch.Tensor, grid: Tuple[int, int, int],
     return x.reshape(b, out_dim, f * pt, h * ph, w * pw)
 
 
-def _o_proj_heads_major(po: Params, y: torch.Tensor, dtype) -> torch.Tensor:
-    """FP o-projection of the attention output y [B, N, S, D]. K4 writes y
-    seq-major, so the [B, S, N*D] operand is a view, not a merge pass."""
-    return fp_linear(po, merge_heads(y), dtype)
+def _o_proj(ctx: Optional[QuantCtx], name: str, po: Params, y: torch.Tensor, dtype,
+            split_bias: bool = False):
+    """The o projection of an attention output y [B, S, N*D]: qlinear's
+    output, its bias added. ``split_bias`` (the block asks for it) returns
+    (output, bias) instead, where an FP route leaves its bias out of the f32
+    product for the residual update to add (K13 adds it in the same pass, so
+    the product takes no f32 pass of its own), and any other route gives its
+    whole output and None."""
+    if not split_bias:
+        return qlinear(ctx, name, po, y, dtype)
+    if resolves_fp(ctx, name):
+        return qlinear(ctx, name, {"w": po["w"]}, y, dtype), po.get("b")
+    return qlinear(ctx, name, po, y, dtype), None
 
 
 def _self_attention(p: Params, name: str, ctx: Optional[QuantCtx],
                     x: Optional[torch.Tensor], cfg: WanConfig, cos: torch.Tensor,
                     sin: torch.Tensor, valid_len: int, dtype,
                     prequant=None, tables: Optional[SelfAttnTables] = None,
-                    training: bool = False, plan=None) -> torch.Tensor:
+                    training: bool = False, plan=None, split_o_bias: bool = False):
     """Self-attention sublayer. ``prequant``: (q8, scale, sum) from the
     fused LN+modulate+quant producer, shared by the q/k/v GEMMs; ``tables``:
     K3's tables for this sequence (built here when not given); ``training``:
     the plain q/k chain into the differentiable attention. Under ``plan`` x
     holds this rank's tokens, ``cos`` / ``sin`` and ``tables`` its rows of the
-    padded tables, and ``valid_len`` is global."""
+    padded tables, and ``valid_len`` is global. ``split_o_bias``: (output, the
+    o projection's bias where the output leaves it out, else None), the K3
+    branch's FP o route leaving it to the residual update (:func:`_o_proj`)."""
     n, hd = cfg.num_heads, cfg.head_dim
     if prequant is not None:
         q8, s_a, ssum = prequant
@@ -470,7 +484,7 @@ def _self_attention(p: Params, name: str, ctx: Optional[QuantCtx],
         else:
             y = merge_heads(attention_heads_major(qh, kh, vh, k_valid_len=valid_len,
                                                   window=window))
-        return qlinear(ctx, f"{name}.o", p["o"], y.reshape(b, s, n * hd), dtype)
+        return _o_proj(ctx, f"{name}.o", p["o"], y.reshape(b, s, n * hd), dtype, split_o_bias)
 
     if cfg.qk_norm:
         q = rms_norm(q, p["norm_q"], cfg.eps)
@@ -515,7 +529,8 @@ def _self_attention(p: Params, name: str, ctx: Optional[QuantCtx],
                                    shard_heads=not attn_quant or int8_attn)
     else:
         y = attend(q, k, v)
-    return qlinear(ctx, f"{name}.o", p["o"], y.reshape(b, s, n * hd), dtype)
+    out = qlinear(ctx, f"{name}.o", p["o"], y.reshape(b, s, n * hd), dtype)
+    return (out, None) if split_o_bias else out
 
 
 # the CLIP tokens in front of an i2v model's text context
@@ -524,13 +539,15 @@ CLIP_TOKENS = 257
 
 def _cross_attention(p: Params, name: str, ctx: Optional[QuantCtx],
                      x: Optional[torch.Tensor], context: torch.Tensor, cfg: WanConfig,
-                     dtype, prequant=None, training: bool = False) -> torch.Tensor:
+                     dtype, prequant=None, training: bool = False,
+                     split_o_bias: bool = False):
     """Cross-attention sublayer. ``prequant``: (q8, scale, sum) of the
     norm3 output from the fused producer, feeding the int8 q GEMM. For i2v
     the context is [the 257 CLIP tokens; the text tokens]: one q attends
     each part with its own k/v (``k_img`` / ``v_img`` for the image, its k
     through ``norm_k_img`` whether or not ``qk_norm`` is set), and the two
-    bf16 outputs add before the o projection."""
+    bf16 outputs add before the o projection. ``split_o_bias`` as in
+    :func:`_self_attention`, the bias apart on the K4 branch's FP o."""
     n, hd = cfg.num_heads, cfg.head_dim
     i2v = cfg.model_type == "i2v"
     if i2v:
@@ -569,9 +586,7 @@ def _cross_attention(p: Params, name: str, ctx: Optional[QuantCtx],
             # one K3 q, two K4 launches; both outputs seq-major, so the sum
             # is too and the o projection reads it as a view
             y = y + cross_attention_heads_major(qh, k_img, v_img)
-        if resolves_fp(ctx, f"{name}.o"):
-            return _o_proj_heads_major(p["o"], y, dtype)
-        return qlinear(ctx, f"{name}.o", p["o"], merge_heads(y), dtype)
+        return _o_proj(ctx, f"{name}.o", p["o"], merge_heads(y), dtype, split_o_bias)
 
     if cfg.qk_norm:
         q = rms_norm(q, p["norm_q"], cfg.eps)
@@ -580,7 +595,8 @@ def _cross_attention(p: Params, name: str, ctx: Optional[QuantCtx],
          else attention(q, k, v, trainable=training))
     if i2v:
         y = y + attention(q, k_img, v_img, trainable=training)
-    return qlinear(ctx, f"{name}.o", p["o"], y.reshape(b, -1, n * hd), dtype)
+    out = qlinear(ctx, f"{name}.o", p["o"], y.reshape(b, -1, n * hd), dtype)
+    return (out, None) if split_o_bias else out
 
 
 def _recomputed(training: bool, fn, x: torch.Tensor) -> torch.Tensor:
@@ -602,7 +618,9 @@ def block_forward(p: Params, name: str, ctx: Optional[QuantCtx], x: torch.Tensor
     """One transformer block. x [B, L, C] in the residual dtype; ``tables``:
     the forward's K3 tables (built by the self-attention when not given);
     ``training``: no fused producer, the differentiable attention; ``plan``:
-    x holds this rank's tokens (see :func:`_self_attention`)."""
+    x holds this rank's tokens (see :func:`_self_attention`). Each sub-layer's
+    f32 output joins the residual in one pass (K13 on the card, training
+    included: its backward is the plain chain's)."""
     dtype = cfg.dtype
     ee = p["modulation"].float() + e.float()
     e0, e1, e2, e3, e4, e5 = [ee[:, i] for i in range(6)]
@@ -620,21 +638,21 @@ def block_forward(p: Params, name: str, ctx: Optional[QuantCtx], x: torch.Tensor
             # the W8A8 speed config keeps q/k/v dynamic)
             prequant = ln_modulate_quant_static(
                 x, e0, e1, ctx.state[qkv_sites[0]]["delta_a"], eps=cfg.eps)
-            y = _self_attention(p["self_attn"], f"{name}.self_attn", ctx, None, cfg,
-                                cos, sin, valid_len, dtype, prequant=prequant, tables=tables,
-                                plan=plan)
+            y, ob = _self_attention(p["self_attn"], f"{name}.self_attn", ctx, None, cfg,
+                                    cos, sin, valid_len, dtype, prequant=prequant,
+                                    tables=tables, plan=plan, split_o_bias=True)
         elif int8_fusable(fused, qkv_sites):
             prequant = ln_modulate_quant(x, e0, e1, eps=cfg.eps)
-            y = _self_attention(p["self_attn"], f"{name}.self_attn", ctx, None, cfg,
-                                cos, sin, valid_len, dtype, prequant=prequant, tables=tables,
-                                plan=plan)
+            y, ob = _self_attention(p["self_attn"], f"{name}.self_attn", ctx, None, cfg,
+                                    cos, sin, valid_len, dtype, prequant=prequant,
+                                    tables=tables, plan=plan, split_o_bias=True)
         else:
             xn1 = _recomputed(training, lambda x_: (
                 layer_norm(x_, cfg.eps) * (1.0 + e1[:, None, :]) + e0[:, None, :]).to(dtype), x)
-            y = _self_attention(p["self_attn"], f"{name}.self_attn", ctx, xn1, cfg,
-                                cos, sin, valid_len, dtype, tables=tables, training=training,
-                                plan=plan)
-    x = (x.float() + y.float() * e2[:, None, :]).to(x.dtype)
+            y, ob = _self_attention(p["self_attn"], f"{name}.self_attn", ctx, xn1, cfg,
+                                    cos, sin, valid_len, dtype, tables=tables,
+                                    training=training, plan=plan, split_o_bias=True)
+    x = gate_residual(x, y, e2, ob)
 
     with span(CROSS_ATTN):
         if cq_static or (cfg.cross_attn_norm and int8_fusable(fused, [cq_site])):
@@ -649,15 +667,17 @@ def block_forward(p: Params, name: str, ctx: Optional[QuantCtx], x: torch.Tensor
                     x, shift3, scale3, ctx.state[cq_site]["delta_a"], eps=cfg.eps)
             else:
                 cq_prequant = ln_modulate_quant(x, shift3, scale3, eps=cfg.eps)
-            y = _cross_attention(p["cross_attn"], f"{name}.cross_attn", ctx, None, context,
-                                 cfg, dtype, prequant=cq_prequant)
+            y, ob = _cross_attention(p["cross_attn"], f"{name}.cross_attn", ctx, None,
+                                     context, cfg, dtype, prequant=cq_prequant,
+                                     split_o_bias=True)
         else:
             xn3 = (_recomputed(training, lambda x_: layer_norm(
                 x_, cfg.eps, p["norm3"]["w"], p["norm3"]["b"]).to(dtype), x)
                    if cfg.cross_attn_norm else x.to(dtype))
-            y = _cross_attention(p["cross_attn"], f"{name}.cross_attn", ctx, xn3,
-                                 context, cfg, dtype, training=training)
-    x = (x.float() + y.float()).to(x.dtype)
+            y, ob = _cross_attention(p["cross_attn"], f"{name}.cross_attn", ctx, xn3,
+                                     context, cfg, dtype, training=training,
+                                     split_o_bias=True)
+    x = gate_residual(x, y, bias=ob)
 
     with span(FFN):
         if int8_fusable(fused, [ffn_sites[0]], allow_mask=True) and (
@@ -676,7 +696,7 @@ def block_forward(p: Params, name: str, ctx: Optional[QuantCtx], x: torch.Tensor
 
             y = qlinear(ctx, f"{name}.ffn.2", p["ffn"]["2"], _recomputed(training, ffn_in, x),
                         dtype)
-    return (x.float() + y.float() * e5[:, None, :]).to(x.dtype)
+    return gate_residual(x, y, e5)
 
 
 def head_forward(p: Params, x: torch.Tensor, e: torch.Tensor, cfg: WanConfig,

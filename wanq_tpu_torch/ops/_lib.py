@@ -68,6 +68,7 @@ _SIGNATURES = {
     "wanq_flash_bwd_dkv_acc": [_P] * 7 + [_LL, _I, _I, _I, _P, _I, _F, _P],
     "wanq_quantize_qkv_int8": [_P] * 3 + [_LL] * 9 + [_P] * 7 + [_LL, _I, _I, _I, _P],
     "wanq_attention_int8": [_P] * 7 + [_LL, _I, _I, _I, _I, _F, _LL, _LL, _LL, _P],
+    "wanq_gate_residual": [_P, _I, _P, _P, _P, _LL, _P, _LL, _LL, _I, _P],
 }
 
 LAUNCHES: "collections.Counter[str]" = collections.Counter()

@@ -1,4 +1,5 @@
-"""Fused int8 quant producers (counterpart of wanq_tpu/ops/fused.py).
+"""Fused int8 quant producers and the gated residual update (counterpart
+of wanq_tpu/ops/fused.py).
 
 Each kernel wrapper launches its kernel on a CUDA tensor and runs its
 ``*_plain`` version, the plain PyTorch form of the same function (also the
@@ -8,7 +9,10 @@ kernel's oracle in the tests and in ``chip_smoke.py``), on a CPU tensor:
   LayerNorm + adaLN modulate + per-token int8 quant + scaled row sum;
 * :func:`quant_sum` -- kernel K7 (``csrc/quant_sum.cu``), optional tanh-GELU
   then per-token int8 quant + scaled row sum (the dynamic ffn.2 input and
-  every dynamic int8 activation that ``qlinear`` quantizes).
+  every dynamic int8 activation that ``qlinear`` quantizes);
+* :func:`gate_residual` -- kernel K13 (``csrc/gate_residual.cu``), the DiT
+  block's residual update ``x + (y + bias) * gate`` in one pass; under
+  autograd its backward is the plain chain's gradients.
 
 ``ln_modulate_quant_static`` is plain PyTorch only: no shipped config with
 a static q/k/v scale runs on the card yet (ROADMAP lists its kernel).
@@ -197,3 +201,104 @@ def ln_modulate_quant(x, shift, scale_mod, eps: float = 1e-6,
     if x.is_cuda:
         return ln_modulate_quant_cuda(x, shift, scale_mod, eps, channel_scale)
     return ln_modulate_quant_plain(x, shift, scale_mod, eps, channel_scale)
+
+
+def gate_residual_plain(x: torch.Tensor, y: torch.Tensor, gate: Optional[torch.Tensor] = None,
+                        bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x [B, S, C] + (y [B, S, C] + bias [C]) * gate [B, C], summed in f32 and
+    returned in x's dtype; bias and gate each optional (a missing one is no
+    step, not an add of 0 or a product by 1). The DiT block's residual update
+    as it writes it, ``(x.float() + y.float() * gate[:, None, :]).to(x.dtype)``,
+    with an FP o projection's bias added to y first, as ``fp_linear`` adds it
+    (wanq_tpu's gate_residual, an XLA fusion)."""
+    t = y.float()
+    if bias is not None:
+        t = t + bias.float()
+    if gate is not None:
+        t = t * gate.float()[:, None, :]
+    return (x.float() + t).to(x.dtype)
+
+
+def gate_residual_cuda(x: torch.Tensor, y: torch.Tensor, gate: Optional[torch.Tensor] = None,
+                       bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel K13 on CUDA tensors: the bits of :func:`gate_residual_plain`.
+    x [B, S, C] bf16 or f32, y f32 [B, S, C] contiguous, C a multiple of 8;
+    gate f32 [B, C] with unit channel stride (any row stride that keeps 16-byte
+    rows: the block passes a column of its [B, 6, C] modulation as it lies);
+    bias [C]. Returns a new tensor of x's dtype; x is not written."""
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"x: bf16 or f32 expected, got {x.dtype}")
+    if not x.is_cuda:
+        raise ValueError("x must be a CUDA tensor")
+    if x.dim() != 3:
+        raise ValueError(f"x: [B, S, C] expected, got {tuple(x.shape)}")
+    b, s, c = x.shape
+    _lib.require_cuda(y, torch.float32, "y")
+    if y.shape != x.shape or not y.is_contiguous():
+        raise ValueError(f"y: a contiguous f32 {tuple(x.shape)} expected, got "
+                         f"{tuple(y.shape)} with strides {y.stride()}")
+    if c % 8:
+        raise ValueError(f"C={c} must be a multiple of 8 (the kernel takes 8 channels a thread)")
+    x = x.contiguous()
+    if bias is not None:
+        bias = bias.float().contiguous()
+        _lib.require_cuda(bias, torch.float32, "bias")
+        if bias.shape != (c,):
+            raise ValueError(f"bias: [C] = ({c},) expected, got {tuple(bias.shape)}")
+    gate_stride = 0
+    if gate is not None:
+        _lib.require_cuda(gate, torch.float32, "gate")
+        if gate.shape != (b, c):
+            raise ValueError(f"gate: [B, C] = {(b, c)} expected, got {tuple(gate.shape)}")
+        if gate.stride(1) != 1 or gate.stride(0) % 4 or (b > 1 and gate.stride(0) < c):
+            gate = gate.contiguous()
+        gate_stride = gate.stride(0) if b > 1 else c
+    for t, name in ((x, "x"), (y, "y"), (bias, "bias"), (gate, "gate")):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel loads 16 bytes a thread)")
+    out = torch.empty_like(x)
+    _lib.launch("gate_residual", "wanq_gate_residual", x.data_ptr(),
+                int(x.dtype == torch.bfloat16), y.data_ptr(), _lib.ptr(bias), _lib.ptr(gate),
+                gate_stride, out.data_ptr(), b, s, c)
+    return out
+
+
+class _GateResidual(torch.autograd.Function):
+    """K13 under autograd: the kernel's forward; the backward forms the plain
+    chain's gradients with autograd's own products and reductions, so a
+    training step keeps its bits, in fewer passes (a bf16 upstream gradient
+    is widened inside the product, not by a pass of its own)."""
+
+    @staticmethod
+    def forward(ctx, x, y, gate, bias):
+        # y only for the gate's gradient, as autograd's product keeps it
+        ctx.save_for_backward(y if ctx.needs_input_grad[2] else None, gate, bias)
+        return gate_residual_cuda(x, y, gate, bias)
+
+    @staticmethod
+    def backward(ctx, grad):
+        y, gate, bias = ctx.saved_tensors
+        _, need_y, need_gate, need_bias = ctx.needs_input_grad
+        # the casts on either side of the f32 sum pass x's gradient through
+        grad_t = grad_gate = None
+        if gate is None:
+            grad_t = grad.float() if need_y or need_bias else None
+        else:
+            gate_b = gate.float()[:, None, :]
+            if need_y or need_bias:
+                grad_t = grad * gate_b
+            if need_gate:
+                t = y if bias is None else y + bias.float()
+                grad_gate = (grad * t).sum(1, keepdim=True).squeeze(1).to(gate.dtype)
+        grad_bias = (grad_t.sum((0, 1), keepdim=True).view(-1).to(bias.dtype)
+                     if need_bias else None)
+        return grad, grad_t if need_y else None, grad_gate, grad_bias
+
+
+def gate_residual(x: torch.Tensor, y: torch.Tensor, gate: Optional[torch.Tensor] = None,
+                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K13 dispatch: the kernel for CUDA tensors (under autograd too, with the
+    plain chain's backward), the plain version for CPU tensors."""
+    if x.is_cuda:
+        return _GateResidual.apply(x, y, gate, bias)
+    return gate_residual_plain(x, y, gate, bias)
