@@ -58,7 +58,12 @@ non-zero:
    gate) at [2, 32768, 1536] and [2, 32768, 5120], every combination of gate
    and bias equal bit for bit to the plain chain, each update the paths run
    timed beside the plain chain and its bound (8 bytes an element), the 1.3B
-   self-attention update summed into the kernels line;
+   self-attention update summed into the kernels line; K1 and K13 reading a
+   per-frame table (Wan2.2 TI2V-5B's modulation at [2, 27648, 3072], 31 rows
+   of 880 tokens, the pads on the last row): K1 at its limits and the one-row
+   call at 3072 beside it, K13 equal bit for bit to the plain chain with and
+   without a bias, each with its table launch counted and timed against its
+   bound (printed, not summed into the kernels line);
 3. the paths of PATHS through the CLIs, random weights drawn on the card
    from a seed (init_params_on_device) and random text states. At full 1.3B
    width and depth, 3 UniPC steps each: W8A8 (get_calib_data
@@ -96,7 +101,13 @@ non-zero:
    what 9.5 GiB plans at 40: the two plans' W8 classes held equal) with
    wan_w4a8_14b.yaml's act section, 3 steps at 480p: K8 on the six W4
    classes, ffn.0 in its GELU + quant mode feeding ffn.2's K2, K2 on the four
-   W8 classes. Per path: step times, peak
+   W8 classes. Then Wan2.2 TI2V-5B (ti2v_w8a8: all 30 blocks at dim 3072,
+   1280x704x121, --strip_fp) in image-to-video mode after its own
+   calibration in that mode: per-frame timesteps, K1 and K13 reading the
+   table (their *_rows counters, ROW_COUNTERS, checked a block, zero on
+   every Wan2.1 path), the time MLP on two rows a forward
+   (time_embedding_rows), latent frame 0 equal to the seeded conditioning
+   latent. Per path: step times, peak
    memory, finite latents of the task's shape, and kernel launch counts, reset
    just before each path and read just after, equal to the per-block counts of
    PATHS x the layers x the forwards its step actions took (a full step one
@@ -357,8 +368,17 @@ PATHS = {
     "w4a8_14b_cache": (W4A8_14B_YAML, W4A8_STATIC),
     "w4a8_14b_720p": (W4A8_14B_YAML, W4A8_STATIC),
     "w4w8_plan_14b": (W4A8_14B_YAML, W4W8_PLAN),
+    # Wan2.2 TI2V-5B image-to-video (dim 3072, all 30 blocks, 1280x704x121:
+    # 31 latent frames of 880 tokens), W8A8: w8a8's launches, K1's q/k/v and
+    # ffn.0 and K13's self and ffn updates reading the per-frame table (their
+    # _rows counters; cross q's K1 and the cross update read one row)
+    "ti2v_w8a8": (YAML, {**W8A8, "ln_modulate_quant_rows": 2, "gate_residual_rows": 2}),
 }
+# the counters of launches that read a per-frame table (a launch of their
+# kernel too), checked a block as the launches are
+ROW_COUNTERS = ("ln_modulate_quant_rows", "gate_residual_rows")
 TASK_14B = "t2v-14B"
+TASK_TI2V = "ti2v-5B"
 # T2V-14B and I2V-14B run at full width with 10 of their 40 blocks, so the
 # whole script stays inside its time limit (with 20 blocks a whole run read
 # up to 1140.6 s of its 1200); the 1.3B model keeps its 30
@@ -383,6 +403,8 @@ RUNS = {
                       "flags": ("--strip_fp", "--cfg_mode", "sequential")},
     "w4w8_plan_14b": {"task": TASK_14B, "flags": ("--auto_bits_gib", repr(PLAN_GIB),
                                                   "--strip_fp")},
+    "ti2v_w8a8": {"task": TASK_TI2V, "size": "1280*704", "frames": 121,
+                  "flags": ("--strip_fp",)},
 }
 SIM_PATHS = ("w8a8_sim",)                        # quant_generate without --hardware
 WINDOWS = {"w8a8_win1": 1}                       # quant_generate --attn_window
@@ -784,6 +806,85 @@ def kernel_checks(torch, results):
     int4_checks(torch, g, record)
     viditq_checks(torch, g, record)
     gate_residual_checks(torch, g, record)
+    table_checks(torch, g, record)
+
+
+# Wan2.2 TI2V-5B's per-frame modulation at 1280x704x121: 31 latent frames of
+# 880 tokens over a sequence padded to 27648, the pads on the last row
+TABLE_SHAPE, TABLE_TPR, TABLE_ROWS = (2, 27648, 3072), 880, 31
+
+
+def table_checks(torch, g, record):
+    """K1 and K13 reading a per-frame table (TI2V-5B's [B, 31, 6, C]
+    modulation, shift / scale / gate its columns as the block passes them) at
+    [2, 27648, 3072], tokens_per_row 880: K1 at its usual limits against the
+    plain version, with the one-row call at the same width (K1's two-warp
+    form) beside it; K13 equal bit for bit to the plain chain with and without
+    the FP o bias. Each counts one table launch (``*_rows``); each is timed,
+    a tenth of ten calls back to back as a forward runs them, against the
+    bound of its bytes (the table rows read included) at 3.35 TB/s. Printed
+    only, so the kernels line keeps the Wan2.1 shapes."""
+    from wanq_tpu_torch.ops import _lib
+    from wanq_tpu_torch.ops.fused import (
+        gate_residual_cuda, gate_residual_plain, ln_modulate_quant_cuda, ln_modulate_quant_plain)
+
+    dev = torch.device("cuda")
+    b, s, cw = TABLE_SHAPE
+    tpr, rows = TABLE_TPR, TABLE_ROWS
+    tab = torch.randn((b, rows, 6, cw), device=dev, generator=g) * 0.5
+    x = (torch.randn((b, s, cw), device=dev, generator=g) * 2 + 0.3).bfloat16()
+    shift, scale = tab[:, :, 0], tab[:, :, 1]
+    for what, sh, sc, kw, nrows in (
+            (f"table of {rows} rows, tokens_per_row {tpr}", shift, scale,
+             {"tokens_per_row": tpr}, rows),
+            ("one row a sample", shift[:, 0], scale[:, 0], {}, 1)):
+        _lib.reset_launch_counts()
+        got = ln_modulate_quant_cuda(x, sh, sc, **kw)
+        want = ln_modulate_quant_plain(x, sh, sc, **kw)
+        torch.cuda.synchronize()
+        counts = {"ln_modulate_quant": 1, **({"ln_modulate_quant_rows": 1} if nrows > 1 else {})}
+        check(_lib.launch_counts() == counts, f"K1 {what}: launches {_lib.launch_counts()}")
+        diff = (got[0].int() - want[0].int()).abs()
+        frac = (diff > 0).float().mean().item()
+        check(diff.max().item() <= 1 and frac <= 1e-3,
+              f"K1 C={cw} {what}: codes differ: max {diff.max()}, {frac}")
+        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
+        err = (got[0].float() * got[1][..., None] - want[0].float() * want[1][..., None])
+        nbytes = b * s * cw * 3 + b * s * 8 + 2 * b * nrows * cw * 4
+        ms = cuda_ms(lambda: [ln_modulate_quant_cuda(x, sh, sc, **kw) for _ in range(10)],
+                     reps=5) / 10
+        record("ln_modulate_quant", err.abs().max().item(), ms,
+               cuda_ms(lambda: ln_modulate_quant_plain(x, sh, sc, **kw), reps=3),
+               f"[2,27648,{cw}] bf16, {what} (codes differing: {frac:.2e}; "
+               f"{nbytes / HBM_BPS * 1e3 / ms:.1%} of the bandwidth bound)",
+               nbytes, 10 * b * s * cw, "f32", summed=False)
+        del got, want, diff, err
+    y = torch.randn((b, s, cw), device=dev, generator=g) * 3
+    x[0, 0, :8] = -0.0
+    y[0, 0, :8] = -0.0
+    gate, bias = tab[:, :, 2], torch.randn((cw,), device=dev, generator=g)
+    for bi in (None, bias):
+        _lib.reset_launch_counts()
+        got = gate_residual_cuda(x, y, gate, bi, tokens_per_row=tpr)
+        want = gate_residual_plain(x, y, gate, bi, tokens_per_row=tpr)
+        torch.cuda.synchronize()
+        check(_lib.launch_counts() == {"gate_residual": 1, "gate_residual_rows": 1},
+              f"K13 table launches {_lib.launch_counts()}")
+        check(torch.equal(got.view(torch.int16), want.view(torch.int16)),
+              f"K13 table C={cw} bias {bi is not None}: {(got != want).sum().item()} elements "
+              f"differ from the plain chain")
+        del got, want
+        nbytes = b * s * cw * 8 + b * rows * cw * 4 + (0 if bi is None else cw * 4)
+        ms = cuda_ms(lambda: [gate_residual_cuda(x, y, gate, bi, tokens_per_row=tpr)
+                              for _ in range(10)], reps=5) / 10
+        record("gate_residual", 0.0, ms,
+               cuda_ms(lambda: gate_residual_plain(x, y, gate, bi, tokens_per_row=tpr), reps=3),
+               f"[2,27648,{cw}] bf16 x, f32 y, gate table of {rows} rows, tokens_per_row {tpr}"
+               f"{', the FP o bias' if bi is not None else ''}: equal bits "
+               f"({nbytes / HBM_BPS * 1e3 / ms:.1%} of the bandwidth bound)",
+               nbytes, 3 * b * s * cw, "f32", summed=False)
+    del x, y, tab
+    torch.cuda.empty_cache()
 
 
 def gate_residual_checks(torch, g, record):
@@ -1477,12 +1578,12 @@ def int4_checks(torch, g, record):
 # ---------------------------------------------------------------------------
 
 
-def cli_args(yaml, extra, task=TASK, size=SIZE):
-    return ["--task", task, "--size", size, "--frame_num", str(FRAMES), "--random_init",
+def cli_args(yaml, extra, task=TASK, size=SIZE, frames=FRAMES):
+    return ["--task", task, "--size", size, "--frame_num", str(frames), "--random_init",
             "--quant_config", yaml, "--device", "cuda", *extra]
 
 
-def calibrate(torch, task=TASK, yaml=YAML, extra=(), tag=None):
+def calibrate(torch, task=TASK, yaml=YAML, extra=(), tag=None, size=SIZE, frames=FRAMES):
     """get_calib_data --collect_minmax, 1 batched step at 480p: the static
     ffn.2 scale of the task's paths (at 14B it serves 720p too: the scale is
     per tensor) comes from it. ``extra`` flags (a path's own recipe,
@@ -1504,7 +1605,7 @@ def calibrate(torch, task=TASK, yaml=YAML, extra=(), tag=None):
     torch.cuda.reset_peak_memory_stats()
     get_calib_data.generate(get_calib_data.parse_args(cli_args(yaml, [
         "--collect_minmax", "--sample_steps", "1", "--calib_save_path", calib_path,
-        *extra], task)))
+        *extra], task, size, frames)))
     torch.cuda.synchronize()
     log(f"  get_calib_data {task} {' '.join(extra)} (1 step a round, incl. random init on the "
         f"card): {time.time() - t0:.1f} s; peak "
@@ -1580,6 +1681,7 @@ def run_path(torch, label, launches, calib_path=None):
     yaml, per_block = PATHS[label]
     run = RUNS.get(label, {})
     task, size, steps = run.get("task", TASK), run.get("size", SIZE), run.get("steps", STEPS)
+    frames = run.get("frames", FRAMES)
     flags = list(run.get("flags", ()))
     cfg = WAN_CONFIGS[task]
     lat_path = str(OUT / f"latents_{label}.npz")
@@ -1601,7 +1703,8 @@ def run_path(torch, label, launches, calib_path=None):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
         with timed_gptq(torch) as solves:
-            ptq.generate(ptq.parse_args(cli_args(yaml, extra + ["--save_path", art], task, size)))
+            ptq.generate(ptq.parse_args(cli_args(yaml, extra + ["--save_path", art], task, size,
+                                                 frames)))
         torch.cuda.synchronize()
         log(f"  [{label}] cli.ptq {yaml} (incl. random init and the npz write): "
             f"{time.time() - t0:.1f} s, {os.path.getsize(art) / 2**20:.1f} MiB; peak "
@@ -1619,7 +1722,7 @@ def run_path(torch, label, launches, calib_path=None):
         hw += ["--attn_window", str(WINDOWS[label])]
     hw += flags
     args = quant_generate.parse_args(cli_args(yaml, extra + [
-        *hw, "--sample_steps", str(steps), "--save_file", lat_path], task, size))
+        *hw, "--sample_steps", str(steps), "--save_file", lat_path], task, size, frames))
     torch.cuda.reset_peak_memory_stats()
     _lib.reset_launch_counts()
     t0 = time.time()
@@ -1633,7 +1736,7 @@ def run_path(torch, label, launches, calib_path=None):
     acts = step_actions(label, args, lat_file, steps)
     full_s = [x for x, a in zip(step_s, acts[1:]) if a == "full"]
     mean = sum(full_s) / len(full_s)
-    log(f"  [{label}] {yaml} {task} {size}x{FRAMES}: quant_generate "
+    log(f"  [{label}] {yaml} {task} {size}x{frames}: quant_generate "
         f"{' '.join(hw + extra[:1] * (label in PTQ_PATHS)) or '(simulated)'} "
         f"({steps} steps, incl. random init + PTQ or the artifact's load): "
         f"{time.time() - t0:.1f} s; denoise step s (steps 2-{steps}): "
@@ -1644,18 +1747,31 @@ def run_path(torch, label, launches, calib_path=None):
     sequential = "sequential" in flags
     forwards = sum({"full": 2 if sequential else 1, "cond": 1, "reuse": 0}[a] for a in acts)
     log(f"  [{label}] actions {acts}: {forwards} forwards of {cfg.num_layers} blocks")
-    for name in (*SOURCES, *MODES):
+    for name in (*SOURCES, *MODES, *ROW_COUNTERS):
         want = per_block.get(name, 0) * cfg.num_layers * forwards
         check(counts.get(name, 0) == want,
               f"{label}: {name} {counts.get(name, 0)} launches, want {want}")
+    # a per-frame forward runs the time MLP on its two distinct timesteps
+    # (frame 0's 0 and the step's t), none of one timestep a sample
+    want = 2 * forwards if cfg.model_type == "ti2v" else 0
+    check(counts.get("time_embedding_rows", 0) == want,
+          f"{label}: time_embedding_rows {counts.get('time_embedding_rows', 0)}, want {want}")
     for name, cnt in counts.items():  # a mode's launches are its kernel's
+        if name in ROW_COUNTERS or name == "time_embedding_rows":
+            continue
         name = MODES.get(name, name)
         launches[name] = launches.get(name, 0) + cnt
 
     lat = lat_file["latents"]
-    shape = (1, *compute_target_shape(cfg, SIZE_CONFIGS[size], FRAMES))
+    shape = (1, *compute_target_shape(cfg, SIZE_CONFIGS[size], frames))
     check(lat.shape == shape, f"{label}: latents shape {lat.shape}, want {shape}")
     check(bool(np.isfinite(lat).all()), f"{label}: non-finite latents")
+    if cfg.model_type == "ti2v":  # image-to-video: frame 0 held to the seeded latent
+        from wanq_tpu_torch.cli.common import conditioning
+
+        z = conditioning(cfg, SIZE_CONFIGS[size], args.base_seed)["cond_latent"].numpy()
+        check(np.array_equal(lat[0, :, :1], z), f"{label}: latent frame 0 not held")
+        log(f"  [{label}] image-to-video: latent frame 0 equal to the conditioning latent")
     log(f"  [{label}] latents {lat.shape} finite, std {lat.std():.4f}")
     return mean, first[0]
 
@@ -4802,7 +4918,9 @@ def main() -> int:
         task = RUNS.get(label, {}).get("task", TASK)
         if task not in calib:
             log(f"  phase 3 {TASK} paths: {time.time() - t0:.1f} s")
-            calib[task] = calibrate(torch, task, PATHS[label][0])
+            run = RUNS.get(label, {})
+            calib[task] = calibrate(torch, task, PATHS[label][0], size=run.get("size", SIZE),
+                                    frames=run.get("frames", FRAMES))
         if label in CALIB_FLAGS:
             calib[label] = calibrate(torch, task, PATHS[label][0], CALIB_FLAGS[label], label)
         step_s[label], first[label] = run_path(

@@ -350,3 +350,51 @@ def test_chip_smoke_launch_table_matches_the_routes(monkeypatch, label):
     out = tdit.dit_forward(params, cfg, x, t, c, 64, ctx=ctx)
     assert torch.isfinite(out).all()
     assert counts == {k: v * cfg.num_layers for k, v in per_block.items()}
+
+
+def test_chip_smoke_ti2v_launch_table_matches_the_routes(monkeypatch):
+    """chip_smoke.py's TI2V path: with per-frame timesteps (frame 0 at 0, 3
+    latent frames of 20 tokens, 4 pad tokens) a W8A8 forward calls w8a8's
+    dispatchers, and K1 and K13 read a table of more than one row where the
+    path's ``*_rows`` counters say (q/k/v and ffn.0; the self and ffn
+    updates), the time MLP its two distinct timesteps."""
+    from wanq_tpu_torch.ops import _lib
+
+    smoke = _chip_smoke()
+    yaml, per_block = smoke.PATHS["ti2v_w8a8"]
+    assert smoke.RUNS["ti2v_w8a8"]["task"] == "ti2v-5B"
+    cfg = tiny_config(**SMALL)
+    params = tdit.init_params(cfg, 3, device="cpu")
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(2, 16, 3, 8, 10)).astype(np.float32))
+    t = torch.tensor([[0.0, 999.0, 999.0]] * 2)
+    c = torch.from_numpy(rng.normal(size=(2, 32, 64)).astype(np.float32))
+    cc = QuantCtx(mode="calib", collect_minmax=True)
+    tdit.dit_forward(params, cfg, x, t, c, 64, ctx=cc)
+    calib = {k: v.float().numpy()[None] for k, v in cc.collect.items()}
+    qcfg = QuantConfig.from_yaml(os.path.join(ROOT, yaml))
+    pol, st, rot = prepare_quant_state(params, tdit.linear_layer_names(cfg), qcfg, calib=calib,
+                                       targets="int8")
+    ctx = QuantCtx(mode="int8", policies=pol, state=st, rotations=rot)
+    counts = {}
+    # the operand whose rows a K1 / K13 launch reads: shift, the gate
+    table_arg = {"ln_modulate_quant": (1, "shift"), "gate_residual": (2, "gate")}
+    for (module, fn), counters in DISPATCH.items():
+        real = getattr(module, fn)
+
+        def counted(*a, _real=real, _counters=counters, _fn=fn, **k):
+            for name in _counters:
+                counts[name] = counts.get(name, 0) + 1
+            if _fn in table_arg:
+                i, key = table_arg[_fn]
+                op = a[i] if len(a) > i else k.get(key)
+                if op is not None and op.dim() == 3 and op.shape[1] > 1:
+                    counts[f"{_fn}_rows"] = counts.get(f"{_fn}_rows", 0) + 1
+            return _real(*a, **k)
+
+        monkeypatch.setattr(module, fn, counted)
+    _lib.reset_launch_counts()
+    out = tdit.dit_forward(params, cfg, x, t, c, 64, ctx=ctx)
+    assert torch.isfinite(out).all()
+    assert counts == {k: v * cfg.num_layers for k, v in per_block.items()}
+    assert _lib.launch_counts() == {"time_embedding_rows": 2}

@@ -823,14 +823,15 @@ def _check_k1(got, want):
 
 @pytest.mark.parametrize("with_cs", [False, True], ids=["nocs", "cs"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("c", [64, 1536, 5120])
+@pytest.mark.parametrize("c", [64, 1536, 3072, 5120])
 def test_k1_kernel_forms_match_plain(dev, gen, c, dtype, with_cs):
-    """K1 at C = 64 (most lanes idle), 1536 (one warp a row) and 5120 (four
-    warps a row), both input types, with and without channel_scale; B = 3
-    batch rows of 301 tokens, so tiles straddle batch boundaries and the last
-    tile of each batch row is ragged. One row of zeros (s = 1e-6, codes 0) and
-    a batch row whose scales leave the branch-free division's range (an
-    outlier channel modulated by 3e8: s > 2**20, the true division)."""
+    """K1 at C = 64 (most lanes idle), 1536 (one warp a row), 3072 (two warps
+    a row) and 5120 (four warps a row), both input types, with and without
+    channel_scale; B = 3 batch rows of 301 tokens, so tiles straddle batch
+    boundaries and the last tile of each batch row is ragged. One row of
+    zeros (s = 1e-6, codes 0) and a batch row whose scales leave the
+    branch-free division's range (an outlier channel modulated by 3e8: s >
+    2**20, the true division)."""
     from wanq_tpu_torch.ops.fused import ln_modulate_quant_cuda, ln_modulate_quant_plain
 
     b, n = 3, 301
@@ -855,7 +856,7 @@ def test_k1_single_rows_and_many_batches(dev, gen):
     restages its modulation for each tile."""
     from wanq_tpu_torch.ops.fused import ln_modulate_quant_cuda, ln_modulate_quant_plain
 
-    for c in (1536, 5120):
+    for c in (1536, 3072, 5120):
         x = torch.randn((37, 1, c), device=dev, generator=gen).bfloat16()
         shift = torch.randn((37, c), device=dev, generator=gen)
         scale = torch.randn((37, c), device=dev, generator=gen)
@@ -2638,3 +2639,213 @@ def test_k13_wrapper_raises_on_what_the_kernel_does_not_take(dev):
         with pytest.raises(ValueError):
             gate_residual_cuda(xi, yi, gi)
     assert not _lib.launch_counts()
+
+
+# K1 and K13 reading a per-frame table (Wan2.2 TI2V-5B: 31 latent frames of 880
+# tokens over 27648 padded ones, the pads on the last row) and ragged rows (the
+# last row shorter than the others; 5120 wide, four warps a K1 row)
+_TABLES = [((2, 27648, 3072), 880, 31), ((3, 301, 1536), 37, 9), ((2, 300, 5120), 41, 8)]
+_TABLE_IDS = ["ti2v-5b", "ragged-1536", "ragged-5120"]
+
+
+def _table_rows(n, tpr, rows):
+    """The token slices of a table's rows (the last row takes the rest)."""
+    return [slice(r * tpr, n if r == rows - 1 else (r + 1) * tpr) for r in range(rows)]
+
+
+@pytest.mark.parametrize("shape, tpr, rows", _TABLES, ids=_TABLE_IDS)
+def test_k1_table_rows_are_their_one_row_calls(dev, gen, shape, tpr, rows):
+    """A table call gives each row's tokens the bits of a one-row call on
+    those tokens with that row, and agrees with the plain version as K1
+    does; shift and scale are columns of a [B, R, 6, C] modulation, read
+    where they lie."""
+    from wanq_tpu_torch.ops.fused import ln_modulate_quant_cuda, ln_modulate_quant_plain
+
+    b, n, c = shape
+    x = (torch.randn(shape, device=dev, generator=gen) * 2 + 0.3).bfloat16()
+    mod = torch.randn((b, rows, 6, c), device=dev, generator=gen) * 0.5
+    shift, scale = mod[:, :, 0], mod[:, :, 1]
+    _lib.reset_launch_counts()
+    got = ln_modulate_quant_cuda(x, shift, scale, tokens_per_row=tpr)
+    _finish_within(60, f"K1 table {shape}")
+    assert _lib.launch_counts() == {"ln_modulate_quant": 1, "ln_modulate_quant_rows": 1}
+    for r, seg in enumerate(_table_rows(n, tpr, rows)):
+        one = ln_modulate_quant_cuda(x[:, seg].contiguous(), shift[:, r], scale[:, r])
+        for g, o in zip(got, one):
+            assert torch.equal(g[:, seg], o), (r, seg)
+    _check_k1(got, ln_modulate_quant_plain(x, shift, scale, tokens_per_row=tpr))
+
+
+@pytest.mark.parametrize("with_bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("shape, tpr, rows", _TABLES + [((3, 301, 40), 37, 9)],
+                         ids=_TABLE_IDS + ["ragged-40"])
+def test_k13_table_matches_plain_bit_for_bit(dev, gen, shape, tpr, rows, with_bias):
+    from wanq_tpu_torch.ops.fused import gate_residual, gate_residual_cuda, gate_residual_plain
+
+    b, s, c = shape
+    for dtype in (torch.bfloat16, torch.float32):
+        x = (torch.randn(shape, device=dev, generator=gen) * 4).to(dtype)
+        y = torch.randn(shape, device=dev, generator=gen) * 3
+        gate = torch.randn((b, rows, 6, c), device=dev, generator=gen)[:, :, 2]
+        bias = torch.randn((c,), device=dev, generator=gen) if with_bias else None
+        _lib.reset_launch_counts()
+        got = gate_residual_cuda(x, y, gate, bias, tokens_per_row=tpr)
+        _finish_within(60, f"K13 table {shape} {dtype}")
+        assert _lib.launch_counts() == {"gate_residual": 1, "gate_residual_rows": 1}
+        want = gate_residual_plain(x, y, gate, bias, tokens_per_row=tpr)
+        assert torch.equal(_bits(got), _bits(want))
+        assert torch.equal(_bits(gate_residual(x, y, gate, bias, tokens_per_row=tpr)),
+                           _bits(want))
+
+
+@pytest.mark.parametrize("with_bias", [False, True], ids=["nobias", "bias"])
+def test_k13_table_backward_matches_the_plain_chains_autograd(dev, gen, with_bias):
+    """K13 under autograd with TI2V-5B's per-frame gate table ([2, 27648,
+    3072], 31 rows of 880 tokens, the gate a column of the [B, 31, 6, C]
+    modulation): one launch through the dispatch, and the output and the
+    gradients of x, y, the modulation and the bias equal bit for bit to
+    autograd through the plain chain's broadcast."""
+    from wanq_tpu_torch.ops.fused import gate_residual, gate_residual_plain
+
+    (b, s, c), tpr, rows = _TABLES[0]
+    x = (torch.randn((b, s, c), device=dev, generator=gen) * 4).bfloat16()
+    y = torch.randn((b, s, c), device=dev, generator=gen) * 3
+    mod = torch.randn((b, rows, 6, c), device=dev, generator=gen)
+    bias = torch.randn((c,), device=dev, generator=gen).bfloat16() if with_bias else None
+    up = torch.randn((b, s, c), device=dev, generator=gen).bfloat16()
+    up[0, 5] = 0.0  # -0 products, which autograd's sum of the table's views makes +0
+    up[1, -1] = 0.0
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_() if t is not None else None
+                  for t in (x, y, mod, bias)]
+        out = fn(leaves[0], leaves[1], leaves[2][:, :, 2], leaves[3], tokens_per_row=tpr)
+        out.backward(up)
+        return [out.detach()] + [t.grad for t in leaves if t is not None]
+
+    _lib.reset_launch_counts()
+    got = run(gate_residual)
+    _finish_within(60, "K13 table backward")
+    assert _lib.launch_counts() == {"gate_residual": 1, "gate_residual_rows": 1}
+    want = run(gate_residual_plain)
+    assert len(got) == len(want)
+    assert all(a.dtype == b.dtype and torch.equal(_bits(a), _bits(b)) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("c", [1536, 5120])
+def test_one_row_calls_are_the_per_sample_form(dev, gen, c):
+    """At Wan2.1's widths the per-sample call ([B, C] operands, the path of
+    the existing cells), a table of one row and a table whose rows are all
+    that row give the same bits, and the per-sample call counts no table
+    rows."""
+    from wanq_tpu_torch.ops.fused import gate_residual_cuda, ln_modulate_quant_cuda
+
+    b, s = 2, 4096
+    x = (torch.randn((b, s, c), device=dev, generator=gen) * 2).bfloat16()
+    y = torch.randn((b, s, c), device=dev, generator=gen)
+    mod = torch.randn((b, 6, c), device=dev, generator=gen) * 0.5
+    _lib.reset_launch_counts()
+    k1 = ln_modulate_quant_cuda(x, mod[:, 0], mod[:, 1])
+    k13 = gate_residual_cuda(x, y, mod[:, 2])
+    assert _lib.launch_counts() == {"ln_modulate_quant": 1, "gate_residual": 1}
+    for rows in (1, 4):
+        tab = mod[:, None].expand(b, rows, 6, c)
+        t1 = ln_modulate_quant_cuda(x, tab[:, :, 0], tab[:, :, 1], tokens_per_row=1024)
+        assert all(torch.equal(g, w) for g, w in zip(t1, k1))
+        t13 = gate_residual_cuda(x, y, tab[:, :, 2], tokens_per_row=1024)
+        assert torch.equal(_bits(t13), _bits(k13))
+
+
+def test_k1_k13_table_wrappers_refuse_rows_past_the_sequence(dev):
+    from wanq_tpu_torch.ops.fused import gate_residual_cuda, ln_modulate_quant_cuda
+
+    x = torch.zeros((2, 64, 48), device=dev, dtype=torch.bfloat16)
+    y = torch.zeros((2, 64, 48), device=dev)
+    tab = torch.zeros((2, 4, 48), device=dev)
+    _lib.reset_launch_counts()
+    for tpr in (None, 0, 22):  # none given; none a row; row 3 would start past token 63
+        with pytest.raises(ValueError):
+            ln_modulate_quant_cuda(x, tab, tab, tokens_per_row=tpr)
+        with pytest.raises(ValueError):
+            gate_residual_cuda(x, y, tab, tokens_per_row=tpr)
+    with pytest.raises(ValueError):  # shift and scale of different rows
+        ln_modulate_quant_cuda(x, tab, tab[:, :2], tokens_per_row=16)
+    assert not _lib.launch_counts()
+
+
+def test_ti2v_blocks_on_the_card_read_the_table(dev):
+    """Two blocks of TI2V-5B's widths on W8A8's fused routes, per-frame
+    timesteps over 3 latent frames of 20 tokens and 4 pad tokens: the forward
+    launches K1 and K13 with the table (2 of 3 a block each) and runs the time
+    MLP on its two distinct timesteps; a block and the head give the bits of
+    the per-token form (the table gathered to one row a token)."""
+    import dataclasses
+    import os
+
+    from wanq_tpu_torch.configs import WAN_CONFIGS
+    from wanq_tpu_torch.models import dit as tdit
+    from wanq_tpu_torch.quant import QuantConfig
+    from wanq_tpu_torch.quant.ptq import prepare_quant_state
+    from wanq_tpu_torch.quant.qlinear import QuantCtx
+
+    cfg = dataclasses.replace(WAN_CONFIGS["ti2v-5B"], num_layers=2)
+    params = tdit.init_params_on_device(cfg, 5, device=dev)
+    params["head"]["head"]["w"].normal_(0.0, 0.02)
+    qcfg = QuantConfig.from_yaml(os.path.join(os.path.dirname(__file__), "..",
+                                              "quant_configs", "wan_w8a8_speed.yaml"))
+    rng = np.random.default_rng(0)
+    calib = {}
+    for name in tdit.linear_layer_names(cfg):
+        if name.endswith("ffn.2"):
+            calib[f"{name}.act_max"] = np.abs(rng.normal(size=(1, cfg.ffn_dim))).astype(np.float32)
+            calib[f"{name}.act_min"] = -calib[f"{name}.act_max"]
+    pol, st, rot = prepare_quant_state(params, tdit.linear_layer_names(cfg), qcfg, calib=calib,
+                                       targets="int8")
+    ctx = QuantCtx(mode="int8", policies=pol, state=st, rotations=rot)
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn((2, 48, 3, 8, 10), device=dev, generator=g)
+    text = torch.randn((2, cfg.text_len, cfg.text_dim), device=dev, generator=g)
+    t = torch.full((2, 3), 900.0)
+    t[:, 0] = 0.0
+    _lib.reset_launch_counts()
+    with torch.no_grad():
+        out = tdit.dit_forward(params, cfg, x, t, text, 64, ctx=ctx)
+    _finish_within(120, "TI2V forward")
+    counts = _lib.launch_counts()
+    assert counts["ln_modulate_quant"] == 6 and counts["ln_modulate_quant_rows"] == 4
+    assert counts["gate_residual"] == 6 and counts["gate_residual_rows"] == 4
+    assert counts["time_embedding_rows"] == 2 and torch.isfinite(out).all()
+
+    e, e0 = tdit.time_embedding(params, cfg, t)
+    idx = torch.clamp(torch.arange(64, device=dev) // 20, max=2)
+    xs = (torch.randn((2, 64, cfg.dim), device=dev, generator=g) * 0.5).bfloat16()
+    c = (torch.randn((2, cfg.text_len, cfg.dim), device=dev, generator=g)).bfloat16()
+    cos, sin = tdit._rope_tables_on((3, 4, 5), cfg.head_dim, dev)
+    with torch.no_grad():
+        frames = tdit.block_forward(params["blocks"][0], "blocks.0", ctx, xs, e0, c, cfg, cos,
+                                    sin, 60, tokens_per_row=20)
+        tokens = tdit.block_forward(params["blocks"][0], "blocks.0", ctx, xs, e0[:, idx], c,
+                                    cfg, cos, sin, 60, tokens_per_row=1)
+        head_f = tdit.head_forward(params, xs, e, cfg, ctx, tokens_per_row=20)
+        head_t = tdit.head_forward(params, xs, e[:, idx], cfg, ctx, tokens_per_row=1)
+    assert torch.equal(_bits(frames), _bits(tokens))
+    assert torch.equal(head_f, head_t)
+
+
+def test_k1_copies_operands_it_cannot_read_where_they_lie(dev, gen):
+    """A shift or scale off 16 bytes, or with a row stride the kernel cannot
+    take, is copied (not refused, as before the table); the bits stay."""
+    from wanq_tpu_torch.ops.fused import ln_modulate_quant_cuda
+
+    x = torch.randn((2, 40, 64), device=dev, generator=gen).bfloat16()
+    mod = torch.randn((2, 64), device=dev, generator=gen)
+    off = torch.zeros(2 * 64 + 1, device=dev)[1:].view(2, 64)  # 4 bytes off 16
+    off.copy_(mod)
+    odd = torch.zeros((2, 66), device=dev)[:, :64]  # a row stride of 66 floats
+    odd.copy_(mod)
+    want = ln_modulate_quant_cuda(x, mod, mod * 0.5)
+    for t in (off, odd):
+        got = ln_modulate_quant_cuda(x, t, t * 0.5 if t is odd else mod * 0.5)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    got = ln_modulate_quant_cuda(x, off, odd * 0.5)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))

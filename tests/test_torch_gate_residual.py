@@ -323,3 +323,92 @@ def test_training_gradients_through_k13_unchanged(monkeypatch, entry):
     assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, want))
     with torch.no_grad():
         assert torch.equal(_bits(teacher), _bits(forward()))
+
+
+def _table_operands(dtype, seed=12, b=2, s=37, c=48, rows=8):
+    """A per-frame gate table (a column of a [B, R, 6, C] modulation) with
+    ragged rows: 8 rows of 5 tokens over 37, the last row taking 2 more."""
+    x, y, _, bias = _operands(dtype, b=b, s=s, c=c, seed=seed)
+    mod = torch.randn((b, rows, 6, c), generator=torch.Generator().manual_seed(seed + 1))
+    return x, y, mod, bias
+
+
+@pytest.mark.parametrize("asked", ["xygb", "y", "g", "xb"])
+@pytest.mark.parametrize("with_bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_table_backward_is_the_plain_chains_gradients(monkeypatch, dtype, with_bias, asked):
+    """K13 under autograd with a gate table of rows of tokens_per_row tokens
+    (the card's route for per-frame timesteps) against autograd through the
+    plain chain's broadcast: equal output and gradients, the gate's summed
+    over each row's tokens into the modulation it is a column of."""
+    if not with_bias and "b" in asked:
+        asked = asked.replace("b", "")
+    x, y, mod, bias = _table_operands(dtype)
+    bias = bias if with_bias else None
+    up = (torch.randn(x.shape, generator=torch.Generator().manual_seed(8)) * 2).to(dtype)
+    # zeros upstream: a product with a negative gate is -0, which autograd's
+    # sum of the table's two views turns to +0
+    up[0, 3] = 0.0
+    up[1, 36] = 0.0
+    calls = _kernel_is_plain(monkeypatch)
+
+    def run(fn):
+        ins = [t.clone().requires_grad_(k in asked) if t is not None else None
+               for t, k in ((x, "x"), (y, "y"), (mod, "g"), (bias, "b"))]
+        out = fn(ins[0], ins[1], ins[2][:, :, 2], ins[3], 5)
+        out.backward(up)
+        return [out.detach()] + [None if t is None else t.grad for t in ins]
+
+    got = run(fused._GateResidual.apply)
+    assert len(calls) == 1 and calls[0][4] == 5
+    want = run(fused.gate_residual_plain)
+    for g_got, g_want, k in zip(got, want, "oxygb"):
+        assert (g_got is None) == (g_want is None), k
+        if g_want is not None:
+            assert g_got.dtype == g_want.dtype and torch.equal(_bits(g_got), _bits(g_want)), k
+
+
+def test_dispatch_takes_the_kernel_for_a_table_under_grad(monkeypatch):
+    """A card tensor with a gate table that asks for gradients goes through
+    K13's autograd function, not the plain chain."""
+    x, y, mod, bias = _table_operands(torch.bfloat16)
+    calls = _kernel_is_plain(monkeypatch)
+    mod.requires_grad_(True)
+    out = fused.gate_residual(x.as_subclass(_OnCard), y, mod[:, :, 2], bias, tokens_per_row=5)
+    assert len(calls) == 1 and type(out.grad_fn).__name__ == "_GateResidualBackward"
+    assert torch.equal(_bits(out.detach().as_subclass(torch.Tensor)),
+                       _bits(fused.gate_residual_plain(x, y, mod[:, :, 2].detach(), bias,
+                                                       tokens_per_row=5)))
+
+
+def test_training_table_gradients_through_k13(monkeypatch):
+    """A training block reading a per-frame modulation table (3 rows of 20
+    tokens, 4 pad tokens on the last row) with every residual update through
+    K13's autograd function, against the plain chain: output and gradients
+    equal bit for bit."""
+    cfg = tiny_config(**SMALL, **BF16)
+    p = tdit.init_params(cfg, 6, device="cpu")
+    bp = p["blocks"][1]
+    x0, _, c, ca, sb = _block_inputs(cfg)
+    tab = torch.randn((2, 3, 6, cfg.dim), generator=torch.Generator().manual_seed(3)) * 0.1
+    leaves = [bp["modulation"], bp["self_attn"]["o"]["b"], bp["ffn"]["2"]["w"]]
+
+    def grads():
+        for leaf in leaves:
+            leaf.grad = None
+            leaf.requires_grad_(True)
+        x, e = x0.clone().requires_grad_(True), tab.clone().requires_grad_(True)
+        out = tdit.block_forward(bp, "blocks.1", None, x, e, c, cfg, ca, sb, 60,
+                                 training=True, tokens_per_row=20)
+        out.float().square().sum().backward()
+        return [out.detach(), x.grad, e.grad] + [t_.grad.clone() for t_ in leaves]
+
+    calls = _kernel_is_plain(monkeypatch)
+    monkeypatch.setattr(tdit, "gate_residual",
+                        lambda x, y, gate=None, bias=None, tokens_per_row=None:
+                        fused._GateResidual.apply(x, y, gate, bias, tokens_per_row))
+    got = grads()
+    assert len(calls) == 3 and [a[4] for a in calls] == [20, None, 20]
+    monkeypatch.setattr(tdit, "gate_residual", fused.gate_residual_plain)
+    want = grads()
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, want))

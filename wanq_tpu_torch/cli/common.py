@@ -272,10 +272,39 @@ def check_device(device: str) -> None:
 
 def require_t2v(args, cli: str) -> None:
     """fp_generate, quant_generate and get_calib_data drive the text-to-video
-    pipeline, as wanq_tpu's do: an i2v task runs through cli.generate."""
+    pipeline (ti2v's image-to-video through :func:`denoise_pipeline`), as
+    wanq_tpu's do: an i2v task runs through cli.generate."""
     if WAN_CONFIGS[args.task].model_type == "i2v":
         raise SystemExit(f"{cli} serves t2v / t2i tasks; run {args.task} through "
                          "cli.generate --image")
+
+
+def denoise_pipeline(args, cfg, params, quant_ctx, plan=None):
+    """The pipeline fp_generate, quant_generate and get_calib_data drive:
+    WanT2V, or for a ti2v task WanTI2V, which runs image-to-video when given
+    :func:`conditioning`'s latent (one card: a sharding plan refuses)."""
+    if cfg.model_type == "ti2v":
+        if plan is not None:
+            raise SystemExit(f"--task {args.task} runs on one card: its per-frame timesteps "
+                             "have no sharded (sp / ring / dp / fsdp) path")
+        from wanq_tpu_torch.pipelines.textimage2video import WanTI2V
+
+        return WanTI2V(cfg, params, quant_ctx=quant_ctx, device=args.device)
+    from wanq_tpu_torch.pipelines.text2video import WanT2V
+
+    return WanT2V(cfg, params, quant_ctx=quant_ctx, device=args.device, shardings=plan)
+
+
+def conditioning(cfg, size, seed: int) -> dict:
+    """``generate``'s conditioning keywords: for a ti2v task the image's
+    latent [z_dim, 1, h, w] as a seeded N(0, 1) draw, in place of the Wan2.2
+    VAE's encoding (that VAE is not in the repository); none for the other
+    tasks."""
+    if cfg.model_type != "ti2v":
+        return {}
+    rng = np.random.default_rng(seed)
+    z = rng.normal(size=(cfg.z_dim, 1, size[1] // cfg.vae_stride[1], size[0] // cfg.vae_stride[2]))
+    return {"cond_latent": torch.from_numpy(z.astype(np.float32))}
 
 
 def setup_logging():

@@ -23,7 +23,9 @@ from wanq_tpu_torch.cli.common import (
     add_common_args,
     build_mesh_and_plan,
     cache_policy_from_args,
+    conditioning,
     decode_video,
+    denoise_pipeline,
     free_device_memory,
     load_contexts,
     load_params,
@@ -37,7 +39,6 @@ from wanq_tpu_torch.cli.common import (
 )
 from wanq_tpu_torch.configs import SIZE_CONFIGS, WAN_CONFIGS
 from wanq_tpu_torch.parallel.launch import is_main_rank
-from wanq_tpu_torch.pipelines.text2video import WanT2V
 from wanq_tpu_torch.quant.qlinear import QuantCtx
 
 
@@ -66,20 +67,22 @@ def generate(args, on_step=None):
     win = parse_attn_window(args)
     # an fp-mode ctx carries only the temporal window
     qctx = QuantCtx(mode="fp", attn_window=win) if win is not None else None
-    pipe = WanT2V(cfg, params, quant_ctx=qctx, device=args.device, shardings=plan)
+    pipe = denoise_pipeline(args, cfg, params, qctx, plan)
     t0 = synced_time(args.device)
     latents = pipe.generate(
         torch.from_numpy(context), torch.from_numpy(context_null),
         size=SIZE_CONFIGS[args.size], frame_num=args.frame_num, shift=args.sample_shift,
         sample_solver=args.sample_solver, sampling_steps=args.sample_steps,
         guide_scale=args.sample_guide_scale, seed=args.base_seed,
-        cache_policy=cache_policy_from_args(args), cfg_mode=args.cfg_mode, on_step=on_step)
+        cache_policy=cache_policy_from_args(args), cfg_mode=args.cfg_mode, on_step=on_step,
+        **conditioning(cfg, SIZE_CONFIGS[args.size], args.base_seed))
     logging.info("denoise done in %.2fs, latents %s", synced_time(args.device) - t0,
                  tuple(latents.shape))
     if not is_main_rank():
         return None
     out = {"latents": latents.cpu().numpy()}
-    vae = load_vae(args, cfg) if args.ckpt_dir else None
+    # the Wan2.2 VAE a ti2v task decodes with is not in the repository
+    vae = load_vae(args, cfg) if args.ckpt_dir and cfg.model_type != "ti2v" else None
     if vae is not None:
         del pipe, params  # the decode gets the DiT's memory
         free_device_memory(args.device)

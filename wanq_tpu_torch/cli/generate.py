@@ -17,6 +17,16 @@ encodes it as the first frame (``--vae_dtype``, which the decode uses too),
 and ``--size`` sets the pixel area the image's aspect is fitted into. Without
 --ckpt_dir the CLIP features and the VAE latents are seeded random draws.
 
+ti2v-5B (Wan2.2 TI2V-5B) runs image-to-video on a seeded random conditioning
+latent (latent frame 0 held, its tokens at t = 0):
+
+    python -m wanq_tpu_torch.cli.generate --task ti2v-5B --size 1280*704 \
+        --frame_num 121 --random_init --quant_config ... --hardware
+
+The Wan2.2 VAE (48 channels, 16x spatial), which would encode ``--image`` and
+decode the video, is not in the repository: ``--image`` is refused, and the
+npz holds the latents only.
+
 ``--prompt_file`` serves one prompt per line from one process: the DiT and
 its quant state load once, one T5 encoder encodes every prompt and is freed
 before the first denoise, and each prompt gets its own npz (and video file).
@@ -40,7 +50,9 @@ from wanq_tpu_torch.cli.common import (
     add_common_args,
     build_mesh_and_plan,
     cache_policy_from_args,
+    conditioning,
     decode_video,
+    denoise_pipeline,
     free_device_memory,
     load_contexts,
     load_params,
@@ -192,6 +204,15 @@ def _i2v_latents(args, cfg, params, qctx, image, context, context_null, common, 
     return latents, vae
 
 
+def _ti2v_latents(args, cfg, params, qctx, context, context_null, common, on_step):
+    """The latents of a ti2v run: image-to-video on a seeded N(0, 1)
+    conditioning latent [z_dim, 1, h, w] in place of the Wan2.2 VAE's."""
+    size = SIZE_CONFIGS[args.size]
+    pipe = denoise_pipeline(args, cfg, params, qctx)
+    return pipe.generate(torch.from_numpy(context), torch.from_numpy(context_null), size=size,
+                         on_step=on_step, **conditioning(cfg, size, args.base_seed), **common)
+
+
 def generate(args, on_step=None, image=None):
     """Returns the npz path (a list of them with --prompt_file).
     ``on_step(i, t, latents)`` runs after each solver step. ``image``: an
@@ -202,6 +223,15 @@ def generate(args, on_step=None, image=None):
     setup_logging()
     cfg = WAN_CONFIGS[args.task]
     i2v = cfg.model_type == "i2v"
+    ti2v = cfg.model_type == "ti2v"
+    if ti2v and (args.image or image is not None):
+        raise SystemExit(f"--task {args.task} --image needs the Wan2.2 VAE (48 channels, 16x "
+                         "spatial) to encode the image, which this repository does not have yet; "
+                         "without --image the conditioning latent is a seeded random draw")
+    if ti2v and (plan is not None or args.prompt_file):
+        raise SystemExit(f"--task {args.task} runs on one card, one prompt a process: its "
+                         "per-frame timesteps have no sharded (sp / ring / dp / fsdp) path and "
+                         "the serving loop is for t2v / t2i")
     if args.task.startswith("t2i"):
         args.frame_num = 1
     if i2v and args.prompt_file:
@@ -238,6 +268,10 @@ def generate(args, on_step=None, image=None):
         latents, vae = _i2v_latents(args, cfg, params, qctx, image, context, context_null,
                                     common, on_step, plan)
         pipe = None
+    elif ti2v:
+        t0 = synced_time(args.device)
+        latents = _ti2v_latents(args, cfg, params, qctx, context, context_null, common, on_step)
+        pipe = vae = None
     else:
         pipe = WanT2V(cfg, params, quant_ctx=qctx, device=args.device, shardings=plan)
         vae = load_vae(args, cfg) if args.ckpt_dir and is_main_rank() else None

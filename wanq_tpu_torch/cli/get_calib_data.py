@@ -45,6 +45,8 @@ import torch
 from wanq_tpu_torch.cli.common import (
     add_common_args,
     build_mesh_and_plan,
+    conditioning,
+    denoise_pipeline,
     load_contexts,
     load_params,
     require_t2v,
@@ -53,7 +55,6 @@ from wanq_tpu_torch.cli.common import (
 )
 from wanq_tpu_torch.configs import SIZE_CONFIGS, WAN_CONFIGS
 from wanq_tpu_torch.parallel.launch import is_main_rank
-from wanq_tpu_torch.pipelines.text2video import WanT2V
 from wanq_tpu_torch.quant import QuantConfig
 from wanq_tpu_torch.quant.qlinear import QuantCtx
 
@@ -101,10 +102,9 @@ def generate(args):
     plan = build_mesh_and_plan(args)
     params = load_params(args, cfg, plan)
     context, context_null = load_contexts(args, cfg, plan)
-    pipe = WanT2V(cfg, params, quant_ctx=QuantCtx(
+    pipe = denoise_pipeline(args, cfg, params, QuantCtx(
         mode="calib", collect_minmax=args.collect_minmax, attn_map_pool=args.attn_map_pool,
-        attn_map_reduce=args.attn_map_reduce, hessian_regex=args.collect_hessian),
-        device=args.device, shardings=plan)
+        attn_map_reduce=args.attn_map_reduce, hessian_regex=args.collect_hessian), plan)
     t0 = time.time()
     rounds = max(1, args.calib_rounds)
     stats = {}
@@ -114,7 +114,7 @@ def generate(args):
             size=size, frame_num=args.frame_num, shift=args.sample_shift,
             sample_solver=args.sample_solver, sampling_steps=args.sample_steps,
             guide_scale=args.sample_guide_scale,
-            seed=args.base_seed + rnd,
+            seed=args.base_seed + rnd, **conditioning(cfg, size, args.base_seed + rnd),
         )
         for k, v in one.items():
             if k not in stats:

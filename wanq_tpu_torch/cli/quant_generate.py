@@ -71,6 +71,8 @@ from wanq_tpu_torch.cli.common import (
     add_common_args,
     build_mesh_and_plan,
     cache_policy_from_args,
+    conditioning,
+    denoise_pipeline,
     load_contexts,
     load_params,
     parse_attn_window,
@@ -82,7 +84,6 @@ from wanq_tpu_torch.configs import SIZE_CONFIGS, WAN_CONFIGS
 from wanq_tpu_torch.models.dit import linear_layer_names
 from wanq_tpu_torch.parallel.launch import is_main_rank
 from wanq_tpu_torch.parallel.sharding import shard_params
-from wanq_tpu_torch.pipelines.text2video import WanT2V
 from wanq_tpu_torch.quant import QuantConfig
 from wanq_tpu_torch.quant.ptq import (
     load_quant_state,
@@ -210,14 +211,14 @@ def generate(args, on_step=None):
                    attn_window=parse_attn_window(args))
 
     context, context_null = load_contexts(args, cfg, plan)
-    pipe = WanT2V(cfg, params, quant_ctx=ctx, device=args.device, shardings=plan)
+    pipe = denoise_pipeline(args, cfg, params, ctx, plan)
     t0 = time.time()
     latents = pipe.generate(
         torch.from_numpy(context), torch.from_numpy(context_null), size=size,
         frame_num=args.frame_num, shift=args.sample_shift, sample_solver=args.sample_solver,
         sampling_steps=args.sample_steps, guide_scale=args.sample_guide_scale,
         seed=args.base_seed, cache_policy=cache_policy, cfg_mode=args.cfg_mode,
-        on_step=on_step,
+        on_step=on_step, **conditioning(cfg, size, args.base_seed),
     )
     if latents.is_cuda:
         torch.cuda.synchronize()

@@ -12,7 +12,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class WanConfig:
     name: str = "t2v-1.3B"
-    model_type: str = "t2v"  # 't2v' | 'i2v'
+    model_type: str = "t2v"  # 't2v' | 'i2v' | 'ti2v'
 
     # t5
     t5_model: str = "umt5_xxl"
@@ -86,11 +86,22 @@ i2v_14B = WanConfig(
 
 t2i_14B = dataclasses.replace(t2v_14B, name="t2i-14B")
 
+# Wan2.2's TI2V-5B (config.json and wan/configs/wan_ti2v_5B.py of the Wan2.2
+# release): per-frame timesteps, frame 0 held to the image's latent in
+# image-to-video mode (pipelines/textimage2video.py); the Wan2.2 VAE (48
+# channels, 16x spatial) is not in the repository
+ti2v_5B = WanConfig(
+    name="ti2v-5B", model_type="ti2v", residual_dtype="bfloat16", dim=3072, ffn_dim=14336,
+    num_heads=24, num_layers=30, in_dim=48, out_dim=48, z_dim=48, vae_stride=(4, 16, 16),
+    vae_checkpoint="Wan2.2_VAE.pth", sample_fps=24,
+)
+
 WAN_CONFIGS: Dict[str, WanConfig] = {
     "t2v-1.3B": t2v_1_3B,
     "t2v-14B": t2v_14B,
     "i2v-14B": i2v_14B,
     "t2i-14B": t2i_14B,
+    "ti2v-5B": ti2v_5B,
 }
 
 SIZE_CONFIGS: Dict[str, Tuple[int, int]] = {
@@ -99,6 +110,8 @@ SIZE_CONFIGS: Dict[str, Tuple[int, int]] = {
     "480*832": (480, 832),
     "832*480": (832, 480),
     "1024*1024": (1024, 1024),
+    "1280*704": (1280, 704),
+    "704*1280": (704, 1280),
     "64*64": (64, 64),
 }
 
@@ -129,5 +142,6 @@ SUPPORTED_SIZES: Dict[str, Tuple[str, ...]] = {
     "t2v-1.3B": ("480*832", "832*480"),
     "i2v-14B": ("720*1280", "1280*720", "480*832", "832*480"),
     "t2i-14B": tuple(SIZE_CONFIGS.keys()),
+    "ti2v-5B": ("1280*704", "704*1280"),
     "tiny": tuple(SIZE_CONFIGS.keys()),
 }

@@ -4,9 +4,11 @@
 //
 // x [B, S, C] is the residual stream (bf16 on the shipped configs, f32 on the
 // small ones), y [B, S, C] f32 the sub-layer's output (qlinear's f32 on every
-// route), gate f32 [B, C] (a row stride of its own: the block passes a view of
-// its [B, 6, C] modulation) and bias f32 [C] each optional; out is a new
-// tensor of x's dtype. A block runs it three times: after self-attention with
+// route), gate f32 rows of C (one a sample, or a table of R rows a sample, row
+// r serving tokens [r * tpr, (r + 1) * tpr) and the last row the rest: Wan2.2's
+// per-frame timesteps, a row a latent frame; batch and row strides of their
+// own, so the block passes a view of its [B, (R,) 6, C] modulation) and bias
+// f32 [C] each optional; out is a new tensor of x's dtype. A block runs it three times: after self-attention with
 // the gate e2, after cross-attention with none, after the ffn with e5; where an
 // o projection runs FP, its f32 bias comes here instead of a pass of its own.
 //
@@ -80,15 +82,19 @@ struct Params {
   const void* x;
   const float* y;
   const float* bias;  // [C] or null
-  const float* gate;  // [B, gate_stride] or null
+  const float* gate;  // rows of C or null
   void* out;
-  long long gate_stride;
+  long long gate_stride;      // floats between samples' rows
+  long long gate_row_stride;  // floats between a sample's rows (a table)
   unsigned n_vecs;      // B * S * C / 8, below 2^31
   unsigned row_vecs;    // C / 8
   unsigned batch_vecs;  // S * C / 8
+  unsigned rows, tpr;   // table rows a sample (> 1 with kRows), tokens a row
 };
 
-template <typename T, bool kBias, bool kGate>
+// kRows: the gate is a table of rows; without it, one row a sample (the
+// Wan2.1 form, which computes no token index)
+template <typename T, bool kBias, bool kGate, bool kRows>
 __global__ void __launch_bounds__(kThreads) gate_residual_kernel(Params p) {
   const T* x = static_cast<const T*>(p.x);
   T* out = static_cast<T*>(p.out);
@@ -123,7 +129,13 @@ __global__ void __launch_bounds__(kThreads) gate_residual_kernel(Params p) {
     }
     if constexpr (kGate) {
       float gv[8];
-      load8_f32(p.gate + (long long)(v / p.batch_vecs) * p.gate_stride + c0, gv);
+      const unsigned b = v / p.batch_vecs;
+      const float* g = p.gate + (long long)b * p.gate_stride + c0;
+      if constexpr (kRows) {
+        const unsigned tok = (v - b * p.batch_vecs) / p.row_vecs;
+        g += (long long)min(tok / p.tpr, p.rows - 1) * p.gate_row_stride;
+      }
+      load8_f32(g, gv);
 #pragma unroll
       for (int e = 0; e < 8; ++e) t[e] = __fmul_rn(t[e], gv[e]);
     }
@@ -140,14 +152,19 @@ __global__ void __launch_bounds__(kThreads) gate_residual_kernel(Params p) {
 template <typename T>
 cudaError_t run(const Params& p, cudaStream_t st) {
   const unsigned blocks = (p.n_vecs + kThreads * kVecs - 1) / (kThreads * kVecs);
-  if (p.bias && p.gate) {
-    gate_residual_kernel<T, true, true><<<blocks, kThreads, 0, st>>>(p);
+  const bool table = p.gate && p.rows > 1;
+  if (p.bias && table) {
+    gate_residual_kernel<T, true, true, true><<<blocks, kThreads, 0, st>>>(p);
+  } else if (table) {
+    gate_residual_kernel<T, false, true, true><<<blocks, kThreads, 0, st>>>(p);
+  } else if (p.bias && p.gate) {
+    gate_residual_kernel<T, true, true, false><<<blocks, kThreads, 0, st>>>(p);
   } else if (p.bias) {
-    gate_residual_kernel<T, true, false><<<blocks, kThreads, 0, st>>>(p);
+    gate_residual_kernel<T, true, false, false><<<blocks, kThreads, 0, st>>>(p);
   } else if (p.gate) {
-    gate_residual_kernel<T, false, true><<<blocks, kThreads, 0, st>>>(p);
+    gate_residual_kernel<T, false, true, false><<<blocks, kThreads, 0, st>>>(p);
   } else {
-    gate_residual_kernel<T, false, false><<<blocks, kThreads, 0, st>>>(p);
+    gate_residual_kernel<T, false, false, false><<<blocks, kThreads, 0, st>>>(p);
   }
   return cudaGetLastError();
 }
@@ -155,16 +172,22 @@ cudaError_t run(const Params& p, cudaStream_t st) {
 }  // namespace
 
 // x, out: [B, S, C] bf16 (x_bf16) or f32; y f32 [B, S, C]; bias f32 [C] or
-// null; gate f32 rows of C at a stride of gate_stride floats, or null. Every
-// pointer 16-byte aligned, C a multiple of 8 and gate_stride of 4, B * S * C /
-// 8 below 2^31.
+// null; gate f32 rows of C, or null: `rows` a sample, sample b's row r at b *
+// gate_stride + r * gate_row_stride floats (either stride may be 0: a row
+// broadcast), row r serving tokens [r * tpr, (r + 1) * tpr), the last the
+// rest, (rows - 1) * tpr < S (one row a sample: tpr and gate_row_stride
+// unread). Every pointer 16-byte aligned, C a
+// multiple of 8 and the strides of 4, B * S * C / 8 below 2^31.
 WANQ_API int wanq_gate_residual(const void* x, int x_bf16, const void* y, const void* bias,
-                                const void* gate, long long gate_stride, void* out,
+                                const void* gate, long long gate_stride,
+                                long long gate_row_stride, int rows, long long tpr, void* out,
                                 long long batches, long long seq, int C, void* stream) {
   const long long n = batches * seq * (long long)C;
   if (n == 0) return 0;
-  if (C <= 0 || C % 8 != 0 || batches < 0 || seq < 0 || n / 8 >= (1LL << 31) ||
-      (gate && (gate_stride < C || gate_stride % 4 != 0)))
+  if (C <= 0 || C % 8 != 0 || batches < 0 || seq < 0 || n / 8 >= (1LL << 31) || rows < 1 ||
+      (gate && (gate_stride < 0 || gate_stride % 4 != 0)) ||
+      (gate && rows > 1 && (gate_row_stride < 0 || gate_row_stride % 4 != 0 || tpr < 1 ||
+                            (rows - 1) * tpr >= seq)))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.x = x;
@@ -173,6 +196,9 @@ WANQ_API int wanq_gate_residual(const void* x, int x_bf16, const void* y, const 
   p.gate = static_cast<const float*>(gate);
   p.out = out;
   p.gate_stride = gate_stride;
+  p.gate_row_stride = gate_row_stride;
+  p.rows = gate ? (unsigned)rows : 1u;
+  p.tpr = rows > 1 ? (unsigned)tpr : 1u;
   p.n_vecs = (unsigned)(n / 8);
   p.row_vecs = (unsigned)(C / 8);
   p.batch_vecs = (unsigned)(seq * C / 8);

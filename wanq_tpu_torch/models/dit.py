@@ -1,4 +1,5 @@
-"""Wan2.1 DiT backbone in PyTorch (counterpart of wanq_tpu/models/dit.py).
+"""Wan2.1 / Wan2.2 DiT backbone in PyTorch (counterpart of
+wanq_tpu/models/dit.py).
 
 Params are a plain dict tree whose paths mirror the reference module names
 ("blocks.0.self_attn.q", ...), with linear weights ``w`` [C_in, C_out] as
@@ -27,6 +28,17 @@ JAX's unfused chain):
 
 Sites whose policy is not fusable (W4A4: 4-bit activations; every site in
 sim mode) take the unfused chain through ``qlinear`` (K9 for W4A4).
+
+Per-frame timesteps (Wan2.2 TI2V, ``model_type == "ti2v"``; any model
+takes them): ``dit_forward`` takes t [B, F], one timestep a latent frame (the
+pad tokens take the last frame's). The time MLP runs once for each distinct
+value of t (:func:`time_embedding`), and the blocks and the head read a
+per-frame table [B, F, (6,) C] of the modulation, each row serving a frame's
+tokens: K1 and K13 index it (``ops/fused.py``), the plain routes broadcast it
+per frame (``ops/fused.py::by_rows``). Wan2.2 computes the same numbers per
+token, e0 [B, L, 6, C] (4 GiB at TI2V-5B's 1280x704x121) and its sum with each
+block's modulation again in every block; nothing of that size is made here.
+A t of one timestep a sample is the per-sample form, a table of one row.
 
 I2V (``model_type == "i2v"``): ``dit_forward`` takes ``y`` (concatenated to
 the latents on channels) and ``clip_fea`` (an FP MLP puts its 257 tokens in
@@ -110,10 +122,12 @@ from wanq_tpu_torch.models.rope import (
     rope_apply_interleaved,
     rope_tables_interleaved,
 )
+from wanq_tpu_torch.ops import _lib
 from wanq_tpu_torch.ops.fused import (
     gate_residual,
     ln_modulate_quant,
     ln_modulate_quant_static,
+    modulate,
 )
 from wanq_tpu_torch.ops.attn_int8 import attention_int8
 from wanq_tpu_torch.ops.rmsnorm_rope import (
@@ -614,16 +628,23 @@ def block_forward(p: Params, name: str, ctx: Optional[QuantCtx], x: torch.Tensor
                   e: torch.Tensor, context: torch.Tensor, cfg: WanConfig,
                   cos: torch.Tensor, sin: torch.Tensor, valid_len: int,
                   tables: Optional[SelfAttnTables] = None, training: bool = False,
-                  plan=None) -> torch.Tensor:
-    """One transformer block. x [B, L, C] in the residual dtype; ``tables``:
+                  plan=None, tokens_per_row: Optional[int] = None) -> torch.Tensor:
+    """One transformer block. x [B, L, C] in the residual dtype; e the time
+    modulation [B, 6, C], or a per-frame table [B, F, 6, C] whose rows serve
+    ``tokens_per_row`` tokens each (the last row the rest); ``tables``:
     the forward's K3 tables (built by the self-attention when not given);
     ``training``: no fused producer, the differentiable attention; ``plan``:
     x holds this rank's tokens (see :func:`_self_attention`). Each sub-layer's
     f32 output joins the residual in one pass (K13 on the card, training
     included: its backward is the plain chain's)."""
     dtype = cfg.dtype
+    tpr = tokens_per_row
+    # the table's keyword for K1 and K13, none with one row a sample (their
+    # per-sample calls as they were)
+    rows = {} if tpr is None else {"tokens_per_row": tpr}
+    # [B, 6, C] or [B, F, 6, C]: each of the six a [B, C] or [B, F, C] view
     ee = p["modulation"].float() + e.float()
-    e0, e1, e2, e3, e4, e5 = [ee[:, i] for i in range(6)]
+    e0, e1, e2, e3, e4, e5 = [ee[..., i, :] for i in range(6)]
 
     qkv_sites = [f"{name}.self_attn.{leaf}" for leaf in ("q", "k", "v")]
     cq_site = f"{name}.cross_attn.q"
@@ -637,22 +658,22 @@ def block_forward(p: Params, name: str, ctx: Optional[QuantCtx], x: torch.Tensor
             # static-scale producer: plain PyTorch (its kernel is not ported;
             # the W8A8 speed config keeps q/k/v dynamic)
             prequant = ln_modulate_quant_static(
-                x, e0, e1, ctx.state[qkv_sites[0]]["delta_a"], eps=cfg.eps)
+                x, e0, e1, ctx.state[qkv_sites[0]]["delta_a"], eps=cfg.eps, **rows)
             y, ob = _self_attention(p["self_attn"], f"{name}.self_attn", ctx, None, cfg,
                                     cos, sin, valid_len, dtype, prequant=prequant,
                                     tables=tables, plan=plan, split_o_bias=True)
         elif int8_fusable(fused, qkv_sites):
-            prequant = ln_modulate_quant(x, e0, e1, eps=cfg.eps)
+            prequant = ln_modulate_quant(x, e0, e1, eps=cfg.eps, **rows)
             y, ob = _self_attention(p["self_attn"], f"{name}.self_attn", ctx, None, cfg,
                                     cos, sin, valid_len, dtype, prequant=prequant,
                                     tables=tables, plan=plan, split_o_bias=True)
         else:
-            xn1 = _recomputed(training, lambda x_: (
-                layer_norm(x_, cfg.eps) * (1.0 + e1[:, None, :]) + e0[:, None, :]).to(dtype), x)
+            xn1 = _recomputed(training, lambda x_: modulate(
+                layer_norm(x_, cfg.eps), e0, e1, tpr).to(dtype), x)
             y, ob = _self_attention(p["self_attn"], f"{name}.self_attn", ctx, xn1, cfg,
                                     cos, sin, valid_len, dtype, tables=tables,
                                     training=training, plan=plan, split_o_bias=True)
-    x = gate_residual(x, y, e2, ob)
+    x = gate_residual(x, y, e2, ob, **rows)
 
     with span(CROSS_ATTN):
         if cq_static or (cfg.cross_attn_norm and int8_fusable(fused, [cq_site])):
@@ -684,27 +705,30 @@ def block_forward(p: Params, name: str, ctx: Optional[QuantCtx], x: torch.Tensor
                 int8_static_fusable(fused, ffn_sites[1])
                 or int8_fusable(fused, [ffn_sites[1]], allow_mask=True)):
             h8, s_a, ssum = ln_modulate_quant(
-                x, e3, e4, eps=cfg.eps, channel_scale=ctx.state[ffn_sites[0]].get("channel_mask"))
+                x, e3, e4, eps=cfg.eps, channel_scale=ctx.state[ffn_sites[0]].get("channel_mask"),
+                **rows)
             h8b, s2, sm2 = ffn0_gelu_quant_from_prequant(
                 ctx, ffn_sites[0], ffn_sites[1], p["ffn"]["0"], h8, s_a, ssum)
             y = w8a8_from_prequant(ctx, ffn_sites[1], p["ffn"]["2"], h8b, s2, sm2)
         else:
             def ffn_in(x_):
-                xn2 = layer_norm(x_, cfg.eps) * (1.0 + e4[:, None, :]) + e3[:, None, :]
+                xn2 = modulate(layer_norm(x_, cfg.eps), e3, e4, tpr)
                 h = qlinear(ctx, f"{name}.ffn.0", p["ffn"]["0"], xn2.to(dtype), dtype)
                 return gelu_tanh(h).to(dtype)
 
             y = qlinear(ctx, f"{name}.ffn.2", p["ffn"]["2"], _recomputed(training, ffn_in, x),
                         dtype)
-    return gate_residual(x, y, e5)
+    return gate_residual(x, y, e5, **rows)
 
 
 def head_forward(p: Params, x: torch.Tensor, e: torch.Tensor, cfg: WanConfig,
-                 ctx: Optional[QuantCtx] = None) -> torch.Tensor:
-    """Output head. e [B, C] time embedding."""
-    ee = p["head"]["modulation"].float() + e[:, None, :]
-    e0, e1 = ee[:, 0], ee[:, 1]
-    xn = layer_norm(x, cfg.eps) * (1.0 + e1[:, None, :]) + e0[:, None, :]
+                 ctx: Optional[QuantCtx] = None,
+                 tokens_per_row: Optional[int] = None) -> torch.Tensor:
+    """Output head. e [B, C] time embedding, or a per-frame table [B, F, C]
+    whose rows serve ``tokens_per_row`` tokens each (the last row the rest)."""
+    ee = p["head"]["modulation"].float() + e[..., None, :]
+    e0, e1 = ee[..., 0, :], ee[..., 1, :]
+    xn = modulate(layer_norm(x, cfg.eps), e0, e1, tokens_per_row)
     return qlinear(ctx, "head.head", p["head"]["head"], xn.to(cfg.dtype))
 
 
@@ -746,7 +770,20 @@ def time_embedding(params: Params, cfg: WanConfig, t: torch.Tensor,
     than a two-row one (~5e-7 relative), and the bf16 residual turns that
     into one-ulp flips in every block, ~6e-3 apart at the output of T2V-1.3B,
     which would set a sequential-CFG forward apart from its row of the
-    batched pair."""
+    batched pair.
+
+    Per-frame timesteps t [B, F] give tables e [B, F, C] and e0 [B, F, 6,
+    C]: the MLP runs once for each distinct value of t (so a row's bits are
+    those of its value's one-row form), counted in ``time_embedding_rows``,
+    and the rows are gathered. A t on the host costs no wait for the device
+    (``torch.unique`` reads its values)."""
+    if t.dim() == 2:
+        values, index = torch.unique(t, return_inverse=True)
+        _lib.count("time_embedding_rows", values.numel())
+        device = params["time_embedding"]["0"]["w"].device
+        e, e0 = time_embedding(params, cfg, values.to(device), ctx)
+        index = index.to(device)
+        return e[index], e0[index]
     if t.shape[0] > 1 and all(resolves_fp(ctx, name) for name in TIME_LAYERS):
         rows = [time_embedding(params, cfg, t[i:i + 1], ctx) for i in range(t.shape[0])]
         return torch.cat([r[0] for r in rows]), torch.cat([r[1] for r in rows])
@@ -811,7 +848,9 @@ def dit_forward(params: Params, cfg: WanConfig, x: torch.Tensor, t: torch.Tensor
                 clip_fea: Optional[torch.Tensor] = None,
                 y: Optional[torch.Tensor] = None, remat: bool = False,
                 training: bool = False, plan=None) -> torch.Tensor:
-    """Denoising forward. x [B, C_in, F, H, W]; t [B]; context [B, text_len,
+    """Denoising forward. x [B, C_in, F, H, W]; t [B], or [B, F_lat] one
+    timestep a latent frame (per-frame, as Wan2.2 TI2V conditions frame 0 on
+    t = 0; the module's docstring); context [B, text_len,
     text_dim]. An i2v model also takes ``y`` [B, C_y, F, H, W] (the
     first-frame mask and its VAE latents, concatenated to x on channels) and
     ``clip_fea`` [B, 257, clip_dim] (CLIP features, embedded in front of the
@@ -831,6 +870,20 @@ def dit_forward(params: Params, cfg: WanConfig, x: torch.Tensor, t: torch.Tensor
         dtype = cfg.dtype
         grid = (x.shape[2] // cfg.patch_size[0], x.shape[3] // cfg.patch_size[1],
                 x.shape[4] // cfg.patch_size[2])
+        if t.dim() == 2 and t.shape[1] == 1:
+            t = t[:, 0]  # one frame: the per-sample form
+        tokens_per_row = None
+        if t.dim() == 2:
+            if t.shape != (x.shape[0], grid[0]):
+                raise ValueError(f"per-frame timesteps: [B, F] = {(x.shape[0], grid[0])} "
+                                 f"expected, got {tuple(t.shape)}")
+            if plan is not None:
+                raise NotImplementedError(
+                    "per-frame timesteps (TI2V) under a sharding plan (sp / ring / dp / fsdp): "
+                    "the modulation table is indexed by global token; run on one card")
+            tokens_per_row = grid[1] * grid[2]
+        else:
+            t = t.to(x.device)
         win = None
         if ctx is not None and ctx.attn_window is not None:
             win = resolve_window(ctx.attn_window, grid, cfg.num_heads)
@@ -896,7 +949,8 @@ def dit_forward(params: Params, cfg: WanConfig, x: torch.Tensor, t: torch.Tensor
                 bp, bctx = plan.gather_weights(bp), _gathered_state(plan, ctx, f"blocks.{i}.")
             with span(DIT_BLOCK):
                 return block_forward(bp, f"blocks.{i}", bctx, xf, e0, c, cfg, cos, sin, valid_len,
-                                     tables=tables, training=training, plan=plan)
+                                     tables=tables, training=training, plan=plan,
+                                     tokens_per_row=tokens_per_row)
 
         xf = xq.to(cfg.res_dtype)
         for i in range(cfg.num_layers):
@@ -907,7 +961,7 @@ def dit_forward(params: Params, cfg: WanConfig, x: torch.Tensor, t: torch.Tensor
                                                        preserve_rng_state=False)
             else:
                 xf = block(i, xf)
-        out = head_forward(top, xf, e, cfg, ctx)
+        out = head_forward(top, xf, e, cfg, ctx, tokens_per_row)
         if plan is not None:
             out = plan.gather_tokens(out)
         out = unpatchify(out.float(), grid, cfg.patch_size, cfg.out_dim)

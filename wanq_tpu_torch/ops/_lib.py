@@ -16,7 +16,10 @@ link line names no further library.
 Each launch adds one to the kernel's count in :data:`LAUNCHES` (read and
 reset through :func:`launch_counts` / :func:`reset_launch_counts`), so a run
 can show that the main path went through the kernels and not through
-their plain PyTorch versions.
+their plain PyTorch versions. :func:`count` adds to a count that no launch
+makes by itself: ``ln_modulate_quant_rows`` and ``gate_residual_rows``, the
+K1 and K13 launches that read a table of more than one row a sample, and
+``time_embedding_rows``, the time MLP's rows under per-frame timesteps.
 
 Nothing here runs at import: the tests import every module on machines
 without ``nvcc`` or a card.
@@ -51,7 +54,8 @@ _F = ctypes.c_float
 
 # C entry point -> argument types (the trailing stream included)
 _SIGNATURES = {
-    "wanq_ln_modulate_quant": [_P, _I, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _F, _P],
+    "wanq_ln_modulate_quant": [_P, _I, _P, _LL, _LL, _P, _LL, _LL, _I, _LL, _P, _P, _P, _P,
+                               _LL, _LL, _I, _F, _P],
     "wanq_w8a8_gemm": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "wanq_w8a8_gemm_gelu_quant": [_P] * 10 + [_I, _I, _I, _P],
     "wanq_quant_sum": [_P, _I, _I, _P, _P, _P, _P, _LL, _I, _P],
@@ -68,7 +72,7 @@ _SIGNATURES = {
     "wanq_flash_bwd_dkv_acc": [_P] * 7 + [_LL, _I, _I, _I, _P, _I, _F, _P],
     "wanq_quantize_qkv_int8": [_P] * 3 + [_LL] * 9 + [_P] * 7 + [_LL, _I, _I, _I, _P],
     "wanq_attention_int8": [_P] * 7 + [_LL, _I, _I, _I, _I, _F, _LL, _LL, _LL, _P],
-    "wanq_gate_residual": [_P, _I, _P, _P, _P, _LL, _P, _LL, _LL, _I, _P],
+    "wanq_gate_residual": [_P, _I, _P, _P, _P, _LL, _LL, _I, _LL, _P, _LL, _LL, _I, _P],
 }
 
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
@@ -165,6 +169,11 @@ def launch(counter: str, entry: str, *args) -> None:
         msg = handle.wanq_error_string(err).decode()
         raise RuntimeError(f"{entry}: CUDA error {err} ({msg})")
     LAUNCHES[counter] += 1
+
+
+def count(counter: str, n: int = 1) -> None:
+    """Adds ``n`` to ``counter`` in :data:`LAUNCHES` (on any device)."""
+    LAUNCHES[counter] += n
 
 
 def ptr(t: Optional[torch.Tensor]):

@@ -268,14 +268,24 @@ class WanT2V:
                 break
         return sched if sched is not None and sched.mode in ("sim", "int8") else None
 
+    def _timesteps(self, latents, t: float) -> torch.Tensor:
+        """The timesteps a forward of ``latents`` at step ``t`` takes: one a
+        sample, [B] on the device (the TI2V pipeline gives one a frame)."""
+        return torch.full((latents.shape[0],), float(t), dtype=torch.float32,
+                          device=latents.device)
+
+    def _held(self, latents):
+        """The latents the loop carries into a step: the initial draw and
+        each solver step's output, as they are (the TI2V pipeline holds its
+        conditioning frame)."""
+        return latents
+
     def _cond(self, latents, t: float, context, ctx: Optional[QuantCtx], seq_len: int,
               extra: Optional[Dict[str, torch.Tensor]] = None):
         """One B-sized forward. ``extra``: more dit_forward inputs of the
         batch (the i2v conditioning ``y`` and ``clip_fea``)."""
-        tt = torch.full((latents.shape[0],), float(t), dtype=torch.float32,
-                        device=latents.device)
-        return dit_forward(self.params, self.config, latents, tt, context, seq_len, ctx=ctx,
-                           plan=self.shardings, **(extra or {}))
+        return dit_forward(self.params, self.config, latents, self._timesteps(latents, t),
+                           context, seq_len, ctx=ctx, plan=self.shardings, **(extra or {}))
 
     def _split(self, latents, t: float, context, context_null, ctx: Optional[QuantCtx],
                seq_len: int, sequential: bool = False,
@@ -374,7 +384,8 @@ class WanT2V:
         dev = torch.device(self.device)
         target_shape = compute_target_shape(cfg, size, frame_num)
         seq_len = compute_seq_len(cfg, target_shape, self.sp_size)
-        latents = self._initial_latents((context.shape[0], *target_shape), seed, noise)
+        latents = self._held(self._initial_latents((context.shape[0], *target_shape), seed,
+                                                   noise))
         context = context.to(dev)
         context_null = context_null.to(dev)
 
@@ -407,7 +418,7 @@ class WanT2V:
                             else:
                                 all_stats.setdefault(k, []).append(v.float().cpu().numpy())
                         ctx.collect.clear()
-                    latents = sch.step(noise_pred, int(t), latents)
+                    latents = self._held(sch.step(noise_pred, int(t), latents))
                 if on_step is not None:
                     on_step(i, float(t), latents)
         if collect_calib:
@@ -482,7 +493,7 @@ class WanT2V:
                 stats[act] += 1
                 last_pred = noise_pred
                 x_prev = latents
-                latents = sch.step(noise_pred, int(t), latents)
+                latents = self._held(sch.step(noise_pred, int(t), latents))
             if on_step is not None:
                 on_step(i, t, latents)
         self.last_cache_stats = stats

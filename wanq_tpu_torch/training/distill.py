@@ -212,6 +212,15 @@ def _update(loss_fn, trained, ema, tx, dcfg: DistillConfig, plan=None):
     return loss.detach(), gnorm
 
 
+def _refuse_ti2v(model_cfg: WanConfig) -> None:
+    """Distillation draws one timestep a sample; Wan2.2 TI2V's image-to-video
+    (per-frame timesteps, frame 0 held) has no training path here."""
+    if model_cfg.model_type == "ti2v":
+        raise NotImplementedError(
+            f"distillation / LoRA / QLoRA of {model_cfg.name} (TI2V: per-frame timesteps, "
+            "frame 0 held to the image) is not supported; it runs inference only")
+
+
 def make_distill_step(model_cfg: WanConfig, dcfg: DistillConfig, tx, plan=None) -> Callable:
     """step(params, ema_params, opt_state, teacher_params, x0, noise, t,
     context, null_context, g) -> (params, ema_params, opt_state, loss,
@@ -219,6 +228,7 @@ def make_distill_step(model_cfg: WanConfig, dcfg: DistillConfig, tx, plan=None) 
     step's loss function is ``step.loss_fn(params, teacher_params, x0, noise,
     t, context, null_context, g)``. ``plan``: a ShardingPlan (see the module
     docstring); both trees then hold this rank's storage."""
+    _refuse_ti2v(model_cfg)
 
     def loss_fn(params, teacher_params, x0, noise, t, context, null_context, g):
         xt = _noised(x0, noise, t, dcfg)
@@ -245,6 +255,7 @@ def make_lora_distill_step(model_cfg: WanConfig, dcfg: DistillConfig, tx,
     context, null_context, g); the student is ``apply_lora(base_params,
     lora)`` (under FSDP merged into each gathered weight), the base the
     teacher. ``step.loss_fn(lora, base_params, ...)``."""
+    _refuse_ti2v(model_cfg)
 
     def loss_fn(lora, base_params, x0, noise, t, context, null_context, g):
         xt = _noised(x0, noise, t, dcfg)
@@ -271,6 +282,7 @@ def make_qlora_distill_step(model_cfg: WanConfig, dcfg: DistillConfig, tx,
     its FP weights may be stripped; ``params`` carries the leaves that are
     not quantized); the student runs it with the adapters merged into its
     state, the teacher without. ``step.loss_fn(lora, params, qctx, ...)``."""
+    _refuse_ti2v(model_cfg)
 
     def loss_fn(lora, params, qctx, x0, noise, t, context, null_context, g):
         xt = _noised(x0, noise, t, dcfg)
